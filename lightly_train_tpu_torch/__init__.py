@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of lightly_train_tpu for NVIDIA Hopper.
+
+The JAX package ``lightly_train_tpu`` is the reference; this package imports
+nothing of it (nor of JAX). Entry points run on the card unless the caller
+asks for the CPU.
+"""
+
+from lightly_train_tpu_torch._commands.train import (
+    pretrain,
+    pretrain_from_config,
+)
+
+__all__ = ["pretrain", "pretrain_from_config"]

@@ -1,0 +1,135 @@
+"""Pretraining runtime: the train step and the host step loop.
+
+Port of ``lightly_train_tpu/_commands/train_loop.py``. One step runs
+augmentation -> teacher and student forward -> loss -> backward -> the fused
+AdamW+EMA update, eagerly on the device. Gradient accumulation is a Python
+loop over microbatches (the JAX package's ``lax.scan``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import torch
+
+from lightly_train_tpu_torch._logging import get_logger
+from lightly_train_tpu_torch.methods.base import Method, TrainState
+from lightly_train_tpu_torch.ops.augment import augment_view_with_geometry
+
+logger = get_logger("train_loop")
+
+
+def make_views(method: Method, images_u8: torch.Tensor,
+               generator: torch.Generator,
+               dtype: torch.dtype) -> List[torch.Tensor]:
+    """All of the method's views of one uint8 (B, H, W, 3) batch."""
+    views = []
+    for spec in method.view_specs():
+        for _ in range(spec.count):
+            view, _ = augment_view_with_geometry(generator, images_u8,
+                                                 spec.config, dtype)
+            views.append(view)
+    return views
+
+
+def make_train_step(
+    method: Method,
+    total_steps: int,
+    aug_dtype: torch.dtype = torch.float32,
+    grad_accum_steps: int = 1,
+) -> Callable[..., Dict[str, Any]]:
+    """Build ``train_step(state, images_u8, generator, views=None,
+    masks=None) -> metrics``, which updates ``state`` in place.
+
+    ``views`` (one list per microbatch) and ``masks`` replace the sampled
+    augmentation and iBOT masks, so a test can pin them.
+    """
+
+    def train_step(state: TrainState, images_u8: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator],
+                   views: Optional[List[List[torch.Tensor]]] = None,
+                   masks: Optional[List[torch.Tensor]] = None,
+                   ) -> Dict[str, Any]:
+        k = grad_accum_steps
+        if views is None:
+            b = images_u8.shape[0]
+            if b % k != 0:
+                raise ValueError(
+                    f"batch size {b} not divisible by grad_accum_steps {k}")
+            views = [make_views(method, mb, generator, aug_dtype)
+                     for mb in images_u8.chunk(k)]
+        params = state.params
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        loss_sum = 0.0
+        metric_sums: Dict[str, Any] = {}
+        method_state = state.method_state
+        for i, mb_views in enumerate(views):
+            loss, (method_state, metrics) = method.loss_fn(
+                params, method_state, mb_views, state.step, total_steps,
+                generator=generator,
+                masks=None if masks is None else masks[i],
+            )
+            (loss / len(views)).backward()
+            loss_sum = loss_sum + loss.detach()
+            for key, value in metrics.items():
+                metric_sums[key] = metric_sums.get(key, 0.0) + value
+        n = len(views)
+        loss = loss_sum / n
+        grad_norm = state.updater.update_and_apply(
+            {name: p.grad for name, p in named.items()},
+            named,
+            dict(method_state["teacher"].named_parameters()),
+            state.step,
+        )
+        state.method_state = method_state
+        state.step += 1
+        finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
+        return {"train_loss": loss, "grad_norm": grad_norm, "finite": finite,
+                **{key: value / n for key, value in metric_sums.items()}}
+
+    return train_step
+
+
+def fit(
+    train_step: Callable,
+    state: TrainState,
+    batches: Iterable[torch.Tensor],
+    total_steps: int,
+    generator: torch.Generator,
+    log_every: int = 50,
+    on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
+) -> TrainState:
+    """Host step loop: feed batches, log throughput.
+
+    The host reads metrics back (a device sync) only on logged steps, so the
+    loop otherwise runs ahead of the device.
+    """
+    burn_in = {1, 2, 5, 10, 50, 100}
+    current = state.step
+    t_window = time.perf_counter()
+    window_steps = 0
+    data_wait = 0.0
+    batch_iter = iter(batches)
+    while current < total_steps:
+        t_data = time.perf_counter()
+        batch = next(batch_iter)
+        data_wait += time.perf_counter() - t_data
+        metrics = train_step(state, batch, generator)
+        current += 1
+        window_steps += 1
+        if current in burn_in or current % log_every == 0 or current == total_steps:
+            values = {k: float(v) for k, v in metrics.items()}  # device sync
+            dt = time.perf_counter() - t_window
+            values["profiling/images_per_sec"] = (
+                batch.shape[0] * window_steps / max(dt, 1e-9))
+            values["profiling/step_time"] = dt / max(window_steps, 1)
+            values["profiling/data_time"] = data_wait / max(window_steps, 1)
+            if on_log is not None:
+                on_log(current, values)
+            t_window = time.perf_counter()
+            window_steps = 0
+            data_wait = 0.0
+    return state

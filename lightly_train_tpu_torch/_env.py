@@ -1,0 +1,45 @@
+"""Typed environment-variable registry.
+
+Copy of ``lightly_train_tpu/_env.py`` restricted to the variables the port
+reads: every operational knob is declared once, with a type and default, and
+accessed as ``Env.<VAR>.value``.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable, Generic, TypeVar
+
+T = TypeVar("T")
+
+
+@dataclass(frozen=True)
+class EnvVar(Generic[T]):
+    name: str
+    default: T
+    parse: Callable[[str], T]
+
+    @property
+    def value(self) -> T:
+        raw = os.environ.get(self.name)
+        if raw is None:
+            return self.default
+        return self.parse(raw)
+
+    @property
+    def is_set(self) -> bool:
+        return self.name in os.environ
+
+
+class Env:
+    """All environment knobs. Access with ``Env.<NAME>.value``."""
+
+    # Image decode mode: RGB (the only mode the port decodes so far).
+    LIGHTLY_TRAIN_IMAGE_MODE: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_IMAGE_MODE", "RGB", str
+    )
+    # Verbosity of console logging (DEBUG/INFO/WARNING/ERROR).
+    LIGHTLY_TRAIN_LOG_LEVEL: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_LOG_LEVEL", "INFO", str
+    )

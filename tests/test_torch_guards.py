@@ -1,0 +1,155 @@
+"""Guards of the PyTorch port: what it imports, where it runs, and that
+``pretrain`` runs end to end on the CPU when asked to."""
+
+import ast
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lightly_train_tpu_torch as lt
+from lightly_train_tpu_torch.errors import (
+    ConfigError,
+    ConfigUnknownKeyError,
+    ConfigValidationError,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "PIL",
+             "lightly_train_tpu"}
+PORT_FILES = sorted((ROOT / "lightly_train_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
+             local_view_count=2, global_image_size=28, local_image_size=14)
+
+
+def _imports(tree):
+    """(top-level module, enclosing function name) for every import."""
+    out = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = func
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = child.name
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split(".")[0], name) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((child.module.split(".")[0], name))
+            visit(child, name)
+
+    visit(tree, None)
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for module, func in _imports(ast.parse(path.read_text())):
+        if module == "PIL" and path.name == "image_dataset.py" \
+                and func == "decode_image":
+            continue  # the one lazy import, where PIL is installed
+        assert module not in FORBIDDEN, f"{path}: imports {module}"
+
+
+def _write_ppm_folder(folder: Path, n: int = 6, size: int = 36) -> None:
+    folder.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        (folder / f"{i}.ppm").write_bytes(
+            f"P6\n{size} {size}\n255\n".encode() + img.tobytes())
+
+
+def test_pretrain_refuses_to_fall_back_to_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so the default device exists")
+    with pytest.raises(RuntimeError, match="accelerator='cpu'"):
+        lt.pretrain(out=str(tmp_path / "out"), model="dinov2/vittest14",
+                    method="dinov2", steps=1, batch_size=2)
+
+
+@pytest.mark.parametrize("grad_accum_steps", [1, 2])
+def test_pretrain_on_cpu_end_to_end(tmp_path, grad_accum_steps):
+    data = tmp_path / "images"
+    _write_ppm_folder(data)
+    out = tmp_path / "out"
+    state = lt.pretrain(
+        out=str(out), data=str(data), model="dinov2/vittest14",
+        method="dinov2", accelerator="cpu", batch_size=4, steps=2,
+        precision="fp32", canonical_size=36, num_workers=2,
+        grad_accum_steps=grad_accum_steps, method_args=SMALL,
+    )
+    assert state.step == 2
+    lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text()
+             .splitlines()]
+    assert "hyperparams" in lines[0]
+    steps = [r for r in lines if "step" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["train_loss"]) for r in steps)
+    ckpt = torch.load(out / "checkpoints" / "last.pt", weights_only=False)
+    assert ckpt["step"] == 2 and "student.cls_token" in ckpt["params"]
+
+
+def test_pretrain_refuses_a_non_empty_out_dir(tmp_path):
+    (tmp_path / "stale.txt").write_text("x")
+    with pytest.raises(ConfigError, match="not empty"):
+        lt.pretrain(out=str(tmp_path), model="dinov2/vittest14",
+                    method="dinov2", accelerator="cpu")
+
+
+def test_config_errors():
+    with pytest.raises(ConfigUnknownKeyError, match="batch_size"):
+        lt.pretrain(out="unused", batch_sise=4, accelerator="cpu")
+    with pytest.raises(ConfigValidationError):
+        lt.pretrain(out="unused", precision="fp16", accelerator="cpu")
+    with pytest.raises(ConfigValidationError):
+        lt.pretrain(out="unused", accelerator="tpu")
+
+
+@pytest.mark.parametrize("method", ["distillation", "simclr"])
+def test_unported_methods_name_their_roadmap_item(tmp_path, method):
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
+                    method=method, accelerator="cpu", steps=1)
+
+
+@pytest.mark.parametrize("option", [
+    {"checkpoint_every": 100}, {"log_augmentations": False},
+    {"profile_start": 2}, {"profile_steps": 1}, {"checkpoint": "last.pt"},
+    {"resume_interrupted": True}, {"loggers": ["tensorboard"]},
+])
+def test_unported_options_are_refused(tmp_path, option):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
+                    method="dinov2", accelerator="cpu", steps=1, **option)
+
+
+def test_fp32_on_the_card_is_refused(tmp_path):
+    """The attention kernels take bf16: fp32 on the card raises before any
+    run, whether or not a card is present."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+        lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
+                    method="dinov2", precision="fp32", steps=1)
+
+
+def test_ppm_decode_without_pil_matches_pil(tmp_path, monkeypatch):
+    from lightly_train_tpu_torch._data import image_dataset as D
+
+    data = tmp_path / "images"
+    _write_ppm_folder(data, n=1, size=40)
+    path = str(next(data.iterdir()))
+    raw = D.read_ppm(path)
+    assert raw.shape == (40, 40, 3)
+    try:
+        from PIL import Image
+    except ImportError:
+        pytest.skip("PIL absent: nothing to compare with")
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(raw, np.asarray(im.convert("RGB")))
+        ref = np.asarray(im.convert("RGB").resize((24, 24), Image.BILINEAR))
+    monkeypatch.setitem(__import__("sys").modules, "PIL", None)
+    got = D.decode_image(path, (24, 24))
+    # The numpy triangle filter is close to PIL's fixed-point one.
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 2
