@@ -7,19 +7,29 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero):
 
-1. Build every CUDA kernel of the DINOv2 pretraining path from ``csrc/``
-   (one ``nvcc`` per source, in parallel).
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the ViT-B/14 main path gives it, and time kernel, plain version
-   and the nearest single PyTorch call (``library_ms``). Those times are
-   device times (calls captured in a CUDA graph and replayed); ``host_ms``
-   is the kernel's time with its host-side launch (Python, ctypes,
-   argument checks) included.
-3. Run the main path: ``pretrain`` with DINOv2 on ViT-B/14 at batch 32 in
-   bf16 for 4 steps on a folder of generated PPM images, with every launch
-   counter set to 0 just before and read just after; check finite losses,
-   the launch counts, and the trained backbone against an fp32 CPU
-   reference on a small input.
+1. Build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
+   source, in parallel).
+2. Hold each kernel against its plain PyTorch version on the card and time
+   kernel, plain version and the nearest single PyTorch call
+   (``library_ms``): the attention kernels K1/K2 (flat layout) in bf16 and
+   fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
+   378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
+   layouts and dtypes at the ViT-B/14 shapes; K3 over the ViT-B/14 leaves.
+   In fp32 a control checks the tolerance itself: the kernels fed inputs
+   rounded to bf16 must fail it.
+   Those times are device times (calls captured in a CUDA graph and
+   replayed); ``host_ms`` is the kernel's time with its host-side launch
+   (Python, ctypes, argument checks) included.
+3. Run the main paths, each with every launch counter set to 0 just before
+   and read just after: ``pretrain`` with DINOv2 on ViT-B/14 at batch 32 in
+   bf16 (3) and in fp32 (3b) for 4 steps each on a folder of generated PPM
+   images, checking finite losses, the launch counts, and the trained
+   backbone against an fp32 CPU reference on a small input; and (3c) the
+   public ``vmem_attention`` op, the one path of K4/K5, forward and
+   backward in both dtypes.
+
+The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
+then this check fails.
 
 ``--profile`` adds a phase 4: a ``torch.profiler`` window over a few
 training steps, printing the device's busy share and the kernels that take
@@ -43,14 +53,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor peak
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor peak
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
 BATCH = 32
 STEPS = 4
-GLOBAL = (2 * BATCH, 257)  # (B, N) of the global views: 2 views x batch
-LOCAL = (8 * BATCH, 37)  # 8 local views at 96^2: 6 x 6 patches + CLS
 HEADS, HEAD_DIM = 12, 64
+# (B, N, H, hd) of ViT-B/14's attention: 2 global views x batch at 224^2
+# (16 x 16 patches + CLS), 8 local views x batch at 96^2 (6 x 6 + CLS).
+GLOBAL = (2 * BATCH, 257, HEADS, HEAD_DIM)
+LOCAL = (8 * BATCH, 37, HEADS, HEAD_DIM)
+# The global views at 378^2 (27 x 27 patches + CLS), at batch 32 and 8.
+GLOBAL_378 = (2 * BATCH, 730, HEADS, HEAD_DIM)
+GLOBAL_378_B8 = (16, 730, HEADS, HEAD_DIM)
 
 
 def fail(msg: str) -> None:
@@ -127,112 +143,257 @@ def bound_ms(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(A, card: str) -> list:
-    """K1/K2 against their plain versions at the global and local shapes."""
+# Tolerances of the attention kernels against their plain versions, per
+# input dtype: (max-abs as a share of the plain output's largest magnitude,
+# relative L2). bf16 outputs may differ by a few bf16 ulps at the top of
+# their range (a probability near a bf16 rounding boundary can round the
+# other way when the fp32 sums are taken in another order); the relative L2
+# catches a systematic error on a few rows (a dropped or mis-scaled key on
+# the ragged edge). fp32 outputs are not rounded to bf16, but p and ds still
+# are, on both sides, and the kernels' hi/lo bf16 products are about 2^-16
+# off the plain fp32 ones, so some of those roundings go the other way:
+# max-abs as for bf16 (one ds one ulp off moves a dk element of a 37-token
+# head by ~2^-8 of the largest), relative L2 1e-3, which a kernel computing
+# in bf16 alone exceeds (the control in attention_case shows it). Where
+# dp - delta cancels (one key, N = 1: dq and dk are rounding residue) both
+# bounds add cancel_floor. lse within 5e-3 in both (fp32, __expf,
+# reordered sums).
+TOLERANCE = {"bf16": (2.0 ** -7, 1e-2), "fp32": (2.0 ** -7, 1e-3)}
+LSE_TOLERANCE = 5e-3
+DTYPES = ("bf16", "fp32")
+
+
+def torch_dtype(name: str):
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    D = HEADS * HEAD_DIM
-    scale = HEAD_DIM ** -0.5
-    rows = {"fwd": [], "bwd": []}
-    for (B, N) in (GLOBAL, LOCAL):
-        q, k, v, do = (
-            torch.randn((B, N, D), generator=gen, device="cuda")
-            .to(torch.bfloat16) for _ in range(4)
-        )
-        o, lse = A.flat_attention_fwd(q, k, v, HEADS, scale)
-        o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, HEADS, scale)
-        grads = A.flat_attention_bwd(q, k, v, o, do, lse, HEADS, scale)
-        grads_ref = A.flat_attention_bwd_plain(q, k, v, o, do, lse, HEADS,
-                                               scale)
-        torch.cuda.synchronize()
-        # Tolerances: bf16 outputs may differ by a few bf16 ulps at the top
-        # of their range (a probability near a bf16 rounding boundary can
-        # round the other way when the fp32 sums are taken in another
-        # order): max-abs within 2^-7 of the largest reference magnitude,
-        # and relative L2 within 1e-2, which a systematic error on a few
-        # rows (a dropped or mis-scaled key on the ragged edge) exceeds;
-        # lse by 5e-3 (fp32, __expf, reordered sums).
-        checks = {
-            "o": (o, o_ref), "dq": (grads[0], grads_ref[0]),
-            "dk": (grads[1], grads_ref[1]), "dv": (grads[2], grads_ref[2]),
-        }
-        errs = {}
-        for name, (got, ref) in checks.items():
-            diff = got.float() - ref.float()
-            err = diff.abs().max().item()
-            tol = 2.0 ** -7 * ref.float().abs().max().item()
-            rel = (diff.norm() / ref.float().norm()).item()
-            errs[name] = err
-            print(f"  K1/K2 {name} B={B} N={N}: max_abs_err {err:.3e} "
-                  f"(tol {tol:.3e}), relative L2 {rel:.3e} (tol 1e-2)")
-            if not (err <= tol and rel <= 1e-2):
-                fail(f"flat attention {name} at B={B} N={N}: max-abs {err} "
-                     f"(tol {tol}), relative L2 {rel} (tol 1e-2)")
-        lse_err = (lse - lse_ref).abs().max().item()
-        print(f"  K1 lse B={B} N={N}: max_abs_err {lse_err:.3e} (tol 5e-3)")
-        if not lse_err <= 5e-3:
-            fail(f"flat attention lse at B={B} N={N}: {lse_err}")
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
 
-        qh, kh, vh, doh = (x.view(B, N, HEADS, HEAD_DIM).transpose(1, 2)
-                           for x in (q, k, v, do))
-        flops = 4.0 * B * HEADS * N * N * HEAD_DIM
-        elem = B * N * D
-        fwd_bound = bound_ms(4 * elem * 2 + B * HEADS * N * 4, flops)
-        kernel_fwd = lambda: A.flat_attention_fwd(q, k, v, HEADS, scale)
-        fwd = {
-            "shape": [B, N, D], "max_abs_err": max(errs["o"], lse_err),
-            "ms": device_ms(kernel_fwd, per_graph=10),
-            "plain_ms": device_ms(
-                lambda: A.flat_attention_fwd_plain(q, k, v, HEADS, scale)),
-            "library_ms": device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qh, kh, vh), per_graph=10),
-            "host_ms": time_ms(kernel_fwd),
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-        }
-        bwd_bound = bound_ms(8 * elem * 2 + B * HEADS * N * 4, 2.5 * flops)
-        kernel_bwd = lambda: A.flat_attention_bwd(
-            q, k, v, o, do, lse, HEADS, scale)
-        bwd = {
-            "shape": [B, N, D],
-            "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"]),
-            "ms": device_ms(kernel_bwd, per_graph=10),
-            "plain_ms": device_ms(lambda: A.flat_attention_bwd_plain(
-                q, k, v, o, do, lse, HEADS, scale)),
-            "library_ms": flash_backward_ms(qh, kh, vh, doh, scale),
-            "host_ms": time_ms(kernel_bwd),
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-        }
-        rows["fwd"].append(fwd)
-        rows["bwd"].append(bwd)
-        for tag, r in (("K1", fwd), ("K2", bwd)):
-            print(f"  {tag} B={B} N={N}: {r['ms']:.4f} ms (with host launch "
-                  f"{r['host_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} "
-                  f"ms ({r['bound_by']}) [{card}]")
+
+# kernel -> (wrapper, CUDA source, line of the TPU kernel it replaces in
+# lightly_train_tpu/ops/pallas/attention.py)
+KERNELS = {
+    "K1": ("flat_attention_fwd", "flat_attention_fwd.cu", 241),
+    "K2": ("flat_attention_bwd", "flat_attention_bwd.cu", 265),
+    "K4": ("vmem_attention_fwd", "flat_attention_fwd.cu", 69),
+    "K5": ("vmem_attention_bwd", "flat_attention_bwd.cu", 92),
+}
+
+
+def cancel_floor(scale: float, hd: int, do, v, other) -> float:
+    """Per element, one 2^-16 rounding of dp = do . v (the hi/lo products'
+    precision) carried through ds into dq (``other`` = k) or dk (``other`` =
+    q): 2^-16 scale sqrt(hd) rms(do) rms(v) rms(other). It matters only
+    where the exact dq and dk are near 0."""
+    rms = [x.float().pow(2).mean().sqrt().item() for x in (do, v, other)]
+    return 2.0 ** -16 * scale * hd ** 0.5 * math.prod(rms)
+
+
+def compare(got, ref, dtype: str, floor: float = 0.0) -> tuple:
+    """(max-abs error, relative L2, whether both are within the dtype's
+    tolerance plus ``floor`` per element)."""
+    max_rel, l2 = TOLERANCE[dtype]
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    ref_norm = ref.float().norm().item()
+    rel = diff.norm().item() / ref_norm if ref_norm else math.inf
+    ok = (err <= max_rel * ref.float().abs().max().item() + 8 * floor
+          and diff.norm().item() <= l2 * ref_norm + floor * diff.numel() ** 0.5)
+    return err, rel, ok
+
+
+def held(tag: str, got, ref, dtype: str, floor: float = 0.0) -> float:
+    """Max-abs error of ``got`` against ``ref``; fails past the dtype's
+    tolerance."""
+    err, rel, ok = compare(got, ref, dtype, floor)
+    print(f"  {tag}: max_abs_err {err:.3e}, relative L2 {rel:.3e} (tol "
+          f"{TOLERANCE[dtype]} + floor {floor:.2e})")
+    if not ok:
+        fail(f"{tag}: max-abs {err}, relative L2 {rel} (tol "
+             f"{TOLERANCE[dtype]} + floor {floor})")
+    return err
+
+
+def attention_bounds(B: int, N: int, H: int, hd: int, dtype: str) -> tuple:
+    """(forward, backward) bounds: q, k, v in and o out (forward), q, k, v,
+    o, do in and dq, dk, dv out (backward), plus the fp32 lse, against the
+    necessary products (2 forward, 5 backward, 2 N^2 hd each per head) at
+    the tensor peak of the input type (TF32 for fp32)."""
+    elem = B * N * H * hd * (2 if dtype == "bf16" else 4)
+    flops = 4.0 * B * H * N * N * hd
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS
+    lse = B * H * N * 4
+    return (bound_ms(4 * elem + lse, flops, peak),
+            bound_ms(8 * elem + lse, 2.5 * flops, peak))
+
+
+def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
+                   layout: str) -> tuple:
+    """One forward and one backward kernel against their plain versions at
+    ``shape`` = (B, N, H, hd), then timed: (forward row, backward row).
+
+    ``kernels`` "flat" runs K1/K2 on (B, N, H * hd) tensors; "vmem" runs
+    K4/K5 on (B, H, N, hd) tensors, real ones (``layout`` "bhnd") or the
+    transposed views of (B, N, H, hd) ones ("bnhd", what ``vmem_attention``
+    hands the kernels). In fp32 a control follows: the kernels on the inputs
+    rounded to bf16 (what a kernel computing in bf16 alone would see) must
+    fail the fp32 tolerance against the plain version on the unrounded
+    inputs, or the tolerance does not check the fp32 form."""
+    import torch
+
+    B, N, H, hd = shape
+    dt = torch_dtype(dtype)
+    scale = hd ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + N + hd)
+    if kernels == "flat":
+        q, k, v, do = (torch.randn((B, N, H * hd), generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        views = [x.view(B, N, H, hd).transpose(1, 2) for x in (q, k, v, do)]
+        heads = (H,)
+        fwd_k, bwd_k = A.flat_attention_fwd, A.flat_attention_bwd
+        fwd_p, bwd_p = A.flat_attention_fwd_plain, A.flat_attention_bwd_plain
+        tag, names = f"K1/K2 {dtype} {shape}", ("K1", "K2")
+    else:
+        full = (B, H, N, hd) if layout == "bhnd" else (B, N, H, hd)
+        q, k, v, do = (torch.randn(full, generator=gen, device="cuda").to(dt)
+                       for _ in range(4))
+        if layout == "bnhd":
+            q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+        views = [q, k, v, do]
+        heads = ()
+        fwd_k, bwd_k = A.vmem_attention_fwd, A.vmem_attention_bwd
+        fwd_p, bwd_p = A.vmem_attention_fwd_plain, A.vmem_attention_bwd_plain
+        tag, names = f"K4/K5 {dtype} {layout} {shape}", ("K4", "K5")
+
+    def fwd():
+        return fwd_k(q, k, v, *heads, scale)
+
+    def fwd_plain():
+        return fwd_p(q, k, v, *heads, scale)
+
+    def bwd():
+        return bwd_k(q, k, v, o, do, lse, *heads, scale)
+
+    def bwd_plain():
+        return bwd_p(q, k, v, o, do, lse, *heads, scale)
+
+    o, lse = fwd()
+    o_ref, lse_ref = fwd_plain()
+    grads, grads_ref = bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    floors = {"dq": cancel_floor(scale, hd, do, v, k),
+              "dk": cancel_floor(scale, hd, do, v, q)}
+    errs = {name: held(f"{tag} {name}", got, ref, dtype, floors.get(name, 0.0))
+            for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                                      (o_ref, *grads_ref))}
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"  {tag} lse: max_abs_err {lse_err:.3e} (tol {LSE_TOLERANCE})")
+    if not lse_err <= LSE_TOLERANCE:
+        fail(f"{tag} lse: {lse_err}")
+    control = None
+    if dtype == "fp32":
+        r = [x.to(torch.bfloat16).float() for x in (q, k, v, do)]
+        o_c, lse_c = fwd_k(*r[:3], *heads, scale)
+        got_c = (o_c, *bwd_k(*r[:3], o_c, r[3], lse_c, *heads, scale))
+        ref_c = (o_ref, *bwd_p(q, k, v, o_ref, do, lse_ref, *heads, scale))
+        verdicts = {name: compare(got, ref, dtype, floors.get(name, 0.0))
+                    for name, got, ref in zip(("o", "dq", "dk", "dv"), got_c,
+                                              ref_c)}
+        control = {name: rel for name, (_, rel, _) in verdicts.items()}
+        print(f"  {tag} control (inputs rounded to bf16): relative L2 "
+              + ", ".join(f"{n} {rel:.3e}" for n, rel in control.items())
+              + f" (tol {TOLERANCE[dtype][1]:g}; must fail)")
+        if all(ok for _, _, ok in verdicts.values()):
+            fail(f"{tag}: the fp32 tolerance passes a kernel fed bf16 inputs")
+
+    qh, kh, vh, doh = views
+    fwd_bound, bwd_bound = attention_bounds(B, N, H, hd, dtype)
+    common = {"shape": list(shape), "dtype": dtype, "layout": layout}
+    if control is not None:
+        common["control_rel_l2"] = control
+    rows = (
+        {**common, "max_abs_err": max(errs["o"], lse_err),
+         "ms": device_ms(fwd, per_graph=10),
+         "plain_ms": device_ms(fwd_plain),
+         "library_ms": device_ms(
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 qh, kh, vh, scale=scale), per_graph=10),
+         "host_ms": time_ms(fwd),
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+        {**common, "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
+         "ms": device_ms(bwd, per_graph=10),
+         "plain_ms": device_ms(bwd_plain),
+         "library_ms": library_backward_ms(qh, kh, vh, doh, scale),
+         "host_ms": time_ms(bwd),
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+    )
+    for name, r in zip(names, rows):
+        print(f"  {name} {dtype} {layout} {shape}: {r['ms']:.4f} ms (with "
+              f"host launch {r['host_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
+              flush=True)
     return rows
 
 
-def flash_backward_ms(qh, kh, vh, doh, scale):
-    """Time of PyTorch's own flash-attention backward on the same inputs
-    (the yardstick for K2), or None where this PyTorch build lacks it."""
+# (kernels, dtype, (B, N, H, hd), layout) of phase 2: K1/K2 at the ViT-B/14
+# global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
+# images (N = 730; at batch 32 in bf16 too) and at hd 16; K4/K5 at the
+# ViT-B/14 shapes in both layouts and dtypes. Between them the shapes take
+# both configurations of the host rule (resident_pays in csrc/mma.cuh).
+ATTENTION_CASES = [
+    ("flat", dtype, shape, "flat")
+    for dtype in DTYPES
+    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, (8, 257, 2, 16))
+] + [("flat", "bf16", GLOBAL_378, "flat")] + [
+    ("vmem", dtype, shape, layout)
+    for layout in ("bnhd", "bhnd")
+    for dtype in DTYPES
+    for shape in (GLOBAL, LOCAL)
+]
+
+
+def check_attention(A, card: str) -> dict:
+    """K1/K2 and K4/K5 against their plain versions: {(kernel, dtype):
+    [row, ...]} for the kernels JSON line."""
+    rows = {}
+    for kernels, dtype, shape, layout in ATTENTION_CASES:
+        fwd, bwd = attention_case(A, card, kernels, dtype, shape, layout)
+        names = ("K1", "K2") if kernels == "flat" else ("K4", "K5")
+        rows.setdefault((names[0], dtype), []).append(fwd)
+        rows.setdefault((names[1], dtype), []).append(bwd)
+    return rows
+
+
+def library_backward_ms(qh, kh, vh, doh, scale):
+    """Time of PyTorch's own attention backward on the same inputs (the
+    yardstick for K2 and K5): flash attention for bf16, memory-efficient
+    attention for fp32 (flash takes 16-bit types only); None where this
+    PyTorch build lacks it."""
     import torch
 
     aten = torch.ops.aten
     try:
-        out = aten._scaled_dot_product_flash_attention(
-            qh, kh, vh, 0.0, False, False, scale=scale)
-        o, lse, cq, ck, mq, mk, seed, offset = out[:8]
+        if qh.dtype == torch.bfloat16:
+            out = aten._scaled_dot_product_flash_attention(
+                qh, kh, vh, 0.0, False, False, scale=scale)
+            o, lse, cq, ck, mq, mk, seed, offset = out[:8]
 
-        def backward():
-            return aten._scaled_dot_product_flash_attention_backward(
-                doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, False, seed,
-                offset, scale=scale)
+            def backward():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, False,
+                    seed, offset, scale=scale)
+        else:
+            o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+                qh, kh, vh, None, True, 0.0, False, scale=scale)
+
+            def backward():
+                return aten._scaled_dot_product_efficient_attention_backward(
+                    doh, qh, kh, vh, None, o, lse, seed, offset, 0.0,
+                    [True, True, True, False], False, scale=scale)
 
         backward()
     except (RuntimeError, TypeError) as err:
-        print(f"  (no flash-attention backward yardstick: {err})")
+        print(f"  (no attention backward yardstick: {err})")
         return None
     return device_ms(backward, per_graph=10)
 
@@ -331,7 +492,11 @@ def write_images(folder: Path, n: int, size: int) -> None:
         (folder / f"img_{i:03d}.ppm").write_bytes(header + img.tobytes())
 
 
-def run_main_path(lt, A, F, card: str) -> dict:
+def run_main_path(lt, A, F, card: str, precision: str) -> dict:
+    """``pretrain`` DINOv2 ViT-B/14 at batch 32 in ``precision`` for STEPS
+    steps, with every launch counter set to 0 just before and read just
+    after: K1/K2 once per block and view group, K3 once per leaf and step,
+    K4/K5 never."""
     import torch
 
     from lightly_train_tpu_torch.models.package_registry import (
@@ -344,13 +509,15 @@ def run_main_path(lt, A, F, card: str) -> dict:
         out = Path(tmp) / "out"
         torch.cuda.reset_peak_memory_stats()
         counters = (A.flat_attention_fwd, A.flat_attention_bwd,
-                    F.fused_adamw_ema_leaf)
+                    F.fused_adamw_ema_leaf, A.vmem_attention_fwd,
+                    A.vmem_attention_bwd)
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
         state = lt.pretrain(
             out=str(out), data=str(data), model="dinov2/vitb14",
-            method="dinov2", batch_size=BATCH, steps=STEPS, precision="bf16",
+            method="dinov2", batch_size=BATCH, steps=STEPS,
+            precision=precision,
             log_every=1, canonical_size=256, seed=SEED,
         )
         torch.cuda.synchronize()
@@ -376,29 +543,36 @@ def run_main_path(lt, A, F, card: str) -> dict:
                   f"{r['koleo_loss']:.4f}), grad_norm {r['grad_norm']:.4f}, "
                   f"{r['profiling/step_time'] * 1e3:.1f} ms, "
                   f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
-        expected = [36 * STEPS, 24 * STEPS, n_leaves * STEPS]
+        expected = [36 * STEPS, 24 * STEPS, n_leaves * STEPS, 0, 0]
         print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
-              f"{launches[2]} (expected {expected}); peak memory "
-              f"{peak_gib:.2f} GiB; wall {wall:.1f} s")
+              f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+              f"{expected}); peak memory {peak_gib:.2f} GiB; wall "
+              f"{wall:.1f} s")
         if launches != expected:
             fail(f"launch counts {launches} != {expected}")
 
         # The trained backbone on a small input against an fp32 CPU
         # reference (plain attention): bf16 over 12 blocks keeps the CLS
-        # features within 5% relative L2.
+        # features within 5% relative L2; fp32 (bf16 probabilities only, as
+        # on the TPU) within 1%. The run's dtype shows that the attention
+        # launches above came from the kernels' fp32 form.
+        tol = 5e-2 if precision == "bf16" else 1e-2
         student = state.params["student"]
         images = torch.rand((2, 224, 224, 3), device="cuda") * 4 - 2
         with torch.no_grad():
-            got = student(images)["cls_token"].float().cpu()
+            out = student(images)["cls_token"]
+            if out.dtype != torch_dtype(precision):
+                fail(f"{precision} run computed in {out.dtype}")
+            got = out.float().cpu()
             ref_model = get_wrapped_model("dinov2/vitb14").module
             ref_model.load_state_dict(
                 {k: v.float().cpu() for k, v in student.state_dict().items()})
             ref = ref_model(images.cpu())["cls_token"]
         rel = ((got - ref).norm() / ref.norm()).item()
         print(f"  trained ViT-B/14 cls on 2 images vs fp32 CPU reference: "
-              f"relative L2 {rel:.3e} (tol 5e-2)")
+              f"relative L2 {rel:.3e} (tol {tol:g})")
         if not (got.shape == (2, 768) and torch.isfinite(got).all()
-                and rel <= 5e-2):
+                and rel <= tol):
             fail(f"backbone disagrees with the CPU reference: {rel}")
         times = [r["profiling/step_time"] for r in steps]
         return {
@@ -407,6 +581,63 @@ def run_main_path(lt, A, F, card: str) -> dict:
             "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
             "peak_gib": peak_gib,
         }
+
+
+def run_vmem_path(A, card: str, dtype: str) -> dict:
+    """The K4/K5 path: ``vmem_attention`` over (B, N, H, hd) and
+    ``vmem_attention_bhnd`` over real (B, H, N, hd) tensors, forward and
+    backward through autograd as a user calls them, at the ViT-B/14 global
+    shape, with the launch counters set to 0 just before and read just
+    after; the results against the plain versions."""
+    import torch
+
+    from lightly_train_tpu_torch.ops.kernels import vmem_attention
+
+    B, N, H, hd = GLOBAL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(shape, grad):
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch_dtype(dtype))
+        return x.requires_grad_() if grad else x
+
+    api = [randn((B, N, H, hd), i < 3) for i in range(4)]
+    bhnd = [randn((B, H, N, hd), i < 3) for i in range(4)]
+    counters = (A.vmem_attention_fwd, A.vmem_attention_bwd,
+                A.flat_attention_fwd, A.flat_attention_bwd)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out_api = vmem_attention(*api[:3])
+    grads_api = torch.autograd.grad((out_api * api[3]).sum(), api[:3])
+    out_bhnd = A.vmem_attention_bhnd(*bhnd[:3])
+    grads_bhnd = torch.autograd.grad((out_bhnd * bhnd[3]).sum(), bhnd[:3])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = [fn.launches for fn in counters]
+    print(f"  {dtype}: launches K4 {launches[0]}, K5 {launches[1]}, K1 "
+          f"{launches[2]}, K2 {launches[3]} (expected [2, 2, 0, 0]); "
+          f"{wall_ms:.1f} ms for both calls with their backward [{card}]")
+    if launches != [2, 2, 0, 0]:
+        fail(f"vmem_attention path launches {launches}")
+    scale = hd ** -0.5
+    for layout, (q, k, v, co), out, grads in (
+            ("bnhd", [x.transpose(1, 2) for x in api],
+             out_api.transpose(1, 2), [g.transpose(1, 2) for g in grads_api]),
+            ("bhnd", bhnd, out_bhnd, grads_bhnd)):
+        q, k, v = (x.detach() for x in (q, k, v))
+        o_ref, lse_ref = A.vmem_attention_fwd_plain(q, k, v, scale)
+        refs = A.vmem_attention_bwd_plain(q, k, v, out.detach(), co, lse_ref,
+                                          scale)
+        floors = {"dq": cancel_floor(scale, hd, co, v, k),
+                  "dk": cancel_floor(scale, hd, co, v, q)}
+        for name, got, ref in zip(("o", "dq", "dk", "dv"), (out, *grads),
+                                  (o_ref, *refs)):
+            if not torch.isfinite(got).all():
+                fail(f"vmem_attention {dtype} {layout} {name} is not finite")
+            held(f"vmem_attention {dtype} {layout} {name}", got.detach(), ref,
+                 dtype, floors.get(name, 0.0))
+    return {"K4": launches[0], "K5": launches[1]}
 
 
 def profile_steps(card: str, steps: int = 3) -> None:
@@ -488,6 +719,12 @@ def main() -> int:
     from lightly_train_tpu_torch._optim import fused_update as F
     from lightly_train_tpu_torch.ops.kernels import attention as A
 
+    if not A.use_vmem_attention():
+        fail("LIGHTLY_TRAIN_VMEM_ATTENTION disables the attention kernels; "
+             "this check runs them")
+    # The plain versions' fp32 products in full fp32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -508,43 +745,43 @@ def main() -> int:
     attn = check_attention(A, card)
     upd = check_fused_update(F, card)
 
-    print("phase 3: main path (pretrain DINOv2 ViT-B/14, batch 32, bf16)",
+    paths = {}
+    for phase, precision in zip(("3", "3b"), DTYPES):
+        print(f"phase {phase}: main path (pretrain DINOv2 ViT-B/14, batch "
+              f"{BATCH}, {precision})", flush=True)
+        paths[precision] = run_main_path(lt, A, F, card, precision)
+        r = paths[precision]
+        print(f"main path {precision}: step ms {r['step_ms']}, img/s "
+              f"{r['images_per_sec']}, peak {r['peak_gib']:.2f} GiB [{card}]")
+    print("phase 3c: the K4/K5 path (vmem_attention, ViT-B/14 global shape)",
           flush=True)
-    main_path = run_main_path(lt, A, F, card)
-    print(f"main path: step ms {main_path['step_ms']}, img/s "
-          f"{main_path['images_per_sec']}, peak {main_path['peak_gib']:.2f} "
-          f"GiB [{card}]")
+    vmem = {dtype: run_vmem_path(A, card, dtype) for dtype in DTYPES}
 
-    def attn_row(name, rows, launches, src, replaces):
-        g, l = rows
-        return {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(g["max_abs_err"], l["max_abs_err"]),
-            "ms": g["ms"] + l["ms"], "plain_ms": g["plain_ms"] + l["plain_ms"],
-            "host_ms": g["host_ms"] + l["host_ms"],
-            "bound_ms": g["bound_ms"] + l["bound_ms"],
-            "bound_by": g["bound_by"],
-            "library_ms": (None if g["library_ms"] is None
-                           or l["library_ms"] is None
-                           else g["library_ms"] + l["library_ms"]),
-            "shapes": {"global": g, "local": l},
-        }
-
-    kernels = [
-        attn_row("flat_attention_fwd", attn["fwd"], main_path["launches"][0],
-                 "lightly_train_tpu_torch/csrc/flat_attention_fwd.cu",
-                 "lightly_train_tpu/ops/pallas/attention.py:241"),
-        attn_row("flat_attention_bwd", attn["bwd"], main_path["launches"][1],
-                 "lightly_train_tpu_torch/csrc/flat_attention_bwd.cu",
-                 "lightly_train_tpu/ops/pallas/attention.py:265"),
-        {
-            "name": "fused_adamw_ema", "route": "cuda",
-            "source": "lightly_train_tpu_torch/csrc/fused_adamw_ema.cu",
-            "replaces": "lightly_train_tpu/_optim/fused_update.py:95",
-            "launches": main_path["launches"][2], **upd,
-        },
-    ]
+    # Launches: each wrapper's count over the path that runs it (K1/K2: the
+    # pretrain path of the row's dtype, at the global and local shapes;
+    # K4/K5: phase 3c, at the global shape), 0 for shapes no path runs.
+    kernels = []
+    for (kernel, dtype), rows in attn.items():
+        name, source, line = KERNELS[kernel]
+        if kernel in ("K4", "K5"):
+            launches, path_shapes = vmem[dtype][kernel], [list(GLOBAL)]
+        else:
+            launches = paths[dtype]["launches"][("K1", "K2").index(kernel)]
+            path_shapes = [list(GLOBAL), list(LOCAL)]
+        kernels += [{
+            "name": name, "route": "cuda",
+            "source": f"lightly_train_tpu_torch/csrc/{source}",
+            "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
+            "launches": launches if row["shape"] in path_shapes else 0,
+            **row,
+        } for row in rows]
+    kernels.append({
+        "name": "fused_adamw_ema", "route": "cuda",
+        "source": "lightly_train_tpu_torch/csrc/fused_adamw_ema.cu",
+        "replaces": "lightly_train_tpu/_optim/fused_update.py:95",
+        "launches": paths["bf16"]["launches"][2],
+        "launches_fp32": paths["fp32"]["launches"][2], **upd,
+    })
     if "--profile" in sys.argv[1:]:
         print("phase 4: profile of the pretraining step", flush=True)
         profile_steps(card)

@@ -13,8 +13,6 @@ Not ported yet, and refused when set to anything but their defaults:
 loggers other than ``jsonl`` (ROADMAP item 7). The fields keep the JAX
 package's names and defaults, so configs stay compatible; at the defaults
 no periodic checkpoint and no augmentation grid is written yet.
-``precision="fp32"`` runs on the CPU only: the attention kernels take bf16,
-and the card refuses fp32 until they have an fp32 form (ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -109,12 +107,6 @@ def _check_ported(config: TrainConfig) -> None:
                 f"pretrain option {key}={getattr(config, key)!r} is not ported "
                 "to PyTorch yet (ROADMAP item 7)."
             )
-    if config.precision == "fp32" and config.accelerator == "cuda":
-        raise NotImplementedError(
-            "precision='fp32' on the card is not ported yet: the attention "
-            "kernels take bf16 (ROADMAP item 5). Use precision='bf16', or "
-            "accelerator='cpu'."
-        )
     loggers = config.loggers
     if isinstance(loggers, dict):  # name -> kwargs, None disables
         names = [k for k, v in loggers.items() if v is not None]

@@ -43,3 +43,9 @@ class Env:
     LIGHTLY_TRAIN_LOG_LEVEL: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_LOG_LEVEL", "INFO", str
     )
+    # The attention kernels on the card ("0", "false" or "False" turns them
+    # off, the JAX package's switch to its portable path, which the port
+    # does not have: the ViT's unmasked attention on the card then raises).
+    LIGHTLY_TRAIN_VMEM_ATTENTION: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_VMEM_ATTENTION", "1", str
+    )

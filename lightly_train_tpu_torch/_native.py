@@ -41,12 +41,12 @@ _F = ctypes.c_float
 # library name -> (C function, argtypes)
 LIBRARIES: Dict[str, tuple] = {
     "flat_attention_fwd": (
-        "lt_flat_attention_fwd",
-        [_P] * 5 + [_I] * 4 + [_L] * 8 + [_F, _P],
+        "lt_attention_fwd",
+        [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
     ),
     "flat_attention_bwd": (
-        "lt_flat_attention_bwd",
-        [_P] * 10 + [_I] * 4 + [ctypes.POINTER(_L), _F, _P],
+        "lt_attention_bwd",
+        [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
     ),
     "fused_adamw_ema": (
         "lt_fused_adamw_ema",

@@ -1,339 +1,354 @@
-// Flat-layout multi-head self-attention, backward (K2), as two kernels.
+// Multi-head self-attention, backward: K2 (flat layout) and K5 (per-head
+// layout), as two kernels.
 //
-// Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel.
-// Same (B, N, D) layout and strides as the forward; lse is the forward's
-// (B, H, N) fp32 log-sum-exp. The TPU kernel's numerics:
+// Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
+// and ::_bwd_kernel (K5). Same layouts, strides, types and head dims as the
+// forward (flat_attention_fwd.cu); lse is the forward's (B, H, N) fp32
+// log-sum-exp. The TPU kernel's numerics:
 //   p  = exp(s - lse)                   (fp32, s = (q . k) * scale)
-//   dv = bf16(p)^T . do                 dp = do . v^T
-//   delta = rowsum(do * o)              (fp32 from the bf16 values)
+//   dv = bf16(p)^T . bf16(do)           dp = bf16(do) . v^T
+//   delta = rowsum(do * o)              (fp32, from the unrounded inputs)
 //   ds = bf16(p * (dp - delta) * scale)
 //   dq = ds . k                         dk = ds^T . q
-// with bf16 operands and fp32 accumulation in every product.
+// with fp32 accumulation in every product; fp32 q, k and v enter the
+// products as bf16 hi/lo pairs (mma.cuh), do is rounded to bf16 as the TPU
+// kernel rounds it.
 //
 // The TPU kernel keeps a whole (N, N) score matrix in VMEM and does all five
 // products for one head in one grid step. On the H100 a block holds far less
 // fast memory and blocks cannot pass sums to each other, so the work splits
-// by which operand a block keeps resident:
-//   lt_flat_attention_bwd_dq:   one block per (batch, head) holds K and V in
-//     shared memory; each warp walks 16-query tiles over all keys and writes
-//     dq and the row's delta (fp32, to a (B, H, N) scratch).
-//   lt_flat_attention_bwd_dkdv: one block per (batch, head) holds Q, dO, lse
-//     and delta; each warp walks 16-key tiles over all queries, working on
-//     the transposed scores, and writes dk and dv.
-// s and p are recomputed in both (the scores are never stored). What bounds
-// it on the H100: at the ViT-B/14 global shape 202 MB move (q, k, v, o, do
-// in; dq, dk, dv out), ~60 us at 3.35 TB/s, against 32.5 GFLOP of necessary
-// bf16 products (~33 us at the tensor peak), so device memory bounds it;
-// the design reads q, k, v and do twice and computes q . k and do . v twice
-// (45.5 GFLOP) to avoid any cross-block reduction.
+// by which operand a block walks:
+//   dq kernel: each warp owns 16-query tiles, walks all keys with K and V
+//     in shared memory, and writes dq and the row's delta (fp32, to a
+//     (B, H, N) scratch).
+//   dk/dv kernel: each warp owns 16-key tiles, walks all queries with Q, do,
+//     lse and delta in shared memory, working on the transposed scores, and
+//     writes dk and dv.
+// s and p are recomputed in both (the scores are never stored). As in the
+// forward, the host picks per kernel and call whether the walked operands
+// are resident (one block per (batch, head), staged once; it fits in the
+// 227 KB of shared memory for bf16 hd 64 up to N = 672 for dq and 656 for
+// dk/dv, fp32 hd 64 up to N = 304 and 352) or streamed in kStreamRows-row
+// tiles by blocks of 128 rows (the rest of N <= 768, and small grids); the
+// rule is resident_pays in mma.cuh.
+// What bounds it on the H100: at the ViT-B/14 global shape in bf16 202 MB
+// move (q, k, v, o, do in; dq, dk, dv out), ~60 us at 3.35 TB/s, against
+// 32.5 GFLOP of necessary products (~33 us at the bf16 tensor peak), so
+// device memory bounds it (fp32: twice the bytes); the design reads q, k, v
+// and do twice and computes q . k and do . v twice (45.5 GFLOP) to avoid
+// any cross-block reduction.
 #include "mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr int kMaxWarps = 8;
+using lt::bf16;
+using lt::kMaxWarps;
 
-template <int HD>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long row_stride, int row0, int N,
-                                           int lane) {
-  constexpr int S = lt::Tile<HD>::kStride;
-  for (int i = lane; i < 16 * (HD / 8); i += 32) {
-    int r = i / (HD / 8);
-    int c = (i % (HD / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < N)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * S + c) = val;
-  }
-}
-
-// A fragments (16 x HD) of a staged 16-row tile.
-template <int HD>
-__device__ __forceinline__ void a_frags(uint32_t (&f)[HD / 16][4],
-                                        const bf16* tile, int lane) {
-  constexpr int S = lt::Tile<HD>::kStride;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    lt::ldmatrix_x4(f[kk], tile + ((lane % 8) + ((lane / 8) % 2) * 8) * S +
-                               kk * 16 + (lane / 16) * 8);
-}
-
-// c[2] (16 x 16) = A (16 x HD, fragments) . R[n0 : n0 + 16]^T, R row-major.
-template <int HD>
-__device__ __forceinline__ void a_times_rows_t(float (&c)[2][4],
-                                               const uint32_t (&a)[HD / 16][4],
-                                               const bf16* rows, int n0,
-                                               int lane) {
-  constexpr int S = lt::Tile<HD>::kStride;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t r[4];
-    lt::ldmatrix_x4(r, rows + (n0 + (lane % 8) + (lane / 16) * 8) * S +
-                           kk * 16 + ((lane / 8) % 2) * 8);
-    lt::mma_bf16(c[0], a[kk], r[0], r[1]);
-    lt::mma_bf16(c[1], a[kk], r[2], r[3]);
-  }
-}
-
-// acc (16 x HD) += P (16 x 16, A fragment) . R[n0 : n0 + 16], R row-major.
-template <int HD>
-__device__ __forceinline__ void p_times_rows(float (&acc)[HD / 8][4],
-                                             const uint32_t (&p)[4],
-                                             const bf16* rows, int n0,
-                                             int lane) {
-  constexpr int S = lt::Tile<HD>::kStride;
-#pragma unroll
-  for (int nb = 0; nb < HD / 16; ++nb) {
-    uint32_t r[4];
-    lt::ldmatrix_x4_trans(r, rows + (n0 + (lane % 8) + ((lane / 8) % 2) * 8) * S +
-                                 nb * 16 + (lane / 16) * 8);
-    lt::mma_bf16(acc[2 * nb], p, r[0], r[1]);
-    lt::mma_bf16(acc[2 * nb + 1], p, r[2], r[3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, long row_stride,
-                                           const float (&acc)[HD / 8][4],
-                                           int row0, int N, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    int col = j * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(dst + r0 * row_stride + col) =
-          lt::pack_bf16(acc[j][0], acc[j][1]);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(dst + r1 * row_stride + col) =
-          lt::pack_bf16(acc[j][2], acc[j][3]);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32, 2)
-    flat_attention_bwd_dq_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ o,
-        const bf16* __restrict__ dout, const float* __restrict__ lse,
-        bf16* __restrict__ dq, float* __restrict__ delta, int N, int H,
-        int n_pad, long q_sb, long q_sn, long k_sb, long k_sn, long v_sb,
-        long v_sn, long o_sb, long o_sn, long do_sb, long do_sn, long dq_sb,
-        long dq_sn, float scale) {
+template <typename T, int HD>
+__global__ void __launch_bounds__(kMaxWarps * 32, sizeof(T) == 2 ? 2 : 1)
+    attention_bwd_dq_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ o,
+        const T* __restrict__ dout, const float* __restrict__ lse,
+        T* __restrict__ dq, float* __restrict__ delta, lt::Geom g,
+        lt::Strides qs, lt::Strides ks, lt::Strides vs, lt::Strides os,
+        lt::Strides dos, lt::Strides dqs, float scale) {
+  constexpr int P = lt::Planes<T>::value;
   constexpr int S = lt::Tile<HD>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + n_pad * S;
-  bf16* sW = sV + n_pad * S;  // per warp: 16-row Q tile, then dO tile
+  const int plane = g.rows * S;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // P planes x rows x S
+  bf16* sV = sK + P * plane;                     // P planes x rows x S
+  bf16* sW = sV + P * plane;  // per warp: Q (P planes), then do, 16 x S each
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
-  const int g = lane >> 2, t = lane & 3;
+  const int gq = lane >> 2, t = lane & 3;
+  const int N = g.N, n_pad = g.n_pad;
+  const bool resident = g.rows >= n_pad;
+  const T* kh = k + b * ks.b + h * ks.h;
+  const T* vh = v + b * vs.b + h * vs.h;
 
-  lt::load_rows<HD>(sK, k + b * k_sb + h * HD, k_sn, 0, n_pad, N);
-  lt::load_rows<HD>(sV, v + b * v_sb + h * HD, v_sn, 0, n_pad, N);
-  __syncthreads();
+  auto stage_kv = [&](int kv0, int rows) {
+    lt::stage_rows<HD, P>(sK, plane, kh, ks.n, kv0, rows, N, threadIdx.x,
+                          blockDim.x);
+    lt::stage_rows<HD, P>(sV, plane, vh, vs.n, kv0, rows, N, threadIdx.x,
+                          blockDim.x);
+  };
+  if (resident) {
+    stage_kv(0, n_pad);
+    __syncthreads();
+  }
 
-  bf16* sQw = sW + warp * 32 * S;
-  bf16* sDw = sQw + 16 * S;
-  const bf16* qh = q + b * q_sb + h * HD;
-  const bf16* oh = o + b * o_sb + h * HD;
-  const bf16* doh = dout + b * do_sb + h * HD;
-  const long bh = static_cast<long>(b) * H + h;
-  const int n_tiles = (N + 15) / 16;
-  for (int tile = warp; tile < n_tiles; tile += n_warps) {
-    const int row0 = tile * 16;
-    stage_tile<HD>(sQw, qh, q_sn, row0, N, lane);
-    stage_tile<HD>(sDw, doh, do_sn, row0, N, lane);
-    __syncwarp();
-    uint32_t qf[HD / 16][4], df[HD / 16][4];
-    a_frags<HD>(qf, sQw, lane);
-    a_frags<HD>(df, sDw, lane);
+  bf16* sQw = sW + warp * (P + 1) * 16 * S;
+  bf16* sDw = sQw + P * 16 * S;
+  const T* qh = q + b * qs.b + h * qs.h;
+  const T* oh = o + b * os.b + h * os.h;
+  const T* doh = dout + b * dos.b + h * dos.h;
+  const long bh = static_cast<long>(b) * gridDim.y + h;
+  const int t_end = min((qb + 1) * g.tiles, n_pad / 16);
+  for (int base = qb * g.tiles; base < t_end; base += n_warps) {
+    const bool active = base + warp < t_end;
+    const int row0 = (base + warp) * 16;
+    uint32_t qf[P][HD / 16][4], df[1][HD / 16][4];
+    float d0 = 0.f, d1 = 0.f, lse0 = 0.f, lse1 = 0.f;
+    if (active) {
+      lt::stage_rows<HD, P>(sQw, 16 * S, qh, qs.n, row0, 16, N, lane, 32);
+      lt::stage_rows<HD, 1>(sDw, 16 * S, doh, dos.n, row0, 16, N, lane, 32);
+      __syncwarp();
+      lt::a_frags<HD, P>(qf, sQw, 16 * S, lane);
+      lt::a_frags<HD, 1>(df, sDw, 16 * S, lane);
 
-    // delta for row (row0 + lane / 2): two lanes per row, HD / 2 columns each.
-    float dsum = 0.f;
-    {
+      // delta for row (row0 + lane / 2): two lanes per row, HD / 2 columns
+      // each, from the unrounded o and do.
+      float dsum = 0.f;
       const int r = row0 + lane / 2;
       if (r < N) {
         const int c0 = (lane % 2) * (HD / 2);
         for (int c = c0; c < c0 + HD / 2; c += 2) {
-          __nv_bfloat162 ov =
-              *reinterpret_cast<const __nv_bfloat162*>(oh + r * o_sn + c);
-          __nv_bfloat162 dv =
-              *reinterpret_cast<const __nv_bfloat162*>(doh + r * do_sn + c);
-          dsum += __bfloat162float(ov.x) * __bfloat162float(dv.x);
-          dsum += __bfloat162float(ov.y) * __bfloat162float(dv.y);
+          const float2 ov = lt::load2(oh + r * os.n + c);
+          const float2 dv = lt::load2(doh + r * dos.n + c);
+          dsum += ov.x * dv.x;
+          dsum += ov.y * dv.y;
         }
       }
       dsum += __shfl_xor_sync(0xffffffff, dsum, 1);
       if (r < N && (lane % 2) == 0) delta[bh * N + r] = dsum;
+      d0 = __shfl_sync(0xffffffff, dsum, 2 * gq);
+      d1 = __shfl_sync(0xffffffff, dsum, 2 * (gq + 8));
+      const int r0 = row0 + gq, r1 = r0 + 8;
+      lse0 = r0 < N ? lse[bh * N + r0] : 0.f;
+      lse1 = r1 < N ? lse[bh * N + r1] : 0.f;
     }
-    const float d0 = __shfl_sync(0xffffffff, dsum, 2 * g);
-    const float d1 = __shfl_sync(0xffffffff, dsum, 2 * (g + 8));
-    const int r0 = row0 + g, r1 = r0 + 8;
-    const float lse0 = r0 < N ? lse[bh * N + r0] : 0.f;
-    const float lse1 = r1 < N ? lse[bh * N + r1] : 0.f;
 
     float acc[HD / 8][4];
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    for (int n0 = 0; n0 < n_pad; n0 += 16) {
-      float s[2][4], dp[2][4];
-      a_times_rows_t<HD>(s, qf, sK, n0, lane);
-      a_times_rows_t<HD>(dp, df, sV, n0, lane);
-      uint32_t dsf[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int key = n0 + j * 8 + 2 * t + (e & 1);
-          float p = key < N ? __expf(s[j][e] * scale - (e < 2 ? lse0 : lse1))
-                            : 0.f;
-          ds[e] = p * (dp[j][e] - (e < 2 ? d0 : d1)) * scale;
-        }
-        dsf[2 * j] = lt::pack_bf16(ds[0], ds[1]);
-        dsf[2 * j + 1] = lt::pack_bf16(ds[2], ds[3]);
+    for (int kv0 = 0; kv0 < n_pad; kv0 += g.rows) {
+      const int rows = min(g.rows, n_pad - kv0);
+      if (!resident) {
+        __syncthreads();  // every warp is done with the previous tile
+        stage_kv(kv0, rows);
+        __syncthreads();
       }
-      p_times_rows<HD>(acc, dsf, sK, n0, lane);
+      if (!active) continue;
+      for (int n0 = 0; n0 < rows; n0 += 16) {
+        float s[2][4], dp[2][4];
+        lt::a_times_rows_t<HD, P, P>(s, qf, sK, plane, n0, lane);
+        lt::a_times_rows_t<HD, 1, P>(dp, df, sV, plane, n0, lane);
+        uint32_t dsf[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kv0 + n0 + j * 8 + 2 * t + (e & 1);
+            const float p =
+                key < N ? __expf(s[j][e] * scale - (e < 2 ? lse0 : lse1))
+                        : 0.f;
+            ds[e] = p * (dp[j][e] - (e < 2 ? d0 : d1)) * scale;
+          }
+          dsf[2 * j] = lt::pack_bf16(ds[0], ds[1]);
+          dsf[2 * j + 1] = lt::pack_bf16(ds[2], ds[3]);
+        }
+        lt::p_times_rows<HD, P>(acc, dsf, sK, plane, n0, lane);
+      }
     }
-    store_rows<HD>(dq + b * dq_sb + h * HD, dq_sn, acc, row0, N, lane);
+    if (!active) continue;
+    lt::store_rows<HD>(dq + b * dqs.b + h * dqs.h, dqs.n, acc, row0, N, lane);
     __syncwarp();
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
-    flat_attention_bwd_dkdv_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    attention_bwd_dkdv_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int n_pad,
-        long q_sb, long q_sn, long k_sb, long k_sn, long v_sb, long v_sn,
-        long do_sb, long do_sn, long dk_sb, long dk_sn, long dv_sb,
-        long dv_sn, float scale) {
+        T* __restrict__ dk, T* __restrict__ dv, lt::Geom g, lt::Strides qs,
+        lt::Strides ks, lt::Strides vs, lt::Strides dos, lt::Strides dks,
+        lt::Strides dvs, float scale) {
+  constexpr int P = lt::Planes<T>::value;
   constexpr int S = lt::Tile<HD>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sD = sQ + n_pad * S;
-  bf16* sW = sD + n_pad * S;  // per warp: 16-row K tile, then V tile
-  float* sL = reinterpret_cast<float*>(sW + (blockDim.x / 32) * 32 * S);
-  float* sDelta = sL + n_pad;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
+  const int plane = g.rows * S;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // P planes x rows x S
+  bf16* sD = sQ + P * plane;                     // rows x S (bf16 do)
+  bf16* sW = sD + plane;  // per warp: K, then V, P planes of 16 x S each
+  float* sL = reinterpret_cast<float*>(sW + n_warps * 2 * P * 16 * S);
+  float* sDelta = sL + g.rows;
+
+  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = lane & 3;
-  const long bh = static_cast<long>(b) * H + h;
+  const int N = g.N, n_pad = g.n_pad;
+  const bool resident = g.rows >= n_pad;
+  const long bh = static_cast<long>(b) * gridDim.y + h;
+  const T* qh = q + b * qs.b + h * qs.h;
+  const T* doh = dout + b * dos.b + h * dos.h;
 
-  lt::load_rows<HD>(sQ, q + b * q_sb + h * HD, q_sn, 0, n_pad, N);
-  lt::load_rows<HD>(sD, dout + b * do_sb + h * HD, do_sn, 0, n_pad, N);
-  // Padded queries get lse = +inf, so their probabilities are exactly 0.
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
-    sL[i] = i < N ? lse[bh * N + i] : INFINITY;
-    sDelta[i] = i < N ? delta[bh * N + i] : 0.f;
+  // Query rows [q0, q0 + rows) of Q, do, lse and delta. Queries past N get
+  // lse = +inf, so their probabilities are exactly 0 in every tile.
+  auto stage_q = [&](int q0, int rows) {
+    lt::stage_rows<HD, P>(sQ, plane, qh, qs.n, q0, rows, N, threadIdx.x,
+                          blockDim.x);
+    lt::stage_rows<HD, 1>(sD, plane, doh, dos.n, q0, rows, N, threadIdx.x,
+                          blockDim.x);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      sL[i] = q0 + i < N ? lse[bh * N + q0 + i] : INFINITY;
+      sDelta[i] = q0 + i < N ? delta[bh * N + q0 + i] : 0.f;
+    }
+  };
+  if (resident) {
+    stage_q(0, n_pad);
+    __syncthreads();
   }
-  __syncthreads();
 
-  bf16* sKw = sW + warp * 32 * S;
-  bf16* sVw = sKw + 16 * S;
-  const int n_tiles = (N + 15) / 16;
-  for (int tile = warp; tile < n_tiles; tile += n_warps) {
-    const int key0 = tile * 16;
-    stage_tile<HD>(sKw, k + b * k_sb + h * HD, k_sn, key0, N, lane);
-    stage_tile<HD>(sVw, v + b * v_sb + h * HD, v_sn, key0, N, lane);
-    __syncwarp();
-    uint32_t kf[HD / 16][4], vf[HD / 16][4];
-    a_frags<HD>(kf, sKw, lane);
-    a_frags<HD>(vf, sVw, lane);
+  bf16* sKw = sW + warp * 2 * P * 16 * S;
+  bf16* sVw = sKw + P * 16 * S;
+  const int t_end = min((kb + 1) * g.tiles, n_pad / 16);
+  for (int base = kb * g.tiles; base < t_end; base += n_warps) {
+    const bool active = base + warp < t_end;
+    const int key0 = (base + warp) * 16;
+    uint32_t kf[P][HD / 16][4], vf[P][HD / 16][4];
+    if (active) {
+      lt::stage_rows<HD, P>(sKw, 16 * S, k + b * ks.b + h * ks.h, ks.n, key0,
+                            16, N, lane, 32);
+      lt::stage_rows<HD, P>(sVw, 16 * S, v + b * vs.b + h * vs.h, vs.n, key0,
+                            16, N, lane, 32);
+      __syncwarp();
+      lt::a_frags<HD, P>(kf, sKw, 16 * S, lane);
+      lt::a_frags<HD, P>(vf, sVw, 16 * S, lane);
+    }
 
     float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-    for (int n0 = 0; n0 < n_pad; n0 += 16) {
-      // Transposed tiles: rows are this warp's keys, columns are queries.
-      float st[2][4], dpt[2][4];
-      a_times_rows_t<HD>(st, kf, sQ, n0, lane);
-      a_times_rows_t<HD>(dpt, vf, sD, n0, lane);
-      uint32_t pf[4], dsf[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int qi = n0 + j * 8 + 2 * t + (e & 1);
-          p[e] = __expf(st[j][e] * scale - sL[qi]);
-          ds[e] = p[e] * (dpt[j][e] - sDelta[qi]) * scale;
-        }
-        pf[2 * j] = lt::pack_bf16(p[0], p[1]);
-        pf[2 * j + 1] = lt::pack_bf16(p[2], p[3]);
-        dsf[2 * j] = lt::pack_bf16(ds[0], ds[1]);
-        dsf[2 * j + 1] = lt::pack_bf16(ds[2], ds[3]);
+    for (int q0 = 0; q0 < n_pad; q0 += g.rows) {
+      const int rows = min(g.rows, n_pad - q0);
+      if (!resident) {
+        __syncthreads();  // every warp is done with the previous tile
+        stage_q(q0, rows);
+        __syncthreads();
       }
-      p_times_rows<HD>(dv_acc, pf, sD, n0, lane);
-      p_times_rows<HD>(dk_acc, dsf, sQ, n0, lane);
+      if (!active) continue;
+      for (int n0 = 0; n0 < rows; n0 += 16) {
+        // Transposed tiles: rows are this warp's keys, columns are queries.
+        float st[2][4], dpt[2][4];
+        lt::a_times_rows_t<HD, P, P>(st, kf, sQ, plane, n0, lane);
+        lt::a_times_rows_t<HD, P, 1>(dpt, vf, sD, plane, n0, lane);
+        uint32_t pf[4], dsf[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = n0 + j * 8 + 2 * t + (e & 1);
+            p[e] = __expf(st[j][e] * scale - sL[qi]);
+            ds[e] = p[e] * (dpt[j][e] - sDelta[qi]) * scale;
+          }
+          pf[2 * j] = lt::pack_bf16(p[0], p[1]);
+          pf[2 * j + 1] = lt::pack_bf16(p[2], p[3]);
+          dsf[2 * j] = lt::pack_bf16(ds[0], ds[1]);
+          dsf[2 * j + 1] = lt::pack_bf16(ds[2], ds[3]);
+        }
+        lt::p_times_rows<HD, 1>(dv_acc, pf, sD, plane, n0, lane);
+        lt::p_times_rows<HD, P>(dk_acc, dsf, sQ, plane, n0, lane);
+      }
     }
-    store_rows<HD>(dk + b * dk_sb + h * HD, dk_sn, dk_acc, key0, N, lane);
-    store_rows<HD>(dv + b * dv_sb + h * HD, dv_sn, dv_acc, key0, N, lane);
+    if (!active) continue;
+    lt::store_rows<HD>(dk + b * dks.b + h * dks.h, dks.n, dk_acc, key0, N,
+                       lane);
+    lt::store_rows<HD>(dv + b * dvs.b + h * dvs.h, dvs.n, dv_acc, key0, N,
+                       lane);
     __syncwarp();
   }
 }
 
-}  // namespace
+template <typename T, int HD>
+size_t dq_smem(int rows, int n_warps) {
+  constexpr int P = lt::Planes<T>::value;
+  return static_cast<size_t>(2 * P * rows + n_warps * (P + 1) * 16) *
+         lt::Tile<HD>::kStride * sizeof(bf16);
+}
 
-// dq kernel: also writes delta (B, H, N) fp32 for the dk/dv kernel.
-extern "C" int lt_flat_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, int B, int N, int H, int hd, const long* strides,
-    float scale, void* stream) {
-  // strides: (batch, row) pairs for q, k, v, o, do, dq, dk, dv.
-  if (hd != 64) return cudaErrorInvalidValue;
-  constexpr int HD = 64;
-  constexpr int S = lt::Tile<HD>::kStride;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long* st = strides;
-  const int n_pad = (N + 15) / 16 * 16;
-  const int n_warps = min(kMaxWarps, n_pad / 16);
-  dim3 grid(H, B);
+template <typename T, int HD>
+size_t dkdv_smem(int rows, int n_warps) {
+  constexpr int P = lt::Planes<T>::value;
+  return static_cast<size_t>((P + 1) * rows + n_warps * 2 * P * 16) *
+             lt::Tile<HD>::kStride * sizeof(bf16) +
+         2 * rows * sizeof(float);
+}
 
-  const size_t smem_dq = (2 * n_pad + n_warps * 32) * S * sizeof(bf16);
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+           void* delta, int B, int N, int H, const long* st, float scale,
+           cudaStream_t stream) {
+  const int n_tiles = (N + 15) / 16;
+  const int n_warps = min(kMaxWarps, n_tiles);
+  const lt::Geom gq = lt::pick_geometry(N, static_cast<long>(B) * H, n_warps,
+                                        1, dq_smem<T, HD>);
+  const size_t smem_dq = dq_smem<T, HD>(gq.rows, n_warps);
   cudaError_t err = cudaFuncSetAttribute(
-      flat_attention_bwd_dq_kernel<HD>,
+      attention_bwd_dq_kernel<T, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
-  flat_attention_bwd_dq_kernel<HD><<<grid, n_warps * 32, smem_dq, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<bf16*>(dq), static_cast<float*>(delta), N, H, n_pad, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale);
+  const dim3 grid_dq((n_tiles + gq.tiles - 1) / gq.tiles, H, B);
+  attention_bwd_dq_kernel<T, HD><<<grid_dq, n_warps * 32, smem_dq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<T*>(dq), static_cast<float*>(delta), gq,
+      lt::strides_of(st, 0), lt::strides_of(st, 1), lt::strides_of(st, 2),
+      lt::strides_of(st, 3), lt::strides_of(st, 4), lt::strides_of(st, 5),
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_kv = (2 * n_pad + n_warps * 32) * S * sizeof(bf16) +
-                         2 * n_pad * sizeof(float);
-  err = cudaFuncSetAttribute(flat_attention_bwd_dkdv_kernel<HD>,
+  const lt::Geom gk = lt::pick_geometry(N, static_cast<long>(B) * H, n_warps,
+                                        1, dkdv_smem<T, HD>);
+  const size_t smem_kv = dkdv_smem<T, HD>(gk.rows, n_warps);
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
-  flat_attention_bwd_dkdv_kernel<HD><<<grid, n_warps * 32, smem_kv, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  const dim3 grid_kv((n_tiles + gk.tiles - 1) / gk.tiles, H, B);
+  attention_bwd_dkdv_kernel<T, HD><<<grid_kv, n_warps * 32, smem_kv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, H, n_pad, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[8], st[9], st[12], st[13], st[14],
-      st[15], scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), gk, lt::strides_of(st, 0),
+      lt::strides_of(st, 1), lt::strides_of(st, 2), lt::strides_of(st, 4),
+      lt::strides_of(st, 6), lt::strides_of(st, 7), scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. fp32: 0 for
+// bf16 tensors, 1 for fp32 ones. The dq kernel also writes delta (B, H, N)
+// fp32 for the dk/dv kernel.
+extern "C" int lt_attention_bwd(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* dq, void* dk, void* dv,
+                                void* delta, int fp32, int B, int N, int H,
+                                int hd, const long* strides, float scale,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1) return cudaErrorInvalidValue;
+#define LT_BWD(T, HD)                                                      \
+  launch<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, N, H, strides, \
+                scale, s)
+  if (hd == 64) return fp32 ? LT_BWD(float, 64) : LT_BWD(bf16, 64);
+  if (hd == 16) return fp32 ? LT_BWD(float, 16) : LT_BWD(bf16, 16);
+#undef LT_BWD
+  return cudaErrorInvalidValue;
 }

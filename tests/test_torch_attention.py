@@ -1,8 +1,8 @@
-"""The port's flat attention against the JAX package's Pallas kernel.
+"""The port's attention against the JAX package's Pallas kernels.
 
-The same numpy inputs go through ``flat_attention(..., interpret=True)``
-(the Pallas kernel run by the interpreter on the CPU) with its ``jax.vjp``,
-and through the port's ``flat_attention`` on CPU tensors, which runs the
+The same numpy inputs go through the JAX functions with ``interpret=True``
+(the Pallas kernels run by the interpreter on the CPU) and their
+``jax.vjp``, and through the port's functions on CPU tensors, which run the
 plain PyTorch versions of the CUDA kernels, forward and autograd backward.
 """
 
@@ -12,12 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from lightly_train_tpu.ops import pallas as jax_pallas
+from lightly_train_tpu.ops.pallas import attention as JA
 from lightly_train_tpu.ops.pallas.attention import (
     flat_attention as jax_flat_attention,
 )
+from lightly_train_tpu_torch.ops import kernels as port_kernels
 from lightly_train_tpu_torch.ops.kernels import attention as A
 
 H, HD = 2, 64
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
 def _inputs(B, N, seed):
@@ -26,7 +31,8 @@ def _inputs(B, N, seed):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("B,N", [(1, 37), (1, 50), (1, 257), (2, 17)])
+@pytest.mark.parametrize("B,N", [(1, 37), (1, 50), (1, 257), (2, 17),
+                                 (1, 730), (1, 768)])
 def test_plain_matches_pallas_interpret(B, N):
     q, k, v, co = _inputs(B, N, seed=N)
     out_j, vjp = jax.vjp(
@@ -64,6 +70,126 @@ def test_lse_matches_pallas_forward():
                                atol=1e-2)
 
 
+def _assert_close(got: torch.Tensor, ref, dtype: str, what: str):
+    """fp32 outputs within 2e-3: the two sides round p and ds to bf16 at
+    the same places, but take the fp32 sums in other orders, so a value
+    near a rounding boundary may round the other way (one bf16 ulp of one
+    p moves an O(1) output by ~2^-8 / N). bf16 outputs add their own
+    rounding: within 1e-2, about two bf16 ulps of an O(1) output."""
+    tol = {"fp32": 2e-3, "bf16": 1e-2}[dtype]
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    np.testing.assert_allclose(got.detach().float().numpy(), ref, rtol=tol,
+                               atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 17, 3, 8), (4, 33, 2, 16),
+                                   (1, 257, 2, 64)])
+def test_vmem_attention_matches_pallas_interpret(shape, dtype):
+    """K4/K5 through the (B, N, H, hd) API, fp32 and bf16 inputs."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, co = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(4))
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jax_pallas.vmem_attention(a, b, c, interpret=True),
+        *(jnp.asarray(x, jdt) for x in (q, k, v)),
+    )
+    grads_j = vjp(jnp.asarray(co, jdt))
+
+    qt, kt, vt = (torch.tensor(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out_t = port_kernels.vmem_attention(qt, kt, vt)
+    out_t.backward(torch.tensor(co).to(tdt))
+
+    assert out_t.dtype == tdt and out_t.shape == shape
+    assert out_j.dtype == jdt and all(g.dtype == jdt for g in grads_j)
+    _assert_close(out_t, out_j, dtype, "o")
+    for name, got, ref in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad),
+                              grads_j):
+        assert got.dtype == tdt
+        _assert_close(got, ref, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vmem_attention_bhnd_matches_pallas_interpret(dtype):
+    """K4/K5 over (B, H, N, hd) against the JAX custom VJP."""
+    jdt, tdt = DTYPES[dtype]
+    shape, scale = (2, 3, 17, 8), 8 ** -0.5
+    rng = np.random.default_rng(5)
+    q, k, v, co = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(4))
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: JA._vmem_attention_bhnd(a, b, c, scale, True),
+        *(jnp.asarray(x, jdt) for x in (q, k, v)),
+    )
+    grads_j = vjp(jnp.asarray(co, jdt))
+    qt, kt, vt = (torch.tensor(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out_t = A.vmem_attention_bhnd(qt, kt, vt)
+    out_t.backward(torch.tensor(co).to(tdt))
+    _assert_close(out_t, out_j, dtype, "o")
+    for name, got, ref in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad),
+                              grads_j):
+        _assert_close(got, ref, dtype, name)
+
+
+def test_vmem_lse_matches_pallas_forward():
+    q, k, v = (np.random.default_rng(i).standard_normal((2, 3, 17, 16))
+               .astype(np.float32) for i in range(3))
+    _, lse_j = JA._attn_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), 0.25, True)
+    _, lse_t = A.vmem_attention_fwd_plain(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), 0.25)
+    # fp32 from the same bf16-rounded p.
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_layouts_agree():
+    """vmem_attention on (B, N, H, hd) is flat_attention on the same
+    tensor read as (B, N, H * hd), bit for bit (the JAX kernels agree the
+    same way)."""
+    rng = np.random.default_rng(3)
+    q, k, v, co = (torch.tensor(rng.standard_normal((2, 37, 2, 16)),
+                                dtype=torch.float32) for _ in range(4))
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    qb, kb, vb = (x.flatten(2).clone().requires_grad_() for x in (q, k, v))
+    out_a = port_kernels.vmem_attention(qa, ka, va)
+    out_b = port_kernels.flat_attention(qb, kb, vb, 2)
+    (out_a * co).sum().backward()
+    (out_b * co.flatten(2)).sum().backward()
+    torch.testing.assert_close(out_a.flatten(2), out_b, rtol=0, atol=0)
+    for a, b in zip((qa, ka, va), (qb, kb, vb)):
+        torch.testing.assert_close(a.grad.flatten(2), b.grad, rtol=0, atol=0)
+
+
+def test_fits_vmem_matches_jax():
+    got = [A.fits_vmem(n) for n in range(1, 2049)]
+    assert got == [JA.fits_vmem(n) for n in range(1, 2049)]
+    assert got.index(False) == 768  # holds exactly for N <= 768
+
+
+@pytest.mark.parametrize("value,expected", [
+    (None, True), ("1", True), ("force", True), ("0", False),
+    ("false", False), ("False", False),
+])
+def test_use_vmem_attention_follows_the_variable(monkeypatch, value,
+                                                 expected):
+    """On the card (here: PyTorch made to see one) the gate follows
+    LIGHTLY_TRAIN_VMEM_ATTENTION with the JAX default "1"; a CPU tensor
+    never takes the kernels."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    if value is None:
+        monkeypatch.delenv("LIGHTLY_TRAIN_VMEM_ATTENTION", raising=False)
+    else:
+        monkeypatch.setenv("LIGHTLY_TRAIN_VMEM_ATTENTION", value)
+    assert A.use_vmem_attention() is expected
+    assert not A.use_vmem_attention(torch.zeros(1))
+
+
+def test_exports_match_the_jax_package():
+    assert port_kernels.__all__ == jax_pallas.__all__
+
+
 def test_gate_runs_plain_attention_on_cpu_and_for_masks():
     """On CPU tensors and for masked attention the ViT's attention is the
     plain path, as the JAX ViT uses XLA attention off the TPU."""
@@ -84,7 +210,11 @@ def test_gate_runs_plain_attention_on_cpu_and_for_masks():
 
 
 def test_kernel_support_range():
-    assert A.kernel_supports(257, 64) and A.kernel_supports(37, 64)
-    assert A.kernel_supports(1, 64) and A.kernel_supports(A.MAX_N, 64)
-    assert not A.kernel_supports(A.MAX_N + 1, 64)
-    assert not A.kernel_supports(257, 16)
+    """The JAX gate's range (fits_vmem: N <= 768) and the head dims of the
+    port's ViT sizes (64, and 16 for vittest)."""
+    for n in (1, 37, 257, 512, 577, 730, 768):
+        assert A.kernel_supports(n, 64) and A.kernel_supports(n, 16)
+    assert not A.kernel_supports(769, 64)
+    assert not A.kernel_supports(0, 64)
+    assert not A.kernel_supports(257, 32)
+    assert not A.kernel_supports(257, 128)

@@ -16,54 +16,183 @@ from lightly_train_tpu_torch.ops.kernels import attention as A
 
 pytestmark = pytest.mark.cuda
 HD = 64
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    # The plain versions' fp32 products in full fp32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
-def _bf16_close(got, ref):
-    """Within 2^-7 of the reference's largest magnitude (a few bf16 ulps,
-    where a probability near a rounding boundary rounds the other way), and
-    within 1e-2 relative L2, which a systematic error on a few rows
-    exceeds. The 1e-6 per element covers outputs whose exact value is 0
-    (dq and dk at N=1, where the one key's probability is constant)."""
+def _floor(scale, hd, do, v, other):
+    """One 2^-16 rounding of dp = do . v (the fp32 kernels' hi/lo products
+    keep about 16 bits) carried through ds into dq (``other`` = k) or dk
+    (``other`` = q), per element. It matters only where dp - delta cancels
+    (N = 1: the exact dq and dk are 0, and what both sides give is the
+    rounding of do)."""
+    rms = [x.float().pow(2).mean().sqrt().item() for x in (do, v, other)]
+    return 2.0 ** -16 * scale * hd ** 0.5 * float(np.prod(rms))
+
+
+def _within(got, ref, dtype, floor=0.0):
+    """bf16: within 2^-7 of the reference's largest magnitude (a few bf16
+    ulps, where a probability near a rounding boundary rounds the other
+    way) and within 1e-2 relative L2, which a systematic error on a few
+    rows exceeds. fp32: the outputs are not rounded to bf16, but p and ds
+    still are, on both sides, and the kernel's hi/lo products are about
+    2^-16 off the plain fp32 ones, so some roundings go the other way:
+    max-abs as for bf16, relative L2 1e-3, which a kernel computing in bf16
+    alone exceeds (test_fp32_tolerance_rejects_bf16_inputs). ``floor`` is
+    added per element (8 of it to the max-abs bound)."""
+    max_rel, l2 = (2.0 ** -7, 1e-2) if dtype == torch.bfloat16 else (
+        2.0 ** -7, 1e-3)
     diff = got.float() - ref.float()
-    tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
-    assert diff.abs().max().item() <= tol
-    assert diff.norm().item() <= (1e-2 * ref.float().norm().item()
-                                  + 1e-6 * diff.numel() ** 0.5)
+    return (diff.abs().max().item()
+            <= max_rel * ref.float().abs().max().item() + 8 * floor
+            and diff.norm().item() <= (l2 * ref.float().norm().item()
+                                       + floor * diff.numel() ** 0.5))
 
 
-@pytest.mark.parametrize("B,N", [(2, 257), (3, 37), (1, 1), (2, 512)])
-def test_attention_kernels_match_plain(cuda, B, N):
-    gen = torch.Generator(device=cuda).manual_seed(N)
-    q, k, v, do = (torch.randn((B, N, 12 * HD), generator=gen, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
-    scale = HD ** -0.5
-    o, lse = A.flat_attention_fwd(q, k, v, 12, scale)
-    o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, 12, scale)
+def _close_grads(o, grads, o_ref, refs, dtype, scale, hd, q, k, v, do):
+    """o, dq, dk, dv against their plain versions, with the floor on dq and
+    dk."""
+    floors = (0.0, _floor(scale, hd, do, v, k), _floor(scale, hd, do, v, q),
+              0.0)
+    for got, ref, floor in zip((o, *grads), (o_ref, *refs), floors):
+        assert got.dtype == ref.dtype == dtype
+        assert _within(got, ref, dtype, floor)
+
+
+def _randn(shape, gen, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# (B, N, H, hd): the ViT-B/14 shapes, N = 1, the top of the range (730 =
+# ViT-B/14 at 378^2, 768) and hd 16, on both sides of the host rule
+# (resident_pays in csrc/mma.cuh; an H100 has 132 SMs): grids of
+# B * H >= 66 are resident where the walked operand fits (bf16 forward:
+# where two blocks fit on an SM, N <= 336 at hd 64), the smaller ones
+# stream. (6, 640, 12, 64) runs a streamed bf16 forward and a resident
+# backward, (6, 300, 12, 64) is resident in both dtypes, and
+# (6, 730, 12, 64) streams throughout.
+SHAPES = [
+    (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
+    (6, 300, 12, 64), (6, 730, 12, 64),
+    (2, 257, 12, 64), (3, 37, 12, 64), (1, 1, 2, 64), (2, 512, 4, 64),
+    (2, 730, 4, 64), (1, 768, 4, 64), (2, 257, 2, 16), (1, 768, 2, 16),
+    (2, 100, 2, 16), (1, 37, 2, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,N,H,hd", SHAPES)
+def test_attention_kernels_match_plain(cuda, dtype, B, N, H, hd):
+    """K1/K2 (flat layout) against their plain versions."""
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(N + hd)
+    q, k, v, do = (_randn((B, N, H * hd), gen, dt) for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = A.flat_attention_fwd(q, k, v, H, scale)
+    o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, H, scale)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
-    grads = A.flat_attention_bwd(q, k, v, o, do, lse, 12, scale)
-    refs = A.flat_attention_bwd_plain(q, k, v, o, do, lse, 12, scale)
-    for got, ref in zip((o, *grads), (o_ref, *refs)):
-        _bf16_close(got, ref)
+    grads = A.flat_attention_bwd(q, k, v, o, do, lse, H, scale)
+    refs = A.flat_attention_bwd_plain(q, k, v, o, do, lse, H, scale)
+    _close_grads(o, grads, o_ref, refs, dt, scale, hd, q, k, v, do)
 
 
-def test_attention_kernels_read_strided_qkv(cuda):
+@pytest.mark.parametrize("B,N,H,hd", [(48, 257, 12, 64), (2, 257, 12, 64),
+                                      (16, 37, 12, 64)])
+def test_fp32_tolerance_rejects_bf16_inputs(cuda, B, N, H, hd):
+    """Control for the fp32 tolerance: the kernels fed fp32 inputs rounded
+    to bf16 (what a kernel computing in bf16 alone would see) fall outside
+    it against the plain version on the unrounded inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(N + hd)
+    q, k, v, do = (_randn((B, N, H * hd), gen, torch.float32)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    r = [x.to(torch.bfloat16).float() for x in (q, k, v, do)]
+    o_c, lse_c = A.flat_attention_fwd(*r[:3], H, scale)
+    got = (o_c, *A.flat_attention_bwd(*r[:3], o_c, r[3], lse_c, H, scale))
+    o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, H, scale)
+    refs = (o_ref,
+            *A.flat_attention_bwd_plain(q, k, v, o_ref, do, lse_ref, H, scale))
+    floors = (0.0, _floor(scale, hd, do, v, k), _floor(scale, hd, do, v, q),
+              0.0)
+    assert not all(_within(a, b, torch.float32, f)
+                   for a, b, f in zip(got, refs, floors))
+
+
+def _per_head(shape, layout, gen, dtype):
+    """A (B, H, N, hd) tensor: real ("bhnd"), or the transposed view of a
+    (B, N, H, hd) one ("bnhd", what vmem_attention hands the kernels)."""
+    B, N, H, hd = shape
+    if layout == "bhnd":
+        return _randn((B, H, N, hd), gen, dtype)
+    return _randn((B, N, H, hd), gen, dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
+@pytest.mark.parametrize("B,N,H,hd", [
+    (4, 257, 12, 64), (48, 257, 12, 64), (8, 37, 12, 64), (2, 730, 2, 64),
+    (2, 257, 2, 16), (2, 257, 2, 64),
+])
+def test_vmem_attention_kernels_match_plain(cuda, dtype, layout, B, N, H, hd):
+    """K4/K5 against their plain versions, in both layouts; the outputs
+    keep the inputs' layout."""
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(N + hd + B)
+    q, k, v, do = (_per_head((B, N, H, hd), layout, gen, dt)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = A.vmem_attention_fwd(q, k, v, scale)
+    assert o.stride() == q.stride()
+    o_ref, lse_ref = A.vmem_attention_fwd_plain(q, k, v, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+    grads = A.vmem_attention_bwd(q, k, v, o, do, lse, scale)
+    refs = A.vmem_attention_bwd_plain(q, k, v, o, do, lse, scale)
+    _close_grads(o, grads, o_ref, refs, dt, scale, hd, q, k, v, do)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_kernels_read_strided_qkv(cuda, dtype):
     """q/k/v as column slices of one fused (B, N, 3D) projection output."""
     B, N, D = 2, 257, 12 * HD
     gen = torch.Generator(device=cuda).manual_seed(7)
-    qkv = torch.randn((B, N, 3 * D), generator=gen, device=cuda).to(
-        torch.bfloat16)
+    qkv = _randn((B, N, 3 * D), gen, DTYPES[dtype])
     q, k, v = qkv.split(D, dim=-1)
     o, lse = A.flat_attention_fwd(q, k, v, 12, HD ** -0.5)
     o_ref, _ = A.flat_attention_fwd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), 12, HD ** -0.5)
     torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vmem_attention_kernels_read_non_contiguous_views(cuda, dtype):
+    """K4/K5 on views: q/k/v/do as slices of a fused (B, N, 4, H, hd) tensor
+    and of a (B, H, N, 2 hd) one give what their dense copies give."""
+    B, N, H, hd = 2, 257, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    fused = _randn((B, N, 4, H, hd), gen, DTYPES[dtype])
+    wide = _randn((B, H, N, 2 * hd), gen, DTYPES[dtype])
+    for views in ([fused[:, :, i].transpose(1, 2) for i in range(4)],
+                  [wide[..., :hd], wide[..., hd:], fused[:, :, 0].transpose(
+                      1, 2), fused[:, :, 1].transpose(1, 2)]):
+        q, k, v, do = views
+        dense = [x.contiguous() for x in views]
+        o, lse = A.vmem_attention_fwd(q, k, v, hd ** -0.5)
+        o_ref, lse_ref = A.vmem_attention_fwd(*dense[:3], hd ** -0.5)
+        torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
+        got = A.vmem_attention_bwd(q, k, v, o, do, lse, hd ** -0.5)
+        ref = A.vmem_attention_bwd(*dense[:3], o_ref, dense[3], lse_ref,
+                                   hd ** -0.5)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_autograd_through_kernels_matches_plain_attention(cuda):
@@ -88,6 +217,34 @@ def test_autograd_through_kernels_matches_plain_attention(cuda):
         assert (got.float() - ref).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vmem_attention_autograd_runs_the_kernels(cuda, dtype):
+    """vmem_attention (B, N, H, hd) forward and backward through K4/K5,
+    against plain fp32 softmax attention; the incoming gradient of
+    ``.sum()``, an expanded tensor, is made dense for the kernels."""
+    B, N, H, hd = 4, 257, 12, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn((B, N, H, hd), gen, DTYPES[dtype]).requires_grad_()
+               for _ in range(3))
+    co = _randn((B, N, H, hd), gen, DTYPES[dtype])
+    counters = (A.vmem_attention_fwd, A.vmem_attention_bwd,
+                A.flat_attention_fwd, A.flat_attention_bwd)
+    before = [c.launches for c in counters]
+    out = A.vmem_attention(q, k, v)
+    grads = torch.autograd.grad((out * co).sum(), (q, k, v))
+    torch.autograd.grad(A.vmem_attention(q, k, v).sum(), (q, k, v))
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 0, 0]
+    assert out.shape == (B, N, H, hd) and out.is_contiguous()
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref_out = torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (qf, kf, vf))).transpose(1, 2)
+    refs = torch.autograd.grad((ref_out * co.float()).sum(), (qf, kf, vf))
+    for got, ref in zip((out, *grads), (ref_out, *refs)):
+        # bf16 probabilities against fp32 ones: 2% of the largest value.
+        tol = 2e-2 * ref.abs().max().item()
+        assert (got.float() - ref).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("shape", [(768, 768), (257, 768), (7,), (65536, 256)])
 def test_fused_update_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(len(shape))
@@ -107,21 +264,47 @@ def test_fused_update_kernel_matches_plain(cuda, shape):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros((1, 600, 12 * HD), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        A.flat_attention_fwd(x, x, x, 12, 0.125)  # N > MAX_N
-    y = torch.zeros((1, 8, 12 * HD), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError):
-        A.flat_attention_fwd(y, y, y, 12, 0.125)  # fp32
+    def flat(N, D, dtype):
+        return torch.zeros((1, N, D), dtype=dtype, device=cuda)
+
+    x = flat(769, 12 * HD, torch.bfloat16)
+    with pytest.raises(ValueError, match="N <= 768"):
+        A.flat_attention_fwd(x, x, x, 12, 0.125)
+    x = flat(8, 12 * 32, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        A.flat_attention_fwd(x, x, x, 12, 0.125)  # hd 32
+    for dtype in (torch.float16, torch.float64):
+        x = flat(8, 12 * HD, dtype)
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            A.flat_attention_fwd(x, x, x, 12, 0.125)
+        y = x.view(1, 8, 12, HD).transpose(1, 2)
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            A.vmem_attention_fwd(y, y, y, 0.125)
+    x, y = flat(8, 12 * HD, torch.float32), flat(8, 12 * HD, torch.bfloat16)
+    with pytest.raises(ValueError, match="one dtype"):
+        A.flat_attention_fwd(x, y, y, 12, 0.125)
+    wide = flat(8, 12 * HD + 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flat_attention_fwd(wide[..., 1:], wide[..., 1:], wide[..., 1:], 12,
+                             0.125)
 
 
-def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda):
-    """Unmasked attention on CUDA tensors of a shape the kernels take
-    launches them or raises: fp32 raises instead of running plain."""
-    y = torch.zeros((2, 37, 12 * HD), dtype=torch.float32, device=cuda)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N", [37, 730])
+def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda, dtype, N,
+                                                             monkeypatch):
+    """Unmasked attention on CUDA tensors with N <= 768 launches the kernels,
+    in bf16 and fp32; fp16 raises instead of running plain, and so does
+    LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it to the plain
+    path."""
+    y = torch.zeros((2, N, 12 * HD), dtype=DTYPES[dtype], device=cuda)
     before = A.flat_attention_fwd.launches
-    with pytest.raises(ValueError, match="bf16"):
+    out = A.attention(y, y, y, 12)
+    assert A.flat_attention_fwd.launches == before + 1
+    assert out.dtype == y.dtype and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        A.attention(y.half(), y.half(), y.half(), 12)
+    monkeypatch.setenv("LIGHTLY_TRAIN_VMEM_ATTENTION", "0")
+    with pytest.raises(ValueError, match="no plain path"):
         A.attention(y, y, y, 12)
-    x = y.to(torch.bfloat16)
-    A.attention(x, x, x, 12)
     assert A.flat_attention_fwd.launches == before + 1
