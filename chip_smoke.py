@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
    layouts and dtypes at the ViT-B/14 shapes; K3 over the ViT-B/14 leaves.
    In fp32 a control checks the tolerance itself: the kernels fed inputs
-   rounded to bf16 must fail it.
+   rounded to bf16 must fail it. The SASS of the bf16 forward at hd 64
+   (``flat_attention_fwd_sm90.cu``) must hold wgmma (HGMMA) and cp.async
+   (LDGSTS) instructions.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks) included.
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero):
    and read just after: ``pretrain`` with DINOv2 on ViT-B/14 at batch 32 in
    bf16 (3) and in fp32 (3b) for 4 steps each on a folder of generated PPM
    images, checking finite losses, the launch counts, and the trained
-   backbone against an fp32 CPU reference on a small input; and (3c) the
+   backbone against an fp32 CPU reference on a small input, and that
+   every forward went to the library its dtype routes to; and (3c) the
    public ``vmem_attention`` op, the one path of K4/K5, forward and
    backward in both dtypes.
 
@@ -170,11 +173,12 @@ def torch_dtype(name: str):
 
 
 # kernel -> (wrapper, CUDA source, line of the TPU kernel it replaces in
-# lightly_train_tpu/ops/pallas/attention.py)
+# lightly_train_tpu/ops/pallas/attention.py); a forward's source (None) is
+# the one its dtype and head dim route to (attention.fwd_library).
 KERNELS = {
-    "K1": ("flat_attention_fwd", "flat_attention_fwd.cu", 241),
+    "K1": ("flat_attention_fwd", None, 241),
     "K2": ("flat_attention_bwd", "flat_attention_bwd.cu", 265),
-    "K4": ("vmem_attention_fwd", "flat_attention_fwd.cu", 69),
+    "K4": ("vmem_attention_fwd", None, 69),
     "K5": ("vmem_attention_bwd", "flat_attention_bwd.cu", 92),
 }
 
@@ -513,6 +517,7 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
                     A.vmem_attention_bwd)
         for fn in counters:
             fn.launches = 0
+        A.fwd_launches.update(dict.fromkeys(A.fwd_launches, 0))
         t0 = time.perf_counter()
         state = lt.pretrain(
             out=str(out), data=str(data), model="dinov2/vitb14",
@@ -523,6 +528,7 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = [fn.launches for fn in counters]
+        by_library = dict(A.fwd_launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         records = [json.loads(line) for line in
                    (out / "metrics.jsonl").read_text().splitlines()]
@@ -550,6 +556,14 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
               f"{wall:.1f} s")
         if launches != expected:
             fail(f"launch counts {launches} != {expected}")
+        # Every forward of the path at hd 64 in the run's dtype: bf16 on the
+        # wgmma kernel, fp32 on the mma.sync one.
+        route = A.fwd_library(torch_dtype(precision), HEAD_DIM)
+        print(f"  K1 launches by library: {by_library} (expected all "
+              f"{36 * STEPS} on {route})")
+        if by_library != {**dict.fromkeys(by_library, 0),
+                          route: 36 * STEPS}:
+            fail(f"forward launches by library {by_library}")
 
         # The trained backbone on a small input against an fp32 CPU
         # reference (plain attention): bf16 over 12 blocks keeps the CLS
@@ -576,7 +590,8 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
             fail(f"backbone disagrees with the CPU reference: {rel}")
         times = [r["profiling/step_time"] for r in steps]
         return {
-            "launches": launches, "n_leaves": n_leaves,
+            "launches": launches, "fwd_launches": by_library,
+            "n_leaves": n_leaves,
             "step_ms": [t * 1e3 for t in times],
             "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
             "peak_gib": peak_gib,
@@ -738,8 +753,14 @@ def main() -> int:
     for name in _native.LIBRARIES:
         log = (_native.BUILD_DIR / f"{name}.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}")
+    sass = _native.sass("flat_attention_fwd_sm90")
+    print(f"  flat_attention_fwd_sm90: {sass.count('HGMMA')} HGMMA and "
+          f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in its SASS",
+          flush=True)
+    if "HGMMA" not in sass or "LDGSTS" not in sass:
+        fail("flat_attention_fwd_sm90 is not built on wgmma and cp.async")
 
     print("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
@@ -770,7 +791,9 @@ def main() -> int:
             path_shapes = [list(GLOBAL), list(LOCAL)]
         kernels += [{
             "name": name, "route": "cuda",
-            "source": f"lightly_train_tpu_torch/csrc/{source}",
+            "source": "lightly_train_tpu_torch/csrc/" + (
+                source or A.fwd_library(torch_dtype(dtype), row["shape"][3])
+                + ".cu"),
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": launches if row["shape"] in path_shapes else 0,
             **row,

@@ -44,6 +44,10 @@ LIBRARIES: Dict[str, tuple] = {
         "lt_attention_fwd",
         [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
     ),
+    "flat_attention_fwd_sm90": (
+        "lt_attention_fwd_sm90",
+        [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
+    ),
     "flat_attention_bwd": (
         "lt_attention_bwd",
         [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
@@ -134,6 +138,17 @@ def function(name: str):
             fn.restype = ctypes.c_int
             _loaded[name] = fn
         return fn
+
+
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (``cuobjdump --dump-sass``), building it
+    first if needed."""
+    path = library_path(name)
+    if not path.exists():
+        build([name])
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def check(err: int, what: str) -> None:

@@ -295,7 +295,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int n_tiles = (N + 15) / 16;
   const int n_warps = min(kMaxWarps, n_tiles);
   const lt::Geom gq = lt::pick_geometry(N, static_cast<long>(B) * H, n_warps,
-                                        1, dq_smem<T, HD>);
+                                        dq_smem<T, HD>);
   const size_t smem_dq = dq_smem<T, HD>(gq.rows, n_warps);
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_dq_kernel<T, HD>,
@@ -314,7 +314,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
 
   const lt::Geom gk = lt::pick_geometry(N, static_cast<long>(B) * H, n_warps,
-                                        1, dkdv_smem<T, HD>);
+                                        dkdv_smem<T, HD>);
   const size_t smem_kv = dkdv_smem<T, HD>(gk.rows, n_warps);
   err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

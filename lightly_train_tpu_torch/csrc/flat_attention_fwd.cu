@@ -1,14 +1,15 @@
 // Multi-head self-attention, forward: K1 (flat layout) and K4 (per-head
-// layout), one kernel.
+// layout), one kernel, for fp32 q/k/v (hd 64 or 16) and bf16 at hd 16. bf16
+// at hd 64, the ViT's training path, is flat_attention_fwd_sm90.cu (wgmma).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
-// q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd)).
-// The two TPU kernels do the same arithmetic and differ only in how a head
-// is addressed, so each tensor here is read or written in place through
-// three strides: batch, token and head (the column stride is 1). The flat
-// layout and the API layout (B, N, H, hd) have head stride hd, the per-head
-// layout has head stride N * hd; no layout is copied or transposed. lse is
-// (B, H, N) fp32.
+// q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
+// on those routes. The two TPU kernels do the same arithmetic and differ
+// only in how a head is addressed, so each tensor here is read or written in
+// place through three strides: batch, token and head (the column stride is
+// 1). The flat layout and the API layout (B, N, H, hd) have head stride hd,
+// the per-head layout has head stride N * hd; no layout is copied or
+// transposed. lse is (B, H, N) fp32.
 //
 // Numerics are the TPU kernel's, not an online softmax: s = (q . k) * scale
 // in fp32, m = max over ALL keys, p = exp(s - m) rounded to bf16, l = sum of
@@ -16,10 +17,9 @@
 // found in a first pass over the keys and the probabilities in a second, so
 // q . k is computed twice, and every tile of a row uses the same max.
 //
-// Types: q/k/v bf16 or fp32 (o takes their type); head dim 16 or 64. The
-// products run on mma.sync m16n8k16 with fp32 accumulation; fp32 operands
-// go through it as bf16 hi/lo pairs (three products for q . k, two for
-// p . v; see mma.cuh), which keeps about 16 bits of each operand.
+// The products run on mma.sync m16n8k16 with fp32 accumulation; fp32
+// operands go through it as bf16 hi/lo pairs (three products for q . k, two
+// for p . v; see mma.cuh), which keeps about 16 bits of each operand.
 //
 // Design: each warp owns 16-query tiles; K and V pass through shared memory
 // in 16-row steps. The host picks one of two configurations per call (see
@@ -27,22 +27,18 @@
 //   resident: one block per (batch, head) stages the whole head's K and V
 //     once and its warps walk all query tiles; q, k, v and o each cross
 //     device memory once. It fits the 227 KB of shared memory a block has
-//     for bf16 hd 64 up to N = 736 (the ViT-B/14 shapes 257 and 37
-//     included), fp32 hd 64 up to N = 336.
+//     for fp32 hd 64 up to N = 336, and for bf16 hd 16 at every N <= 768.
 //   streamed: one block per (128 queries, head, batch); K (pass 1) and K
 //     and V (pass 2) stream through in kStreamRows-row tiles, re-read from
 //     L2 by every query block. It covers the rest of N <= 768, where one
-//     head's K and V no longer fit (bf16 at N = 768 needs 221 KB for them
-//     alone, fp32 past N ~ 340), grids too small to fill the card, and the
-//     bf16 forward where only one resident block fits on an SM (N > 336 at
-//     hd 64), where streaming measured as fast or faster.
-// What bounds it on the H100: at the ViT-B/14 global shape (B=64, N=257,
-// H=12, hd=64) in bf16 the 76 MB of q/k/v in and the 25 MB of o out need
-// ~30 us at 3.35 TB/s, the 2 x 2 x N^2 x hd x B x H = 13 GFLOP ~13 us at the
-// bf16 tensor peak, so device memory bounds it; in fp32 twice the bytes
-// (~60 us). mma.sync (not wgmma), the second q . k pass and 8 warps per
-// block keep it well short of that bound; wgmma, TMA and a warp-specialised
-// pipeline are later work.
+//     head's fp32 K and V no longer fit, and grids too small to fill the
+//     card.
+// What bounds it on the H100: in fp32 at the ViT-B/14 global shape (B=64,
+// N=257, H=12, hd=64) the 151 MB of q/k/v in and the 51 MB of o out need
+// ~60 us at 3.35 TB/s, the 2 x 2 x N^2 x hd x B x H = 13 GFLOP of necessary
+// products ~26 us at the TF32 tensor peak, so device memory bounds it.
+// mma.sync (not wgmma), the hi/lo products, the second q . k pass and 8
+// warps per block keep it short of that bound.
 #include "mma.cuh"
 
 namespace {
@@ -200,7 +196,6 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const int n_tiles = (N + 15) / 16;
   const int n_warps = min(kMaxWarps, n_tiles);
   const lt::Geom g = lt::pick_geometry(N, static_cast<long>(B) * H, n_warps,
-                                       sizeof(T) == 2 ? 2 : 1,
                                        fwd_smem<T, HD>);
   const size_t smem = fwd_smem<T, HD>(g.rows, n_warps);
   cudaError_t err = cudaFuncSetAttribute(
@@ -219,7 +214,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // strides: (batch, token, head) for q, k, v, o. fp32: 0 for bf16 tensors,
-// 1 for fp32 ones.
+// 1 for fp32 ones. bf16 at hd 64 is lt_attention_fwd_sm90's.
 extern "C" int lt_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int fp32, int B, int N,
                                 int H, int hd, const long* strides,
@@ -228,7 +223,7 @@ extern "C" int lt_attention_fwd(const void* q, const void* k, const void* v,
   if (N < 1) return cudaErrorInvalidValue;
 #define LT_FWD(T, HD) \
   launch<T, HD>(q, k, v, o, lse, B, N, H, strides, scale, s)
-  if (hd == 64) return fp32 ? LT_FWD(float, 64) : LT_FWD(bf16, 64);
+  if (hd == 64) return fp32 ? LT_FWD(float, 64) : cudaErrorInvalidValue;
   if (hd == 16) return fp32 ? LT_FWD(float, 16) : LT_FWD(bf16, 16);
 #undef LT_FWD
   return cudaErrorInvalidValue;

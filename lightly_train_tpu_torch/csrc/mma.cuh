@@ -98,10 +98,10 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Host side: which configuration the attention kernels launch. "Resident":
-// one block per (batch, head) stages the whole walked operand (K and V, or
-// Q and do) in shared memory once, and its warps walk every 16-row tile of
-// the head. "Streamed": blocks of kMaxWarps tiles walk the operand in
+// Host side: which configuration the mma.sync attention kernels launch.
+// "Resident": one block per (batch, head) stages the whole walked operand (K
+// and V, or Q and do) in shared memory once, and its warps walk every 16-row
+// tile of the head. "Streamed": blocks of kMaxWarps tiles walk the operand in
 // kStreamRows-row tiles, so a head's operand is read once per block (from
 // L2 after the first), and an fp32 one is split into hi/lo planes again in
 // every block.
@@ -109,29 +109,20 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 // an H100 80GB HBM3 at 700 W (PERF.md, findings): resident is faster wherever
 // it fits, from B * H = 96 up (B * H = 16 at hd 16 ran 2x faster streamed:
 // the resident grid leaves most SMs idle), in every backward and in the
-// fp32 forward; the bf16 forward gains only while two of its blocks fit on
-// an SM (N <= 336 at hd 64): with one block per SM streamed was faster by
-// 1-26% at six of eight points (N = 385 to 730, B * H = 192 to 768) and at
-// most 4% slower at the other two.
+// fp32 forward. The bf16 forward at hd 64 is flat_attention_fwd_sm90.cu,
+// which always streams.
 constexpr int kMaxWarps = 8;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
-constexpr int kSmemPerBlock = 1024;  // shared memory the card reserves
 constexpr int kStreamRows = 64;   // walked rows staged at once when streamed
 
-// Whether `blocks` resident blocks of `smem` bytes pay, `min_per_sm` of
-// them at once on an SM.
-inline bool resident_pays(size_t smem, long blocks, int min_per_sm) {
-  int dev = 0, sms = 0, sm_smem = 0;
+// Whether `blocks` resident blocks of `smem` bytes pay.
+inline bool resident_pays(size_t smem, long blocks) {
+  int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&sm_smem,
-                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                             dev) != cudaSuccess)
+          cudaSuccess)
     return false;
-  const size_t per_sm = static_cast<size_t>(sm_smem) / (smem + kSmemPerBlock);
-  return smem <= static_cast<size_t>(kMaxSmem) &&
-         per_sm >= static_cast<size_t>(min_per_sm) && 2 * blocks >= sms;
+  return smem <= static_cast<size_t>(kMaxSmem) && 2 * blocks >= sms;
 }
 
 // Launch geometry of one attention kernel.
@@ -142,13 +133,12 @@ struct Geom {
 };
 
 // Resident where it pays, else streamed. smem(rows, n_warps) is the
-// kernel's dynamic shared memory; min_per_sm as for resident_pays.
-inline Geom pick_geometry(int N, long blocks, int n_warps, int min_per_sm,
+// kernel's dynamic shared memory.
+inline Geom pick_geometry(int N, long blocks, int n_warps,
                           size_t (*smem)(int, int)) {
   const int n_pad = (N + 15) / 16 * 16;
   const int rows =
-      resident_pays(smem(n_pad, n_warps), blocks, min_per_sm) ? n_pad
-                                                              : kStreamRows;
+      resident_pays(smem(n_pad, n_warps), blocks) ? n_pad : kStreamRows;
   return Geom{N, n_pad, rows, rows >= n_pad ? n_pad / 16 : n_warps};
 }
 

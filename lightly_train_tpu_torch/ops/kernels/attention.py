@@ -1,9 +1,11 @@
 """Multi-head self-attention kernels: flat and per-head layouts.
 
-Port of ``lightly_train_tpu/ops/pallas/attention.py``. One CUDA forward
-(``csrc/flat_attention_fwd.cu``) and one CUDA backward
-(``csrc/flat_attention_bwd.cu``) serve all four TPU kernels, which do the
-same arithmetic and differ only in how a head is addressed:
+Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
+(``csrc/flat_attention_fwd_sm90.cu`` for bf16 at head dim 64, on Hopper's
+``wgmma``; ``csrc/flat_attention_fwd.cu`` for fp32 and head dim 16, see
+:func:`fwd_library`) and the CUDA backward (``csrc/flat_attention_bwd.cu``)
+serve all four TPU kernels, which do the same arithmetic and differ only in
+how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
   over flat ``(B, N, H * hd)`` projections, autograd :class:`FlatAttention`;
@@ -216,16 +218,38 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# Launches of each forward library (K1 and K4 together), so that a run can
+# show which kernel its forwards went through.
+fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0}
+
+
+def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
+    """The library whose forward kernel serves ``dtype`` at ``head_dim``:
+    ``flat_attention_fwd_sm90`` (wgmma) for bf16 at hd 64,
+    ``flat_attention_fwd`` (mma.sync) for fp32 and for hd 16. Raises for
+    what neither takes."""
+    if dtype not in DTYPES:
+        raise ValueError(f"the kernels take bf16 or fp32, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dim {HEAD_DIMS}, got "
+                         f"{head_dim}")
+    if dtype == torch.bfloat16 and head_dim == 64:
+        return "flat_attention_fwd_sm90"
+    return "flat_attention_fwd"
+
+
 def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
     shape, strides = _check_kernel_inputs(name, (q, k, v, o), num_heads)
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
-    err = _native.function("flat_attention_fwd")(
+    library = fwd_library(q.dtype, hd)
+    err = _native.function(library)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), int(q.dtype == torch.float32), B, N, H, hd,
         _c_strides(strides), float(scale), _stream(q),
     )
     _native.check(err, name)
+    fwd_launches[library] += 1
 
 
 def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,

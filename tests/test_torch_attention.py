@@ -17,6 +17,7 @@ from lightly_train_tpu.ops.pallas import attention as JA
 from lightly_train_tpu.ops.pallas.attention import (
     flat_attention as jax_flat_attention,
 )
+from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch.ops import kernels as port_kernels
 from lightly_train_tpu_torch.ops.kernels import attention as A
 
@@ -218,3 +219,26 @@ def test_kernel_support_range():
     assert not A.kernel_supports(0, 64)
     assert not A.kernel_supports(257, 32)
     assert not A.kernel_supports(257, 128)
+
+
+@pytest.mark.parametrize("dtype,head_dim,library", [
+    (torch.bfloat16, 64, "flat_attention_fwd_sm90"),
+    (torch.float32, 64, "flat_attention_fwd"),
+    (torch.bfloat16, 16, "flat_attention_fwd"),
+    (torch.float32, 16, "flat_attention_fwd"),
+])
+def test_forward_route(dtype, head_dim, library):
+    """bf16 at hd 64 runs the wgmma forward, fp32 and hd 16 the mma.sync
+    one; each route's library is one the port builds."""
+    assert A.fwd_library(dtype, head_dim) == library
+    assert library in A.fwd_launches
+    assert library in _native.LIBRARIES
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_forward_route_refuses_other_dtypes(dtype):
+    for head_dim in (16, 64):
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            A.fwd_library(dtype, head_dim)
+    with pytest.raises(ValueError, match="head dim"):
+        A.fwd_library(torch.bfloat16, 32)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch._optim import fused_update as F
 from lightly_train_tpu_torch.ops.kernels import attention as A
 
@@ -72,13 +73,13 @@ def _randn(shape, gen, dtype):
 
 
 # (B, N, H, hd): the ViT-B/14 shapes, N = 1, the top of the range (730 =
-# ViT-B/14 at 378^2, 768) and hd 16, on both sides of the host rule
-# (resident_pays in csrc/mma.cuh; an H100 has 132 SMs): grids of
-# B * H >= 66 are resident where the walked operand fits (bf16 forward:
-# where two blocks fit on an SM, N <= 336 at hd 64), the smaller ones
-# stream. (6, 640, 12, 64) runs a streamed bf16 forward and a resident
-# backward, (6, 300, 12, 64) is resident in both dtypes, and
-# (6, 730, 12, 64) streams throughout.
+# ViT-B/14 at 378^2, 768) and hd 16, on both sides of the host rule of the
+# mma.sync kernels (resident_pays in csrc/mma.cuh; an H100 has 132 SMs):
+# grids of B * H >= 66 are resident where the walked operand fits, the
+# smaller ones stream. (6, 640, 12, 64) runs a resident backward,
+# (6, 300, 12, 64) is resident in both dtypes, and (6, 730, 12, 64) streams
+# throughout. The bf16 forward at hd 64 is flat_attention_fwd_sm90.cu at
+# every shape.
 SHAPES = [
     (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
     (6, 300, 12, 64), (6, 730, 12, 64),
@@ -308,3 +309,59 @@ def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda, dtype, N,
     with pytest.raises(ValueError, match="no plain path"):
         A.attention(y, y, y, 12)
     assert A.flat_attention_fwd.launches == before + 1
+
+
+# (N, B, H) for the Hopper bf16 hd-64 forward: a single key tile (N <= 64,
+# S kept in registers), one past a tile, ragged tails of every wgmma width
+# (16, 32, 48, 64), the ViT-B/14 shapes (37, 257, 730) and the top of the
+# range; B * H from 2 to 768. 170 and 182 give the ring's last tile 48 and
+# 64 keys, after an odd number of query tiles (the last block's second
+# warpgroup has none).
+SM90_SHAPES = [
+    (1, 1, 2), (37, 64, 12), (63, 2, 3), (64, 4, 4), (65, 3, 5), (129, 2, 6),
+    (170, 2, 5), (182, 3, 2), (257, 64, 12), (577, 2, 4), (730, 16, 12),
+    (768, 1, 2),
+]
+
+
+def _bf16_inputs(layout, B, N, H, gen):
+    """q, k, v (bf16, hd 64) and the plain forward for ``layout``: "flat"
+    (column slices of one fused (B, N, 3 H hd) qkv output), "bnhd" (the
+    transposed views of (B, N, H, hd) tensors, as vmem_attention hands them
+    over) or "bhnd"."""
+    if layout == "flat":
+        qkv = _randn((B, N, 3 * H * HD), gen, torch.bfloat16)
+        q, k, v = qkv.split(H * HD, dim=-1)
+        return (q, k, v), (lambda *x: A.flat_attention_fwd(*x, H, HD ** -0.5),
+                           lambda *x: A.flat_attention_fwd_plain(
+                               *x, H, HD ** -0.5))
+    q, k, v = (_per_head((B, N, H, HD), layout, gen, torch.bfloat16)
+               for _ in range(3))
+    return (q, k, v), (lambda *x: A.vmem_attention_fwd(*x, HD ** -0.5),
+                       lambda *x: A.vmem_attention_fwd_plain(*x, HD ** -0.5))
+
+
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", SM90_SHAPES)
+def test_sm90_forward_matches_plain(cuda, monkeypatch, layout, N, B, H):
+    """bf16 at hd 64 runs flat_attention_fwd_sm90 (K1 and K4), within the
+    bf16 tolerances of the plain forward."""
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H)
+    qkv, (fwd, plain) = _bf16_inputs(layout, B, N, H, gen)
+    o, lse = fwd(*qkv)
+    o_ref, lse_ref = plain(*qkv)
+    assert asked == ["flat_attention_fwd_sm90"]
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
+    assert _within(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+
+
+def test_sm90_forward_library_runs_hgmma(cuda):
+    """The bf16 hd-64 forward is built on wgmma (HGMMA in its SASS) and
+    fills its K/V ring with asynchronous copies (LDGSTS, cp.async)."""
+    sass = _native.sass("flat_attention_fwd_sm90")
+    assert "HGMMA" in sass and "LDGSTS" in sass
