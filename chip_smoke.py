@@ -16,9 +16,10 @@ Phases (any failure exits non-zero):
    378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
    layouts and dtypes at the ViT-B/14 shapes; K3 over the ViT-B/14 leaves.
    In fp32 a control checks the tolerance itself: the kernels fed inputs
-   rounded to bf16 must fail it. The SASS of the bf16 forward at hd 64
-   (``flat_attention_fwd_sm90.cu``) must hold wgmma (HGMMA) and cp.async
-   (LDGSTS) instructions.
+   rounded to bf16 must fail it. The SASS of the bf16 forward and backward
+   at hd 64 (``flat_attention_fwd_sm90.cu``, ``flat_attention_bwd_sm90.cu``)
+   must hold wgmma (HGMMA) and cp.async (LDGSTS) instructions, and their
+   build logs no ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks) included.
@@ -27,9 +28,9 @@ Phases (any failure exits non-zero):
    bf16 (3) and in fp32 (3b) for 4 steps each on a folder of generated PPM
    images, checking finite losses, the launch counts, and the trained
    backbone against an fp32 CPU reference on a small input, and that
-   every forward went to the library its dtype routes to; and (3c) the
-   public ``vmem_attention`` op, the one path of K4/K5, forward and
-   backward in both dtypes.
+   every forward and backward went to the library its dtype routes to; and
+   (3c) the public ``vmem_attention`` op, the one path of K4/K5, forward
+   and backward in both dtypes.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
@@ -172,15 +173,19 @@ def torch_dtype(name: str):
     return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
 
 
-# kernel -> (wrapper, CUDA source, line of the TPU kernel it replaces in
-# lightly_train_tpu/ops/pallas/attention.py); a forward's source (None) is
-# the one its dtype and head dim route to (attention.fwd_library).
+# kernel -> (wrapper, direction, line of the TPU kernel it replaces in
+# lightly_train_tpu/ops/pallas/attention.py); the CUDA source is the one
+# the dtype and head dim route to (attention.fwd_library, bwd_library).
 KERNELS = {
-    "K1": ("flat_attention_fwd", None, 241),
-    "K2": ("flat_attention_bwd", "flat_attention_bwd.cu", 265),
-    "K4": ("vmem_attention_fwd", None, 69),
-    "K5": ("vmem_attention_bwd", "flat_attention_bwd.cu", 92),
+    "K1": ("flat_attention_fwd", "fwd", 241),
+    "K2": ("flat_attention_bwd", "bwd", 265),
+    "K4": ("vmem_attention_fwd", "fwd", 69),
+    "K5": ("vmem_attention_bwd", "bwd", 92),
 }
+# The Hopper (wgmma) libraries, and ptxas's warnings that it serialized
+# their wgmma products (C7510-C7519).
+SM90_LIBRARIES = ("flat_attention_fwd_sm90", "flat_attention_bwd_sm90")
+SERIALIZED = tuple(f"C751{i}" for i in range(10))
 
 
 def cancel_floor(scale: float, hd: int, do, v, other) -> float:
@@ -517,7 +522,8 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
                     A.vmem_attention_bwd)
         for fn in counters:
             fn.launches = 0
-        A.fwd_launches.update(dict.fromkeys(A.fwd_launches, 0))
+        for by_lib in (A.fwd_launches, A.bwd_launches):
+            by_lib.update(dict.fromkeys(by_lib, 0))
         t0 = time.perf_counter()
         state = lt.pretrain(
             out=str(out), data=str(data), model="dinov2/vitb14",
@@ -528,7 +534,8 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = [fn.launches for fn in counters]
-        by_library = dict(A.fwd_launches)
+        by_library = {"fwd": dict(A.fwd_launches),
+                      "bwd": dict(A.bwd_launches)}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         records = [json.loads(line) for line in
                    (out / "metrics.jsonl").read_text().splitlines()]
@@ -556,14 +563,11 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
               f"{wall:.1f} s")
         if launches != expected:
             fail(f"launch counts {launches} != {expected}")
-        # Every forward of the path at hd 64 in the run's dtype: bf16 on the
-        # wgmma kernel, fp32 on the mma.sync one.
-        route = A.fwd_library(torch_dtype(precision), HEAD_DIM)
-        print(f"  K1 launches by library: {by_library} (expected all "
-              f"{36 * STEPS} on {route})")
-        if by_library != {**dict.fromkeys(by_library, 0),
-                          route: 36 * STEPS}:
-            fail(f"forward launches by library {by_library}")
+        # Every forward and backward of the path at hd 64 in the run's
+        # dtype: bf16 on the wgmma kernels, fp32 on the mma.sync ones.
+        check_routes(A, f"{precision} main path", by_library,
+                     torch_dtype(precision),
+                     {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
 
         # The trained backbone on a small input against an fp32 CPU
         # reference (plain attention): bf16 over 12 blocks keeps the CLS
@@ -590,12 +594,25 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
             fail(f"backbone disagrees with the CPU reference: {rel}")
         times = [r["profiling/step_time"] for r in steps]
         return {
-            "launches": launches, "fwd_launches": by_library,
+            "launches": launches, "launches_by_library": by_library,
             "n_leaves": n_leaves,
             "step_ms": [t * 1e3 for t in times],
             "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
             "peak_gib": peak_gib,
         }
+
+
+def check_routes(A, tag: str, by_library: dict, dtype, expected: dict):
+    """Fails unless every launch counted in ``by_library`` ({"fwd": {library:
+    n}, "bwd": ...}) went to the library ``dtype`` routes to at hd 64, with
+    ``expected[direction]`` launches."""
+    for direction, n in expected.items():
+        route = getattr(A, f"{direction}_library")(dtype, HEAD_DIM)
+        got = by_library[direction]
+        print(f"  {tag}: {direction} launches by library {got} (expected "
+              f"all {n} on {route})")
+        if got != {**dict.fromkeys(got, 0), route: n}:
+            fail(f"{tag}: {direction} launches by library {got}")
 
 
 def run_vmem_path(A, card: str, dtype: str) -> dict:
@@ -622,6 +639,8 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
                 A.flat_attention_fwd, A.flat_attention_bwd)
     for fn in counters:
         fn.launches = 0
+    for by_lib in (A.fwd_launches, A.bwd_launches):
+        by_lib.update(dict.fromkeys(by_lib, 0))
     t0 = time.perf_counter()
     out_api = vmem_attention(*api[:3])
     grads_api = torch.autograd.grad((out_api * api[3]).sum(), api[:3])
@@ -635,6 +654,9 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
           f"{wall_ms:.1f} ms for both calls with their backward [{card}]")
     if launches != [2, 2, 0, 0]:
         fail(f"vmem_attention path launches {launches}")
+    check_routes(A, f"vmem_attention {dtype}",
+                 {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)},
+                 torch_dtype(dtype), {"fwd": 2, "bwd": 2})
     scale = hd ** -0.5
     for layout, (q, k, v, co), out, grads in (
             ("bnhd", [x.transpose(1, 2) for x in api],
@@ -755,12 +777,15 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}")
-    sass = _native.sass("flat_attention_fwd_sm90")
-    print(f"  flat_attention_fwd_sm90: {sass.count('HGMMA')} HGMMA and "
-          f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in its SASS",
-          flush=True)
-    if "HGMMA" not in sass or "LDGSTS" not in sass:
-        fail("flat_attention_fwd_sm90 is not built on wgmma and cp.async")
+        if name in SM90_LIBRARIES and any(w in log for w in SERIALIZED):
+            fail(f"ptxas serialized the wgmma products of {name}")
+    for name in SM90_LIBRARIES:
+        sass = _native.sass(name)
+        print(f"  {name}: {sass.count('HGMMA')} HGMMA and "
+              f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in its "
+              "SASS", flush=True)
+        if "HGMMA" not in sass or "LDGSTS" not in sass:
+            fail(f"{name} is not built on wgmma and cp.async")
 
     print("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
@@ -783,7 +808,8 @@ def main() -> int:
     # K4/K5: phase 3c, at the global shape), 0 for shapes no path runs.
     kernels = []
     for (kernel, dtype), rows in attn.items():
-        name, source, line = KERNELS[kernel]
+        name, direction, line = KERNELS[kernel]
+        route = getattr(A, f"{direction}_library")
         if kernel in ("K4", "K5"):
             launches, path_shapes = vmem[dtype][kernel], [list(GLOBAL)]
         else:
@@ -791,9 +817,8 @@ def main() -> int:
             path_shapes = [list(GLOBAL), list(LOCAL)]
         kernels += [{
             "name": name, "route": "cuda",
-            "source": "lightly_train_tpu_torch/csrc/" + (
-                source or A.fwd_library(torch_dtype(dtype), row["shape"][3])
-                + ".cu"),
+            "source": "lightly_train_tpu_torch/csrc/"
+            + route(torch_dtype(dtype), row["shape"][3]) + ".cu",
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": launches if row["shape"] in path_shapes else 0,
             **row,

@@ -1,10 +1,12 @@
 // Multi-head self-attention, backward: K2 (flat layout) and K5 (per-head
-// layout), as two kernels.
+// layout), as two kernels, for fp32 q/k/v (hd 64 or 16) and bf16 at hd 16.
+// bf16 at hd 64, the ViT's training path, is flat_attention_bwd_sm90.cu
+// (wgmma).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
-// and ::_bwd_kernel (K5). Same layouts, strides, types and head dims as the
-// forward (flat_attention_fwd.cu); lse is the forward's (B, H, N) fp32
-// log-sum-exp. The TPU kernel's numerics:
+// and ::_bwd_kernel (K5) on those routes. Same layouts, strides, types and
+// head dims as the forward (flat_attention_fwd.cu); lse is the forward's
+// (B, H, N) fp32 log-sum-exp. The TPU kernel's numerics:
 //   p  = exp(s - lse)                   (fp32, s = (q . k) * scale)
 //   dv = bf16(p)^T . bf16(do)           dp = bf16(do) . v^T
 //   delta = rowsum(do * o)              (fp32, from the unrounded inputs)
@@ -27,16 +29,16 @@
 // s and p are recomputed in both (the scores are never stored). As in the
 // forward, the host picks per kernel and call whether the walked operands
 // are resident (one block per (batch, head), staged once; it fits in the
-// 227 KB of shared memory for bf16 hd 64 up to N = 672 for dq and 656 for
-// dk/dv, fp32 hd 64 up to N = 304 and 352) or streamed in kStreamRows-row
+// 227 KB of shared memory for fp32 hd 64 up to N = 304 for dq and 352 for
+// dk/dv, for bf16 hd 16 at every N <= 768) or streamed in kStreamRows-row
 // tiles by blocks of 128 rows (the rest of N <= 768, and small grids); the
 // rule is resident_pays in mma.cuh.
-// What bounds it on the H100: at the ViT-B/14 global shape in bf16 202 MB
-// move (q, k, v, o, do in; dq, dk, dv out), ~60 us at 3.35 TB/s, against
-// 32.5 GFLOP of necessary products (~33 us at the bf16 tensor peak), so
-// device memory bounds it (fp32: twice the bytes); the design reads q, k, v
-// and do twice and computes q . k and do . v twice (45.5 GFLOP) to avoid
-// any cross-block reduction.
+// What bounds it on the H100: at the ViT-B/14 global shape in fp32 404 MB
+// move (q, k, v, o, do in; dq, dk, dv out), ~121 us at 3.35 TB/s, against
+// 32.5 GFLOP of necessary products (~66 us at the TF32 tensor peak), so
+// device memory bounds it; the design reads q, k, v and do twice and
+// computes q . k and do . v twice (45.5 GFLOP) to avoid any cross-block
+// reduction.
 #include "mma.cuh"
 
 namespace {
@@ -335,7 +337,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. fp32: 0 for
 // bf16 tensors, 1 for fp32 ones. The dq kernel also writes delta (B, H, N)
-// fp32 for the dk/dv kernel.
+// fp32 for the dk/dv kernel. bf16 at hd 64 is lt_attention_bwd_sm90's.
 extern "C" int lt_attention_bwd(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* dq, void* dk, void* dv,
@@ -347,7 +349,7 @@ extern "C" int lt_attention_bwd(const void* q, const void* k, const void* v,
 #define LT_BWD(T, HD)                                                      \
   launch<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, N, H, strides, \
                 scale, s)
-  if (hd == 64) return fp32 ? LT_BWD(float, 64) : LT_BWD(bf16, 64);
+  if (hd == 64) return fp32 ? LT_BWD(float, 64) : cudaErrorInvalidValue;
   if (hd == 16) return fp32 ? LT_BWD(float, 16) : LT_BWD(bf16, 16);
 #undef LT_BWD
   return cudaErrorInvalidValue;

@@ -47,232 +47,15 @@
 // Each warpgroup still alternates products and softmax between block
 // barriers, and q . k runs twice; PERF.md has the measurements. Later work:
 // TMA loads from a warp-specialised producer.
-#include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using lt::bf16;
+using namespace lt::sm90;
 
-constexpr int kRows = 64;          // queries per warpgroup, keys per tile
-constexpr int kRowBytes = 128;     // one bf16 row of hd 64: a swizzle atom
-constexpr int kTileBytes = kRows * kRowBytes;
-constexpr int kAhead = 4;          // K/V loads in flight ahead of a step
+constexpr int kAhead = 4;           // K/V loads in flight ahead of a step
 constexpr int kSlots = kAhead + 1;  // ring slots, each a K and a V tile
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Makes this thread's shared-memory writes visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from touching accumulators before a wait.
-template <int R>
-__device__ __forceinline__ void fence_registers(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle; byte offsets.
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// A K-major operand (Q, or K as the B of Q . K^T) at step kk of hd: rows
-// 128 bytes apart, 8-row groups 1024 apart, 16 columns = 32 bytes a step.
-__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
-  return descriptor(tile + 32 * kk, 16, 1024);
-}
-
-// V as the MN-major B of P . V at step kk of the keys: 16 rows = 2048 bytes
-// a step; hd 64 is a single swizzle atom wide, so only the 1024-byte stride
-// between 8-key groups is read.
-__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
-  return descriptor(tile + 2048 * kk, 1024, 1024);
-}
-
-// One k16 step of d (64 x NK) += A . B^T, both from shared memory;
-// accumulate = 0 overwrites d.
-template <int NK>
-__device__ void wgmma_ss(float (&d)[NK / 2], uint64_t a, uint64_t b,
-                         int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "%24, %25, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// One k16 step of d (64 x 64) += A . B, A from registers, B MN-major.
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
-// Rows [row0, row0 + 64) of one head into a swizzled tile, by the block's
-// kThreads threads, the same number of copies each (no branch, so the
-// products in flight around it stay asynchronous); rows at or past N are
-// zero-filled without a read.
-template <int kThreads>
-__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* head,
-                                          long row_stride, int row0, int N,
-                                          int tid) {
-#pragma unroll
-  for (int n = 0; n < kRows * 8 / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i >> 3, c = i & 7;
-    const bool valid = row0 + r < N;
-    const bf16* src = valid ? head + (row0 + r) * row_stride + c * 8 : head;
-    cp_async16(tile + r * kRowBytes + ((c ^ (r & 7)) << 4), src, valid);
-  }
-}
-
-// The first NK / 2 accumulators of a 64-key tile's 32.
-template <int NK>
-__device__ __forceinline__ float (&first(float (&s)[32]))[NK / 2] {
-  return *reinterpret_cast<float(*)[NK / 2]>(&s);
-}
-
-// Issues S (64 x NK, this thread's part) = Q . K[0 : NK]^T.
-template <int NK>
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sQ,
-                                             uint32_t sK) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sQ, kk), k_major(sK, kk), kk > 0);
-}
-
-// Issues o += P . V[0 : NK], P in registers.
-template <int NK>
-__device__ __forceinline__ void issue_pv(float (&o)[32],
-                                         const uint32_t (&a)[4][4],
-                                         uint32_t sV) {
-#pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs_tb(o, a[kk], mn_major(sV, kk));
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x (MUFU.EX2, as __expf uses it) with subnormal results flushed to 0:
-// p below 2^-126 is nothing beside the row's largest p = 1.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Running maxima of this thread's rows g (m0) and g + 8 (m1) over the
 // scaled scores of keys kv0 + [0, NK); with kMask keys at or past N are
@@ -376,16 +159,6 @@ __device__ __forceinline__ void output_step(float (&s)[32], float (&o)[32],
   fence_registers(o);
   fence_registers(s);
 }
-
-// Calls CALL(W) with W the width of the last key tile (16, 32, 48 or 64)
-// for w16 = 1..4 of its 16-key steps.
-#define LT_BY_TAIL(w16, CALL) \
-  switch (w16) {              \
-    case 1: CALL(16); break;  \
-    case 2: CALL(32); break;  \
-    case 3: CALL(48); break;  \
-    default: CALL(64);        \
-  }
 
 // kOneTile: N <= 64, one key tile and one warpgroup, in an instantiation of
 // its own (as a branch beside the ring's path it measured slower); else two
@@ -566,8 +339,6 @@ __global__ void __launch_bounds__(kOneTile ? 128 : 256, 1)
     if (r1 < N) lh[r1] = m1 + logf(l1);
   }
 }
-
-#undef LT_BY_TAIL
 
 }  // namespace
 

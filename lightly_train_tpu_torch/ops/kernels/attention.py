@@ -1,11 +1,12 @@
 """Multi-head self-attention kernels: flat and per-head layouts.
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
-(``csrc/flat_attention_fwd_sm90.cu`` for bf16 at head dim 64, on Hopper's
-``wgmma``; ``csrc/flat_attention_fwd.cu`` for fp32 and head dim 16, see
-:func:`fwd_library`) and the CUDA backward (``csrc/flat_attention_bwd.cu``)
-serve all four TPU kernels, which do the same arithmetic and differ only in
-how a head is addressed:
+and backward serve all four TPU kernels, bf16 at head dim 64 on Hopper's
+``wgmma`` (``csrc/flat_attention_fwd_sm90.cu``,
+``csrc/flat_attention_bwd_sm90.cu``), fp32 and head dim 16 on ``mma.sync``
+(``csrc/flat_attention_fwd.cu``, ``csrc/flat_attention_bwd.cu``; see
+:func:`fwd_library` and :func:`bwd_library`). The four TPU kernels do the
+same arithmetic and differ only in how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
   over flat ``(B, N, H * hd)`` projections, autograd :class:`FlatAttention`;
@@ -218,24 +219,37 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-# Launches of each forward library (K1 and K4 together), so that a run can
-# show which kernel its forwards went through.
+# Launches of each forward and backward library (K1 and K4, K2 and K5
+# together), so that a run can show which kernels it went through.
 fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0}
+bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0}
 
 
-def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
-    """The library whose forward kernel serves ``dtype`` at ``head_dim``:
-    ``flat_attention_fwd_sm90`` (wgmma) for bf16 at hd 64,
-    ``flat_attention_fwd`` (mma.sync) for fp32 and for hd 16. Raises for
-    what neither takes."""
+def _library(stem: str, dtype: torch.dtype, head_dim: int) -> str:
+    """``stem + "_sm90"`` (wgmma) for bf16 at hd 64, ``stem`` (mma.sync)
+    for fp32 and for hd 16. Raises for what neither takes."""
     if dtype not in DTYPES:
         raise ValueError(f"the kernels take bf16 or fp32, got {dtype}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the kernels take head dim {HEAD_DIMS}, got "
                          f"{head_dim}")
     if dtype == torch.bfloat16 and head_dim == 64:
-        return "flat_attention_fwd_sm90"
-    return "flat_attention_fwd"
+        return stem + "_sm90"
+    return stem
+
+
+def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
+    """The library whose forward kernel serves ``dtype`` at ``head_dim``:
+    ``flat_attention_fwd_sm90`` for bf16 at hd 64, ``flat_attention_fwd``
+    for fp32 and for hd 16."""
+    return _library("flat_attention_fwd", dtype, head_dim)
+
+
+def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
+    """The library whose backward kernels serve ``dtype`` at ``head_dim``:
+    ``flat_attention_bwd_sm90`` for bf16 at hd 64, ``flat_attention_bwd``
+    for fp32 and for hd 16."""
+    return _library("flat_attention_bwd", dtype, head_dim)
 
 
 def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
@@ -258,14 +272,16 @@ def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
         name, (q, k, v, o, do, dq, dk, dv), num_heads)
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
+    library = bwd_library(q.dtype, hd)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    err = _native.function("flat_attention_bwd")(
+    err = _native.function(library)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), int(q.dtype == torch.float32),
         B, N, H, hd, _c_strides(strides), float(scale), _stream(q),
     )
     _native.check(err, name)
+    bwd_launches[library] += 1
 
 
 def _readable_grad(do: torch.Tensor, num_heads: Optional[int]):
@@ -304,7 +320,7 @@ def flat_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, num_heads: int, scale: float,
 ) -> Tensors3:
-    """K2: (dq, dk, dv). Launches the two CUDA kernels for CUDA tensors (or
+    """K2: (dq, dk, dv). Launches the CUDA kernels for CUDA tensors (or
     raises), runs the plain version for CPU tensors. One call counts as one
     launch of K2."""
     if q.device.type == "cpu":
@@ -380,8 +396,8 @@ def vmem_attention_bwd(
     do: torch.Tensor, lse: torch.Tensor, scale: float,
 ) -> Tensors3:
     """K5 over (B, H, N, hd): (dq, dk, dv), each in its input's layout.
-    Launches the two CUDA kernels for CUDA tensors (or raises), runs the
-    plain version for CPU tensors. One call counts as one launch of K5."""
+    Launches the CUDA kernels for CUDA tensors (or raises), runs the plain
+    version for CPU tensors. One call counts as one launch of K5."""
     if q.device.type == "cpu":
         return vmem_attention_bwd_plain(q, k, v, o, do, lse, scale)
     grads = tuple(torch.empty_like(x) for x in (q, k, v))

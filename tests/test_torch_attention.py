@@ -32,27 +32,39 @@ def _inputs(B, N, seed):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("B,N", [(1, 37), (1, 50), (1, 257), (2, 17),
-                                 (1, 730), (1, 768)])
-def test_plain_matches_pallas_interpret(B, N):
+@pytest.mark.parametrize("B,N,dtype", [
+    *(pytest.param(B, N, "fp32", id=f"{B}-{N}") for B, N in
+      [(1, 37), (1, 50), (1, 257), (2, 17), (1, 730), (1, 768)]),
+    # bf16: what the Hopper wgmma kernels serve at hd 64, and what the card
+    # tests hold them against (the ViT-B/14 shapes and N = 730).
+    *(pytest.param(1, N, "bf16", id=f"bf16-1-{N}") for N in (37, 257, 730)),
+])
+def test_plain_matches_pallas_interpret(B, N, dtype):
+    jdt, tdt = DTYPES[dtype]
     q, k, v, co = _inputs(B, N, seed=N)
     out_j, vjp = jax.vjp(
         lambda a, b, c: jax_flat_attention(a, b, c, H, interpret=True),
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        *(jnp.asarray(x, jdt) for x in (q, k, v)),
     )
-    grads_j = vjp(jnp.asarray(co))
+    grads_j = vjp(jnp.asarray(co, jdt))
 
-    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    qt, kt, vt = (torch.tensor(x).to(tdt).requires_grad_() for x in (q, k, v))
     out_t = A.flat_attention(qt, kt, vt, H)
-    out_t.backward(torch.tensor(co))
+    out_t.backward(torch.tensor(co).to(tdt))
 
     # Both round p (and ds) to bf16 at the same places; the fp32 sums are
     # taken in other orders, so a value near a bf16 rounding boundary can
-    # round the other way: a few bf16 ulps (2^-8 relative) of slack.
-    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+    # round the other way: a few bf16 ulps (2^-8 relative) of slack. bf16
+    # outputs are rounded to bf16 on both sides as well, which the same
+    # bounds cover (one bf16 ulp is 2^-8 of the value).
+    assert out_t.dtype == tdt and all(
+        x.grad.dtype == tdt for x in (qt, kt, vt))
+    np.testing.assert_allclose(out_t.detach().float().numpy(),
+                               np.asarray(out_j, np.float32),
                                rtol=1e-2, atol=1e-2)
     for got, ref in zip((qt.grad, kt.grad, vt.grad), grads_j):
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, np.float32),
                                    rtol=2e-2, atol=2e-2)
 
 
@@ -242,3 +254,26 @@ def test_forward_route_refuses_other_dtypes(dtype):
             A.fwd_library(dtype, head_dim)
     with pytest.raises(ValueError, match="head dim"):
         A.fwd_library(torch.bfloat16, 32)
+
+
+@pytest.mark.parametrize("dtype,head_dim,library", [
+    (torch.bfloat16, 64, "flat_attention_bwd_sm90"),
+    (torch.float32, 64, "flat_attention_bwd"),
+    (torch.bfloat16, 16, "flat_attention_bwd"),
+    (torch.float32, 16, "flat_attention_bwd"),
+])
+def test_backward_route(dtype, head_dim, library):
+    """bf16 at hd 64 runs the wgmma backward, fp32 and hd 16 the mma.sync
+    one; each route's library is one the port builds."""
+    assert A.bwd_library(dtype, head_dim) == library
+    assert library in A.bwd_launches
+    assert library in _native.LIBRARIES
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_backward_route_refuses_other_dtypes(dtype):
+    for head_dim in (16, 64):
+        with pytest.raises(ValueError, match="bf16 or fp32"):
+            A.bwd_library(dtype, head_dim)
+    with pytest.raises(ValueError, match="head dim"):
+        A.bwd_library(torch.bfloat16, 32)

@@ -365,3 +365,67 @@ def test_sm90_forward_library_runs_hgmma(cuda):
     fills its K/V ring with asynchronous copies (LDGSTS, cp.async)."""
     sass = _native.sass("flat_attention_fwd_sm90")
     assert "HGMMA" in sass and "LDGSTS" in sass
+
+
+# (N, B, H) for the Hopper bf16 hd-64 backward: one tile (N <= 64, the
+# one-kernel form) at every last-tile width (15, 16, 37, 63, 64), one past a
+# tile, ragged and whole tiles of the streamed form (65, 127, 128, 257, 512,
+# 730, 768), the ViT-B/14 shapes (37, 257, 730) and the top of the range;
+# B * H from 2 to 768. 65, 257 and 768 give an odd number of tiles (the
+# last block's second warpgroup has none).
+SM90_BWD_SHAPES = [
+    (1, 1, 2), (15, 4, 3), (16, 2, 4), (37, 64, 12), (63, 2, 3), (64, 4, 4),
+    (65, 3, 5), (127, 2, 6), (128, 5, 2), (257, 64, 12), (512, 2, 4),
+    (730, 16, 12), (768, 1, 2),
+]
+
+
+def _bf16_backward(layout, B, N, H, gen):
+    """q, k, v, do (bf16, hd 64) in ``layout`` (as _bf16_inputs; do a
+    tensor of q's layout), and the forward, backward and plain backward."""
+    (q, k, v), (fwd, _) = _bf16_inputs(layout, B, N, H, gen)
+    scale = HD ** -0.5
+    if layout == "flat":
+        do = _randn((B, N, H * HD), gen, torch.bfloat16)
+        return (q, k, v, do), (
+            fwd, lambda *x: A.flat_attention_bwd(*x, H, scale),
+            lambda *x: A.flat_attention_bwd_plain(*x, H, scale))
+    do = _per_head((B, N, H, HD), layout, gen, torch.bfloat16)
+    return (q, k, v, do), (
+        fwd, lambda *x: A.vmem_attention_bwd(*x, scale),
+        lambda *x: A.vmem_attention_bwd_plain(*x, scale))
+
+
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", SM90_BWD_SHAPES)
+def test_sm90_backward_matches_plain(cuda, monkeypatch, layout, N, B, H):
+    """bf16 at hd 64 runs flat_attention_bwd_sm90 (K2 and K5), within the
+    bf16 tolerances of the plain backward; the gradients keep the inputs'
+    layout."""
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 1)
+    (q, k, v, do), (fwd, bwd, plain) = _bf16_backward(layout, B, N, H, gen)
+    o, lse = fwd(q, k, v)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    before = A.bwd_launches["flat_attention_bwd_sm90"]
+    grads = bwd(q, k, v, o, do, lse)
+    refs = plain(q, k, v, o, do, lse)
+    assert asked == ["flat_attention_bwd_sm90"]
+    assert A.bwd_launches["flat_attention_bwd_sm90"] == before + 1
+    scale = HD ** -0.5
+    floors = (_floor(scale, HD, do, v, k), _floor(scale, HD, do, v, q), 0.0)
+    for got, ref, x, floor in zip(grads, refs, (q, k, v), floors):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        if layout != "flat":
+            assert got.stride() == x.stride()
+        assert torch.isfinite(got).all()
+        assert _within(got, ref, torch.bfloat16, floor)
+
+
+def test_sm90_backward_library_runs_hgmma(cuda):
+    """The bf16 hd-64 backward is built on wgmma (HGMMA in its SASS) and
+    fills its rings with asynchronous copies (LDGSTS, cp.async)."""
+    sass = _native.sass("flat_attention_bwd_sm90")
+    assert "HGMMA" in sass and "LDGSTS" in sass
