@@ -16,10 +16,13 @@ Phases (any failure exits non-zero):
    378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
    layouts and dtypes at the ViT-B/14 shapes; K3 over the ViT-B/14 leaves.
    In fp32 a control checks the tolerance itself: the kernels fed inputs
-   rounded to bf16 must fail it. The SASS of the bf16 forward and backward
-   at hd 64 (``flat_attention_fwd_sm90.cu``, ``flat_attention_bwd_sm90.cu``)
-   must hold wgmma (HGMMA) and cp.async (LDGSTS) instructions, and their
-   build logs no ptxas warning that it serialized the wgmma products.
+   rounded to bf16 must fail it. The SASS of the Hopper kernels at hd 64
+   must hold wgmma (HGMMA) instructions, and that of the two that fill
+   their rings with cp.async (the bf16 forward and backward,
+   ``flat_attention_fwd_sm90.cu`` and ``flat_attention_bwd_sm90.cu``)
+   LDGSTS too (the fp32 forward, ``flat_attention_fwd_f32_sm90.cu``, loads
+   with ld.global and splits in registers); their build logs must hold no
+   ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks) included.
@@ -36,8 +39,8 @@ The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
 
 ``--profile`` adds a phase 4: a ``torch.profiler`` window over a few
-training steps, printing the device's busy share and the kernels that take
-the most device time.
+training steps in each precision, printing the device's busy share and the
+kernels that take the most device time.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 results, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -182,9 +185,15 @@ KERNELS = {
     "K4": ("vmem_attention_fwd", "fwd", 69),
     "K5": ("vmem_attention_bwd", "bwd", 92),
 }
-# The Hopper (wgmma) libraries, and ptxas's warnings that it serialized
-# their wgmma products (C7510-C7519).
-SM90_LIBRARIES = ("flat_attention_fwd_sm90", "flat_attention_bwd_sm90")
+# The Hopper (wgmma) libraries, with the instructions their SASS must hold
+# (HGMMA: wgmma; LDGSTS: cp.async, where the design fills its ring with
+# it), and ptxas's warnings that it serialized their wgmma products
+# (C7510-C7519).
+SM90_LIBRARIES = {
+    "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS"),
+    "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
+    "flat_attention_fwd_f32_sm90": ("HGMMA",),
+}
 SERIALIZED = tuple(f"C751{i}" for i in range(10))
 
 
@@ -346,14 +355,15 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 
 # (kernels, dtype, (B, N, H, hd), layout) of phase 2: K1/K2 at the ViT-B/14
 # global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
-# images (N = 730; at batch 32 in bf16 too) and at hd 16; K4/K5 at the
-# ViT-B/14 shapes in both layouts and dtypes. Between them the shapes take
-# both configurations of the host rule (resident_pays in csrc/mma.cuh).
+# images (N = 730, at batch 8 and 32) and at hd 16; K4/K5 at the ViT-B/14
+# shapes in both layouts and dtypes. Between them the shapes take both
+# configurations of the host rule (resident_pays in csrc/mma.cuh) and of
+# the fp32 forward (resident and streamed).
 ATTENTION_CASES = [
     ("flat", dtype, shape, "flat")
     for dtype in DTYPES
-    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, (8, 257, 2, 16))
-] + [("flat", "bf16", GLOBAL_378, "flat")] + [
+    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, (8, 257, 2, 16))
+] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -564,7 +574,8 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
         if launches != expected:
             fail(f"launch counts {launches} != {expected}")
         # Every forward and backward of the path at hd 64 in the run's
-        # dtype: bf16 on the wgmma kernels, fp32 on the mma.sync ones.
+        # dtype: bf16 on the wgmma kernels, fp32 forward on its own wgmma
+        # kernel and fp32 backward on the mma.sync one.
         check_routes(A, f"{precision} main path", by_library,
                      torch_dtype(precision),
                      {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
@@ -677,12 +688,12 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
     return {"K4": launches[0], "K5": launches[1]}
 
 
-def profile_steps(card: str, steps: int = 3) -> None:
+def profile_steps(card: str, precision: str, steps: int = 3) -> None:
     """Optional (``--profile``): where the main path's step time goes.
 
-    Runs the pretraining step of ``run_main_path`` (same model, method,
-    batch and dtype; one fixed uint8 batch on the card, so no host data
-    loading) for 2 warm-up steps and ``steps`` profiled steps under
+    Runs the pretraining step of ``run_main_path`` in ``precision`` (same
+    model, method and batch; one fixed uint8 batch on the card, so no host
+    data loading) for 2 warm-up steps and ``steps`` profiled steps under
     ``torch.profiler``, and prints the device's busy share and the kernels
     that take the most device time.
     """
@@ -699,7 +710,8 @@ def profile_steps(card: str, steps: int = 3) -> None:
     )
 
     dev = torch.device("cuda")
-    method = DINOv2(get_wrapped_model("dinov2/vitb14", dtype=torch.bfloat16),
+    dtype = torch_dtype(precision)
+    method = DINOv2(get_wrapped_model("dinov2/vitb14", dtype=dtype),
                     DINOv2Args())
     params, method_state = method.init(torch.Generator().manual_seed(SEED),
                                        dev)
@@ -707,7 +719,7 @@ def profile_steps(card: str, steps: int = 3) -> None:
     updater = build_fused_updater(method, method.default_optimizer_args(),
                                   cosine_warmup(1e-3, 1000, 10), named, 1000)
     state = TrainState(0, params, method_state, updater)
-    step = make_train_step(method, 1000, aug_dtype=torch.bfloat16)
+    step = make_train_step(method, 1000, aug_dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     images = torch.randint(0, 256, (BATCH, 256, 256, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
@@ -728,7 +740,8 @@ def profile_steps(card: str, steps: int = 3) -> None:
             k[0] += evt.time_range.elapsed_us() / 1e3 / steps  # ms/step
             k[1] += 1
     busy_ms = sum(v[0] for v in kernels.values())
-    print(f"profile: {steps} steps, wall {wall_ms:.1f} ms/step, device busy "
+    print(f"profile {precision}: {steps} steps, wall {wall_ms:.1f} ms/step, "
+          f"device busy "
           f"{busy_ms:.1f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(v[1] for v in kernels.values()) // steps} kernel launches "
           f"per step [{card}]")
@@ -779,13 +792,14 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
         if name in SM90_LIBRARIES and any(w in log for w in SERIALIZED):
             fail(f"ptxas serialized the wgmma products of {name}")
-    for name in SM90_LIBRARIES:
+    for name, required in SM90_LIBRARIES.items():
         sass = _native.sass(name)
         print(f"  {name}: {sass.count('HGMMA')} HGMMA and "
               f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in its "
-              "SASS", flush=True)
-        if "HGMMA" not in sass or "LDGSTS" not in sass:
-            fail(f"{name} is not built on wgmma and cp.async")
+              f"SASS (required: {', '.join(required)})", flush=True)
+        missing = [op for op in required if op not in sass]
+        if missing:
+            fail(f"{name}'s SASS lacks {missing}")
 
     print("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
@@ -831,8 +845,10 @@ def main() -> int:
         "launches_fp32": paths["fp32"]["launches"][2], **upd,
     })
     if "--profile" in sys.argv[1:]:
-        print("phase 4: profile of the pretraining step", flush=True)
-        profile_steps(card)
+        for precision in DTYPES:
+            print(f"phase 4: profile of the pretraining step ({precision})",
+                  flush=True)
+            profile_steps(card, precision)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,17 +2,21 @@
 
 Port of ``lightly_train_tpu/_commands/train.py`` for the first slice:
 output-dir checks, logging, dataset + loader, model/method/optimizer
-resolution with the "auto" cascade, the train loop, ``metrics.jsonl`` and a
-final ``checkpoints/last.pt`` (``torch.save``). The run is placed on the card
-(``accelerator="cuda"``, the default) or, only when asked, on the CPU.
+resolution with the "auto" cascade, the train loop with its one-step-lagged
+non-finite check, ``metrics.jsonl`` and a final ``checkpoints/last.pt``
+(``torch.save``). The run is placed on the card (``accelerator="cuda"``, the
+default) or, only when asked, on the CPU.
 
 Not ported yet, and refused when set to anything but their defaults:
 ``embed_dim``, ``transform_args``, ``fsdp`` > 1, ``mask_dir``,
 ``checkpoint``, ``checkpoint_every``, ``resume_interrupted``,
-``log_augmentations``, ``profile``, ``profile_start``, ``profile_steps`` and
-loggers other than ``jsonl`` (ROADMAP item 7). The fields keep the JAX
-package's names and defaults, so configs stay compatible; at the defaults
-no periodic checkpoint and no augmentation grid is written yet.
+``log_augmentations``, ``profile``, ``profile_start``, ``profile_steps``, and
+the tensorboard, wandb and mlflow loggers where their package is installed
+(ROADMAP item 7; where it is absent the run warns and goes on, as the JAX
+package does). The fields keep the JAX package's names and defaults, so
+configs stay compatible. At the defaults no periodic checkpoint, no
+augmentation grid and no ``exported_models/exported_last`` is written yet;
+every run says so in a warning.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from lightly_train_tpu_torch._data.image_dataset import (
     list_image_files,
 )
 from lightly_train_tpu_torch._data.loader import PretrainLoader, SyntheticLoader
-from lightly_train_tpu_torch._loggers.jsonl import JSONLLogger
+from lightly_train_tpu_torch._loggers.multi import (
+    build_loggers,
+    resolve_loggers,
+)
 from lightly_train_tpu_torch._logging import (
     get_logger,
     set_up_console_logging,
@@ -43,7 +50,7 @@ from lightly_train_tpu_torch._optim import (
 )
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
 from lightly_train_tpu_torch._scaling import ScalingInfo
-from lightly_train_tpu_torch.errors import ConfigError, NaNDetectedError
+from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
@@ -100,23 +107,16 @@ _NOT_PORTED = {
 }
 
 
-def _check_ported(config: TrainConfig) -> None:
+def _check_ported(config: TrainConfig) -> list:
+    """Raises for an option that is not ported; returns the resolved
+    loggers."""
     for key, default in _NOT_PORTED.items():
         if getattr(config, key) != default:
             raise NotImplementedError(
                 f"pretrain option {key}={getattr(config, key)!r} is not ported "
                 "to PyTorch yet (ROADMAP item 7)."
             )
-    loggers = config.loggers
-    if isinstance(loggers, dict):  # name -> kwargs, None disables
-        names = [k for k, v in loggers.items() if v is not None]
-    else:
-        names = list(loggers)
-    if any(n != "jsonl" for n in names):
-        raise NotImplementedError(
-            f"loggers {names} are not ported yet: the port writes "
-            "metrics.jsonl only (ROADMAP item 7)."
-        )
+    return resolve_loggers(config.loggers)
 
 
 def resolve_device(accelerator: str) -> torch.device:
@@ -148,7 +148,7 @@ def pretrain(
 
 
 def pretrain_from_config(config: TrainConfig) -> TrainState:
-    _check_ported(config)
+    loggers = _check_ported(config)
     device = resolve_device(config.accelerator)
     out_dir = Path(config.out)
     if out_dir.exists() and any(out_dir.iterdir()) and not config.overwrite:
@@ -161,6 +161,13 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     logger.info("Device: %s (%s)", device,
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "CPU")
+    logger.warning(
+        "The port writes less than the JAX package at these defaults: no "
+        "periodic checkpoints (checkpoint_every='auto'), no "
+        "augmentations.png (log_augmentations=True) and no "
+        "exported_models/exported_last; only checkpoints/last.pt at the end "
+        "(ROADMAP item 7)."
+    )
 
     # ---- data -------------------------------------------------------------
     canonical_hw = (config.canonical_size, config.canonical_size)
@@ -232,28 +239,22 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
                        updater=updater)
     step_gen = torch.Generator(device=device).manual_seed(config.seed)
 
-    jsonl = JSONLLogger(out_dir)
-    jsonl.log_hyperparams({
+    run_loggers = build_loggers(out_dir, loggers)
+    run_loggers.log_hyperparams({
         **config.dump(),
         "resolved_batch_size": batch_size,
         "resolved_steps": total_steps,
         "resolved_lr": lr,
         "method_args": method_args.dump(),
         "optim_args": optim_args.dump(),
-        "device": str(device),
+        "devices": 1,
     })
 
     def on_log(step: int, metrics: Dict[str, float]) -> None:
-        jsonl.log_metrics(metrics, step)
+        run_loggers.log_metrics(metrics, step)
         logger.info("step %d/%d loss=%.4f img/s=%.1f", step, total_steps,
                     metrics.get("train_loss", float("nan")),
                     metrics.get("profiling/images_per_sec", 0.0))
-        if config.nan_check and metrics.get("finite", 1.0) < 0.5:
-            raise NaNDetectedError(
-                f"non-finite loss or gradient norm at step {step}: "
-                f"loss={metrics.get('train_loss')} "
-                f"grad_norm={metrics.get('grad_norm')}"
-            )
 
     train_step = make_train_step(method, total_steps, aug_dtype=dtype,
                                  grad_accum_steps=config.grad_accum_steps)
@@ -263,9 +264,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     )
     try:
         fit(train_step, state, loader, total_steps, step_gen,
-            log_every=config.log_every, on_log=on_log)
+            log_every=config.log_every, on_log=on_log,
+            nan_check=config.nan_check)
     finally:
-        jsonl.close()
+        run_loggers.close()
 
     ckpt_dir = out_dir / "checkpoints"
     ckpt_dir.mkdir(parents=True, exist_ok=True)

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import torch
 
 from lightly_train_tpu_torch._logging import get_logger
+from lightly_train_tpu_torch.errors import NaNDetectedError
 from lightly_train_tpu_torch.methods.base import Method, TrainState
 from lightly_train_tpu_torch.ops.augment import augment_view_with_geometry
 
@@ -93,6 +94,32 @@ def make_train_step(
     return train_step
 
 
+def _read_back(flag: torch.Tensor):
+    """A host copy of a step's finite flag, started without waiting, and
+    the event after which it holds (None on the CPU)."""
+    if not flag.is_cuda:
+        return flag, None
+    host = torch.empty((), dtype=flag.dtype, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _check_finite(host: torch.Tensor, event, step: int) -> None:
+    """Raises NaNDetectedError naming ``step`` if its flag is false. The
+    JAX package also writes debug/nan_capture.npz here; the port's capture
+    is ROADMAP item 7.3."""
+    if event is not None:
+        event.synchronize()  # this step's work only, not the one after it
+    if not bool(host):
+        raise NaNDetectedError(
+            f"Non-finite loss/gradients at step {step} (the step's number "
+            "in metrics.jsonl). No replay capture is written yet (ROADMAP "
+            "item 7.3)."
+        )
+
+
 def fit(
     train_step: Callable,
     state: TrainState,
@@ -101,17 +128,22 @@ def fit(
     generator: torch.Generator,
     log_every: int = 50,
     on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    nan_check: bool = False,
 ) -> TrainState:
     """Host step loop: feed batches, log throughput.
 
     The host reads metrics back (a device sync) only on logged steps, so the
-    loop otherwise runs ahead of the device.
+    loop otherwise runs ahead of the device. With ``nan_check`` every step's
+    ``finite`` flag is read one step later, as the JAX loop does: once the
+    next step is dispatched, so the device stays fed, and a non-finite step
+    stops the run there, named by its number.
     """
     burn_in = {1, 2, 5, 10, 50, 100}
     current = state.step
     t_window = time.perf_counter()
     window_steps = 0
     data_wait = 0.0
+    lagged = None  # the previous step's (host flag, event, step number)
     batch_iter = iter(batches)
     while current < total_steps:
         t_data = time.perf_counter()
@@ -120,6 +152,10 @@ def fit(
         metrics = train_step(state, batch, generator)
         current += 1
         window_steps += 1
+        if nan_check:
+            if lagged is not None:
+                _check_finite(*lagged)
+            lagged = (*_read_back(metrics["finite"]), current)
         if current in burn_in or current % log_every == 0 or current == total_steps:
             values = {k: float(v) for k, v in metrics.items()}  # device sync
             dt = time.perf_counter() - t_window
@@ -127,9 +163,15 @@ def fit(
                 batch.shape[0] * window_steps / max(dt, 1e-9))
             values["profiling/step_time"] = dt / max(window_steps, 1)
             values["profiling/data_time"] = data_wait / max(window_steps, 1)
+            # The share of the window not spent waiting on host data (the
+            # JAX loop's formula).
+            values["profiling/device_duty_cycle"] = max(
+                0.0, 1.0 - data_wait / max(dt, 1e-9))
             if on_log is not None:
                 on_log(current, values)
             t_window = time.perf_counter()
             window_steps = 0
             data_wait = 0.0
+    if lagged is not None:
+        _check_finite(*lagged)  # the last step's flag
     return state

@@ -4,13 +4,15 @@ Port of ``lightly_train_tpu/_data/image_dataset.py``: the dataset lists and
 decodes images to a fixed canonical (H0, W0) uint8 array; all augmentation
 runs on the device. PIL decodes when it is installed, exactly as in the JAX
 package. Where it is not (the GPU machines), binary PPM (P6) files decode
-with numpy and resize with a triangle filter close to PIL's bilinear; other
-formats raise.
+with numpy and resize with a numpy copy of PIL's bilinear resampling, which
+gives PIL's bytes; other formats raise (PNG and JPEG: ROADMAP item 19).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import math
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -91,26 +93,74 @@ def read_ppm(path: str) -> np.ndarray:
     return image
 
 
-def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) bilinear resize weights with PIL's support scaling on
-    downscale (antialiased), rows normalized."""
+# PIL's fixed point for 8-bit images (Resample.c: 32 - 8 - 2 fraction bits).
+_PRECISION_BITS = 22
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_taps(in_size: int, out_size: int) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """PIL's bilinear taps for one axis (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc`` of its Resample.c): (out, ksize) source
+    indices and fixed-point weights, 0 past each output's window.
+
+    The triangle's support grows with the downscale factor; each window's
+    weights are normalised in double precision, then rounded to 22
+    fraction bits. The arithmetic is PIL's, operation for operation, so
+    the weights are its bits.
+    """
     scale = in_size / out_size
-    support = max(scale, 1.0)
-    centers = (np.arange(out_size) + 0.5) * scale
-    x = np.arange(in_size) + 0.5
-    w = np.clip(1.0 - np.abs(x[None, :] - centers[:, None]) / support, 0, None)
-    return w / w.sum(axis=1, keepdims=True)
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    index = np.zeros((out_size, ksize), dtype=np.int64)
+    coeff = np.zeros((out_size, ksize), dtype=np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        weights = []
+        for x in range(xmax):
+            t = abs((x + xmin - center + 0.5) * ss)
+            weights.append(1.0 - t if t < 1.0 else 0.0)
+        total = 0.0
+        for w in weights:
+            total += w
+        for x, w in enumerate(weights):
+            k = w / total if total != 0.0 else w
+            coeff[xx, x] = int(0.5 + k * (1 << _PRECISION_BITS))
+            index[xx, x] = xmin + x
+    return index, coeff
+
+
+def _resample_axis(image: np.ndarray, in_size: int, out_size: int,
+                   axis: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resampling along ``axis`` of uint8 (H, W, C):
+    a half unit plus the fixed-point sum of the taps, shifted back and
+    clipped to uint8."""
+    index, coeff = _bilinear_taps(in_size, out_size)
+    acc = np.full(tuple(out_size if a == axis else n
+                        for a, n in enumerate(image.shape)),
+                  1 << (_PRECISION_BITS - 1), dtype=np.int64)
+    shape = [1] * image.ndim
+    shape[axis] = out_size
+    for j in range(index.shape[1]):
+        taps = np.take(image, index[:, j], axis=axis).astype(np.int64)
+        acc += taps * coeff[:, j].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def resize_bilinear(image: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """Resize uint8 (H, W, C) to ``hw`` with a triangle filter."""
-    if image.shape[:2] == tuple(hw):
-        return image
-    ry = _triangle_weights(image.shape[0], hw[0])
-    rx = _triangle_weights(image.shape[1], hw[1])
-    out = np.einsum("oh,hwc->owc", ry, image.astype(np.float64))
-    out = np.einsum("xw,owc->oxc", rx, out)
-    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+    """Resize uint8 (H, W, C) to ``hw`` as PIL's ``Image.resize(...,
+    BILINEAR)`` does: the horizontal pass, then the vertical one, each
+    skipped where that size is unchanged, with uint8 between them."""
+    height, width = image.shape[:2]
+    if width != hw[1]:
+        image = _resample_axis(image, width, hw[1], axis=1)
+    if height != hw[0]:
+        image = _resample_axis(image, height, hw[0], axis=0)
+    return image
 
 
 def decode_image(path: str, canonical_hw: Tuple[int, int],

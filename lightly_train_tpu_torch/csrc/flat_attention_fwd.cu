@@ -1,6 +1,8 @@
 // Multi-head self-attention, forward: K1 (flat layout) and K4 (per-head
-// layout), one kernel, for fp32 q/k/v (hd 64 or 16) and bf16 at hd 16. bf16
-// at hd 64, the ViT's training path, is flat_attention_fwd_sm90.cu (wgmma).
+// layout), one kernel, at head dim 16 (fp32 and bf16 q/k/v: the vittest
+// sizes). At hd 64, the ViTs' training paths, bf16 is
+// flat_attention_fwd_sm90.cu and fp32 flat_attention_fwd_f32_sm90.cu
+// (wgmma).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
@@ -26,19 +28,16 @@
 // resident_pays in mma.cuh for the rule and the measurements behind it):
 //   resident: one block per (batch, head) stages the whole head's K and V
 //     once and its warps walk all query tiles; q, k, v and o each cross
-//     device memory once. It fits the 227 KB of shared memory a block has
-//     for fp32 hd 64 up to N = 336, and for bf16 hd 16 at every N <= 768.
+//     device memory once. At hd 16 it fits the 227 KB of shared memory a
+//     block has at every N <= 768.
 //   streamed: one block per (128 queries, head, batch); K (pass 1) and K
 //     and V (pass 2) stream through in kStreamRows-row tiles, re-read from
-//     L2 by every query block. It covers the rest of N <= 768, where one
-//     head's fp32 K and V no longer fit, and grids too small to fill the
-//     card.
-// What bounds it on the H100: in fp32 at the ViT-B/14 global shape (B=64,
-// N=257, H=12, hd=64) the 151 MB of q/k/v in and the 51 MB of o out need
-// ~60 us at 3.35 TB/s, the 2 x 2 x N^2 x hd x B x H = 13 GFLOP of necessary
-// products ~26 us at the TF32 tensor peak, so device memory bounds it.
-// mma.sync (not wgmma), the hi/lo products, the second q . k pass and 8
-// warps per block keep it short of that bound.
+//     L2 by every query block. It serves grids too small to fill the card.
+// What bounds it on the H100: at hd 16 a head's products are small beside
+// its bytes (at (8, 257, 2, 16), 1.1 MB in fp32 against 68 MFLOP), so
+// device memory and the launch bound it; mma.sync (not wgmma), the hi/lo
+// products of fp32, the second q . k pass and 8 warps per block keep it
+// short of that bound.
 #include "mma.cuh"
 
 namespace {
@@ -214,7 +213,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // strides: (batch, token, head) for q, k, v, o. fp32: 0 for bf16 tensors,
-// 1 for fp32 ones. bf16 at hd 64 is lt_attention_fwd_sm90's.
+// 1 for fp32 ones. hd 16 only: hd 64 is lt_attention_fwd_sm90's (bf16) and
+// lt_attention_fwd_f32_sm90's (fp32).
 extern "C" int lt_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int fp32, int B, int N,
                                 int H, int hd, const long* strides,
@@ -223,7 +223,6 @@ extern "C" int lt_attention_fwd(const void* q, const void* k, const void* v,
   if (N < 1) return cudaErrorInvalidValue;
 #define LT_FWD(T, HD) \
   launch<T, HD>(q, k, v, o, lse, B, N, H, strides, scale, s)
-  if (hd == 64) return fp32 ? LT_FWD(float, 64) : cudaErrorInvalidValue;
   if (hd == 16) return fp32 ? LT_FWD(float, 16) : LT_FWD(bf16, 16);
 #undef LT_FWD
   return cudaErrorInvalidValue;

@@ -57,62 +57,6 @@ using namespace lt::sm90;
 constexpr int kAhead = 4;           // K/V loads in flight ahead of a step
 constexpr int kSlots = kAhead + 1;  // ring slots, each a K and a V tile
 
-// Running maxima of this thread's rows g (m0) and g + 8 (m1) over the
-// scaled scores of keys kv0 + [0, NK); with kMask keys at or past N are
-// -inf (only the last tile has any).
-template <int NK, bool kMask>
-__device__ __forceinline__ void row_max(const float (&s)[32], int kv0, int N,
-                                        float scale, int t, float& m0,
-                                        float& m1) {
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kv0 + j * 8 + 2 * t + (e & 1);
-      const float val =
-          !kMask || key < N ? s[4 * j + e] * scale : -INFINITY;
-      if (e < 2)
-        m0 = fmaxf(m0, val);
-      else
-        m1 = fmaxf(m1, val);
-    }
-}
-
-__device__ __forceinline__ void quad_max(float& m0, float& m1) {
-  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffff, m0, 1));
-  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffff, m0, 2));
-  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffff, m1, 1));
-  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffff, m1, 2));
-}
-
-// p = bf16(exp(s * scale - m)) (0 past N) into the register A operand a,
-// as 2^(s * scale2 - c) with scale2 = scale log2(e) and c = m log2(e),
-// __expf's own base change folded into one FFMA; l += p. One conversion
-// rounds and packs a pair of neighbouring p; l adds the rounded values.
-template <int NK, bool kMask>
-__device__ __forceinline__ void probabilities(const float (&s)[32],
-                                              uint32_t (&a)[4][4], int kv0,
-                                              int N, float scale2, int t,
-                                              float c0, float c1, float& l0,
-                                              float& l1) {
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j) {
-    float p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kv0 + j * 8 + 2 * t + (e & 1);
-      const float x = exp2_ftz(fmaf(s[4 * j + e], scale2, e < 2 ? -c0 : -c1));
-      p[e] = !kMask || key < N ? x : 0.f;
-    }
-    const uint32_t r0 = lt::pack_bf16(p[0], p[1]);  // row g
-    const uint32_t r1 = lt::pack_bf16(p[2], p[3]);  // row g + 8
-    l0 += __uint_as_float(r0 << 16) + __uint_as_float(r0 & 0xffff0000u);
-    l1 += __uint_as_float(r1 << 16) + __uint_as_float(r1 & 0xffff0000u);
-    a[j / 2][2 * (j % 2)] = r0;
-    a[j / 2][2 * (j % 2) + 1] = r1;
-  }
-}
-
 // Pass 1, two key tiles (the second of width NKb, none if 0) of one ring
 // slot: both S issued at once, the first folded into the row maxima while
 // the second computes.

@@ -1,12 +1,14 @@
-// Hopper (sm_90a) machinery shared by the bf16 hd-64 attention kernels
-// (flat_attention_fwd_sm90.cu, flat_attention_bwd_sm90.cu): the cp.async
-// copies that fill a ring of shared-memory tiles, the wgmma shared-memory
-// descriptors, and the warpgroup products.
+// Hopper (sm_90a) machinery shared by the hd-64 attention kernels
+// (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
+// flat_attention_fwd_f32_sm90.cu in fp32): the cp.async copies that fill a
+// ring of shared-memory tiles, the wgmma shared-memory descriptors, the
+// warpgroup products, and the forward's row maxima and probabilities.
 //
 // A tile is 64 rows of one head (queries or keys) by hd 64 bf16: a row is
 // 128 bytes, one 128-byte swizzle atom. The copies write the swizzle
 // themselves (16-byte chunk c of row r at chunk c ^ (r & 7)), so a tile is a
-// wgmma operand as it lands, read either way:
+// wgmma operand as it lands (an fp32 tile is written as two such bf16
+// tiles, its hi and lo planes), read either way:
 //   K-major: the row index is M or N of the product and hd is its depth
 //     (Q, dO or K as A, or K, V, Q, dO as the B of X . Y^T);
 //   MN-major: the row index is the depth and hd is N (V in P . V, K in
@@ -242,6 +244,62 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Running maxima of this thread's rows g (m0) and g + 8 (m1) over the
+// scaled scores of keys kv0 + [0, NK); with kMask keys at or past N are
+// -inf (only the last tile has any).
+template <int NK, bool kMask>
+__device__ __forceinline__ void row_max(const float (&s)[32], int kv0, int N,
+                                        float scale, int t, float& m0,
+                                        float& m1) {
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kv0 + j * 8 + 2 * t + (e & 1);
+      const float val =
+          !kMask || key < N ? s[4 * j + e] * scale : -INFINITY;
+      if (e < 2)
+        m0 = fmaxf(m0, val);
+      else
+        m1 = fmaxf(m1, val);
+    }
+}
+
+__device__ __forceinline__ void quad_max(float& m0, float& m1) {
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffff, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffff, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffff, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffff, m1, 2));
+}
+
+// p = bf16(exp(s * scale - m)) (0 past N) into the register A operand a,
+// as 2^(s * scale2 - c) with scale2 = scale log2(e) and c = m log2(e),
+// __expf's own base change folded into one FFMA; l += p. One conversion
+// rounds and packs a pair of neighbouring p; l adds the rounded values.
+template <int NK, bool kMask>
+__device__ __forceinline__ void probabilities(const float (&s)[32],
+                                              uint32_t (&a)[4][4], int kv0,
+                                              int N, float scale2, int t,
+                                              float c0, float c1, float& l0,
+                                              float& l1) {
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kv0 + j * 8 + 2 * t + (e & 1);
+      const float x = exp2_ftz(fmaf(s[4 * j + e], scale2, e < 2 ? -c0 : -c1));
+      p[e] = !kMask || key < N ? x : 0.f;
+    }
+    const uint32_t r0 = lt::pack_bf16(p[0], p[1]);  // row g
+    const uint32_t r1 = lt::pack_bf16(p[2], p[3]);  // row g + 8
+    l0 += __uint_as_float(r0 << 16) + __uint_as_float(r0 & 0xffff0000u);
+    l1 += __uint_as_float(r1 << 16) + __uint_as_float(r1 & 0xffff0000u);
+    a[j / 2][2 * (j % 2)] = r0;
+    a[j / 2][2 * (j % 2) + 1] = r1;
+  }
 }
 
 }  // namespace sm90

@@ -1,11 +1,13 @@
 """Multi-head self-attention kernels: flat and per-head layouts.
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
-and backward serve all four TPU kernels, bf16 at head dim 64 on Hopper's
-``wgmma`` (``csrc/flat_attention_fwd_sm90.cu``,
-``csrc/flat_attention_bwd_sm90.cu``), fp32 and head dim 16 on ``mma.sync``
-(``csrc/flat_attention_fwd.cu``, ``csrc/flat_attention_bwd.cu``; see
-:func:`fwd_library` and :func:`bwd_library`). The four TPU kernels do the
+and backward serve all four TPU kernels (see :func:`fwd_library` and
+:func:`bwd_library`): at head dim 64 the forward runs on Hopper's ``wgmma``
+(``csrc/flat_attention_fwd_sm90.cu`` in bf16,
+``csrc/flat_attention_fwd_f32_sm90.cu`` in fp32), and so does the bf16
+backward (``csrc/flat_attention_bwd_sm90.cu``); the fp32 backward and head
+dim 16 run on ``mma.sync`` (``csrc/flat_attention_fwd.cu``,
+``csrc/flat_attention_bwd.cu``). The four TPU kernels do the
 same arithmetic and differ only in how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
@@ -221,35 +223,40 @@ def _stream(x: torch.Tensor) -> int:
 
 # Launches of each forward and backward library (K1 and K4, K2 and K5
 # together), so that a run can show which kernels it went through.
-fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0}
+fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0,
+                "flat_attention_fwd_f32_sm90": 0}
 bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0}
 
 
-def _library(stem: str, dtype: torch.dtype, head_dim: int) -> str:
-    """``stem + "_sm90"`` (wgmma) for bf16 at hd 64, ``stem`` (mma.sync)
-    for fp32 and for hd 16. Raises for what neither takes."""
+def _check_route(dtype: torch.dtype, head_dim: int) -> None:
+    """Raises for a dtype or head dim that no library takes."""
     if dtype not in DTYPES:
         raise ValueError(f"the kernels take bf16 or fp32, got {dtype}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the kernels take head dim {HEAD_DIMS}, got "
                          f"{head_dim}")
-    if dtype == torch.bfloat16 and head_dim == 64:
-        return stem + "_sm90"
-    return stem
 
 
 def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose forward kernel serves ``dtype`` at ``head_dim``:
-    ``flat_attention_fwd_sm90`` for bf16 at hd 64, ``flat_attention_fwd``
-    for fp32 and for hd 16."""
-    return _library("flat_attention_fwd", dtype, head_dim)
+    at hd 64 ``flat_attention_fwd_sm90`` (bf16) or
+    ``flat_attention_fwd_f32_sm90`` (fp32), both wgmma; at hd 16
+    ``flat_attention_fwd`` (mma.sync)."""
+    _check_route(dtype, head_dim)
+    if head_dim == 64:
+        return ("flat_attention_fwd_sm90" if dtype == torch.bfloat16
+                else "flat_attention_fwd_f32_sm90")
+    return "flat_attention_fwd"
 
 
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose backward kernels serve ``dtype`` at ``head_dim``:
-    ``flat_attention_bwd_sm90`` for bf16 at hd 64, ``flat_attention_bwd``
-    for fp32 and for hd 16."""
-    return _library("flat_attention_bwd", dtype, head_dim)
+    ``flat_attention_bwd_sm90`` (wgmma) for bf16 at hd 64,
+    ``flat_attention_bwd`` (mma.sync) for fp32 and for hd 16."""
+    _check_route(dtype, head_dim)
+    if dtype == torch.bfloat16 and head_dim == 64:
+        return "flat_attention_bwd_sm90"
+    return "flat_attention_bwd"
 
 
 def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):

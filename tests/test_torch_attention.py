@@ -235,13 +235,14 @@ def test_kernel_support_range():
 
 @pytest.mark.parametrize("dtype,head_dim,library", [
     (torch.bfloat16, 64, "flat_attention_fwd_sm90"),
-    (torch.float32, 64, "flat_attention_fwd"),
+    (torch.float32, 64, "flat_attention_fwd_f32_sm90"),
     (torch.bfloat16, 16, "flat_attention_fwd"),
     (torch.float32, 16, "flat_attention_fwd"),
 ])
 def test_forward_route(dtype, head_dim, library):
-    """bf16 at hd 64 runs the wgmma forward, fp32 and hd 16 the mma.sync
-    one; each route's library is one the port builds."""
+    """At hd 64 both dtypes run a wgmma forward (bf16 and fp32 each their
+    own), hd 16 the mma.sync one; each route's library is one the port
+    builds."""
     assert A.fwd_library(dtype, head_dim) == library
     assert library in A.fwd_launches
     assert library in _native.LIBRARIES

@@ -151,8 +151,26 @@ def test_ppm_decode_without_pil_matches_pil(tmp_path, monkeypatch):
         pytest.skip("PIL absent: nothing to compare with")
     with Image.open(path) as im:
         np.testing.assert_array_equal(raw, np.asarray(im.convert("RGB")))
-        ref = np.asarray(im.convert("RGB").resize((24, 24), Image.BILINEAR))
+    # Down- and upscales, odd sizes, one axis unchanged, one pixel wide;
+    # noise, a flat image and a gradient.
+    rng = np.random.default_rng(1)
+    sizes = [((40, 40), (24, 24)), ((37, 53), (256, 256)),
+             ((513, 301), (224, 224)), ((3, 5), (17, 11)),
+             ((255, 257), (256, 256)), ((100, 100), (33, 67)),
+             ((17, 19), (17, 18)), ((480, 640), (256, 256)),
+             ((1000, 1), (7, 3)), ((5, 5), (1, 1))]
+    refs = []
+    for i, ((h, w), hw) in enumerate(sizes):
+        img = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+               np.full((h, w, 3), 255, dtype=np.uint8),
+               (np.add.outer(np.arange(h), np.arange(w))[..., None]
+                * np.array([1, 3, 7]) % 256).astype(np.uint8)][i % 3]
+        ppm = tmp_path / f"case_{i}.ppm"
+        ppm.write_bytes(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+        with Image.open(ppm) as im:
+            refs.append((ppm, hw, np.asarray(
+                im.convert("RGB").resize(hw[::-1], Image.BILINEAR))))
     monkeypatch.setitem(__import__("sys").modules, "PIL", None)
-    got = D.decode_image(path, (24, 24))
-    # The numpy triangle filter is close to PIL's fixed-point one.
-    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 2
+    for ppm, hw, ref in refs:
+        # PIL's BILINEAR, repeated in numpy: the same bytes.
+        np.testing.assert_array_equal(D.decode_image(str(ppm), hw), ref)

@@ -78,8 +78,9 @@ def _randn(shape, gen, dtype):
 # grids of B * H >= 66 are resident where the walked operand fits, the
 # smaller ones stream. (6, 640, 12, 64) runs a resident backward,
 # (6, 300, 12, 64) is resident in both dtypes, and (6, 730, 12, 64) streams
-# throughout. The bf16 forward at hd 64 is flat_attention_fwd_sm90.cu at
-# every shape.
+# throughout (in the backward; the rule is the fp32 backward's and hd
+# 16's). The forward at hd 64 is flat_attention_fwd_sm90.cu (bf16) and
+# flat_attention_fwd_f32_sm90.cu (fp32) at every shape.
 SHAPES = [
     (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
     (6, 300, 12, 64), (6, 730, 12, 64),
@@ -324,18 +325,18 @@ SM90_SHAPES = [
 ]
 
 
-def _bf16_inputs(layout, B, N, H, gen):
-    """q, k, v (bf16, hd 64) and the plain forward for ``layout``: "flat"
-    (column slices of one fused (B, N, 3 H hd) qkv output), "bnhd" (the
-    transposed views of (B, N, H, hd) tensors, as vmem_attention hands them
-    over) or "bhnd"."""
+def _bf16_inputs(layout, B, N, H, gen, dtype=torch.bfloat16):
+    """q, k, v (``dtype``, bf16 unless given; hd 64) and the plain forward
+    for ``layout``: "flat" (column slices of one fused (B, N, 3 H hd) qkv
+    output), "bnhd" (the transposed views of (B, N, H, hd) tensors, as
+    vmem_attention hands them over) or "bhnd"."""
     if layout == "flat":
-        qkv = _randn((B, N, 3 * H * HD), gen, torch.bfloat16)
+        qkv = _randn((B, N, 3 * H * HD), gen, dtype)
         q, k, v = qkv.split(H * HD, dim=-1)
         return (q, k, v), (lambda *x: A.flat_attention_fwd(*x, H, HD ** -0.5),
                            lambda *x: A.flat_attention_fwd_plain(
                                *x, H, HD ** -0.5))
-    q, k, v = (_per_head((B, N, H, HD), layout, gen, torch.bfloat16)
+    q, k, v = (_per_head((B, N, H, HD), layout, gen, dtype)
                for _ in range(3))
     return (q, k, v), (lambda *x: A.vmem_attention_fwd(*x, HD ** -0.5),
                        lambda *x: A.vmem_attention_fwd_plain(*x, HD ** -0.5))
@@ -365,6 +366,50 @@ def test_sm90_forward_library_runs_hgmma(cuda):
     fills its K/V ring with asynchronous copies (LDGSTS, cp.async)."""
     sass = _native.sass("flat_attention_fwd_sm90")
     assert "HGMMA" in sass and "LDGSTS" in sass
+
+
+# (N, B, H) for the Hopper fp32 hd-64 forward: N = 1, a single key tile
+# (37, 64: one warpgroup, S kept for both passes), one past a tile (65),
+# the ViT-B/14 shapes (37, 257, 730), the resident form's edges (320, 384)
+# and the streamed ring's first (385) and last (768) N; B * H from 4 to
+# 192, several blocks each. 65, 257 and 385 give an odd number of query
+# tiles (the last block's second warpgroup has none).
+SM90_F32_SHAPES = [
+    (1, 2, 2), (37, 16, 12), (64, 4, 4), (65, 3, 5), (257, 16, 12),
+    (320, 2, 6), (384, 2, 3), (385, 2, 3), (730, 16, 12), (768, 2, 4),
+]
+
+
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", SM90_F32_SHAPES)
+def test_sm90_f32_forward_matches_plain(cuda, monkeypatch, layout, N, B, H):
+    """fp32 at hd 64 runs flat_attention_fwd_f32_sm90 (K1 and K4), within
+    the fp32 tolerances of the plain forward, and counts its launch."""
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 2)
+    qkv, (fwd, plain) = _bf16_inputs(layout, B, N, H, gen, torch.float32)
+    before = A.fwd_launches["flat_attention_fwd_f32_sm90"]
+    o, lse = fwd(*qkv)
+    o_ref, lse_ref = plain(*qkv)
+    assert asked == ["flat_attention_fwd_f32_sm90"]
+    assert A.fwd_launches["flat_attention_fwd_f32_sm90"] == before + 1
+    assert o.dtype == torch.float32 and torch.isfinite(o).all()
+    if layout != "flat":
+        assert o.stride() == qkv[0].stride()
+    assert _within(o, o_ref, torch.float32)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+
+
+def test_sm90_f32_forward_library_runs_hgmma(cuda):
+    """The fp32 hd-64 forward is built on wgmma (HGMMA in its SASS), and
+    ptxas serialized none of its products (no C751x warning)."""
+    sass = _native.sass("flat_attention_fwd_f32_sm90")
+    assert "HGMMA" in sass
+    log = (_native.BUILD_DIR / "flat_attention_fwd_f32_sm90.log").read_text()
+    assert not any(f"C751{i}" in log for i in range(10)), log
 
 
 # (N, B, H) for the Hopper bf16 hd-64 backward: one tile (N <= 64, the
