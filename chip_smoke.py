@@ -20,9 +20,10 @@ Phases (any failure exits non-zero):
    must hold wgmma (HGMMA) instructions, and that of the two that fill
    their rings with cp.async (the bf16 forward and backward,
    ``flat_attention_fwd_sm90.cu`` and ``flat_attention_bwd_sm90.cu``)
-   LDGSTS too (the fp32 forward, ``flat_attention_fwd_f32_sm90.cu``, loads
-   with ld.global and splits in registers); their build logs must hold no
-   ptxas warning that it serialized the wgmma products.
+   LDGSTS too (the fp32 forward and backward,
+   ``flat_attention_fwd_f32_sm90.cu`` and ``flat_attention_bwd_f32_sm90.cu``,
+   load with ld.global and split in registers); their build logs must hold
+   no ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks) included.
@@ -193,6 +194,7 @@ SM90_LIBRARIES = {
     "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS"),
     "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
     "flat_attention_fwd_f32_sm90": ("HGMMA",),
+    "flat_attention_bwd_f32_sm90": ("HGMMA",),
 }
 SERIALIZED = tuple(f"C751{i}" for i in range(10))
 
@@ -574,8 +576,7 @@ def run_main_path(lt, A, F, card: str, precision: str) -> dict:
         if launches != expected:
             fail(f"launch counts {launches} != {expected}")
         # Every forward and backward of the path at hd 64 in the run's
-        # dtype: bf16 on the wgmma kernels, fp32 forward on its own wgmma
-        # kernel and fp32 backward on the mma.sync one.
+        # dtype on the wgmma kernels of that dtype.
         check_routes(A, f"{precision} main path", by_library,
                      torch_dtype(precision),
                      {"fwd": 36 * STEPS, "bwd": 24 * STEPS})

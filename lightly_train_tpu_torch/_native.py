@@ -60,6 +60,10 @@ LIBRARIES: Dict[str, tuple] = {
         "lt_attention_bwd_sm90",
         [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
     ),
+    "flat_attention_bwd_f32_sm90": (
+        "lt_attention_bwd_f32_sm90",
+        [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
+    ),
     "fused_adamw_ema": (
         "lt_fused_adamw_ema",
         [_P] * 6 + [_L] + [_F] * 5 + [_P],

@@ -1,12 +1,12 @@
 // Multi-head self-attention, backward: K2 (flat layout) and K5 (per-head
-// layout), as two kernels, for fp32 q/k/v (hd 64 or 16) and bf16 at hd 16.
-// bf16 at hd 64, the ViT's training path, is flat_attention_bwd_sm90.cu
-// (wgmma).
+// layout), as two kernels, at head dim 16 for bf16 and fp32 q/k/v. Head dim
+// 64, the ViT's training path, is flat_attention_bwd_sm90.cu (bf16) and
+// flat_attention_bwd_f32_sm90.cu (fp32), both wgmma.
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
-// and ::_bwd_kernel (K5) on those routes. Same layouts, strides, types and
-// head dims as the forward (flat_attention_fwd.cu); lse is the forward's
-// (B, H, N) fp32 log-sum-exp. The TPU kernel's numerics:
+// and ::_bwd_kernel (K5) at hd 16. Same layouts, strides and types as the
+// forward (flat_attention_fwd.cu); lse is the forward's (B, H, N) fp32
+// log-sum-exp. The TPU kernel's numerics:
 //   p  = exp(s - lse)                   (fp32, s = (q . k) * scale)
 //   dv = bf16(p)^T . bf16(do)           dp = bf16(do) . v^T
 //   delta = rowsum(do * o)              (fp32, from the unrounded inputs)
@@ -28,17 +28,15 @@
 //     writes dk and dv.
 // s and p are recomputed in both (the scores are never stored). As in the
 // forward, the host picks per kernel and call whether the walked operands
-// are resident (one block per (batch, head), staged once; it fits in the
-// 227 KB of shared memory for fp32 hd 64 up to N = 304 for dq and 352 for
-// dk/dv, for bf16 hd 16 at every N <= 768) or streamed in kStreamRows-row
-// tiles by blocks of 128 rows (the rest of N <= 768, and small grids); the
-// rule is resident_pays in mma.cuh.
-// What bounds it on the H100: at the ViT-B/14 global shape in fp32 404 MB
-// move (q, k, v, o, do in; dq, dk, dv out), ~121 us at 3.35 TB/s, against
-// 32.5 GFLOP of necessary products (~66 us at the TF32 tensor peak), so
-// device memory bounds it; the design reads q, k, v and do twice and
-// computes q . k and do . v twice (45.5 GFLOP) to avoid any cross-block
-// reduction.
+// are resident (one block per (batch, head), staged once; at hd 16 they fit
+// in the 227 KB of shared memory at every N <= 768 in both dtypes) or
+// streamed in kStreamRows-row tiles by blocks of 128 rows (small grids);
+// the rule is resident_pays in mma.cuh.
+// What bounds it on the H100: at hd 16 the products (N^2 hd a head, 5 of
+// them) are small beside the bytes moved (q, k, v, o, do in; dq, dk, dv
+// out) up to N of a few hundred; no main path launches it (hd 16 is the
+// vittest size). The design reads q, k, v and do twice and computes q . k
+// and do . v twice to avoid any cross-block reduction.
 #include "mma.cuh"
 
 namespace {
@@ -336,8 +334,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. fp32: 0 for
-// bf16 tensors, 1 for fp32 ones. The dq kernel also writes delta (B, H, N)
-// fp32 for the dk/dv kernel. bf16 at hd 64 is lt_attention_bwd_sm90's.
+// bf16 tensors, 1 for fp32 ones; hd = 16 only. The dq kernel also writes
+// delta (B, H, N) fp32 for the dk/dv kernel. hd 64 is lt_attention_bwd_sm90's
+// (bf16) and lt_attention_bwd_f32_sm90's (fp32).
 extern "C" int lt_attention_bwd(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* dq, void* dk, void* dv,
@@ -349,7 +348,6 @@ extern "C" int lt_attention_bwd(const void* q, const void* k, const void* v,
 #define LT_BWD(T, HD)                                                      \
   launch<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, N, H, strides, \
                 scale, s)
-  if (hd == 64) return fp32 ? LT_BWD(float, 64) : cudaErrorInvalidValue;
   if (hd == 16) return fp32 ? LT_BWD(float, 16) : LT_BWD(bf16, 16);
 #undef LT_BWD
   return cudaErrorInvalidValue;

@@ -2,8 +2,9 @@
 // and K5 (per-head layout) on Hopper's warpgroup tensor-core products.
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
-// and ::_bwd_kernel (K5) for bf16 q/k/v with hd = 64; fp32 and hd 16 stay on
-// flat_attention_bwd.cu. Each tensor is read or written in place through
+// and ::_bwd_kernel (K5) for bf16 q/k/v with hd = 64; fp32 at hd 64 is
+// flat_attention_bwd_f32_sm90.cu, hd 16 stays on flat_attention_bwd.cu.
+// Each tensor is read or written in place through
 // three strides (batch, token, head; the column stride is 1): the flat
 // layout, views of a fused qkv output, (B, N, H, hd) and (B, H, N, hd). lse
 // is the forward's (B, H, N) fp32 log-sum-exp; delta is a (B, H, N) fp32
@@ -83,29 +84,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-// One k16 step of d (64 x 64) = (or +=) A . B, both from shared memory and
-// MN-major (transpose bits set).
-__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // lse and delta of query rows [row0, row0 + 64) into a stats slot (lse at
 // float 0, delta at float 64), one 4-byte copy per thread of the block;
 // threads past the first 128 and rows at or past N zero-fill without a
@@ -138,35 +116,6 @@ __device__ __forceinline__ float half_row_delta(const bf16* o_row,
     }
   }
   return sum;
-}
-
-// This thread's rows of a 64 x 64 accumulator (r0 = its row g, and r0 + 8;
-// columns 8 j + 2 t and + 1) into rows of a head, skipping rows at or past
-// N.
-__device__ __forceinline__ void store_rows(bf16* head, long row_stride,
-                                           const float (&acc)[32], int r0,
-                                           int N, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r0 < N)
-      lt::store2(head + r0 * row_stride + col, acc[4 * j], acc[4 * j + 1]);
-    if (r0 + 8 < N)
-      lt::store2(head + (r0 + 8) * row_stride + col, acc[4 * j + 2],
-                 acc[4 * j + 3]);
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void zero(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
-// Keeps the compiler from defining register A operands after a fence.
-__device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4]));
 }
 
 // dq kernel, one half tile of 32 keys (rows half * 32 of the K and V tiles

@@ -69,87 +69,6 @@ constexpr int kSlotBytes = 4 * kTileBytes;  // K hi, K lo, V hi, V lo
 constexpr int kStreamSlots = 3;  // streamed ring: steps read 2, 1 is filled
 constexpr int kMaxResident = 6;  // key tiles held whole: 1 + 32 + 192 KB
 
-// 16 bytes of fp32 at p, or zeros without a read where !valid.
-__device__ __forceinline__ float4 load4(const float* p, bool valid) {
-  float4 x;
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
-      "mov.f32 %0, 0f00000000;\nmov.f32 %1, 0f00000000;\n"
-      "mov.f32 %2, 0f00000000;\nmov.f32 %3, 0f00000000;\n"
-      "@p ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
-      : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-      : "l"(p), "r"(static_cast<int>(valid)));
-  return x;
-}
-
-// Four fp32 as hi = bf16(x) and lo = bf16(x - hi), each four packed bf16
-// stored at `at` of the hi plane and of the lo plane kTileBytes above it.
-__device__ __forceinline__ void store_split(uint32_t at, float4 x) {
-  const uint32_t h01 = lt::pack_bf16(x.x, x.y);
-  const uint32_t h23 = lt::pack_bf16(x.z, x.w);
-  const uint32_t l01 =
-      lt::pack_bf16(x.x - __uint_as_float(h01 << 16),
-                    x.y - __uint_as_float(h01 & 0xffff0000u));
-  const uint32_t l23 =
-      lt::pack_bf16(x.z - __uint_as_float(h23 << 16),
-                    x.w - __uint_as_float(h23 & 0xffff0000u));
-  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at), "r"(h01),
-               "r"(h23)
-               : "memory");
-  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at + kTileBytes),
-               "r"(l01), "r"(l23)
-               : "memory");
-}
-
-// This thread's share of rows [row0, row0 + 64) of one head, read by the
-// block's kThreads threads: float4 i = tid + n kThreads is row i / 16,
-// columns 4 (i % 16) + [0, 4), so a warp reads two whole rows.
-template <int kThreads>
-__device__ __forceinline__ void fetch(float4 (&x)[kRows * 16 / kThreads],
-                                      const float* head, long row_stride,
-                                      int row0, int N, int tid) {
-#pragma unroll
-  for (int n = 0; n < kRows * 16 / kThreads; ++n) {
-    const int i = tid + n * kThreads, r = row0 + i / 16;
-    const bool valid = r < N;
-    x[n] = load4(valid ? head + r * row_stride + 4 * (i % 16) : head, valid);
-  }
-}
-
-// What fetch read, as the hi/lo planes of a swizzled tile at `tile`:
-// columns 4 c .. 4 c + 3 of row r are bytes 8 (c & 1) of 16-byte chunk
-// (c / 2) ^ (r & 7).
-template <int kThreads>
-__device__ __forceinline__ void store_planes(
-    uint32_t tile, const float4 (&x)[kRows * 16 / kThreads], int tid) {
-#pragma unroll
-  for (int n = 0; n < kRows * 16 / kThreads; ++n) {
-    const int i = tid + n * kThreads, r = i / 16, c = i % 16;
-    store_split(tile + r * kRowBytes + ((((c >> 1) ^ (r & 7)) << 4) |
-                                        ((c & 1) << 3)),
-                x[n]);
-  }
-}
-
-// Issues S (64 x NK) = Q . K[0 : NK]^T over hd as three chains into one
-// accumulator: Q_hi . K_hi, Q_hi . K_lo, Q_lo . K_hi (the lo planes
-// kTileBytes above the hi ones).
-template <int NK>
-__device__ __forceinline__ void issue_scores_split(float (&s)[32],
-                                                   uint32_t sQ, uint32_t sK) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sQ, kk), k_major(sK, kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sQ, kk),
-                 k_major(sK + kTileBytes, kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sQ + kTileBytes, kk),
-                 k_major(sK, kk), 1);
-}
-
 // Pass 1, one key tile (width NK) at sK: S issued, `overlap` (this
 // thread's part of the block's loads) run under the products, then the
 // row maxima.

@@ -109,11 +109,12 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 // an H100 80GB HBM3 at 700 W (PERF.md, findings): resident is faster wherever
 // it fits, from B * H = 96 up (B * H = 16 at hd 16 ran 2x faster streamed:
 // the resident grid leaves most SMs idle), in every backward and in the
-// fp32 forward. The rule now serves the mma.sync kernels' remaining
-// routes: the backward in fp32 at hd 64 (flat_attention_bwd.cu) and both
-// directions at hd 16. At hd 64 the forward is flat_attention_fwd_sm90.cu
-// (bf16) and flat_attention_fwd_f32_sm90.cu (fp32), and the bf16 backward
-// flat_attention_bwd_sm90.cu; they choose their own configuration.
+// fp32 forward. The rule now serves the mma.sync kernels' one remaining
+// route, both directions at hd 16 (flat_attention_fwd.cu,
+// flat_attention_bwd.cu). At hd 64 every direction and dtype runs on wgmma
+// (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
+// flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
+// fp32), and those choose their own configuration.
 constexpr int kMaxWarps = 8;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 constexpr int kStreamRows = 64;   // walked rows staged at once when streamed

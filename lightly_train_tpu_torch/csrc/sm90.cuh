@@ -1,8 +1,10 @@
 // Hopper (sm_90a) machinery shared by the hd-64 attention kernels
 // (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
-// flat_attention_fwd_f32_sm90.cu in fp32): the cp.async copies that fill a
-// ring of shared-memory tiles, the wgmma shared-memory descriptors, the
-// warpgroup products, and the forward's row maxima and probabilities.
+// flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
+// fp32): the cp.async copies that fill a ring of shared-memory tiles (bf16),
+// the predicated loads that split fp32 rows into hi/lo planes, the wgmma
+// shared-memory descriptors, the warpgroup products, and the forward's row
+// maxima and probabilities.
 //
 // A tile is 64 rows of one head (queries or keys) by hd 64 bf16: a row is
 // 128 bytes, one 128-byte swizzle atom. The copies write the swizzle
@@ -167,6 +169,29 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// One k16 step of d (64 x 64) = (or +=) A . B, both from shared memory and
+// MN-major (transpose bits set).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // One k16 step of d (64 x 64) += A . B, A from registers, B MN-major.
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
                                             const uint32_t (&a)[4],
@@ -208,6 +233,77 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* head,
   }
 }
 
+// 16 bytes of fp32 at p, or zeros without a read where !valid.
+__device__ __forceinline__ float4 load4(const float* p, bool valid) {
+  float4 x;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "mov.f32 %0, 0f00000000;\nmov.f32 %1, 0f00000000;\n"
+      "mov.f32 %2, 0f00000000;\nmov.f32 %3, 0f00000000;\n"
+      "@p ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+      : "l"(p), "r"(static_cast<int>(valid)));
+  return x;
+}
+
+// Four fp32 as hi = bf16(x) and, with kPlanes = 2, lo = bf16(x - hi), each
+// four packed bf16 stored at `at` of the hi plane and of the lo plane
+// kTileBytes above it (kPlanes = 1: x rounded to bf16, the hi plane only).
+template <int kPlanes>
+__device__ __forceinline__ void store_split(uint32_t at, float4 x) {
+  const uint32_t h01 = lt::pack_bf16(x.x, x.y);
+  const uint32_t h23 = lt::pack_bf16(x.z, x.w);
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at), "r"(h01),
+               "r"(h23)
+               : "memory");
+  if constexpr (kPlanes == 2) {
+    const uint32_t l01 =
+        lt::pack_bf16(x.x - __uint_as_float(h01 << 16),
+                      x.y - __uint_as_float(h01 & 0xffff0000u));
+    const uint32_t l23 =
+        lt::pack_bf16(x.z - __uint_as_float(h23 << 16),
+                      x.w - __uint_as_float(h23 & 0xffff0000u));
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(at + kTileBytes),
+                 "r"(l01), "r"(l23)
+                 : "memory");
+  }
+}
+
+// This thread's share of fp32 rows [row0, row0 + 64) of one head (hd 64),
+// read by the block's kThreads threads: float4 i = tid + n kThreads is row
+// i / 16, columns 4 (i % 16) + [0, 4), so a warp reads two whole rows and
+// the 16 threads of a half warp hold one row.
+template <int kThreads>
+__device__ __forceinline__ void fetch(float4 (&x)[kRows * 16 / kThreads],
+                                      const float* head, long row_stride,
+                                      int row0, int N, int tid) {
+#pragma unroll
+  for (int n = 0; n < kRows * 16 / kThreads; ++n) {
+    const int i = tid + n * kThreads, r = row0 + i / 16;
+    const bool valid = r < N;
+    x[n] = load4(valid ? head + r * row_stride + 4 * (i % 16) : head, valid);
+  }
+}
+
+// Where float4 i of fetch's layout (row r = i / 16, columns 4 c .. 4 c + 3
+// with c = i % 16) lies in the swizzled bf16 tile at `tile`: bytes 8 (c & 1)
+// of 16-byte chunk (c / 2) ^ (r & 7) of row r.
+__device__ __forceinline__ uint32_t swizzled(uint32_t tile, int i) {
+  const int r = i / 16, c = i % 16;
+  return tile + r * kRowBytes + ((((c >> 1) ^ (r & 7)) << 4) |
+                                 ((c & 1) << 3));
+}
+
+// What fetch read, as kPlanes bf16 planes (hi and lo, or the rounded values
+// alone) of a swizzled tile at `tile`.
+template <int kThreads, int kPlanes = 2>
+__device__ __forceinline__ void store_planes(
+    uint32_t tile, const float4 (&x)[kRows * 16 / kThreads], int tid) {
+#pragma unroll
+  for (int n = 0; n < kRows * 16 / kThreads; ++n)
+    store_split<kPlanes>(swizzled(tile, tid + n * kThreads), x[n]);
+}
+
 // The first NK / 2 accumulators of an array of R (32 for a 64-column
 // tile, 16 for 32 columns).
 template <int NK, int R>
@@ -217,13 +313,27 @@ __device__ __forceinline__ float (&first(float (&s)[R]))[NK / 2] {
 }
 
 // Issues d (64 x NK, this thread's part) = A . B[0 : NK]^T over hd, both
-// tiles K-major (S = Q . K^T, dP = dO . V^T, and their transposes).
+// tiles K-major (S = Q . K^T, dP = dO . V^T, and their transposes); with
+// `overwrite` false the product is added to d (a further chain).
 template <int NK, int R>
 __device__ __forceinline__ void issue_scores(float (&s)[R], uint32_t sA,
-                                             uint32_t sB) {
+                                             uint32_t sB,
+                                             bool overwrite = true) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sA, kk), k_major(sB, kk), kk > 0);
+    wgmma_ss<NK>(first<NK>(s), k_major(sA, kk), k_major(sB, kk),
+                 !overwrite || kk > 0);
+}
+
+// Issues d (64 x NK) = A . B[0 : NK]^T of two fp32 tiles as three chains
+// into one accumulator: A_hi . B_hi, A_hi . B_lo, A_lo . B_hi (the lo
+// planes kTileBytes above the hi ones; lo . lo is dropped).
+template <int NK>
+__device__ __forceinline__ void issue_scores_split(float (&s)[32],
+                                                   uint32_t sA, uint32_t sB) {
+  issue_scores<NK>(s, sA, sB);
+  issue_scores<NK>(s, sA, sB + kTileBytes, false);
+  issue_scores<NK>(s, sA + kTileBytes, sB, false);
 }
 
 // Issues d += A . B[0 : NK], A (64 x NK) in registers, B an MN-major tile
@@ -234,6 +344,36 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
                                          uint32_t sV) {
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs_tb(o, a[kk], mn_major(sV, kk));
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// Keeps the compiler from defining register A operands after a fence.
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4]));
+}
+
+// This thread's rows of a 64 x 64 accumulator (r0 = its row g, and r0 + 8;
+// columns 8 j + 2 t and + 1) into rows of a head of T, skipping rows at or
+// past N.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* head, long row_stride,
+                                           const float (&acc)[32], int r0,
+                                           int N, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (r0 < N)
+      lt::store2(head + r0 * row_stride + col, acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < N)
+      lt::store2(head + (r0 + 8) * row_stride + col, acc[4 * j + 2],
+                 acc[4 * j + 3]);
+  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;

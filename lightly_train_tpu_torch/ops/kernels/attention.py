@@ -2,11 +2,12 @@
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
 and backward serve all four TPU kernels (see :func:`fwd_library` and
-:func:`bwd_library`): at head dim 64 the forward runs on Hopper's ``wgmma``
-(``csrc/flat_attention_fwd_sm90.cu`` in bf16,
-``csrc/flat_attention_fwd_f32_sm90.cu`` in fp32), and so does the bf16
-backward (``csrc/flat_attention_bwd_sm90.cu``); the fp32 backward and head
-dim 16 run on ``mma.sync`` (``csrc/flat_attention_fwd.cu``,
+:func:`bwd_library`): at head dim 64 both directions run on Hopper's
+``wgmma``, each dtype on its own source (``csrc/flat_attention_fwd_sm90.cu``
+and ``csrc/flat_attention_bwd_sm90.cu`` in bf16,
+``csrc/flat_attention_fwd_f32_sm90.cu`` and
+``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32); head dim 16 runs on
+``mma.sync`` in both dtypes (``csrc/flat_attention_fwd.cu``,
 ``csrc/flat_attention_bwd.cu``). The four TPU kernels do the
 same arithmetic and differ only in how a head is addressed:
 
@@ -225,7 +226,8 @@ def _stream(x: torch.Tensor) -> int:
 # together), so that a run can show which kernels it went through.
 fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0,
                 "flat_attention_fwd_f32_sm90": 0}
-bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0}
+bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0,
+                "flat_attention_bwd_f32_sm90": 0}
 
 
 def _check_route(dtype: torch.dtype, head_dim: int) -> None:
@@ -251,11 +253,13 @@ def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose backward kernels serve ``dtype`` at ``head_dim``:
-    ``flat_attention_bwd_sm90`` (wgmma) for bf16 at hd 64,
-    ``flat_attention_bwd`` (mma.sync) for fp32 and for hd 16."""
+    at hd 64 ``flat_attention_bwd_sm90`` (bf16) or
+    ``flat_attention_bwd_f32_sm90`` (fp32), both wgmma; at hd 16
+    ``flat_attention_bwd`` (mma.sync)."""
     _check_route(dtype, head_dim)
-    if dtype == torch.bfloat16 and head_dim == 64:
-        return "flat_attention_bwd_sm90"
+    if head_dim == 64:
+        return ("flat_attention_bwd_sm90" if dtype == torch.bfloat16
+                else "flat_attention_bwd_f32_sm90")
     return "flat_attention_bwd"
 
 

@@ -259,13 +259,14 @@ def test_forward_route_refuses_other_dtypes(dtype):
 
 @pytest.mark.parametrize("dtype,head_dim,library", [
     (torch.bfloat16, 64, "flat_attention_bwd_sm90"),
-    (torch.float32, 64, "flat_attention_bwd"),
+    (torch.float32, 64, "flat_attention_bwd_f32_sm90"),
     (torch.bfloat16, 16, "flat_attention_bwd"),
     (torch.float32, 16, "flat_attention_bwd"),
 ])
 def test_backward_route(dtype, head_dim, library):
-    """bf16 at hd 64 runs the wgmma backward, fp32 and hd 16 the mma.sync
-    one; each route's library is one the port builds."""
+    """At hd 64 both dtypes run a wgmma backward (bf16 and fp32 each their
+    own), hd 16 the mma.sync one; each route's library is one the port
+    builds."""
     assert A.bwd_library(dtype, head_dim) == library
     assert library in A.bwd_launches
     assert library in _native.LIBRARIES
@@ -278,3 +279,71 @@ def test_backward_route_refuses_other_dtypes(dtype):
             A.bwd_library(dtype, head_dim)
     with pytest.raises(ValueError, match="head dim"):
         A.bwd_library(torch.bfloat16, 32)
+
+
+def _planes(x: torch.Tensor):
+    """hi = bf16_rn(x), lo = bf16_rn(x - hi), as fp32 tensors."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _hilo_backward(q, k, v, o, do, lse, scale, s_chains):
+    """K5 in fp32 with exactly the chains of the Hopper fp32 backward
+    (``csrc/flat_attention_bwd_f32_sm90.cu``): fp32 operands as bf16 hi/lo
+    planes, every product of bf16 values summed in fp32. ``s_chains``: the
+    products that form q . k^T, of "hh", "hl" (q_hi . k_lo^T) and "lh"."""
+    (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = (_planes(x) for x in (q, k, v))
+    mm = torch.matmul
+    pairs = {"hh": (q_hi, k_hi), "hl": (q_hi, k_lo), "lh": (q_lo, k_hi)}
+    s = sum(mm(a, b.transpose(-1, -2)) for a, b in
+            (pairs[c] for c in s_chains)) * scale
+    p = torch.exp(s - lse[..., None])
+    do16 = do.to(torch.bfloat16).float()
+    dv = mm(p.to(torch.bfloat16).float().transpose(-1, -2), do16)
+    dp = mm(do16, v_hi.transpose(-1, -2)) + mm(do16, v_lo.transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(torch.bfloat16).float()
+    dq = mm(ds, k_hi) + mm(ds, k_lo)
+    dst = ds.transpose(-1, -2)
+    dk = mm(dst, q_hi) + mm(dst, q_lo)
+    return dq, dk, dv
+
+
+def _within_fp32(got, ref, floor):
+    """The card's fp32 tolerance (tests/test_torch_kernels_cuda.py, the
+    kernels against their plain versions): within 2^-7 of the reference's
+    largest magnitude plus 8 ``floor``, and 1e-3 relative L2 plus ``floor``
+    per element."""
+    diff = got - ref
+    return (diff.abs().max().item()
+            <= 2.0 ** -7 * ref.abs().max().item() + 8 * floor
+            and diff.norm().item() <= (1e-3 * ref.norm().item()
+                                       + floor * diff.numel() ** 0.5))
+
+
+@pytest.mark.parametrize("N,s_chains", [
+    (1, ("hh", "hl", "lh")), (37, ("hh", "hl", "lh")),
+    (257, ("hh", "hl", "lh")),
+    # Control: s from hi . hi alone must fail the tolerance, or it cannot
+    # tell the kernel's three chains from fewer.
+    (37, ("hh",)), (257, ("hh",)),
+])
+def test_fp32_hilo_chains_meet_the_fp32_tolerance(N, s_chains):
+    """The chain set of the fp32 wgmma backward (3 chains for q . k, 2 for
+    do . v, 1 for dv, 2 each for dq and dk), emulated on the CPU, gives dq,
+    dk and dv within the card's fp32 tolerance of the plain backward, with
+    the dq/dk floor of one 2^-16 rounding of dp; s from hi . hi alone does
+    not."""
+    B, H, hd = 2, 3, 64
+    scale = hd ** -0.5
+    rng = np.random.default_rng(N)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, H, N, hd)),
+                                dtype=torch.float32) for _ in range(4))
+    o, lse = A.vmem_attention_fwd_plain(q, k, v, scale)
+    refs = A.vmem_attention_bwd_plain(q, k, v, o, do, lse, scale)
+    got = _hilo_backward(q, k, v, o, do, lse, scale, s_chains)
+    rms = [x.pow(2).mean().sqrt().item() for x in (do, v, k, q)]
+    dp_floor = 2.0 ** -16 * scale * hd ** 0.5 * rms[0] * rms[1]
+    floors = (dp_floor * rms[2], dp_floor * rms[3], 0.0)
+    within = [_within_fp32(a, b, f) for a, b, f in zip(got, refs, floors)]
+    assert all(within) == (len(s_chains) == 3), within

@@ -3,6 +3,7 @@
 
 import ast
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import lightly_train_tpu_torch as lt
+from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch.errors import (
     ConfigError,
     ConfigUnknownKeyError,
@@ -51,6 +53,21 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
                 and func == "decode_image":
             continue  # the one lazy import, where PIL is installed
         assert module not in FORBIDDEN, f"{path}: imports {module}"
+
+
+@pytest.mark.parametrize("name", sorted(_native.LIBRARIES))
+def test_native_library_sources_match_their_bindings(name):
+    """Each library's ``csrc/<name>.cu`` exists and defines its C entry
+    point ``extern "C"`` with as many parameters as its ctypes argtypes:
+    ctypes checks neither, and a missing parameter would shift every later
+    argument on the card."""
+    symbol, argtypes = _native.LIBRARIES[name]
+    source = (_native.CSRC / f"{name}.cu").read_text()
+    found = re.findall(
+        r'extern\s+"C"\s+int\s+' + re.escape(symbol) + r"\s*\(([^)]*)\)",
+        source)
+    assert len(found) == 1, f"{name}.cu: no extern \"C\" int {symbol}(...)"
+    assert len(found[0].split(",")) == len(argtypes)
 
 
 def _write_ppm_folder(folder: Path, n: int = 6, size: int = 36) -> None:

@@ -7,6 +7,8 @@ runs on the GPU machines, which have no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -73,14 +75,11 @@ def _randn(shape, gen, dtype):
 
 
 # (B, N, H, hd): the ViT-B/14 shapes, N = 1, the top of the range (730 =
-# ViT-B/14 at 378^2, 768) and hd 16, on both sides of the host rule of the
-# mma.sync kernels (resident_pays in csrc/mma.cuh; an H100 has 132 SMs):
-# grids of B * H >= 66 are resident where the walked operand fits, the
-# smaller ones stream. (6, 640, 12, 64) runs a resident backward,
-# (6, 300, 12, 64) is resident in both dtypes, and (6, 730, 12, 64) streams
-# throughout (in the backward; the rule is the fp32 backward's and hd
-# 16's). The forward at hd 64 is flat_attention_fwd_sm90.cu (bf16) and
-# flat_attention_fwd_f32_sm90.cu (fp32) at every shape.
+# ViT-B/14 at 378^2, 768) and hd 16. At hd 16 they fall on both sides of
+# the host rule of the mma.sync kernels (resident_pays in csrc/mma.cuh; an
+# H100 has 132 SMs): grids of B * H >= 66 are resident, the smaller ones
+# stream. At hd 64 every shape runs the wgmma kernels of its dtype
+# (flat_attention_{fwd,bwd}_sm90.cu in bf16, *_f32_sm90.cu in fp32).
 SHAPES = [
     (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
     (6, 300, 12, 64), (6, 730, 12, 64),
@@ -118,7 +117,10 @@ def test_fp32_tolerance_rejects_bf16_inputs(cuda, B, N, H, hd):
     scale = hd ** -0.5
     r = [x.to(torch.bfloat16).float() for x in (q, k, v, do)]
     o_c, lse_c = A.flat_attention_fwd(*r[:3], H, scale)
+    before = A.bwd_launches["flat_attention_bwd_f32_sm90"]
     got = (o_c, *A.flat_attention_bwd(*r[:3], o_c, r[3], lse_c, H, scale))
+    # The fp32 backward at hd 64 is the wgmma one.
+    assert A.bwd_launches["flat_attention_bwd_f32_sm90"] == before + 1
     o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, H, scale)
     refs = (o_ref,
             *A.flat_attention_bwd_plain(q, k, v, o_ref, do, lse_ref, H, scale))
@@ -425,17 +427,18 @@ SM90_BWD_SHAPES = [
 ]
 
 
-def _bf16_backward(layout, B, N, H, gen):
-    """q, k, v, do (bf16, hd 64) in ``layout`` (as _bf16_inputs; do a
-    tensor of q's layout), and the forward, backward and plain backward."""
-    (q, k, v), (fwd, _) = _bf16_inputs(layout, B, N, H, gen)
+def _bf16_backward(layout, B, N, H, gen, dtype=torch.bfloat16):
+    """q, k, v, do (``dtype``, bf16 unless given; hd 64) in ``layout`` (as
+    _bf16_inputs; do a tensor of q's layout), and the forward, backward and
+    plain backward."""
+    (q, k, v), (fwd, _) = _bf16_inputs(layout, B, N, H, gen, dtype)
     scale = HD ** -0.5
     if layout == "flat":
-        do = _randn((B, N, H * HD), gen, torch.bfloat16)
+        do = _randn((B, N, H * HD), gen, dtype)
         return (q, k, v, do), (
             fwd, lambda *x: A.flat_attention_bwd(*x, H, scale),
             lambda *x: A.flat_attention_bwd_plain(*x, H, scale))
-    do = _per_head((B, N, H, HD), layout, gen, torch.bfloat16)
+    do = _per_head((B, N, H, HD), layout, gen, dtype)
     return (q, k, v, do), (
         fwd, lambda *x: A.vmem_attention_bwd(*x, scale),
         lambda *x: A.vmem_attention_bwd_plain(*x, scale))
@@ -474,3 +477,57 @@ def test_sm90_backward_library_runs_hgmma(cuda):
     fills its rings with asynchronous copies (LDGSTS, cp.async)."""
     sass = _native.sass("flat_attention_bwd_sm90")
     assert "HGMMA" in sass and "LDGSTS" in sass
+
+
+# (N, B, H) for the Hopper fp32 hd-64 backward: N = 1 and the one-tile
+# kernel at every last-tile width (16, 37, 63, 64); one past a tile (65);
+# whole and ragged tiles of the two-kernel form (128, 320, 321, 384, 385,
+# 768), where 321 and 385 leave one row in the last tile and an odd tile
+# count (the last block's second warpgroup has none); the ViT-B/14 shapes
+# (37, 257, 730). B * H from 4 to 192.
+SM90_F32_BWD_SHAPES = [
+    (1, 2, 2), (16, 2, 4), (37, 16, 12), (63, 2, 3), (64, 4, 4), (65, 3, 5),
+    (128, 5, 2), (257, 16, 12), (320, 2, 6), (321, 2, 3), (384, 2, 3),
+    (385, 2, 3), (730, 16, 12), (768, 2, 4),
+]
+
+
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", SM90_F32_BWD_SHAPES)
+def test_sm90_f32_backward_matches_plain(cuda, monkeypatch, layout, N, B, H):
+    """fp32 at hd 64 runs flat_attention_bwd_f32_sm90 (K2 and K5), within
+    the fp32 tolerances of the plain backward (with the dq/dk floor), and
+    counts its launch; the gradients keep the inputs' layout."""
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 3)
+    (q, k, v, do), (fwd, bwd, plain) = _bf16_backward(layout, B, N, H, gen,
+                                                      torch.float32)
+    o, lse = fwd(q, k, v)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    before = A.bwd_launches["flat_attention_bwd_f32_sm90"]
+    grads = bwd(q, k, v, o, do, lse)
+    refs = plain(q, k, v, o, do, lse)
+    assert asked == ["flat_attention_bwd_f32_sm90"]
+    assert A.bwd_launches["flat_attention_bwd_f32_sm90"] == before + 1
+    scale = HD ** -0.5
+    floors = (_floor(scale, HD, do, v, k), _floor(scale, HD, do, v, q), 0.0)
+    for got, ref, x, floor in zip(grads, refs, (q, k, v), floors):
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        if layout != "flat":
+            assert got.stride() == x.stride()
+        assert torch.isfinite(got).all()
+        assert _within(got, ref, torch.float32, floor)
+
+
+def test_sm90_f32_backward_library_runs_hgmma(cuda):
+    """The fp32 hd-64 backward is built on wgmma (HGMMA in its SASS), and
+    ptxas serialized none of its products (no C751x warning) and spilled no
+    register."""
+    sass = _native.sass("flat_attention_bwd_f32_sm90")
+    assert "HGMMA" in sass
+    log = (_native.BUILD_DIR / "flat_attention_bwd_f32_sm90.log").read_text()
+    assert not any(f"C751{i}" in log for i in range(10)), log
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    assert spills and all(n == "0" for n in spills), log
