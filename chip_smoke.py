@@ -34,7 +34,18 @@ Phases (any failure exits non-zero):
    backbone against an fp32 CPU reference on a small input, and that
    every forward and backward went to the library its dtype routes to; and
    (3c) the public ``vmem_attention`` op, the one path of K4/K5, forward
-   and backward in both dtypes.
+   and backward in both dtypes. Phases 3 and 3b checkpoint only at the end,
+   after the timed steps, and check the one step file and
+   ``exported_models/exported_last`` it leaves. (3d) The rest of the loop a
+   user runs: the bf16 main path interrupted after its step-2 checkpoint
+   and resumed with ``resume_interrupted``, held against phase 3's
+   uninterrupted run (losses of steps 3 and 4 within 1e-3 relative, the
+   student within 1e-3 relative L2, and whether they were bitwise equal),
+   with each checkpoint's save time and size; phase 3's
+   ``augmentations.png`` (its PNG header); and ``embed`` of the 64 images
+   with phase 3's exported artifact in fp32 (12 K1 launches on the fp32
+   wgmma forward, no K2), held against an fp32 CPU reference, with its
+   images per second.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
@@ -53,6 +64,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -513,105 +525,312 @@ def write_images(folder: Path, n: int, size: int) -> None:
         (folder / f"img_{i:03d}.ppm").write_bytes(header + img.tobytes())
 
 
-def run_main_path(lt, A, F, card: str, precision: str) -> dict:
+def reset_counters(A, F) -> tuple:
+    """Sets every launch counter to 0; returns the per-kernel counters in
+    the order K1, K2, K3, K4, K5."""
+    counters = (A.flat_attention_fwd, A.flat_attention_bwd,
+                F.fused_adamw_ema_leaf, A.vmem_attention_fwd,
+                A.vmem_attention_bwd)
+    for fn in counters:
+        fn.launches = 0
+    for by_lib in (A.fwd_launches, A.bwd_launches):
+        by_lib.update(dict.fromkeys(by_lib, 0))
+    return counters
+
+
+def pretrain_main_path(lt, out: Path, data: Path, precision: str,
+                       **kwargs):
+    """``pretrain`` DINOv2 ViT-B/14 at batch 32 for STEPS steps, logging
+    every step."""
+    return lt.pretrain(
+        out=str(out), data=str(data), model="dinov2/vitb14",
+        method="dinov2", batch_size=BATCH, steps=STEPS, precision=precision,
+        log_every=1, canonical_size=256, seed=SEED, **kwargs)
+
+
+def logged_steps(out: Path) -> list:
+    return [r for r in (json.loads(line) for line in
+                        (out / "metrics.jsonl").read_text().splitlines())
+            if "step" in r]
+
+
+def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     """``pretrain`` DINOv2 ViT-B/14 at batch 32 in ``precision`` for STEPS
-    steps, with every launch counter set to 0 just before and read just
-    after: K1/K2 once per block and view group, K3 once per leaf and step,
-    K4/K5 never."""
+    steps into ``work / precision``, with every launch counter set to 0
+    just before and read just after: K1/K2 once per block and view group,
+    K3 once per leaf and step, K4/K5 never. It checkpoints only at the end
+    (``checkpoint_every=STEPS``), after the timed steps: the ~2 GiB save
+    would otherwise land in a step's time."""
     import torch
 
     from lightly_train_tpu_torch.models.package_registry import (
         get_wrapped_model,
     )
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data = Path(tmp) / "images"
-        write_images(data, 2 * BATCH, 256)
-        out = Path(tmp) / "out"
-        torch.cuda.reset_peak_memory_stats()
-        counters = (A.flat_attention_fwd, A.flat_attention_bwd,
-                    F.fused_adamw_ema_leaf, A.vmem_attention_fwd,
-                    A.vmem_attention_bwd)
-        for fn in counters:
-            fn.launches = 0
-        for by_lib in (A.fwd_launches, A.bwd_launches):
-            by_lib.update(dict.fromkeys(by_lib, 0))
-        t0 = time.perf_counter()
-        state = lt.pretrain(
-            out=str(out), data=str(data), model="dinov2/vitb14",
-            method="dinov2", batch_size=BATCH, steps=STEPS,
-            precision=precision,
-            log_every=1, canonical_size=256, seed=SEED,
-        )
+    data = work / "images"
+    run_dir = work / precision
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    state = pretrain_main_path(lt, run_dir, data, precision,
+                               checkpoint_every=STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_library = {"fwd": dict(A.fwd_launches),
+                  "bwd": dict(A.bwd_launches)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = logged_steps(run_dir)
+    saved = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+    if saved != [f"step_{STEPS}.pt"]:
+        fail(f"checkpoints {saved} != step_{STEPS}.pt alone")
+    meta = json.loads((run_dir / "exported_models" / "exported_last"
+                       / "metadata.json").read_text())
+    if meta["steps"] != STEPS or meta["model_name"] != "dinov2/vitb14":
+        fail(f"exported_last metadata {meta}")
+    n_leaves = len(list(state.params.parameters()))
+
+    if [r["step"] for r in steps] != list(range(1, STEPS + 1)):
+        fail(f"logged steps {[r['step'] for r in steps]}")
+    for r in steps:
+        for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss",
+                    "grad_norm"):
+            if not math.isfinite(r[key]):
+                fail(f"step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f} (dino "
+              f"{r['dino_loss']:.4f}, ibot {r['ibot_loss']:.4f}, koleo "
+              f"{r['koleo_loss']:.4f}), grad_norm {r['grad_norm']:.4f}, "
+              f"{r['profiling/step_time'] * 1e3:.1f} ms, "
+              f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
+    expected = [36 * STEPS, 24 * STEPS, n_leaves * STEPS, 0, 0]
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+          f"{expected}); peak memory {peak_gib:.2f} GiB; wall "
+          f"{wall:.1f} s")
+    if launches != expected:
+        fail(f"launch counts {launches} != {expected}")
+    # Every forward and backward of the path at hd 64 in the run's
+    # dtype on the wgmma kernels of that dtype.
+    check_routes(A, f"{precision} main path", by_library,
+                 torch_dtype(precision),
+                 {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
+
+    # The trained backbone on a small input against an fp32 CPU
+    # reference (plain attention): bf16 over 12 blocks keeps the CLS
+    # features within 5% relative L2; fp32 (bf16 probabilities only, as
+    # on the TPU) within 1%. The run's dtype shows that the attention
+    # launches above came from the kernels' fp32 form.
+    tol = 5e-2 if precision == "bf16" else 1e-2
+    student = state.params["student"]
+    images = torch.rand((2, 224, 224, 3), device="cuda") * 4 - 2
+    with torch.no_grad():
+        out = student(images)["cls_token"]
+        if out.dtype != torch_dtype(precision):
+            fail(f"{precision} run computed in {out.dtype}")
+        got = out.float().cpu()
+        ref_model = get_wrapped_model("dinov2/vitb14").module
+        ref_model.load_state_dict(
+            {k: v.float().cpu() for k, v in student.state_dict().items()})
+        ref = ref_model(images.cpu())["cls_token"]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    print(f"  trained ViT-B/14 cls on 2 images vs fp32 CPU reference: "
+          f"relative L2 {rel:.3e} (tol {tol:g})")
+    if not (got.shape == (2, 768) and torch.isfinite(got).all()
+            and rel <= tol):
+        fail(f"backbone disagrees with the CPU reference: {rel}")
+    times = [r["profiling/step_time"] for r in steps]
+    return {
+        "launches": launches, "launches_by_library": by_library,
+        "n_leaves": n_leaves,
+        "step_ms": [t * 1e3 for t in times],
+        "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
+        "peak_gib": peak_gib, "out": run_dir, "steps": steps,
+        "student": {k: v.detach().cpu() for k, v in
+                    student.state_dict().items()},
+    }
+
+
+class Interrupted(Exception):
+    """Raised by the phase-3d loader after its second batch."""
+
+
+def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
+    """Phase 3d, resume: the bf16 main path with ``checkpoint_every=2``,
+    stopped after its step-2 checkpoint by a loader that raises when asked
+    for a third batch, then resumed with ``resume_interrupted=True`` to
+    step STEPS; held against the uninterrupted run ``ref`` (phase 3: the
+    same seed, data and steps). Launch counters are set to 0 before the
+    first run and read after the second."""
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint import checkpoint as C
+    from lightly_train_tpu_torch._commands import train as T
+
+    out = work / "resume"
+    loader_cls, save = T.PretrainLoader, C.CheckpointManager.save
+    saves = []
+
+    class StopAfterTwo(loader_cls):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 2:
+                    raise Interrupted
+                yield batch
+
+    def timed_save(self, step, *args):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = [fn.launches for fn in counters]
-        by_library = {"fwd": dict(A.fwd_launches),
-                      "bwd": dict(A.bwd_launches)}
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        records = [json.loads(line) for line in
-                   (out / "metrics.jsonl").read_text().splitlines()]
-        steps = [r for r in records if "step" in r]
-        if not (out / "checkpoints" / "last.pt").exists():
-            fail("no checkpoints/last.pt")
-        n_leaves = len(list(state.params.parameters()))
+        t0 = time.perf_counter()
+        save(self, step, *args)
+        saves.append((step, (time.perf_counter() - t0) * 1e3,
+                      self.path(step).stat().st_size / 2 ** 30))
 
-        if [r["step"] for r in steps] != list(range(1, STEPS + 1)):
-            fail(f"logged steps {[r['step'] for r in steps]}")
-        for r in steps:
-            for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss",
-                        "grad_norm"):
-                if not math.isfinite(r[key]):
-                    fail(f"step {r['step']}: {key} = {r[key]}")
-            print(f"  step {r['step']}: loss {r['train_loss']:.4f} (dino "
-                  f"{r['dino_loss']:.4f}, ibot {r['ibot_loss']:.4f}, koleo "
-                  f"{r['koleo_loss']:.4f}), grad_norm {r['grad_norm']:.4f}, "
-                  f"{r['profiling/step_time'] * 1e3:.1f} ms, "
-                  f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
-        expected = [36 * STEPS, 24 * STEPS, n_leaves * STEPS, 0, 0]
-        print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
-              f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
-              f"{expected}); peak memory {peak_gib:.2f} GiB; wall "
-              f"{wall:.1f} s")
-        if launches != expected:
-            fail(f"launch counts {launches} != {expected}")
-        # Every forward and backward of the path at hd 64 in the run's
-        # dtype on the wgmma kernels of that dtype.
-        check_routes(A, f"{precision} main path", by_library,
-                     torch_dtype(precision),
-                     {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
+    counters = reset_counters(A, F)
+    C.CheckpointManager.save = timed_save
+    T.PretrainLoader = StopAfterTwo
+    try:
+        pretrain_main_path(lt, out, work / "images", "bf16",
+                           checkpoint_every=2)
+        fail("the interrupted run was not interrupted")
+    except Interrupted:
+        pass
+    finally:
+        T.PretrainLoader = loader_cls
+    try:
+        saved = sorted(p.name for p in (out / "checkpoints").iterdir())
+        meta = json.loads((out / "exported_models" / "exported_last"
+                           / "metadata.json").read_text())
+        print(f"  interrupted after step 2: checkpoints {saved}, "
+              f"exported_last steps {meta['steps']}")
+        if saved != ["step_2.pt"] or meta["steps"] != 2:
+            fail(f"interrupted run left {saved}, exported steps "
+                 f"{meta['steps']}")
+        state = pretrain_main_path(lt, out, work / "images", "bf16",
+                                   checkpoint_every=2,
+                                   resume_interrupted=True)
+        torch.cuda.synchronize()
+    finally:
+        C.CheckpointManager.save = save
+    launches = [fn.launches for fn in counters]
+    expected = [36 * STEPS, 24 * STEPS, ref["n_leaves"] * STEPS, 0, 0]
+    print(f"  launches over both runs K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+          f"{expected})")
+    if launches != expected:
+        fail(f"resume path launch counts {launches} != {expected}")
+    check_routes(A, "bf16 resume path",
+                 {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)},
+                 torch.bfloat16, {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
+    for step, ms, gib in saves:
+        print(f"  checkpoint save at step {step}: {ms:.1f} ms, {gib:.3f} GiB "
+              f"[{card}]")
 
-        # The trained backbone on a small input against an fp32 CPU
-        # reference (plain attention): bf16 over 12 blocks keeps the CLS
-        # features within 5% relative L2; fp32 (bf16 probabilities only, as
-        # on the TPU) within 1%. The run's dtype shows that the attention
-        # launches above came from the kernels' fp32 form.
-        tol = 5e-2 if precision == "bf16" else 1e-2
-        student = state.params["student"]
-        images = torch.rand((2, 224, 224, 3), device="cuda") * 4 - 2
-        with torch.no_grad():
-            out = student(images)["cls_token"]
-            if out.dtype != torch_dtype(precision):
-                fail(f"{precision} run computed in {out.dtype}")
-            got = out.float().cpu()
-            ref_model = get_wrapped_model("dinov2/vitb14").module
-            ref_model.load_state_dict(
-                {k: v.float().cpu() for k, v in student.state_dict().items()})
-            ref = ref_model(images.cpu())["cls_token"]
-        rel = ((got - ref).norm() / ref.norm()).item()
-        print(f"  trained ViT-B/14 cls on 2 images vs fp32 CPU reference: "
-              f"relative L2 {rel:.3e} (tol {tol:g})")
-        if not (got.shape == (2, 768) and torch.isfinite(got).all()
-                and rel <= tol):
-            fail(f"backbone disagrees with the CPU reference: {rel}")
-        times = [r["profiling/step_time"] for r in steps]
-        return {
-            "launches": launches, "launches_by_library": by_library,
-            "n_leaves": n_leaves,
-            "step_ms": [t * 1e3 for t in times],
-            "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
-            "peak_gib": peak_gib,
-        }
+    steps = logged_steps(out)
+    if [r["step"] for r in steps] != list(range(1, STEPS + 1)):
+        fail(f"resume path logged steps {[r['step'] for r in steps]}")
+    bitwise = True
+    for r, r_ref in zip(steps[2:], ref["steps"][2:]):
+        for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss"):
+            rel = abs(r[key] - r_ref[key]) / max(abs(r_ref[key]), 1e-12)
+            bitwise &= r[key] == r_ref[key]
+            print(f"  step {r['step']} {key}: resumed {r[key]!r}, "
+                  f"uninterrupted {r_ref[key]!r} (relative {rel:.3e}, tol "
+                  f"1e-3)")
+            if not (math.isfinite(r[key]) and rel <= 1e-3):
+                fail(f"resumed step {r['step']} {key}: relative {rel}")
+    student = {k: v.detach().cpu() for k, v in
+               state.params["student"].state_dict().items()}
+    diff = math.sqrt(sum((student[k] - v).float().pow(2).sum().item()
+                         for k, v in ref["student"].items()))
+    norm = math.sqrt(sum(v.float().pow(2).sum().item()
+                         for v in ref["student"].values()))
+    bitwise &= all(torch.equal(student[k], v)
+                   for k, v in ref["student"].items())
+    print(f"  resumed student vs uninterrupted: relative L2 {diff / norm:.3e}"
+          f" (tol 1e-3); bitwise equal: {bitwise}")
+    if not diff <= 1e-3 * norm:
+        fail(f"resumed student: relative L2 {diff / norm}")
+    shutil.rmtree(out)
+    return {"launches": launches, "save_ms": [ms for _, ms, _ in saves],
+            "bitwise": bitwise}
+
+
+def check_grid(out: Path, n_images: int) -> None:
+    """Phase 3d, grid: ``augmentations.png`` of the defaults run is a PNG
+    of one row per view config of the first 8 images, each at the global
+    views' size (no PIL on the card: the header is read by hand)."""
+    import struct
+
+    raw = (out / "augmentations.png").read_bytes()
+    if raw[:8] != b"\x89PNG\r\n\x1a\n" or raw[12:16] != b"IHDR":
+        fail("augmentations.png is not a PNG")
+    width, height, depth, color = struct.unpack(">IIBB", raw[16:26])
+    n, size, rows = min(n_images, 8), 224, 3  # 2 global configs, 1 local
+    expected = (n * size + (n - 1) * 2, rows * size, 8, 2)
+    print(f"  augmentations.png: {width} x {height}, bit depth {depth}, "
+          f"colour type {color} (expected {expected}), {len(raw)} bytes")
+    if (width, height, depth, color) != expected:
+        fail(f"augmentations.png header {(width, height, depth, color)}")
+
+
+def run_embed_path(lt, A, F, card: str, work: Path, artifact: Path) -> int:
+    """Phase 3d, embed: ``embed`` on the 64 images with the exported
+    artifact of phase 3, fp32, batch 64, counters set to 0 just before and
+    read just after: 12 K1 launches on the fp32 wgmma forward (one per
+    block, under no grad), no K2, no K3. Two images' CLS against an fp32
+    CPU reference loaded from the same artifact. Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        load_exported_model,
+    )
+    from lightly_train_tpu_torch._data.image_dataset import (
+        ImageDataset,
+        list_image_files,
+    )
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    kwargs = dict(data=str(work / "images"), checkpoint=str(artifact),
+                  image_size=224, batch_size=2 * BATCH, precision="fp32",
+                  format="npz")
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    path = lt.embed(out=str(work / "embeddings.npz"), **kwargs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_library = dict(A.fwd_launches)
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+          f"K4 {launches[3]}, K5 {launches[4]} (expected [12, 0, 0, 0, 0])")
+    if launches != [12, 0, 0, 0, 0]:
+        fail(f"embed launch counts {launches}")
+    check_routes(A, "fp32 embed", {"fwd": by_library}, torch.float32,
+                 {"fwd": 12})
+    emb = np.load(path)["embeddings"]
+    if emb.shape != (2 * BATCH, 768) or not np.isfinite(emb).all():
+        fail(f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    t0 = time.perf_counter()
+    lt.embed(out=str(work / "embeddings_again.npz"), **kwargs)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+
+    model = get_wrapped_model("dinov2/vitb14").module
+    model.load_state_dict(load_exported_model(artifact)["state_dict"])
+    dataset = ImageDataset(list_image_files(work / "images"), (224, 224))
+    images = torch.from_numpy(np.stack([dataset[0], dataset[1]]))
+    with torch.no_grad():
+        ref = model(images.float() / 255.0)["cls_token"].numpy()
+    rel = float(np.linalg.norm(emb[:2] - ref) / np.linalg.norm(ref))
+    print(f"  embed {emb.shape} finite; CLS of 2 images vs fp32 CPU "
+          f"reference: relative L2 {rel:.3e} (tol 1e-2)")
+    if not rel <= 1e-2:
+        fail(f"embed disagrees with the CPU reference: {rel}")
+    print(f"  embed of {2 * BATCH} images (artifact load, PPM decode, "
+          f"forward, npz): first call {first_s:.3f} s, second "
+          f"{again_s:.3f} s = {2 * BATCH / again_s:.1f} img/s [{card}]")
+    return launches[0]
 
 
 def check_routes(A, tag: str, by_library: dict, dtype, expected: dict):
@@ -806,17 +1025,29 @@ def main() -> int:
     attn = check_attention(A, card)
     upd = check_fused_update(F, card)
 
+    work_dir = tempfile.TemporaryDirectory()
+    work = Path(work_dir.name)
+    write_images(work / "images", 2 * BATCH, 256)
     paths = {}
     for phase, precision in zip(("3", "3b"), DTYPES):
         print(f"phase {phase}: main path (pretrain DINOv2 ViT-B/14, batch "
               f"{BATCH}, {precision})", flush=True)
-        paths[precision] = run_main_path(lt, A, F, card, precision)
+        paths[precision] = run_main_path(lt, A, F, card, precision, work)
         r = paths[precision]
         print(f"main path {precision}: step ms {r['step_ms']}, img/s "
               f"{r['images_per_sec']}, peak {r['peak_gib']:.2f} GiB [{card}]")
+    shutil.rmtree(paths["fp32"]["out"])
     print("phase 3c: the K4/K5 path (vmem_attention, ViT-B/14 global shape)",
           flush=True)
     vmem = {dtype: run_vmem_path(A, card, dtype) for dtype in DTYPES}
+    print("phase 3d: resume, augmentation grid and embed", flush=True)
+    bf16_out = paths["bf16"]["out"]
+    check_grid(bf16_out, 2 * BATCH)
+    shutil.rmtree(bf16_out / "checkpoints")  # only its metrics serve now
+    run_resume_path(lt, A, F, card, work, paths["bf16"])
+    embed_k1 = run_embed_path(
+        lt, A, F, card, work, bf16_out / "exported_models" / "exported_last")
+    work_dir.cleanup()
 
     # Launches: each wrapper's count over the path that runs it (K1/K2: the
     # pretrain path of the row's dtype, at the global and local shapes;
@@ -836,6 +1067,10 @@ def main() -> int:
             + route(torch_dtype(dtype), row["shape"][3]) + ".cu",
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": launches if row["shape"] in path_shapes else 0,
+            # embed's fp32 forwards (phase 3d) run at the global shape.
+            **({"launches_embed": embed_k1}
+               if (kernel, dtype) == ("K1", "fp32")
+               and row["shape"] == list(GLOBAL) else {}),
             **row,
         } for row in rows]
     kernels.append({

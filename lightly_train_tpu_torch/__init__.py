@@ -5,9 +5,10 @@ nothing of it (nor of JAX). Entry points run on the card unless the caller
 asks for the CPU.
 """
 
+from lightly_train_tpu_torch._commands.embed import embed, embed_from_config
 from lightly_train_tpu_torch._commands.train import (
     pretrain,
     pretrain_from_config,
 )
 
-__all__ = ["pretrain", "pretrain_from_config"]
+__all__ = ["embed", "embed_from_config", "pretrain", "pretrain_from_config"]

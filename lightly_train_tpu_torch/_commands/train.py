@@ -1,22 +1,22 @@
 """``pretrain`` command: end-to-end SSL pretraining on the card.
 
-Port of ``lightly_train_tpu/_commands/train.py`` for the first slice:
-output-dir checks, logging, dataset + loader, model/method/optimizer
-resolution with the "auto" cascade, the train loop with its one-step-lagged
-non-finite check, ``metrics.jsonl`` and a final ``checkpoints/last.pt``
-(``torch.save``). The run is placed on the card (``accelerator="cuda"``, the
-default) or, only when asked, on the CPU.
+Port of ``lightly_train_tpu/_commands/train.py``: output-dir checks, logging,
+dataset + loader, model/method/optimizer resolution with the "auto" cascade,
+``embed_dim`` and ``transform_args``, the ``checkpoint=`` warm start from an
+exported artifact, ``resume_interrupted``, the train loop with its
+one-step-lagged non-finite check, ``metrics.jsonl``, the augmentation grid
+at step 0, checkpoints every ``checkpoint_every`` steps and at the end
+(``checkpoints/step_<n>.pt``, the 2 newest kept) and
+``exported_models/exported_last`` beside each. The run is placed on the card
+(``accelerator="cuda"``, the default) or, only when asked, on the CPU.
 
 Not ported yet, and refused when set to anything but their defaults:
-``embed_dim``, ``transform_args``, ``fsdp`` > 1, ``mask_dir``,
-``checkpoint``, ``checkpoint_every``, ``resume_interrupted``,
-``log_augmentations``, ``profile``, ``profile_start``, ``profile_steps``, and
-the tensorboard, wandb and mlflow loggers where their package is installed
-(ROADMAP item 7; where it is absent the run warns and goes on, as the JAX
-package does). The fields keep the JAX package's names and defaults, so
-configs stay compatible. At the defaults no periodic checkpoint, no
-augmentation grid and no ``exported_models/exported_last`` is written yet;
-every run says so in a warning.
+``fsdp`` > 1 (ROADMAP item 7.6), ``mask_dir``, ``profile``,
+``profile_start``, ``profile_steps``, and the tensorboard, wandb and mlflow
+loggers where their package is installed (item 7.5; where it is absent the
+run warns and goes on, as the JAX package does). A non-finite step stops the
+run without the JAX package's replay capture (item 7.3). The fields keep the
+JAX package's names and defaults, so configs stay compatible.
 """
 
 from __future__ import annotations
@@ -26,7 +26,14 @@ from pathlib import Path
 from typing import Any, Dict, List, Literal, Optional, Union
 
 import torch
+from torch import nn
 
+from lightly_train_tpu_torch._checkpoint.checkpoint import (
+    CheckpointManager,
+    export_model,
+    merge_pretrained,
+    resolve_pretrained_source,
+)
 from lightly_train_tpu_torch._commands.train_loop import fit, make_train_step
 from lightly_train_tpu_torch._configs.config import AUTO, Auto, Config
 from lightly_train_tpu_torch._configs.validate import config_validate
@@ -50,10 +57,16 @@ from lightly_train_tpu_torch._optim import (
 )
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
 from lightly_train_tpu_torch._scaling import ScalingInfo
+from lightly_train_tpu_torch._visualize.grids import save_augmentation_grid
 from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
+from lightly_train_tpu_torch.models.embedding import project_wrapped
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from lightly_train_tpu_torch.ops.augment import (
+    augment_view_with_geometry,
+    override_view_specs,
+)
 
 logger = get_logger("pretrain")
 
@@ -99,23 +112,29 @@ class TrainConfig(Config):
     accelerator: Literal["cuda", "cpu"] = "cuda"
 
 
+# Options not ported yet, with their defaults and the ROADMAP item that
+# ports them: each is refused when set to anything else.
 _NOT_PORTED = {
-    "embed_dim": None, "transform_args": {}, "fsdp": 1, "mask_dir": None,
-    "checkpoint": None, "checkpoint_every": AUTO, "resume_interrupted": False,
-    "log_augmentations": True, "profile": False, "profile_start": 10,
-    "profile_steps": 5,
+    "fsdp": (1, "7.6"), "mask_dir": (None, "7.5"), "profile": (False, "7.5"),
+    "profile_start": (10, "7.5"), "profile_steps": (5, "7.5"),
 }
 
 
-def _check_ported(config: TrainConfig) -> list:
-    """Raises for an option that is not ported; returns the resolved
-    loggers."""
-    for key, default in _NOT_PORTED.items():
+def _check_config(config: TrainConfig) -> list:
+    """Raises for an option that is not ported and for options that
+    contradict each other; returns the resolved loggers."""
+    for key, (default, item) in _NOT_PORTED.items():
         if getattr(config, key) != default:
             raise NotImplementedError(
                 f"pretrain option {key}={getattr(config, key)!r} is not ported "
-                "to PyTorch yet (ROADMAP item 7)."
+                f"to PyTorch yet (ROADMAP item {item})."
             )
+    if config.checkpoint is not None and config.resume_interrupted:
+        raise ConfigError(
+            "checkpoint= and resume_interrupted=True cannot be combined: "
+            "checkpoint starts a NEW run from previous weights, "
+            "resume_interrupted continues an interrupted run. Set one."
+        )
     return resolve_loggers(config.loggers)
 
 
@@ -126,7 +145,7 @@ def resolve_device(accelerator: str) -> torch.device:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "pretrain runs on the card (accelerator='cuda') but PyTorch sees "
+            "The port runs on the card (accelerator='cuda') but PyTorch sees "
             "no CUDA device. Pass accelerator='cpu' to run on the CPU."
         )
     return torch.device("cuda", torch.cuda.current_device())
@@ -147,13 +166,27 @@ def pretrain(
     return pretrain_from_config(config)
 
 
+
+
 def pretrain_from_config(config: TrainConfig) -> TrainState:
-    loggers = _check_ported(config)
+    loggers = _check_config(config)
     device = resolve_device(config.accelerator)
+    pretrained = None
+    if config.checkpoint is not None:
+        pretrained = resolve_pretrained_source(config.checkpoint)
+        if pretrained[1] != config.model:
+            # Disjoint parameter names would merge as a silent no-op.
+            raise ConfigError(
+                f"checkpoint was exported for model '{pretrained[1]}' but "
+                f"this run pretrains '{config.model}'. Pass "
+                f"model='{pretrained[1]}' or a matching checkpoint."
+            )
     out_dir = Path(config.out)
-    if out_dir.exists() and any(out_dir.iterdir()) and not config.overwrite:
+    if (out_dir.exists() and any(out_dir.iterdir())
+            and not (config.overwrite or config.resume_interrupted)):
         raise ConfigError(
-            f"Output directory {out_dir} is not empty. Pass overwrite=True."
+            f"Output directory {out_dir} is not empty. Pass overwrite=True "
+            "or resume_interrupted=True."
         )
     out_dir.mkdir(parents=True, exist_ok=True)
     set_up_console_logging()
@@ -162,11 +195,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "CPU")
     logger.warning(
-        "The port writes less than the JAX package at these defaults: no "
-        "periodic checkpoints (checkpoint_every='auto'), no "
-        "augmentations.png (log_augmentations=True) and no "
-        "exported_models/exported_last; only checkpoints/last.pt at the end "
-        "(ROADMAP item 7)."
+        "The port writes less than the JAX package: a non-finite step stops "
+        "the run without writing debug/nan_capture.npz (ROADMAP item 7.3); "
+        "the profile trace (profile=True) and the tensorboard, wandb and "
+        "mlflow logger backends are refused (ROADMAP item 7.5)."
     )
 
     # ---- data -------------------------------------------------------------
@@ -182,6 +214,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     # ---- model + method ---------------------------------------------------
     dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
     wrapped = get_wrapped_model(config.model, dtype=dtype, **config.model_args)
+    if config.embed_dim is not None:
+        wrapped = project_wrapped(wrapped, config.embed_dim, dtype)
+        logger.info("Training an embedding model: %s features project to "
+                    "dim %d", config.model, config.embed_dim)
     method_cls, method_args_cls = get_method_cls(config.method)
     method_args = config_validate(method_args_cls, config.method_args)
 
@@ -232,12 +268,20 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     # ---- state ------------------------------------------------------------
     init_gen = torch.Generator().manual_seed(config.seed)
     params, method_state = method.init(init_gen, device)
+    if pretrained is not None:
+        _load_pretrained(params, method_state, pretrained, config)
     named = dict(params.named_parameters())
     updater = build_fused_updater(method, optim_args, lr_schedule, named,
                                   total_steps)
     state = TrainState(step=0, params=params, method_state=method_state,
                        updater=updater)
-    step_gen = torch.Generator(device=device).manual_seed(config.seed)
+    ckpt_mgr = CheckpointManager(out_dir / "checkpoints")
+    if config.resume_interrupted and ckpt_mgr.latest_step() is not None:
+        ckpt_mgr.restore(state)
+        if hasattr(loader, "start_step"):
+            loader.start_step = state.step
+        logger.info("Resumed from step %d", state.step)
+    step_gen = torch.Generator(device=device)
 
     run_loggers = build_loggers(out_dir, loggers)
     run_loggers.log_hyperparams({
@@ -249,6 +293,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
         "optim_args": optim_args.dump(),
         "devices": 1,
     })
+    checkpoint_every = (
+        config.checkpoint_every if config.checkpoint_every != AUTO
+        else max(total_steps // 10, 1)
+    )
 
     def on_log(step: int, metrics: Dict[str, float]) -> None:
         run_loggers.log_metrics(metrics, step)
@@ -256,32 +304,80 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
                     metrics.get("train_loss", float("nan")),
                     metrics.get("profiling/images_per_sec", 0.0))
 
+    def on_checkpoint(step: int, s: TrainState) -> None:
+        ckpt_mgr.save(step, s, config.model, config.method)
+        # A usable backbone at every checkpoint, not only at the end.
+        student = s.params["student"]
+        extra: Dict[str, Any] = {"method": config.method, "steps": step}
+        embed_head = None
+        if config.embed_dim is not None:
+            # The bare backbone, fine-tune compatible, and the head beside.
+            embed_head = student.embed.state_dict()
+            student = student.backbone
+            extra["embed_dim"] = config.embed_dim
+        export_model(out_dir / "exported_models" / "exported_last",
+                     config.model, student.state_dict(), extra_meta=extra,
+                     embed_head=embed_head)
+
+    def on_first_batch(batch: torch.Tensor) -> None:
+        # The augmentation grid: one view of each view config of the first
+        # 8 images, from one fixed seed (method.py:169-191 upstream).
+        if not config.log_augmentations:
+            return
+        gen = torch.Generator(device=device)
+        views = []
+        for spec in override_view_specs(method.view_specs(),
+                                        config.transform_args or None):
+            gen.manual_seed(config.seed + 1)
+            view, _ = augment_view_with_geometry(gen, batch[:8], spec.config)
+            views.append(view.cpu().numpy())
+        save_augmentation_grid(views, out_dir / "augmentations.png")
+
     train_step = make_train_step(method, total_steps, aug_dtype=dtype,
-                                 grad_accum_steps=config.grad_accum_steps)
+                                 grad_accum_steps=config.grad_accum_steps,
+                                 transform_args=config.transform_args or None)
     logger.info(
         "Starting pretraining: model=%s method=%s steps=%d batch=%d lr=%.2e",
         config.model, config.method, total_steps, batch_size, lr,
     )
     try:
         fit(train_step, state, loader, total_steps, step_gen,
-            log_every=config.log_every, on_log=on_log,
-            nan_check=config.nan_check)
+            seed=config.seed, log_every=config.log_every, on_log=on_log,
+            on_checkpoint=on_checkpoint, checkpoint_every=checkpoint_every,
+            nan_check=config.nan_check, on_first_batch=on_first_batch)
     finally:
         run_loggers.close()
-
-    ckpt_dir = out_dir / "checkpoints"
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    teacher = state.method_state["teacher"]
-    torch.save({
-        "step": state.step,
-        "model": config.model,
-        "method": config.method,
-        "params": state.params.state_dict(),
-        "method_state": {
-            "teacher": teacher.state_dict(),
-            "dino_center": state.method_state["dino_center"],
-            "ibot_center": state.method_state["ibot_center"],
-        },
-        "optimizer": updater.state_dict(),
-    }, ckpt_dir / "last.pt")
+    ckpt_mgr.wait()
+    ckpt_mgr.close()
     return state
+
+
+def _load_pretrained(params: nn.ModuleDict, method_state: Dict[str, Any],
+                     pretrained: tuple, config: TrainConfig) -> None:
+    """The ``checkpoint=`` warm start: the artifact's backbone (and, with
+    ``embed_dim``, its head where the widths match) into the student, then
+    the EMA teacher refreshed from it. Optimizer state and schedules start
+    fresh."""
+    backbone_state, _, head_state = pretrained
+    student = params["student"]
+    if config.embed_dim is None:
+        student.load_state_dict(
+            merge_pretrained(student.state_dict(), backbone_state))
+    else:
+        student.backbone.load_state_dict(
+            merge_pretrained(student.backbone.state_dict(), backbone_state))
+        if head_state is not None:
+            if head_state["weight"].shape == student.embed.weight.shape:
+                student.embed.load_state_dict(head_state)
+            else:
+                logger.warning(
+                    "Checkpoint embed head %s does not match embed_dim=%d; "
+                    "the projection re-initializes.",
+                    tuple(head_state["weight"].shape), config.embed_dim)
+    # The teacher starts from the loaded student too (the reference loads
+    # the weights before its teacher copy).
+    teacher = method_state.get("teacher")
+    if isinstance(teacher, nn.ModuleDict) and "student" in teacher:
+        teacher["student"].load_state_dict(student.state_dict())
+    logger.info("Initialized student weights from checkpoint '%s'",
+                config.checkpoint)

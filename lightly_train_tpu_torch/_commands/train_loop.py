@@ -4,6 +4,11 @@ Port of ``lightly_train_tpu/_commands/train_loop.py``. One step runs
 augmentation -> teacher and student forward -> loss -> backward -> the fused
 AdamW+EMA update, eagerly on the device. Gradient accumulation is a Python
 loop over microbatches (the JAX package's ``lax.scan``).
+
+Each step's randomness (augmentation, iBOT masks, drop path) comes from one
+generator that :func:`fit` seeds from (seed, step) before the step, as the
+JAX loop folds the step into its base key: a resumed run replays the steps
+an uninterrupted one would have taken.
 """
 
 from __future__ import annotations
@@ -11,22 +16,34 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from lightly_train_tpu_torch._logging import get_logger
 from lightly_train_tpu_torch.errors import NaNDetectedError
-from lightly_train_tpu_torch.methods.base import Method, TrainState
-from lightly_train_tpu_torch.ops.augment import augment_view_with_geometry
+from lightly_train_tpu_torch.methods.base import Method, TrainState, ViewSpec
+from lightly_train_tpu_torch.ops.augment import (
+    augment_view_with_geometry,
+    override_view_specs,
+)
 
 logger = get_logger("train_loop")
 
 
-def make_views(method: Method, images_u8: torch.Tensor,
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s generator: (seed, step) mixed by numpy's
+    SeedSequence, so that every 32-bit part differs between steps (the CPU
+    generator keeps the low 32 bits only)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
+
+
+def make_views(view_specs: List[ViewSpec], images_u8: torch.Tensor,
                generator: torch.Generator,
                dtype: torch.dtype) -> List[torch.Tensor]:
-    """All of the method's views of one uint8 (B, H, W, 3) batch."""
+    """All views of ``view_specs`` of one uint8 (B, H, W, 3) batch."""
     views = []
-    for spec in method.view_specs():
+    for spec in view_specs:
         for _ in range(spec.count):
             view, _ = augment_view_with_geometry(generator, images_u8,
                                                  spec.config, dtype)
@@ -39,13 +56,17 @@ def make_train_step(
     total_steps: int,
     aug_dtype: torch.dtype = torch.float32,
     grad_accum_steps: int = 1,
+    transform_args: Optional[Dict[str, Any]] = None,
 ) -> Callable[..., Dict[str, Any]]:
     """Build ``train_step(state, images_u8, generator, views=None,
     masks=None) -> metrics``, which updates ``state`` in place.
 
-    ``views`` (one list per microbatch) and ``masks`` replace the sampled
-    augmentation and iBOT masks, so a test can pin them.
+    ``transform_args`` overrides the method's views
+    (:func:`override_view_specs`). ``views`` (one list per microbatch) and
+    ``masks`` replace the sampled augmentation and iBOT masks, so a test can
+    pin them.
     """
+    view_specs = override_view_specs(method.view_specs(), transform_args)
 
     def train_step(state: TrainState, images_u8: Optional[torch.Tensor],
                    generator: Optional[torch.Generator],
@@ -58,7 +79,7 @@ def make_train_step(
             if b % k != 0:
                 raise ValueError(
                     f"batch size {b} not divisible by grad_accum_steps {k}")
-            views = [make_views(method, mb, generator, aug_dtype)
+            views = [make_views(view_specs, mb, generator, aug_dtype)
                      for mb in images_u8.chunk(k)]
         params = state.params
         named = dict(params.named_parameters())
@@ -126,17 +147,25 @@ def fit(
     batches: Iterable[torch.Tensor],
     total_steps: int,
     generator: torch.Generator,
+    seed: int = 0,
     log_every: int = 50,
     on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    on_checkpoint: Optional[Callable[[int, TrainState], None]] = None,
+    checkpoint_every: Optional[int] = None,
     nan_check: bool = False,
+    on_first_batch: Optional[Callable[[torch.Tensor], None]] = None,
 ) -> TrainState:
-    """Host step loop: feed batches, log throughput.
+    """Host step loop: feed batches, log throughput, checkpoint.
 
-    The host reads metrics back (a device sync) only on logged steps, so the
-    loop otherwise runs ahead of the device. With ``nan_check`` every step's
-    ``finite`` flag is read one step later, as the JAX loop does: once the
-    next step is dispatched, so the device stays fed, and a non-finite step
-    stops the run there, named by its number.
+    Before each step ``generator`` is seeded from (``seed``, the step's
+    number). The host reads metrics back (a device sync) only on logged
+    steps, so the loop otherwise runs ahead of the device. With
+    ``nan_check`` every step's ``finite`` flag is read one step later, as
+    the JAX loop does: once the next step is dispatched, so the device
+    stays fed, and a non-finite step stops the run there, named by its
+    number. ``on_checkpoint`` runs every ``checkpoint_every`` steps before
+    the last, and once at the end; ``on_first_batch`` on the run's first
+    batch.
     """
     burn_in = {1, 2, 5, 10, 50, 100}
     current = state.step
@@ -149,6 +178,10 @@ def fit(
         t_data = time.perf_counter()
         batch = next(batch_iter)
         data_wait += time.perf_counter() - t_data
+        if on_first_batch is not None:
+            on_first_batch(batch)
+            on_first_batch = None
+        generator.manual_seed(step_seed(seed, current))
         metrics = train_step(state, batch, generator)
         current += 1
         window_steps += 1
@@ -172,6 +205,11 @@ def fit(
             t_window = time.perf_counter()
             window_steps = 0
             data_wait = 0.0
+        if (on_checkpoint is not None and checkpoint_every is not None
+                and current % checkpoint_every == 0 and current < total_steps):
+            on_checkpoint(current, state)
     if lagged is not None:
         _check_finite(*lagged)  # the last step's flag
+    if on_checkpoint is not None:
+        on_checkpoint(current, state)
     return state

@@ -3,7 +3,8 @@
 Port of ``lightly_train_tpu/_configs/validate.py`` without pydantic: unknown
 keys raise :class:`ConfigUnknownKeyError` with a "did you mean" hint, values
 are checked against the field annotations (with pydantic's lax coercions
-that the configs rely on: int -> float, list -> tuple) and wrong ones raise
+that the configs rely on: int -> float, list -> tuple, a value -> its enum
+member) and wrong ones raise
 :class:`ConfigValidationError`.
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import difflib
+import enum
 import typing
 from typing import Any, Mapping, Type, TypeVar
 
@@ -82,6 +84,13 @@ def _coerce(value: Any, tp: Any, where: str) -> Any:
         return dict(value)
     if isinstance(tp, type) and isinstance(value, tp):
         return value
+    if isinstance(tp, type) and issubclass(tp, enum.Enum):
+        try:
+            return tp(value)
+        except ValueError:
+            raise ConfigValidationError(
+                f"{where}: {value!r} is not one of "
+                f"{[m.value for m in tp]}") from None
     raise ConfigValidationError(f"{where}: unsupported value {value!r}")
 
 

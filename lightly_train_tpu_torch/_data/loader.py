@@ -47,18 +47,27 @@ class PretrainLoader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        # On resume: the batches steps [0, start_step) consumed are skipped
+        # in the index stream, undecoded, so the run goes on with the same
+        # images in the same order.
+        self.start_step = 0
 
     def _index_stream(self) -> Iterator[np.ndarray]:
-        """Index arrays of batch_size, reshuffled every epoch; a dataset
-        smaller than a batch is tiled so batches keep their full shape."""
+        """Index arrays of batch_size, reshuffled every epoch, from batch
+        ``start_step`` on; a dataset smaller than a batch is tiled so
+        batches keep their full shape."""
         n = len(self.dataset)
         epoch = 0
+        skip = self.start_step
         while True:
             perm = np.random.default_rng(self.seed + epoch).permutation(n)
             if len(perm) < self.batch_size:
                 perm = np.tile(perm, -(-self.batch_size // len(perm)))
             usable = len(perm) - len(perm) % self.batch_size
             for start in range(0, usable, self.batch_size):
+                if skip:
+                    skip -= 1
+                    continue
                 yield perm[start:start + self.batch_size]
             epoch += 1
 

@@ -39,6 +39,11 @@ class Env:
     LIGHTLY_TRAIN_IMAGE_MODE: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_IMAGE_MODE", "RGB", str
     )
+    # "1" turns a shape mismatch between a pretrained checkpoint and the
+    # model into a warning (the leaf keeps its init) instead of an error.
+    LIGHTLY_TRAIN_ALLOW_SHAPE_MISMATCH: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_ALLOW_SHAPE_MISMATCH", "0", str
+    )
     # Verbosity of console logging (DEBUG/INFO/WARNING/ERROR).
     LIGHTLY_TRAIN_LOG_LEVEL: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_LOG_LEVEL", "INFO", str

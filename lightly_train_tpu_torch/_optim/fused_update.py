@@ -152,6 +152,13 @@ class FusedAdamWEMA:
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into the moments in place."""
+        self.count = int(state["count"])
+        for key in ("mu", "nu"):
+            for name, value in getattr(self, key).items():
+                value.copy_(state[key][name])
+
     def _host_scalars(self, step: int) -> np.ndarray:
         """(leaves, 8) float32: [cs (filled on device), bc1, bc2, a, wd, m,
         0, 0], computed in float32 as the JAX path does."""

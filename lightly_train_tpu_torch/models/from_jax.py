@@ -8,7 +8,9 @@ numpy arrays, into a PyTorch state dict for the port's modules:
 - LayerNorm ``scale`` -> ``weight``;
 - q/k/v stay separate projections (both packages split them);
 - ``WeightNormDense`` keeps ``v`` (transposed to (out, in)) and ``g``;
-- ``block{i}`` -> ``blocks.{i}``, head ``mlp{i}`` -> ``mlp.{i}``.
+- ``block{i}`` -> ``blocks.{i}``, head ``mlp{i}`` -> ``mlp.{i}``;
+- scope names stay, so an ``embed_dim`` model's ``backbone/...`` and
+  ``embed/kernel|bias`` become ``backbone.*`` and ``embed.weight|bias``.
 
 It takes numpy only and imports nothing of JAX.
 """

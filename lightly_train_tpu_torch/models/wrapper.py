@@ -7,6 +7,7 @@ pure functions over a variables tree; here the module owns its parameters:
   wrapped.module                                   -> nn.Module
   wrapped.forward_features(x, mask, train, gen)    -> {features, cls_token,
                                                        patch_tokens}
+  wrapped.forward_pool(features)                   -> (B, D)
   wrapped.feature_dim                              -> D
 
 Feature maps are (B, H, W, D) channels-last, as in the JAX package.
@@ -49,3 +50,11 @@ class WrappedModel:
         if self.supports_mask:
             kwargs["mask"] = mask
         return module(images, **kwargs)
+
+    def forward_pool(self, out: FeatureDict) -> torch.Tensor:
+        """Pooled (B, D) embedding: the CLS token for ViTs, global average
+        pooling of the feature map otherwise."""
+        cls = out.get("cls_token")
+        if cls is not None:
+            return cls
+        return out["features"].mean(dim=(1, 2))

@@ -11,8 +11,8 @@ Every random op comes in two parts: a sampler that takes an explicit
 parameters, and a deterministic function of the images and those parameters
 (the ``*_with`` functions, :func:`crop_resize_matmul`). The tests feed both
 packages the same sampled parameters; the samplers are checked by bounds.
-Channel drop and rotation (other methods' view options) wait for ROADMAP
-item 9.
+:func:`override_view_specs` applies the user's ``transform_args``. Channel
+drop and rotation (other methods' view options) wait for ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -349,6 +349,90 @@ def random_solarize(generator: torch.Generator, images: torch.Tensor,
         return images
     apply = _uniform(generator, (images.shape[0],)) < prob
     return solarize_with(images, apply, threshold)
+
+
+def view_config_with_overrides(cfg: ViewAugmentConfig,
+                               args: dict) -> ViewAugmentConfig:
+    """Apply the reference's ``transform_args`` keys to a view config.
+
+    The keys of ``MethodTransformArgs``: image_size, random_resize,
+    random_flip, color_jitter, random_gray_scale, gaussian_blur, solarize,
+    normalize, and channel_drop and random_rotation set to None. A key set
+    to None turns its op off. Channel drop and rotation (other methods'
+    views) wait for ROADMAP item 9.
+    """
+    for key in ("channel_drop", "random_rotation"):
+        if args.get(key) is not None:
+            raise NotImplementedError(
+                f"transform_args {key}={args[key]!r} is not ported yet "
+                "(ROADMAP item 9).")
+    u: dict = {}
+    if "image_size" in args:
+        s = args["image_size"]
+        u["out_size"] = (s, s) if isinstance(s, int) else tuple(s)
+    if "random_resize" in args:
+        rr = args["random_resize"]
+        u["crop_scale"] = (1.0, 1.0) if rr is None else (
+            rr.get("min_scale", cfg.crop_scale[0]),
+            rr.get("max_scale", cfg.crop_scale[1]))
+    if "random_flip" in args:
+        rf = args["random_flip"]
+        u["hflip_prob"] = 0.0 if rf is None else rf.get("horizontal_prob", 0.5)
+        u["vflip_prob"] = 0.0 if rf is None else rf.get("vertical_prob", 0.0)
+    if "color_jitter" in args:
+        cj = args["color_jitter"]
+        if cj is None:
+            u["cj_prob"] = 0.0
+        else:
+            u["cj_prob"] = cj.get("prob", cfg.cj_prob)
+            u["cj_strength"] = cj.get("strength", cfg.cj_strength)
+            u["cj_bright"] = cj.get("brightness", cfg.cj_bright)
+            u["cj_contrast"] = cj.get("contrast", cfg.cj_contrast)
+            u["cj_sat"] = cj.get("saturation", cfg.cj_sat)
+            u["cj_hue"] = cj.get("hue", cfg.cj_hue)
+    if "random_gray_scale" in args:
+        g = args["random_gray_scale"]
+        u["gray_prob"] = 0.0 if g is None else float(g)
+    if "gaussian_blur" in args:
+        gb = args["gaussian_blur"]
+        if gb is None:
+            u["blur_prob"] = 0.0
+        else:
+            u["blur_prob"] = gb.get("prob", cfg.blur_prob)
+            if "sigmas" in gb:
+                u["blur_sigma"] = tuple(gb["sigmas"])
+    if "solarize" in args:
+        so = args["solarize"]
+        if so is None:
+            u["solarize_prob"] = 0.0
+        else:
+            u["solarize_prob"] = so.get("prob", cfg.solarize_prob)
+            u["solarize_threshold"] = so.get("threshold",
+                                             cfg.solarize_threshold)
+    if args.get("normalize") is not None:
+        u["mean"] = tuple(args["normalize"]["mean"])
+        u["std"] = tuple(args["normalize"]["std"])
+    return dataclasses.replace(cfg, **u)
+
+
+def override_view_specs(specs: list, transform_args: Optional[dict]) -> list:
+    """Apply ``transform_args`` to a method's view specs: top-level keys to
+    every view, a ``global_view`` / ``local_view`` sub-dict only to the
+    largest-resolution views / the rest."""
+    if not transform_args:
+        return specs
+    common = {k: v for k, v in transform_args.items()
+              if k not in ("global_view", "local_view")}
+    max_size = max(s.config.out_size[0] for s in specs)
+    out = []
+    for s in specs:
+        cfg = view_config_with_overrides(s.config, common)
+        group = ("global_view" if s.config.out_size[0] == max_size
+                 else "local_view")
+        if transform_args.get(group):
+            cfg = view_config_with_overrides(cfg, transform_args[group])
+        out.append(dataclasses.replace(s, config=cfg))
+    return out
 
 
 def normalize(images: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,

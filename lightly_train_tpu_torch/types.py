@@ -49,6 +49,16 @@ class ViewsBatch(TypedDict, total=False):
     labels: Any
 
 
+class EmbeddingFormat(str, Enum):
+    """Output formats of the ``embed`` command (``npz`` is the native array
+    format, ``torch`` a ``torch.save`` file)."""
+
+    CSV = "csv"
+    LIGHTLY_CSV = "lightly_csv"
+    NPZ = "npz"
+    TORCH = "torch"
+
+
 class ModelFormat(str, Enum):
     """Formats of the ``export`` command (not ported yet)."""
 

@@ -105,7 +105,7 @@ def test_pretrain_on_cpu_end_to_end(tmp_path, grad_accum_steps):
     steps = [r for r in lines if "step" in r]
     assert [r["step"] for r in steps] == [1, 2]
     assert all(np.isfinite(r["train_loss"]) for r in steps)
-    ckpt = torch.load(out / "checkpoints" / "last.pt", weights_only=False)
+    ckpt = torch.load(out / "checkpoints" / "step_2.pt", weights_only=False)
     assert ckpt["step"] == 2 and "student.cls_token" in ckpt["params"]
 
 
@@ -133,12 +133,13 @@ def test_unported_methods_name_their_roadmap_item(tmp_path, method):
 
 
 @pytest.mark.parametrize("option", [
-    {"checkpoint_every": 100}, {"log_augmentations": False},
+    {"fsdp": 2}, {"mask_dir": "m"},
     {"profile_start": 2}, {"profile_steps": 1}, {"checkpoint": "last.pt"},
-    {"resume_interrupted": True}, {"loggers": ["tensorboard"]},
+    {"profile": True}, {"loggers": ["tensorboard"]},
 ])
 def test_unported_options_are_refused(tmp_path, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    # A raw torch checkpoint waits for item 20, the rest for parts of 7.
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item (7|20)\b"):
         lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
                     method="dinov2", accelerator="cpu", steps=1, **option)
 

@@ -267,6 +267,21 @@ def test_fused_update_kernel_matches_plain(cuda, shape):
         torch.testing.assert_close(got, r, rtol=1e-6, atol=1e-6)
 
 
+def test_fused_update_kernel_with_lr_0_keeps_the_weights_bitwise(cuda):
+    """A ``checkpoint=`` warm start with ``learning_rate=0``: a = lr x
+    scales = 0, so p' = p - 0 * u is p, weight decay included."""
+    rng = np.random.default_rng(3)
+    g, p, t = (torch.tensor(rng.standard_normal((257, 768)),
+                            dtype=torch.float32, device=cuda)
+               for _ in range(3))
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    s = torch.tensor([0.7, 10.0, 1000.0, 0.0, 0.04, 0.995, 0.0, 0.0],
+                     device=cuda)
+    before = p.clone()
+    F.fused_adamw_ema_leaf(g, p, mu, nu, t, s, b1=0.9, b2=0.999, eps=1e-8)
+    assert torch.equal(p, before)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     def flat(N, D, dtype):
         return torch.zeros((1, N, D), dtype=dtype, device=cuda)
@@ -531,3 +546,38 @@ def test_sm90_f32_backward_library_runs_hgmma(cuda):
     assert not any(f"C751{i}" in log for i in range(10)), log
     spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
     assert spills and all(n == "0" for n in spills), log
+
+
+def test_embed_on_the_card_runs_k1_and_matches_the_cpu(cuda, tmp_path):
+    """``embed`` in fp32 under no grad: one K1 launch a block on the fp32
+    wgmma forward, no K2, and the CPU path's embeddings (plain attention)
+    within the fp32 path's 1e-2 relative L2 (a ViT-T/14, hd 64, on 4
+    images at 224^2, padded to a batch of 8)."""
+    import lightly_train_tpu_torch as lt
+    from lightly_train_tpu_torch._checkpoint.checkpoint import export_model
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    model = get_wrapped_model("dinov2/vitt14").module
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    export_model(tmp_path / "art", "dinov2/vitt14", model.state_dict())
+    data = tmp_path / "images"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        img = rng.integers(0, 256, (240, 240, 3), dtype=np.uint8)
+        (data / f"{i}.ppm").write_bytes(b"P6\n240 240\n255\n" + img.tobytes())
+    kwargs = dict(data=str(data), checkpoint=str(tmp_path / "art"),
+                  image_size=224, batch_size=8, precision="fp32")
+    fwd, bwd = A.flat_attention_fwd.launches, A.flat_attention_bwd.launches
+    by_lib = A.fwd_launches["flat_attention_fwd_f32_sm90"]
+    got = np.load(lt.embed(out=str(tmp_path / "card.npz"), **kwargs))
+    assert A.flat_attention_fwd.launches - fwd == 12
+    assert A.fwd_launches["flat_attention_fwd_f32_sm90"] - by_lib == 12
+    assert A.flat_attention_bwd.launches == bwd
+    ref = np.load(lt.embed(out=str(tmp_path / "cpu.npz"), accelerator="cpu",
+                           **kwargs))
+    g, r = got["embeddings"], ref["embeddings"]
+    assert g.shape == r.shape == (4, 192) and np.isfinite(g).all()
+    assert np.linalg.norm(g - r) <= 1e-2 * np.linalg.norm(r)

@@ -1,6 +1,6 @@
 """What the port's ``pretrain`` checks and writes, against the JAX package:
 the one-step-lagged non-finite check, the ``metrics.jsonl`` keys, the
-warning at the defaults, and the choice of loggers. All on the CPU at the
+warning at the defaults and what the run writes, and the choice of loggers. All on the CPU at the
 ``vittest14`` size."""
 
 import json
@@ -129,7 +129,7 @@ def test_no_metrics_jsonl_without_the_jsonl_logger(tmp_path, loggers):
     state, path = _pretrain(tmp_path, loggers=loggers)
     assert state.step == 2
     assert not path.exists()
-    assert (tmp_path / "out" / "checkpoints" / "last.pt").exists()
+    assert (tmp_path / "out" / "checkpoints" / "step_2.pt").exists()
 
 
 def test_the_default_run_warns_what_it_does_not_write(tmp_path, caplog):
@@ -137,9 +137,20 @@ def test_the_default_run_warns_what_it_does_not_write(tmp_path, caplog):
         _pretrain(tmp_path, steps=1)
     warnings = [r.getMessage() for r in caplog.records
                 if r.levelno == logging.WARNING]
-    assert any("periodic checkpoints" in m and "augmentations.png" in m
-               and "exported_models/exported_last" in m
-               and "ROADMAP item 7" in m for m in warnings), warnings
+    # It names what is still not written (the NaN capture, the profile
+    # trace, the logger backends), and no longer the checkpoints, the grid
+    # or the export, which the run now writes.
+    assert any("nan_capture" in m and "profile" in m
+               and "tensorboard, wandb and mlflow" in m
+               and "ROADMAP item 7.3" in m and "ROADMAP item 7.5" in m
+               for m in warnings), warnings
+    assert not any("checkpoint" in m or "augmentations.png" in m
+                   or "exported_last" in m for m in warnings), warnings
+    out = tmp_path / "out"
+    assert (out / "checkpoints" / "step_1.pt").exists()
+    assert (out / "augmentations.png").exists()
+    assert (out / "exported_models" / "exported_last" / "metadata.json"
+            ).exists()
 
 
 def test_an_unknown_logger_is_refused(tmp_path):
