@@ -14,7 +14,12 @@ Phases (any failure exits non-zero):
    (``library_ms``): the attention kernels K1/K2 (flat layout) in bf16 and
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
    378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
-   layouts and dtypes at the ViT-B/14 shapes; K3 over the ViT-B/14 leaves.
+   layouts and dtypes at the ViT-B/14 shapes; K3, one launch over the
+   ViT-B/14 leaves and synthetic ones that exercise its chunk plan (ragged
+   sizes, a leaf of no gradient), with lr 0 (bitwise), over two steps of
+   ``FusedAdamWEMA`` with every gradient reallocated in between, at several
+   chunk sizes, and ``update_and_apply`` on the main path's model
+   (``time_update.py``: its host time, ``update_host_ms``).
    In fp32 a control checks the tolerance itself: the kernels fed inputs
    rounded to bf16 must fail it. The SASS of the Hopper kernels at hd 64
    must hold wgmma (HGMMA) instructions, and that of the two that fill
@@ -26,7 +31,7 @@ Phases (any failure exits non-zero):
    no ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
-   (Python, ctypes, argument checks) included.
+   (Python, ctypes, argument checks; K3's staging copy) included.
 3. Run the main paths, each with every launch counter set to 0 just before
    and read just after: ``pretrain`` with DINOv2 on ViT-B/14 at batch 32 in
    bf16 (3) and in fp32 (3b) for 4 steps each on a folder of generated PPM
@@ -451,58 +456,195 @@ def vitb_leaf_shapes():
     return shapes
 
 
-def check_fused_update(F, card: str) -> dict:
-    """K3 against its plain version on the real ViT-B/14 + head leaves."""
+def k3_leaves(shapes, gen):
+    """(g, p, mu, nu, t) of each leaf of ``shapes`` on the card, from
+    ``gen``."""
     import torch
 
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return [[randn(shape), randn(shape), randn(shape),
+             torch.rand(shape, generator=gen, device="cuda"), randn(shape)]
+            for shape in shapes]
+
+
+def k3_scalars(n: int, lr: float = 2e-3):
+    """(n, 8) scalar rows (cs, bc1, bc2, a, wd, m, 0, 0) that differ from
+    leaf to leaf."""
+    import numpy as np
+
+    s = np.tile(np.float32([0.7, 1.5, 1.1, lr, 0.04, 0.995, 0, 0]), (n, 1))
+    s[:, 3] *= 1 + np.arange(n) % 3
+    s[:, 4] *= np.arange(n) % 2
+    return s
+
+
+def k3_plain(F, leaves, table, hp, clip=None) -> list:
+    """The plain version leaf by leaf on the card: new (p, mu, nu, t) of each
+    leaf (a gradient of None is zeros). ``table``: the (leaves, 8) scalars
+    on the card, whose column 0 the clip scale of ``clip`` overwrites; no
+    copy from the host, so a CUDA graph can capture it."""
+    import torch
+
+    if clip is not None:
+        table[:, 0] = F.clip_scale_plain(*clip)
+    return [F.fused_adamw_ema_leaf_plain(
+        torch.zeros_like(p) if g is None else g, p, mu, nu, t, s, **hp)
+        for (g, p, mu, nu, t), s in zip(leaves, table)]
+
+
+def check_fused_update(F, card: str) -> dict:
+    """K3 against its plain version, one launch over the real ViT-B/14 +
+    head leaves and synthetic ones that exercise the chunk plan (n = 1, 3,
+    5, 4097, 65537, a chunk + 3, and a leaf of no gradient); with lr 0
+    (the weights bitwise unchanged); and over two steps of ``FusedAdamWEMA``
+    whose gradients are all reallocated in between, against the same class
+    on the CPU. Then the times of the 239 ViT-B/14 leaves alone, K3 at
+    several chunk sizes, and ``update_and_apply`` on the main path's model
+    (``time_update.py``)."""
+    import torch
+
+    import time_update
+
     shapes = vitb_leaf_shapes()
+    n_vit = len(shapes)
     n_params = sum(math.prod(s) for s in shapes)
+    synthetic = [(1,), (3,), (5,), (4097,), (65537,), (F.CHUNK_ELEMS + 3,),
+                 (768,)]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    leaves = []
-    for i, shape in enumerate(shapes):
-        g, p, mu, t = (torch.randn(shape, generator=gen, device="cuda")
-                       for _ in range(4))
-        nu = torch.rand(shape, generator=gen, device="cuda")
-        s = torch.tensor([0.7, 1.5, 1.1, 2e-3 * (1 + i % 3), 0.04 * (i % 2),
-                          0.995, 0.0, 0.0], device="cuda")
-        leaves.append((g, p, mu, nu, t, s))
+    leaves = k3_leaves(shapes + synthetic, gen)
+    leaves[-1][0] = None  # a leaf with no gradient
+    scalars = k3_scalars(len(leaves))
     hp = dict(b1=0.9, b2=0.999, eps=1e-8)
+    state = F.LeafSet(*([leaf[k] for leaf in leaves] for k in range(1, 5)))
+    got = [[x.clone() for x in leaf[1:]] for leaf in leaves]
+    state_got = F.LeafSet(*([leaf[k] for leaf in got] for k in range(4)))
+    F.fused_adamw_ema(state_got, [leaf[0] for leaf in leaves], scalars, **hp)
     err = 0.0
-    for g, p, mu, nu, t, s in leaves:
-        ref = F.fused_adamw_ema_leaf_plain(g, p, mu, nu, t, s, **hp)
-        got = [x.clone() for x in (p, mu, nu, t)]
-        F.fused_adamw_ema_leaf(g, *got, s, **hp)
-        for a, b in zip(got, ref):
+    for mine, ref in zip(got, k3_plain(
+            F, leaves, torch.tensor(scalars, device="cuda"), hp)):
+        for a, b in zip(mine, ref):
             err = max(err, (a - b).abs().max().item())
+    del got, state_got
+    # lr 0 (a warm start with learning_rate=0): p' = p - 0 * u is p.
+    p0 = [leaf[1].clone() for leaf in leaves]
+    F.fused_adamw_ema(state, [leaf[0] for leaf in leaves],
+                      k3_scalars(len(leaves), lr=0.0), **hp)
     torch.cuda.synchronize()
+    lr0_bitwise = all(torch.equal(leaf[1], p) for leaf, p in zip(leaves, p0))
+    del p0
+    err_steps = two_steps_new_grads(F, shapes[:12] + synthetic)
     # Same fp32 arithmetic, only FMA contraction and sqrt/div rounding may
     # differ: values are O(1), so 1e-5 absolute.
-    print(f"  K3 {len(shapes)} leaves, {n_params} parameters: max_abs_err "
-          f"{err:.3e} (tol 1e-5)")
-    if not err <= 1e-5:
-        fail(f"fused AdamW+EMA: {err}")
+    print(f"  K3 {n_vit} leaves + {len(synthetic)} synthetic, one launch: "
+          f"max_abs_err {err:.3e}; two steps with new gradients "
+          f"{err_steps:.3e} (tol 1e-5); lr 0 keeps p bitwise: {lr0_bitwise}")
+    if not (err <= 1e-5 and err_steps <= 1e-5):
+        fail(f"fused AdamW+EMA: {err}, {err_steps}")
+    if not lr0_bitwise:
+        fail("fused AdamW+EMA with lr 0 changed the weights")
 
-    def kernel_pass():
-        for g, p, mu, nu, t, s in leaves:
-            F.fused_adamw_ema_leaf(g, p, mu, nu, t, s, **hp)
+    # Times over the 239 ViT-B/14 leaves (the main path's update).
+    vit = leaves[:n_vit]
+    grads = [leaf[0] for leaf in vit]
+    scalars = scalars[:n_vit]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    clip = (norm, 3.0)
+    by_chunk = {}
+    for chunk in (4096, 8192, 16384, 32768, 65536):
+        timed = F.LeafSet(*([leaf[k] for leaf in vit] for k in range(1, 5)),
+                          chunk_elems=chunk)
+        table = timed.stage(grads, scalars)
+        by_chunk[chunk] = device_ms(
+            lambda: timed.launch(table, clip, **hp), replays=10)
+    print("  K3 device ms by chunk_elems: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in by_chunk.items()) + f" [{card}]")
+    timed = F.LeafSet(*([leaf[k] for leaf in vit] for k in range(1, 5)))
+    table = timed.stage(grads, scalars)
+
+    plain_table = torch.tensor(scalars, device="cuda")
 
     def plain_pass():
-        for g, p, mu, nu, t, s in leaves:
-            F.fused_adamw_ema_leaf_plain(g, p, mu, nu, t, s, **hp)
+        k3_plain(F, vit, plain_table, hp, clip)
 
     # 5 fp32 reads + 4 fp32 writes and ~15 fp32 operations per parameter.
     b = bound_ms(36.0 * n_params, 15.0 * n_params, PEAK_FP32_FLOPS)
     row = {
-        "leaves": len(shapes), "n_params": n_params, "max_abs_err": err,
-        "ms": device_ms(kernel_pass, replays=10),
+        "leaves": n_vit, "n_params": n_params, "max_abs_err": err,
+        "max_abs_err_two_steps": err_steps, "lr0_bitwise": lr0_bitwise,
+        "chunk_elems": F.CHUNK_ELEMS,
+        "ms": device_ms(lambda: timed.launch(table, clip, **hp), replays=10),
+        "ms_by_chunk_elems": by_chunk,
         "plain_ms": device_ms(plain_pass, replays=5),
-        "library_ms": None, "host_ms": time_ms(kernel_pass, iters=10),
+        "library_ms": None,
+        "host_ms": time_ms(lambda: F.fused_adamw_ema(timed, grads, scalars,
+                                                     clip, **hp), iters=10),
         "bound_ms": b[0], "bound_by": b[1],
     }
-    print(f"  K3 all leaves: {row['ms']:.4f} ms (with host launches "
-          f"{row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+    del leaves, vit, grads, state, timed, table
+    torch.cuda.empty_cache()
+    # No profiler window here: it could slow the main paths' launches.
+    upd = time_update.measure(profile=False)
+    row.update({k: upd[k] for k in ("update_host_ms", "update_host_ms_min",
+                                    "update_host_ms_max", "norm_host_ms",
+                                    "update_ms")})
+    print(f"  K3 all leaves: {row['ms']:.4f} ms (with the host's staging and "
+          f"launch {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"update_and_apply: host {row['update_host_ms']:.4f} ms (its grad "
+          f"norm {row['norm_host_ms']:.4f} ms), with the card "
+          f"{row['update_ms']:.4f} ms [{card}]")
     return row
+
+
+def two_steps_new_grads(F, shapes) -> float:
+    """Max-abs error of two ``FusedAdamWEMA`` steps on the card (K3) against
+    the same on CPU copies (the plain version), with a clip norm that the
+    second step's large gradients exceed, a leaf of no gradient, and every
+    gradient reallocated between the steps while the old ones live (a stale
+    address table would read the old ones)."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._optim import AdamWArgs
+
+    rng = np.random.default_rng(SEED + 2)
+    names = [f"leaf{i}" for i in range(len(shapes))]
+    start = {n: rng.standard_normal(s).astype(np.float32)
+             for n, s in zip(names, shapes)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        params = {n: torch.tensor(v, device=device) for n, v in start.items()}
+        teacher = {n: v.clone() for n, v in params.items()}
+        upd = F.FusedAdamWEMA(
+            AdamWArgs(lr=1e-3, weight_decay=0.04), lambda c: 1e-3 * (1 + c),
+            params, grad_clip_norm=3.0, momentum_fn=lambda s: 0.99,
+            lr_scales={n: 0.5 + (i % 3) for i, n in enumerate(names)})
+        runs[device] = (params, teacher, upd)
+    old = None
+    for step in range(2):
+        grads_np = {n: (rng.standard_normal(s) * (1e-4 if step == 0 else 10.0)
+                        ).astype(np.float32) for n, s in zip(names, shapes)}
+        for device, (params, teacher, upd) in runs.items():
+            grads = {n: torch.tensor(g, device=device)
+                     for n, g in grads_np.items()}
+            grads[names[-1]] = None
+            if device == "cuda":
+                if old is not None and {g.data_ptr() for g in old if g is not
+                                        None} & {g.data_ptr() for g in
+                                                 grads.values() if g is not
+                                                 None}:
+                    fail("two-step K3 check: a gradient kept its address")
+                old = list(grads.values())
+            upd.update_and_apply(grads, params, teacher, step)
+    torch.cuda.synchronize()
+    err = 0.0
+    (p_c, t_c, u_c), (p_h, t_h, u_h) = runs["cuda"], runs["cpu"]
+    for a, b in ((p_c, p_h), (t_c, t_h), (u_c.mu, u_h.mu), (u_c.nu, u_h.nu)):
+        for n in names:
+            err = max(err, (a[n].cpu() - b[n]).abs().max().item())
+    return err
 
 
 def write_images(folder: Path, n: int, size: int) -> None:
@@ -529,7 +671,7 @@ def reset_counters(A, F) -> tuple:
     """Sets every launch counter to 0; returns the per-kernel counters in
     the order K1, K2, K3, K4, K5."""
     counters = (A.flat_attention_fwd, A.flat_attention_bwd,
-                F.fused_adamw_ema_leaf, A.vmem_attention_fwd,
+                F.fused_adamw_ema, A.vmem_attention_fwd,
                 A.vmem_attention_bwd)
     for fn in counters:
         fn.launches = 0
@@ -558,7 +700,7 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     """``pretrain`` DINOv2 ViT-B/14 at batch 32 in ``precision`` for STEPS
     steps into ``work / precision``, with every launch counter set to 0
     just before and read just after: K1/K2 once per block and view group,
-    K3 once per leaf and step, K4/K5 never. It checkpoints only at the end
+    K3 once a step over all leaves, K4/K5 never. It checkpoints only at the end
     (``checkpoint_every=STEPS``), after the timed steps: the ~2 GiB save
     would otherwise land in a step's time."""
     import torch
@@ -588,7 +730,6 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
                        / "metadata.json").read_text())
     if meta["steps"] != STEPS or meta["model_name"] != "dinov2/vitb14":
         fail(f"exported_last metadata {meta}")
-    n_leaves = len(list(state.params.parameters()))
 
     if [r["step"] for r in steps] != list(range(1, STEPS + 1)):
         fail(f"logged steps {[r['step'] for r in steps]}")
@@ -602,7 +743,7 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
               f"{r['koleo_loss']:.4f}), grad_norm {r['grad_norm']:.4f}, "
               f"{r['profiling/step_time'] * 1e3:.1f} ms, "
               f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
-    expected = [36 * STEPS, 24 * STEPS, n_leaves * STEPS, 0, 0]
+    expected = [36 * STEPS, 24 * STEPS, STEPS, 0, 0]
     print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
           f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
           f"{expected}); peak memory {peak_gib:.2f} GiB; wall "
@@ -641,7 +782,6 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     times = [r["profiling/step_time"] for r in steps]
     return {
         "launches": launches, "launches_by_library": by_library,
-        "n_leaves": n_leaves,
         "step_ms": [t * 1e3 for t in times],
         "images_per_sec": [r["profiling/images_per_sec"] for r in steps],
         "peak_gib": peak_gib, "out": run_dir, "steps": steps,
@@ -711,7 +851,7 @@ def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
     finally:
         C.CheckpointManager.save = save
     launches = [fn.launches for fn in counters]
-    expected = [36 * STEPS, 24 * STEPS, ref["n_leaves"] * STEPS, 0, 0]
+    expected = [36 * STEPS, 24 * STEPS, STEPS, 0, 0]
     print(f"  launches over both runs K1 {launches[0]}, K2 {launches[1]}, K3 "
           f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
           f"{expected})")
@@ -1078,7 +1218,8 @@ def main() -> int:
         "source": "lightly_train_tpu_torch/csrc/fused_adamw_ema.cu",
         "replaces": "lightly_train_tpu/_optim/fused_update.py:95",
         "launches": paths["bf16"]["launches"][2],
-        "launches_fp32": paths["fp32"]["launches"][2], **upd,
+        "launches_fp32": paths["fp32"]["launches"][2],
+        "launches_per_step": paths["bf16"]["launches"][2] / STEPS, **upd,
     })
     if "--profile" in sys.argv[1:]:
         for precision in DTYPES:

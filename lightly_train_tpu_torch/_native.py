@@ -66,7 +66,7 @@ LIBRARIES: Dict[str, tuple] = {
     ),
     "fused_adamw_ema": (
         "lt_fused_adamw_ema",
-        [_P] * 6 + [_L] + [_F] * 5 + [_P],
+        [_P, _I, _P, _P, _P] + [_F] * 6 + [_P],
     ),
 }
 

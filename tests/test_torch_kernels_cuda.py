@@ -249,37 +249,70 @@ def test_vmem_attention_autograd_runs_the_kernels(cuda, dtype):
         assert (got.float() - ref).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("shape", [(768, 768), (257, 768), (7,), (65536, 256)])
-def test_fused_update_kernel_matches_plain(cuda, shape):
-    rng = np.random.default_rng(len(shape))
-    g, p, t = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
-                            device=cuda) for _ in range(3))
-    mu = 0.1 * torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
-                            device=cuda)
-    nu = 0.01 * torch.tensor(rng.random(shape), dtype=torch.float32,
-                             device=cuda)
-    s = torch.tensor([0.7, 1.5, 1.1, 2e-3, 0.04, 0.995, 0.0, 0.0],
-                     device=cuda)
+# K3 cases, each one launch over all its leaves: shapes of ViT-B/14 leaves;
+# the plan's edges (n = 1, 3, 5, a chunk's + 1, + 3, a leaf of no gradient);
+# the clip scale formed from a grad norm on the card; lr 0, which must keep
+# the weights bitwise (a ``checkpoint=`` warm start: p' = p - 0 * u is p,
+# weight decay included); two steps with every gradient reallocated in
+# between (a stale address table would read the old ones).
+K3_SHAPES = {
+    "vit_shapes": [(768, 768), (257, 768), (7,), (65536, 256)],
+    "ragged_and_no_grad": [(1,), (3,), (5,), (4097,), (65537,),
+                           (F.CHUNK_ELEMS + 3,), (768,)],
+}
+
+
+@pytest.mark.parametrize("case", ["vit_shapes", "ragged_and_no_grad",
+                                  "clip_from_norm", "lr_0_bitwise",
+                                  "two_steps_new_grads"])
+def test_fused_update_kernel_matches_plain(cuda, case):
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    shapes = K3_SHAPES.get(case, K3_SHAPES["ragged_and_no_grad"])
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    leaves = [[randn(shape), randn(shape), 0.1 * randn(shape),
+               0.01 * torch.rand(shape, generator=gen, device=cuda),
+               randn(shape)] for shape in shapes]
+    if case == "ragged_and_no_grad":
+        leaves[-1][0] = None
+    n = len(leaves)
+    scalars = np.tile(np.float32([0.7, 1.5, 1.1, 2e-3, 0.04, 0.995, 0, 0]),
+                      (n, 1))
+    scalars[:, 3] *= 1 + np.arange(n) % 3
+    scalars[:, 4] *= np.arange(n) % 2
+    if case == "lr_0_bitwise":
+        scalars[:, 1:4] = (10.0, 1000.0, 0.0)
+    clip = ((torch.tensor(5.0, device=cuda), 2.0)
+            if case == "clip_from_norm" else None)
     hp = dict(b1=0.9, b2=0.999, eps=1e-8)
-    ref = F.fused_adamw_ema_leaf_plain(g, p, mu, nu, t, s, **hp)
-    F.fused_adamw_ema_leaf(g, p, mu, nu, t, s, **hp)
-    for got, r in zip((p, mu, nu, t), ref):
-        torch.testing.assert_close(got, r, rtol=1e-6, atol=1e-6)
-
-
-def test_fused_update_kernel_with_lr_0_keeps_the_weights_bitwise(cuda):
-    """A ``checkpoint=`` warm start with ``learning_rate=0``: a = lr x
-    scales = 0, so p' = p - 0 * u is p, weight decay included."""
-    rng = np.random.default_rng(3)
-    g, p, t = (torch.tensor(rng.standard_normal((257, 768)),
-                            dtype=torch.float32, device=cuda)
-               for _ in range(3))
-    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
-    s = torch.tensor([0.7, 10.0, 1000.0, 0.0, 0.04, 0.995, 0.0, 0.0],
-                     device=cuda)
-    before = p.clone()
-    F.fused_adamw_ema_leaf(g, p, mu, nu, t, s, b1=0.9, b2=0.999, eps=1e-8)
-    assert torch.equal(p, before)
+    ref = [[x if x is None else x.clone() for x in leaf] for leaf in leaves]
+    p0 = [leaf[1].clone() for leaf in leaves]
+    state = F.LeafSet(*([leaf[k] for leaf in leaves] for k in range(1, 5)))
+    steps = 2 if case == "two_steps_new_grads" else 1
+    before = F.fused_adamw_ema.launches
+    for step in range(steps):
+        grads = [leaf[0] for leaf in leaves]
+        if step:
+            # New gradients while the old ones live: new addresses.
+            grads = [randn(g.shape) for g in grads]
+            assert not {g.data_ptr() for g in grads} & {
+                leaf[0].data_ptr() for leaf in leaves}
+        F.fused_adamw_ema(state, grads, scalars, clip, **hp)
+        table = torch.tensor(scalars, device=cuda)
+        if clip is not None:
+            table[:, 0] = F.clip_scale_plain(*clip)
+        for r, g, s in zip(ref, grads, table):
+            r[1:] = F.fused_adamw_ema_leaf_plain(
+                torch.zeros_like(r[1]) if g is None else g, *r[1:], s, **hp)
+    torch.cuda.synchronize()
+    assert F.fused_adamw_ema.launches == before + steps
+    for leaf, r, p_start in zip(leaves, ref, p0):
+        if case == "lr_0_bitwise":
+            assert torch.equal(leaf[1], p_start)
+        for got, want in zip(leaf[1:], r[1:]):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -306,6 +339,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         A.flat_attention_fwd(wide[..., 1:], wide[..., 1:], wide[..., 1:], 12,
                              0.125)
+    # K3: leaves checked once (16-byte aligned), gradients every step.
+    x = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        F.LeafSet([torch.zeros(65, device=cuda)[1:]], [x], [x], [x])
+    leaves = F.LeafSet([x], [x.clone()], [x.clone()], [x.clone()])
+    scalars = np.zeros((1, 8), np.float32)
+    for g in (x.double(), x[:63], torch.zeros(65, device=cuda)[1:], x.cpu(),
+              torch.zeros(128, device=cuda)[::2]):
+        with pytest.raises(ValueError, match="gradients"):
+            F.fused_adamw_ema(leaves, [g], scalars, b1=0.9, b2=0.999,
+                              eps=1e-8)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
