@@ -13,22 +13,26 @@ Phases (any failure exits non-zero):
    kernel, plain version and the nearest single PyTorch call
    (``library_ms``): the attention kernels K1/K2 (flat layout) in bf16 and
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
-   378^2 images) and at head dim 16; K4/K5 (``vmem_attention``) in both
-   layouts and dtypes at the ViT-B/14 shapes; K3, one launch over the
+   378^2 images) and at head dim 16 (a small grid and the vittest14 shapes
+   of phase 3e); K4/K5 (``vmem_attention``) in both
+   layouts and dtypes at the ViT-B/14 shapes, and in ``vmem_attention``'s
+   layout at the hd-16 ones; K3, one launch over the
    ViT-B/14 leaves and synthetic ones that exercise its chunk plan (ragged
    sizes, a leaf of no gradient), with lr 0 (bitwise), over two steps of
    ``FusedAdamWEMA`` with every gradient reallocated in between, at several
    chunk sizes, and ``update_and_apply`` on the main path's model
    (``time_update.py``: its host time, ``update_host_ms``).
    In fp32 a control checks the tolerance itself: the kernels fed inputs
-   rounded to bf16 must fail it. The SASS of the Hopper kernels at hd 64
+   rounded to bf16 must fail it (each output's verdict is printed). The
+   SASS of the Hopper libraries (every forward, and the backward at hd 64)
    must hold wgmma (HGMMA) instructions, and that of the two that fill
    their rings with cp.async (the bf16 forward and backward,
    ``flat_attention_fwd_sm90.cu`` and ``flat_attention_bwd_sm90.cu``)
-   LDGSTS too (the fp32 forward and backward,
+   LDGSTS too (the fp32 hd-64 forward and backward,
    ``flat_attention_fwd_f32_sm90.cu`` and ``flat_attention_bwd_f32_sm90.cu``,
-   load with ld.global and split in registers); their build logs must hold
-   no ptxas warning that it serialized the wgmma products.
+   load with ld.global and split in registers; at hd 16 the fp32 forward
+   lands its rows by cp.async as well); their build logs must hold no
+   ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks; K3's staging copy) included.
@@ -50,7 +54,12 @@ Phases (any failure exits non-zero):
    ``augmentations.png`` (its PNG header); and ``embed`` of the 64 images
    with phase 3's exported artifact in fp32 (12 K1 launches on the fp32
    wgmma forward, no K2), held against an fp32 CPU reference, with its
-   images per second.
+   images per second. (3e) ``pretrain`` DINOv2 on vittest14 (width 32, 2
+   heads: head dim 16) at batch 32 for 2 steps in bf16 and in fp32, on the
+   same images, counters set to 0 just before and read just after: every
+   forward on its dtype's wgmma library at hd 16, every backward on the
+   mma.sync one, finite losses, the backbone against an fp32 CPU
+   reference.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
@@ -92,6 +101,12 @@ LOCAL = (8 * BATCH, 37, HEADS, HEAD_DIM)
 # The global views at 378^2 (27 x 27 patches + CLS), at batch 32 and 8.
 GLOBAL_378 = (2 * BATCH, 730, HEADS, HEAD_DIM)
 GLOBAL_378_B8 = (16, 730, HEADS, HEAD_DIM)
+# vittest14 (width 32, 2 heads: hd 16), the model of the port's CPU runs:
+# its attention in pretrain at batch 32 (phase 3e), and a small grid.
+VITTEST_STEPS = 2
+VITTEST_GLOBAL = (2 * BATCH, 257, 2, 16)
+VITTEST_LOCAL = (8 * BATCH, 37, 2, 16)
+HD16_SMALL = (8, 257, 2, 16)
 
 
 def fail(msg: str) -> None:
@@ -337,7 +352,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
                                               ref_c)}
         control = {name: rel for name, (_, rel, _) in verdicts.items()}
         print(f"  {tag} control (inputs rounded to bf16): relative L2 "
-              + ", ".join(f"{n} {rel:.3e}" for n, rel in control.items())
+              + ", ".join(f"{n} {rel:.3e} ({'within' if ok else 'outside'})"
+                          for n, (_, rel, ok) in verdicts.items())
               + f" (tol {TOLERANCE[dtype][1]:g}; must fail)")
         if all(ok for _, _, ok in verdicts.values()):
             fail(f"{tag}: the fp32 tolerance passes a kernel fed bf16 inputs")
@@ -347,6 +363,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
     common = {"shape": list(shape), "dtype": dtype, "layout": layout}
     if control is not None:
         common["control_rel_l2"] = control
+        common["control_outside"] = {n: not ok for n, (_, _, ok) in
+                                     verdicts.items()}
     rows = (
         {**common, "max_abs_err": max(errs["o"], lse_err),
          "ms": device_ms(fwd, per_graph=10),
@@ -374,19 +392,23 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 
 # (kernels, dtype, (B, N, H, hd), layout) of phase 2: K1/K2 at the ViT-B/14
 # global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
-# images (N = 730, at batch 8 and 32) and at hd 16; K4/K5 at the ViT-B/14
-# shapes in both layouts and dtypes. Between them the shapes take both
-# configurations of the host rule (resident_pays in csrc/mma.cuh) and of
-# the fp32 forward (resident and streamed).
+# images (N = 730, at batch 8 and 32), and at hd 16 on a small grid and at
+# the vittest14 shapes of phase 3e; K4/K5 at the ViT-B/14 shapes in both
+# layouts and dtypes, and at the hd-16 shapes in vmem_attention's layout.
+# Between them the shapes take both configurations of the hd-16 backward's
+# host rule (resident_pays in csrc/mma.cuh) and of the fp32 hd-64 forward
+# (resident and streamed), and both forms of each forward (one key tile,
+# several).
+HD16_SHAPES = (HD16_SMALL, VITTEST_GLOBAL, VITTEST_LOCAL)
 ATTENTION_CASES = [
     ("flat", dtype, shape, "flat")
     for dtype in DTYPES
-    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, (8, 257, 2, 16))
+    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, *HD16_SHAPES)
 ] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
-    for shape in (GLOBAL, LOCAL)
+    for shape in (GLOBAL, LOCAL, *(HD16_SHAPES if layout == "bnhd" else ()))
 ]
 
 
@@ -705,10 +727,6 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     would otherwise land in a step's time."""
     import torch
 
-    from lightly_train_tpu_torch.models.package_registry import (
-        get_wrapped_model,
-    )
-
     data = work / "images"
     run_dir = work / precision
     torch.cuda.reset_peak_memory_stats()
@@ -753,32 +771,10 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     # Every forward and backward of the path at hd 64 in the run's
     # dtype on the wgmma kernels of that dtype.
     check_routes(A, f"{precision} main path", by_library,
-                 torch_dtype(precision),
+                 torch_dtype(precision), HEAD_DIM,
                  {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
-
-    # The trained backbone on a small input against an fp32 CPU
-    # reference (plain attention): bf16 over 12 blocks keeps the CLS
-    # features within 5% relative L2; fp32 (bf16 probabilities only, as
-    # on the TPU) within 1%. The run's dtype shows that the attention
-    # launches above came from the kernels' fp32 form.
-    tol = 5e-2 if precision == "bf16" else 1e-2
     student = state.params["student"]
-    images = torch.rand((2, 224, 224, 3), device="cuda") * 4 - 2
-    with torch.no_grad():
-        out = student(images)["cls_token"]
-        if out.dtype != torch_dtype(precision):
-            fail(f"{precision} run computed in {out.dtype}")
-        got = out.float().cpu()
-        ref_model = get_wrapped_model("dinov2/vitb14").module
-        ref_model.load_state_dict(
-            {k: v.float().cpu() for k, v in student.state_dict().items()})
-        ref = ref_model(images.cpu())["cls_token"]
-    rel = ((got - ref).norm() / ref.norm()).item()
-    print(f"  trained ViT-B/14 cls on 2 images vs fp32 CPU reference: "
-          f"relative L2 {rel:.3e} (tol {tol:g})")
-    if not (got.shape == (2, 768) and torch.isfinite(got).all()
-            and rel <= tol):
-        fail(f"backbone disagrees with the CPU reference: {rel}")
+    check_backbone(student, "dinov2/vitb14", precision, 768)
     times = [r["profiling/step_time"] for r in steps]
     return {
         "launches": launches, "launches_by_library": by_library,
@@ -788,6 +784,86 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
         "student": {k: v.detach().cpu() for k, v in
                     student.state_dict().items()},
     }
+
+
+def check_backbone(student, model: str, precision: str, width: int) -> None:
+    """The trained backbone on a small input against an fp32 CPU reference
+    (plain attention): bf16 over 12 blocks keeps the CLS features within 5%
+    relative L2; fp32 (bf16 probabilities only, as on the TPU) within 1%.
+    The run's dtype shows that the attention launches came from the
+    kernels' fp32 form."""
+    import torch
+
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    tol = 5e-2 if precision == "bf16" else 1e-2
+    images = torch.rand((2, 224, 224, 3), device="cuda") * 4 - 2
+    with torch.no_grad():
+        out = student(images)["cls_token"]
+        if out.dtype != torch_dtype(precision):
+            fail(f"{precision} run computed in {out.dtype}")
+        got = out.float().cpu()
+        ref_model = get_wrapped_model(model).module
+        ref_model.load_state_dict(
+            {k: v.float().cpu() for k, v in student.state_dict().items()})
+        ref = ref_model(images.cpu())["cls_token"]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    print(f"  trained {model} cls on 2 images vs fp32 CPU reference: "
+          f"relative L2 {rel:.3e} (tol {tol:g})")
+    if not (got.shape == (2, width) and torch.isfinite(got).all()
+            and rel <= tol):
+        fail(f"{model} backbone disagrees with the CPU reference: {rel}")
+
+
+def run_vittest_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
+    """Phase 3e: ``pretrain`` DINOv2 on vittest14 (width 32, 2 heads: hd 16)
+    at batch 32 for VITTEST_STEPS steps in ``precision``, on phase 3's
+    images, with every launch counter set to 0 just before and read just
+    after: K1 6 a step (2 blocks x 3 view groups) at VITTEST_GLOBAL and
+    VITTEST_LOCAL, every one on the dtype's wgmma forward; K2 4 a step, on
+    the mma.sync backward (flat_attention_bwd.cu); K3 once a step. Finite
+    losses, and the trained backbone against an fp32 CPU reference."""
+    import torch
+
+    out = work / f"vittest_{precision}"
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    state = lt.pretrain(
+        out=str(out), data=str(work / "images"), model="dinov2/vittest14",
+        method="dinov2", batch_size=BATCH, steps=VITTEST_STEPS,
+        precision=precision, log_every=1, canonical_size=256, seed=SEED,
+        checkpoint_every=VITTEST_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_library = {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)}
+    steps = logged_steps(out)
+    if [r["step"] for r in steps] != list(range(1, VITTEST_STEPS + 1)):
+        fail(f"vittest14 logged steps {[r['step'] for r in steps]}")
+    for r in steps:
+        for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss",
+                    "grad_norm"):
+            if not math.isfinite(r[key]):
+                fail(f"vittest14 step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f}, grad_norm "
+              f"{r['grad_norm']:.4f}, {r['profiling/step_time'] * 1e3:.1f} "
+              f"ms [{card}]")
+    expected = [6 * VITTEST_STEPS, 4 * VITTEST_STEPS, VITTEST_STEPS, 0, 0]
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+          f"{expected}); wall {wall:.1f} s")
+    if launches != expected:
+        fail(f"vittest14 launch counts {launches} != {expected}")
+    check_routes(A, f"vittest14 {precision}", by_library,
+                 torch_dtype(precision), 16,
+                 {"fwd": expected[0], "bwd": expected[1]})
+    check_backbone(state.params["student"], "dinov2/vittest14", precision,
+                   32)
+    shutil.rmtree(out)
+    return {"launches": launches, "launches_by_library": by_library,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps]}
 
 
 class Interrupted(Exception):
@@ -859,7 +935,8 @@ def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
         fail(f"resume path launch counts {launches} != {expected}")
     check_routes(A, "bf16 resume path",
                  {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)},
-                 torch.bfloat16, {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
+                 torch.bfloat16, HEAD_DIM,
+                 {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
     for step, ms, gib in saves:
         print(f"  checkpoint save at step {step}: {ms:.1f} ms, {gib:.3f} GiB "
               f"[{card}]")
@@ -947,7 +1024,7 @@ def run_embed_path(lt, A, F, card: str, work: Path, artifact: Path) -> int:
     if launches != [12, 0, 0, 0, 0]:
         fail(f"embed launch counts {launches}")
     check_routes(A, "fp32 embed", {"fwd": by_library}, torch.float32,
-                 {"fwd": 12})
+                 HEAD_DIM, {"fwd": 12})
     emb = np.load(path)["embeddings"]
     if emb.shape != (2 * BATCH, 768) or not np.isfinite(emb).all():
         fail(f"embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
@@ -973,12 +1050,13 @@ def run_embed_path(lt, A, F, card: str, work: Path, artifact: Path) -> int:
     return launches[0]
 
 
-def check_routes(A, tag: str, by_library: dict, dtype, expected: dict):
+def check_routes(A, tag: str, by_library: dict, dtype, head_dim: int,
+                 expected: dict):
     """Fails unless every launch counted in ``by_library`` ({"fwd": {library:
-    n}, "bwd": ...}) went to the library ``dtype`` routes to at hd 64, with
-    ``expected[direction]`` launches."""
+    n}, "bwd": ...}) went to the library ``dtype`` routes to at
+    ``head_dim``, with ``expected[direction]`` launches."""
     for direction, n in expected.items():
-        route = getattr(A, f"{direction}_library")(dtype, HEAD_DIM)
+        route = getattr(A, f"{direction}_library")(dtype, head_dim)
         got = by_library[direction]
         print(f"  {tag}: {direction} launches by library {got} (expected "
               f"all {n} on {route})")
@@ -1027,7 +1105,7 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
         fail(f"vmem_attention path launches {launches}")
     check_routes(A, f"vmem_attention {dtype}",
                  {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)},
-                 torch_dtype(dtype), {"fwd": 2, "bwd": 2})
+                 torch_dtype(dtype), hd, {"fwd": 2, "bwd": 2})
     scale = hd ** -0.5
     for layout, (q, k, v, co), out, grads in (
             ("bnhd", [x.transpose(1, 2) for x in api],
@@ -1187,26 +1265,36 @@ def main() -> int:
     run_resume_path(lt, A, F, card, work, paths["bf16"])
     embed_k1 = run_embed_path(
         lt, A, F, card, work, bf16_out / "exported_models" / "exported_last")
+    vittest = {}
+    for precision in DTYPES:
+        print(f"phase 3e: pretrain DINOv2 vittest14 (hd 16), batch {BATCH}, "
+              f"{VITTEST_STEPS} steps, {precision}", flush=True)
+        vittest[precision] = run_vittest_path(lt, A, F, card, precision,
+                                              work)
     work_dir.cleanup()
 
     # Launches: each wrapper's count over the path that runs it (K1/K2: the
-    # pretrain path of the row's dtype, at the global and local shapes;
-    # K4/K5: phase 3c, at the global shape), 0 for shapes no path runs.
+    # pretrain path of the row's dtype, at the global and local shapes of
+    # ViT-B/14 (phases 3, 3b) and of vittest14 (phase 3e); K4/K5: phase 3c,
+    # at the global shape), 0 for shapes no path runs.
     kernels = []
     for (kernel, dtype), rows in attn.items():
         name, direction, line = KERNELS[kernel]
         route = getattr(A, f"{direction}_library")
         if kernel in ("K4", "K5"):
-            launches, path_shapes = vmem[dtype][kernel], [list(GLOBAL)]
+            by_shape = {tuple(GLOBAL): vmem[dtype][kernel]}
         else:
-            launches = paths[dtype]["launches"][("K1", "K2").index(kernel)]
-            path_shapes = [list(GLOBAL), list(LOCAL)]
+            i = ("K1", "K2").index(kernel)
+            by_shape = dict.fromkeys((GLOBAL, LOCAL),
+                                     paths[dtype]["launches"][i])
+            by_shape.update(dict.fromkeys((VITTEST_GLOBAL, VITTEST_LOCAL),
+                                          vittest[dtype]["launches"][i]))
         kernels += [{
             "name": name, "route": "cuda",
             "source": "lightly_train_tpu_torch/csrc/"
             + route(torch_dtype(dtype), row["shape"][3]) + ".cu",
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
-            "launches": launches if row["shape"] in path_shapes else 0,
+            "launches": by_shape.get(tuple(row["shape"]), 0),
             # embed's fp32 forwards (phase 3d) run at the global shape.
             **({"launches_embed": embed_k1}
                if (kernel, dtype) == ("K1", "fp32")

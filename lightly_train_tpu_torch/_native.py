@@ -40,10 +40,6 @@ _F = ctypes.c_float
 
 # library name -> (C function, argtypes)
 LIBRARIES: Dict[str, tuple] = {
-    "flat_attention_fwd": (
-        "lt_attention_fwd",
-        [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
-    ),
     "flat_attention_fwd_sm90": (
         "lt_attention_fwd_sm90",
         [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],

@@ -5,8 +5,8 @@
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
 // and ::_bwd_kernel (K5) at hd 16. Same layouts, strides and types as the
-// forward (flat_attention_fwd.cu); lse is the forward's (B, H, N) fp32
-// log-sum-exp. The TPU kernel's numerics:
+// forward (attention_fwd_hd16.cuh at hd 16); lse is the forward's (B, H, N)
+// fp32 log-sum-exp. The TPU kernel's numerics:
 //   p  = exp(s - lse)                   (fp32, s = (q . k) * scale)
 //   dv = bf16(p)^T . bf16(do)           dp = bf16(do) . v^T
 //   delta = rowsum(do * o)              (fp32, from the unrounded inputs)
@@ -26,17 +26,17 @@
 //   dk/dv kernel: each warp owns 16-key tiles, walks all queries with Q, do,
 //     lse and delta in shared memory, working on the transposed scores, and
 //     writes dk and dv.
-// s and p are recomputed in both (the scores are never stored). As in the
-// forward, the host picks per kernel and call whether the walked operands
-// are resident (one block per (batch, head), staged once; at hd 16 they fit
-// in the 227 KB of shared memory at every N <= 768 in both dtypes) or
-// streamed in kStreamRows-row tiles by blocks of 128 rows (small grids);
-// the rule is resident_pays in mma.cuh.
+// s and p are recomputed in both (the scores are never stored). The host
+// picks per kernel and call whether the walked operands are resident (one
+// block per (batch, head), staged once; at hd 16 they fit in the 227 KB of
+// shared memory at every N <= 768 in both dtypes) or streamed in
+// kStreamRows-row tiles by blocks of 128 rows (small grids); the rule is
+// resident_pays in mma.cuh.
 // What bounds it on the H100: at hd 16 the products (N^2 hd a head, 5 of
 // them) are small beside the bytes moved (q, k, v, o, do in; dq, dk, dv
-// out) up to N of a few hundred; no main path launches it (hd 16 is the
-// vittest size). The design reads q, k, v and do twice and computes q . k
-// and do . v twice to avoid any cross-block reduction.
+// out) up to N of a few hundred; the ViT-B/14 paths never launch it (hd 16
+// is the vittest size). The design reads q, k, v and do twice and computes
+// q . k and do . v twice to avoid any cross-block reduction.
 #include "mma.cuh"
 
 namespace {

@@ -1,29 +1,32 @@
-// Multi-head self-attention, forward, fp32 at head dim 64: K1 (flat layout)
-// and K4 (per-head layout) on Hopper's warpgroup tensor-core products.
+// Multi-head self-attention, forward, fp32: K1 (flat layout) and K4
+// (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
+// 64 (this file's kernel) and 16 (attention_fwd_hd16.cuh's, in fp32).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
-// for fp32 q/k/v with hd = 64; bf16 at hd 64 is flat_attention_fwd_sm90.cu,
-// hd 16 stays on flat_attention_fwd.cu. Each tensor is read or written in
-// place through three strides (batch, token, head; the column stride is 1),
-// as there. o is fp32, lse is (B, H, N) fp32.
+// for fp32 q/k/v; bf16 is flat_attention_fwd_sm90.cu. Each tensor is read
+// or written in place through three strides (batch, token, head; the
+// column stride is 1), as there. o is fp32, lse is (B, H, N) fp32.
 //
-// Numerics are the TPU kernel's, and those of flat_attention_fwd.cu's fp32
-// route: s = (q . k) * scale in fp32, m = max over ALL keys (a first pass
-// over the same products as the second), p = bf16(exp(s - m)), l = sum of
-// the rounded p in fp32, o = (p . v) / l stored in fp32, lse = m + log(l).
-// The fp32 operands go through the bf16 tensor cores as hi/lo planes, hi =
-// bf16_rn(x) and lo = bf16_rn(x - hi) (mma.cuh): q . k = hi.hi + hi.lo +
-// lo.hi with lo.lo dropped, p . v = p.v_hi + p.v_lo (p is exact in bf16),
-// fp32 accumulation throughout. Beside the mma.sync route only these
-// differ: exp is __expf's 2^(x log2 e) with log2 e folded into the one FFMA
-// that forms the exponent and subnormal results flushed to 0 (as in the bf16
-// kernel); s sums its three products chain by chain over the whole depth
-// (all of hi.hi, then hi.lo, then lo.hi; mma.sync interleaves them per 16
-// columns of hd), and o its two (p.v_hi over the tile's keys, then p.v_lo);
-// l is summed per 64-key tile in this thread's pairs before the quad's
-// shuffle (mma.sync: per 16 keys); the order inside one wgmma is the
-// hardware's.
+// Numerics are the TPU kernel's: s = (q . k) * scale in fp32, m = max over
+// ALL keys (a first pass over the same products as the second), p =
+// bf16(exp(s - m)), l = sum of the rounded p in fp32, o = (p . v) / l
+// stored in fp32, lse = m + log(l). The fp32 operands go through the bf16
+// tensor cores as hi/lo planes, hi = bf16_rn(x) and lo = bf16_rn(x - hi)
+// (mma.cuh): q . k = hi.hi + hi.lo + lo.hi with lo.lo dropped, p . v =
+// p.v_hi + p.v_lo (p is exact in bf16), fp32 accumulation throughout. exp
+// is __expf's 2^(x log2 e) with log2 e folded into the one FFMA that forms
+// the exponent and subnormal results flushed to 0 (as in the bf16 kernel);
+// s sums its three products chain by chain over the whole depth (all of
+// hi.hi, then hi.lo, then lo.hi), and o its two (p.v_hi over the tile's
+// keys, then p.v_lo); l is summed per 64-key tile in this thread's pairs
+// before the quad's shuffle; the order inside one wgmma is the hardware's.
+//
+// The kernel below is the hd-64 one; its tiles, descriptors and products
+// are sm90.cuh's at their default head dim, 64. At hd 16 the C entry
+// launches attention_fwd_hd16.cuh's kernel in fp32, which lands the rows
+// by cp.async and splits them in shared memory instead (one round trip for
+// a whole head).
 //
 // What bounds it on an H100: at the ViT-B/14 global shape (B=64, N=257,
 // H=12) q/k/v in and o out are 202 MB, ~60 us at 3.35 TB/s; the products
@@ -59,6 +62,7 @@
 // leaving P . V in flight under the next tile's probabilities made ptxas
 // serialize the products (C7511, C7519), as did register fences before
 // wgmma.fence. PERF.md has the measurements.
+#include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -314,14 +318,18 @@ __global__ void __launch_bounds__(kOneTile ? 128 : 256, 1)
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o, as lt_attention_fwd takes
-// them; fp32 (fp32 = 1) at hd = 64 only.
+// strides: (batch, token, head) for q, k, v, o. fp32 (fp32 = 1) at hd = 64
+// or 16 (N <= 768).
 extern "C" int lt_attention_fwd_f32_sm90(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int fp32, int B, int N, int H,
                                          int hd, const long* strides,
                                          float scale, void* stream) {
-  if (!fp32 || hd != 64 || N < 1) return cudaErrorInvalidValue;
+  if (!fp32 || N < 1) return cudaErrorInvalidValue;
+  if (hd == 16)
+    return lt::sm90::hd16::launch<float>(q, k, v, o, lse, B, N, H, strides,
+                                         scale, stream);
+  if (hd != 64) return cudaErrorInvalidValue;
   const int nt = (N + kRows - 1) / kRows;
   const bool one = nt == 1, resident = nt <= kMaxResident;
   const int n_wg = one ? 1 : 2;

@@ -1,20 +1,25 @@
-// Multi-head self-attention, forward, bf16 at head dim 64: K1 (flat layout)
-// and K4 (per-head layout) on Hopper's warpgroup tensor-core products.
+// Multi-head self-attention, forward, bf16: K1 (flat layout) and K4
+// (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
+// 64 (this file's kernel) and 16 (attention_fwd_hd16.cuh's, in bf16).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
-// for bf16 q/k/v with hd = 64; fp32 and hd 16 stay on flat_attention_fwd.cu.
-// Each tensor is read or written in place through three strides (batch,
-// token, head; the column stride is 1), as there: the flat layout, a view
-// of a fused qkv output, (B, N, H, hd) and (B, H, N, hd). lse is (B, H, N)
-// fp32.
+// for bf16 q/k/v; fp32 is flat_attention_fwd_f32_sm90.cu. Each tensor is
+// read or written in place through three strides (batch, token, head; the
+// column stride is 1), as there: the flat layout, a view of a fused qkv
+// output, (B, N, H, hd) and (B, H, N, hd). lse is (B, H, N) fp32.
 //
 // Numerics are the TPU kernel's: s = (q . k) * scale in fp32, m = max over
 // ALL keys (a first pass), p = bf16(exp(s - m)), l = sum of the rounded p in
 // fp32, o = (p . v) / l, lse = m + log(l). exp is __expf's 2^(x log2 e) with
 // log2 e folded into the one FFMA that forms the exponent and subnormal
-// results flushed to 0; beside flat_attention_fwd.cu only that rounding and
-// the order of the fp32 sums differ.
+// results flushed to 0; beside the plain version only that rounding and the
+// order of the fp32 sums differ.
+//
+// The kernel below is the hd-64 one; its tiles, descriptors and products
+// are sm90.cuh's at their default head dim, 64. At hd 16 the C entry
+// launches attention_fwd_hd16.cuh's kernel, which takes the same helpers at
+// hd 16 (the 32-byte swizzle) and stages a whole head at once.
 //
 // What bounds it on an H100: at the ViT-B/14 global shape (B=64, N=257,
 // H=12) q/k/v in and o out are 101 MB, ~30 us at 3.35 TB/s; the three N^2 hd
@@ -47,6 +52,7 @@
 // Each warpgroup still alternates products and softmax between block
 // barriers, and q . k runs twice; PERF.md has the measurements. Later work:
 // TMA loads from a warp-specialised producer.
+#include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -286,14 +292,18 @@ __global__ void __launch_bounds__(kOneTile ? 128 : 256, 1)
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o, as lt_attention_fwd takes
-// them; bf16 (fp32 = 0) at hd = 64 only.
+// strides: (batch, token, head) for q, k, v, o. bf16 (fp32 = 0) at hd = 64
+// or 16 (N <= 768).
 extern "C" int lt_attention_fwd_sm90(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int fp32, int B, int N, int H, int hd,
                                      const long* strides, float scale,
                                      void* stream) {
-  if (fp32 || hd != 64 || N < 1) return cudaErrorInvalidValue;
+  if (fp32 || N < 1) return cudaErrorInvalidValue;
+  if (hd == 16)
+    return lt::sm90::hd16::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
+                                        scale, stream);
+  if (hd != 64) return cudaErrorInvalidValue;
   const int q_tiles = (N + kRows - 1) / kRows;
   const bool one = q_tiles == 1;
   const int n_wg = one ? 1 : 2;

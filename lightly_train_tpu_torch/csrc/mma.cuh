@@ -110,11 +110,11 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 // it fits, from B * H = 96 up (B * H = 16 at hd 16 ran 2x faster streamed:
 // the resident grid leaves most SMs idle), in every backward and in the
 // fp32 forward. The rule now serves the mma.sync kernels' one remaining
-// route, both directions at hd 16 (flat_attention_fwd.cu,
-// flat_attention_bwd.cu). At hd 64 every direction and dtype runs on wgmma
-// (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
-// flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
-// fp32), and those choose their own configuration.
+// route, the backward at hd 16 (flat_attention_bwd.cu). Every forward, and
+// the backward at hd 64, runs on wgmma (flat_attention_fwd_sm90.cu and
+// flat_attention_bwd_sm90.cu in bf16, flat_attention_fwd_f32_sm90.cu and
+// flat_attention_bwd_f32_sm90.cu in fp32), and those choose their own
+// configuration.
 constexpr int kMaxWarps = 8;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 constexpr int kStreamRows = 64;   // walked rows staged at once when streamed

@@ -1,20 +1,31 @@
-// Hopper (sm_90a) machinery shared by the hd-64 attention kernels
+// Hopper (sm_90a) machinery shared by the attention kernels on wgmma
 // (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
 // flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
-// fp32): the cp.async copies that fill a ring of shared-memory tiles (bf16),
-// the predicated loads that split fp32 rows into hi/lo planes, the wgmma
-// shared-memory descriptors, the warpgroup products, and the forward's row
-// maxima and probabilities.
+// fp32, and attention_fwd_hd16.cuh, the forward at hd 16 in both): the
+// cp.async copies that fill shared-memory tiles, the predicated loads that
+// split fp32 rows into hi/lo planes, the wgmma shared-memory descriptors,
+// the warpgroup products, and the forward's row maxima and probabilities.
 //
-// A tile is 64 rows of one head (queries or keys) by hd 64 bf16: a row is
-// 128 bytes, one 128-byte swizzle atom. The copies write the swizzle
-// themselves (16-byte chunk c of row r at chunk c ^ (r & 7)), so a tile is a
-// wgmma operand as it lands (an fp32 tile is written as two such bf16
-// tiles, its hi and lo planes), read either way:
+// A tile is 64 rows of one head (queries or keys) by hd bf16, hd a template
+// parameter HD (Geo<HD>; every helper's HD defaults to 64, the backward's
+// head dim). A row is one swizzle atom wide, and the copies write the
+// swizzle themselves, so a tile is a wgmma operand as it lands (an fp32
+// tile is written as two such bf16 tiles, its hi and lo planes):
+//   hd 64: rows of 128 bytes, the 128-byte swizzle (descriptor mode 1):
+//     16-byte chunk c of row r at chunk c ^ (r & 7); 8-row groups 1024
+//     bytes apart (the SBO), a k16 step 2048 bytes of rows (MN-major).
+//   hd 16: rows of 32 bytes, the 32-byte swizzle (mode 3): chunk c of row r
+//     at chunk c ^ ((r >> 2) & 1); 8-row groups 256 bytes apart (the SBO),
+//     a k16 step 512 bytes of rows (MN-major).
+// Both are the swizzle of byte-offset bits 4.. by bits 7.. (chunk_at), so a
+// tile starts on a 1024-byte boundary. A tile is read either way:
 //   K-major: the row index is M or N of the product and hd is its depth
-//     (Q, dO or K as A, or K, V, Q, dO as the B of X . Y^T);
+//     (Q, dO or K as A, or K, V, Q, dO as the B of X . Y^T); the LBO is not
+//     read (the depth of a k16 step is the atom's 32 bytes, or within it).
 //   MN-major: the row index is the depth and hd is N (V in P . V, K in
-//     dS . K, Q and dO in P^T . dO and dS^T . Q), through the transpose bit.
+//     dS . K, Q and dO in P^T . dO and dS^T . Q), through the transpose bit;
+//     hd is one atom wide, so the LBO (the stride between atoms along hd) is
+//     not read either, and both offsets are given the 8-row stride.
 // Accumulators have mma.sync's C layout per warp (a warp's 16 rows, lane
 // 4 g + t holding rows g and g + 8, columns 8 j + 2 t and + 1), so a packed
 // pair of neighbouring accumulators is the register A operand of the next
@@ -26,9 +37,32 @@
 namespace lt {
 namespace sm90 {
 
-constexpr int kRows = 64;          // rows of a tile: queries or keys
-constexpr int kRowBytes = 128;     // one bf16 row of hd 64: a swizzle atom
-constexpr int kTileBytes = kRows * kRowBytes;
+constexpr int kRows = 64;  // rows of a tile: queries or keys
+
+// The shared-memory geometry of a tile at head dim HD (see above).
+template <int HD>
+struct Geo {
+  static_assert(HD == 16 || HD == 64, "a bf16 row must be one swizzle atom");
+  static constexpr int kRowBytes = 2 * HD;
+  static constexpr int kTileBytes = kRows * kRowBytes;
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: the SBO
+  static constexpr int kChunks = HD / 8;             // 16-byte chunks a row
+  static constexpr int kLogChunks = HD == 64 ? 3 : 1;
+  static constexpr int kRowShift = HD == 64 ? 0 : 2;  // log2(128 / kRowBytes)
+  static constexpr uint64_t kMode = HD == 64 ? 1 : 3;  // descriptor swizzle
+};
+
+// The hd-64 tile, which the backward kernels and the hd-64 forwards use.
+constexpr int kRowBytes = Geo<64>::kRowBytes;
+constexpr int kTileBytes = Geo<64>::kTileBytes;
+
+// Address of 16-byte chunk c of row r in the swizzled tile at `tile`.
+template <int HD = 64>
+__device__ __forceinline__ uint32_t chunk_at(uint32_t tile, int r, int c) {
+  using G = Geo<HD>;
+  return tile + r * G::kRowBytes +
+         ((c ^ ((r >> G::kRowShift) & (G::kChunks - 1))) << 4);
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
@@ -72,25 +106,30 @@ __device__ __forceinline__ void fence_registers(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle; byte offsets.
+// Shared-memory matrix descriptor in the swizzle mode of head dim HD; byte
+// offsets.
+template <int HD = 64>
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(sbo >> 4) << 32 | Geo<HD>::kMode << 62;
 }
 
-// A K-major operand at step kk of hd: rows 128 bytes apart, 8-row groups
-// 1024 apart, 16 columns = 32 bytes a step.
+// A K-major operand at step kk of hd: 16 columns = 32 bytes a step (hd 16
+// has one), 8-row groups kGroupBytes apart.
+template <int HD = 64>
 __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
-  return descriptor(tile + 32 * kk, 16, 1024);
+  return descriptor<HD>(tile + 32 * kk, 16, Geo<HD>::kGroupBytes);
 }
 
-// An MN-major operand at step kk of the rows: 16 rows = 2048 bytes a step;
-// hd 64 is a single swizzle atom wide, so only the 1024-byte stride between
-// 8-row groups is read.
+// An MN-major operand at step kk of the rows: 16 rows a step; hd is a
+// single swizzle atom wide, so only the stride between 8-row groups is read.
+template <int HD = 64>
 __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
-  return descriptor(tile + 2048 * kk, 1024, 1024);
+  using G = Geo<HD>;
+  return descriptor<HD>(tile + 2 * G::kGroupBytes * kk, G::kGroupBytes,
+                        G::kGroupBytes);
 }
 
 // One k16 step of d (64 x NK) += A . B^T, both from shared memory, K-major;
@@ -215,21 +254,97 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Rows [row0, row0 + 64) of one head into a swizzled tile, by the block's
-// kThreads threads, the same number of copies each (no branch, so the
-// products in flight around it stay asynchronous); rows at or past N are
-// zero-filled without a read.
-template <int kThreads>
+// The same at N = 16 (d 64 x 16: P . V at hd 16).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Rows [row0, row0 + 64) of one head (hd HD) into a swizzled tile, by the
+// block's kThreads threads, the same number of copies each (no branch, so
+// the products in flight around it stay asynchronous); rows at or past N
+// are zero-filled without a read.
+template <int kThreads, int HD = 64>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* head,
                                           long row_stride, int row0, int N,
                                           int tid) {
+  using G = Geo<HD>;
 #pragma unroll
-  for (int n = 0; n < kRows * 8 / kThreads; ++n) {
+  for (int n = 0; n < kRows * G::kChunks / kThreads; ++n) {
     const int i = tid + n * kThreads;
-    const int r = i >> 3, c = i & 7;
+    const int r = i >> G::kLogChunks, c = i & (G::kChunks - 1);
     const bool valid = row0 + r < N;
     const bf16* src = valid ? head + (row0 + r) * row_stride + c * 8 : head;
-    cp_async16(tile + r * kRowBytes + ((c ^ (r & 7)) << 4), src, valid);
+    cp_async16(chunk_at<HD>(tile, r, c), src, valid);
+  }
+}
+
+// fp32 rows [row0, row0 + 64) of one head (hd HD) as the hi and lo planes of
+// a swizzled tile (lo kTileBytes above hi), with no register staging: the
+// eight floats of bf16 chunk (r, c) land raw by cp.async, the first four in
+// the chunk's hi slot and the last four in its lo slot (zero-filled without
+// a read at or past N), and split_tile rewrites them in place once they
+// have landed. Both walk the chunks in the same order, so a thread splits
+// only what it copied itself: no barrier stands between the two.
+template <int kThreads, int HD>
+__device__ __forceinline__ void copy_tile_f32(uint32_t tile, const float* head,
+                                              long row_stride, int row0,
+                                              int N, int tid) {
+  using G = Geo<HD>;
+#pragma unroll
+  for (int n = 0; n < kRows * G::kChunks / kThreads; ++n) {
+    const int i = tid + n * kThreads;
+    const int r = i >> G::kLogChunks, c = i & (G::kChunks - 1);
+    const bool valid = row0 + r < N;
+    const float* src = valid ? head + (row0 + r) * row_stride + c * 8 : head;
+    const uint32_t at = chunk_at<HD>(tile, r, c);
+    cp_async16(at, src, valid);
+    cp_async16(at + G::kTileBytes, src + 4, valid);
+  }
+}
+
+// After copy_tile_f32's copies have landed (cp_async_wait): each chunk's
+// eight floats as hi = bf16(x) in the hi plane and lo = bf16(x - hi) in the
+// lo plane.
+template <int kThreads, int HD>
+__device__ __forceinline__ void split_tile(uint32_t tile, int tid) {
+  using G = Geo<HD>;
+#pragma unroll
+  for (int n = 0; n < kRows * G::kChunks / kThreads; ++n) {
+    const int i = tid + n * kThreads;
+    const uint32_t at =
+        chunk_at<HD>(tile, i >> G::kLogChunks, i & (G::kChunks - 1));
+    float x[8];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+                 : "r"(at)
+                 : "memory");
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(x[4]), "=f"(x[5]), "=f"(x[6]), "=f"(x[7])
+                 : "r"(at + G::kTileBytes)
+                 : "memory");
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = lt::pack_bf16(x[2 * e], x[2 * e + 1]);
+      lo[e] = lt::pack_bf16(x[2 * e] - __uint_as_float(hi[e] << 16),
+                            x[2 * e + 1] - __uint_as_float(hi[e] & 0xffff0000u));
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+                 "r"(hi[0]), "r"(hi[1]), "r"(hi[2]), "r"(hi[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     at + G::kTileBytes),
+                 "r"(lo[0]), "r"(lo[1]), "r"(lo[2]), "r"(lo[3])
+                 : "memory");
   }
 }
 
@@ -312,38 +427,42 @@ __device__ __forceinline__ float (&first(float (&s)[R]))[NK / 2] {
   return *reinterpret_cast<float(*)[NK / 2]>(&s);
 }
 
-// Issues d (64 x NK, this thread's part) = A . B[0 : NK]^T over hd, both
-// tiles K-major (S = Q . K^T, dP = dO . V^T, and their transposes); with
-// `overwrite` false the product is added to d (a further chain).
-template <int NK, int R>
+// Issues d (64 x NK, this thread's part) = A . B[0 : NK]^T over hd (HD / 16
+// k16 steps), both tiles K-major (S = Q . K^T, dP = dO . V^T, and their
+// transposes); with `overwrite` false the product is added to d (a further
+// chain).
+template <int NK, int HD = 64, int R>
 __device__ __forceinline__ void issue_scores(float (&s)[R], uint32_t sA,
                                              uint32_t sB,
                                              bool overwrite = true) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<NK>(first<NK>(s), k_major(sA, kk), k_major(sB, kk),
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<NK>(first<NK>(s), k_major<HD>(sA, kk), k_major<HD>(sB, kk),
                  !overwrite || kk > 0);
 }
 
 // Issues d (64 x NK) = A . B[0 : NK]^T of two fp32 tiles as three chains
 // into one accumulator: A_hi . B_hi, A_hi . B_lo, A_lo . B_hi (the lo
-// planes kTileBytes above the hi ones; lo . lo is dropped).
-template <int NK>
+// planes a tile above the hi ones; lo . lo is dropped).
+template <int NK, int HD = 64>
 __device__ __forceinline__ void issue_scores_split(float (&s)[32],
                                                    uint32_t sA, uint32_t sB) {
-  issue_scores<NK>(s, sA, sB);
-  issue_scores<NK>(s, sA, sB + kTileBytes, false);
-  issue_scores<NK>(s, sA + kTileBytes, sB, false);
+  constexpr int kLo = Geo<HD>::kTileBytes;
+  issue_scores<NK, HD>(s, sA, sB);
+  issue_scores<NK, HD>(s, sA, sB + kLo, false);
+  issue_scores<NK, HD>(s, sA + kLo, sB, false);
 }
 
 // Issues d += A . B[0 : NK], A (64 x NK) in registers, B an MN-major tile
-// (o += P . V, dQ += dS . K, dV += P^T . dO, dK += dS^T . Q).
-template <int NK>
-__device__ __forceinline__ void issue_pv(float (&o)[32],
+// of hd HD columns (o += P . V, dQ += dS . K, dV += P^T . dO,
+// dK += dS^T . Q).
+template <int NK, int HD = 64>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&a)[4][4],
                                          uint32_t sV) {
 #pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) wgmma_rs_tb(o, a[kk], mn_major(sV, kk));
+  for (int kk = 0; kk < NK / 16; ++kk)
+    wgmma_rs_tb(o, a[kk], mn_major<HD>(sV, kk));
 }
 
 template <int R>

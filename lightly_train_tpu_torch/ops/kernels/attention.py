@@ -2,14 +2,15 @@
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
 and backward serve all four TPU kernels (see :func:`fwd_library` and
-:func:`bwd_library`): at head dim 64 both directions run on Hopper's
-``wgmma``, each dtype on its own source (``csrc/flat_attention_fwd_sm90.cu``
-and ``csrc/flat_attention_bwd_sm90.cu`` in bf16,
-``csrc/flat_attention_fwd_f32_sm90.cu`` and
-``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32); head dim 16 runs on
-``mma.sync`` in both dtypes (``csrc/flat_attention_fwd.cu``,
-``csrc/flat_attention_bwd.cu``). The four TPU kernels do the
-same arithmetic and differ only in how a head is addressed:
+:func:`bwd_library`). The forward runs on Hopper's ``wgmma`` at both head
+dims, each dtype on its own source (``csrc/flat_attention_fwd_sm90.cu`` in
+bf16, ``csrc/flat_attention_fwd_f32_sm90.cu`` in fp32; at head dim 16 both
+launch the kernel of ``csrc/attention_fwd_hd16.cuh``). The backward runs
+on ``wgmma`` at head dim 64 (``csrc/flat_attention_bwd_sm90.cu`` in bf16,
+``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32) and on ``mma.sync`` at
+head dim 16 in both dtypes (``csrc/flat_attention_bwd.cu``). The four TPU
+kernels do the same arithmetic and differ only in how a head is
+addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
   over flat ``(B, N, H * hd)`` projections, autograd :class:`FlatAttention`;
@@ -224,7 +225,7 @@ def _stream(x: torch.Tensor) -> int:
 
 # Launches of each forward and backward library (K1 and K4, K2 and K5
 # together), so that a run can show which kernels it went through.
-fwd_launches = {"flat_attention_fwd": 0, "flat_attention_fwd_sm90": 0,
+fwd_launches = {"flat_attention_fwd_sm90": 0,
                 "flat_attention_fwd_f32_sm90": 0}
 bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0,
                 "flat_attention_bwd_f32_sm90": 0}
@@ -241,14 +242,11 @@ def _check_route(dtype: torch.dtype, head_dim: int) -> None:
 
 def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose forward kernel serves ``dtype`` at ``head_dim``:
-    at hd 64 ``flat_attention_fwd_sm90`` (bf16) or
-    ``flat_attention_fwd_f32_sm90`` (fp32), both wgmma; at hd 16
-    ``flat_attention_fwd`` (mma.sync)."""
+    ``flat_attention_fwd_sm90`` (bf16) or ``flat_attention_fwd_f32_sm90``
+    (fp32), both wgmma at every head dim the kernels take."""
     _check_route(dtype, head_dim)
-    if head_dim == 64:
-        return ("flat_attention_fwd_sm90" if dtype == torch.bfloat16
-                else "flat_attention_fwd_f32_sm90")
-    return "flat_attention_fwd"
+    return ("flat_attention_fwd_sm90" if dtype == torch.bfloat16
+            else "flat_attention_fwd_f32_sm90")
 
 
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:

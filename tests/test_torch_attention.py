@@ -26,9 +26,9 @@ DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _inputs(B, N, seed):
+def _inputs(B, N, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, N, H * HD)).astype(np.float32)
+    return [rng.standard_normal((B, N, H * hd)).astype(np.float32)
             for _ in range(4)]
 
 
@@ -40,8 +40,25 @@ def _inputs(B, N, seed):
     *(pytest.param(1, N, "bf16", id=f"bf16-1-{N}") for N in (37, 257, 730)),
 ])
 def test_plain_matches_pallas_interpret(B, N, dtype):
+    _check_against_pallas(B, N, dtype, HD, seed=N)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,N", [(2, 257), (4, 37), (1, 64), (1, 65)])
+def test_plain_matches_pallas_interpret_hd16(B, N, dtype):
+    """Head dim 16 (the vittest ViTs: width 32, 2 heads), which the Hopper
+    forward of each dtype takes since it left mma.sync: the vittest14
+    global (257) and local (37) token counts, and 64 / 65, the one-tile /
+    two-tile edge of that kernel, which the card tests hold it to."""
+    _check_against_pallas(B, N, dtype, 16, seed=N + 16)
+
+
+def _check_against_pallas(B, N, dtype, hd, seed):
+    """flat_attention forward and autograd backward against the JAX
+    ``flat_attention`` in interpret mode and its ``jax.vjp``, H heads of
+    ``hd``."""
     jdt, tdt = DTYPES[dtype]
-    q, k, v, co = _inputs(B, N, seed=N)
+    q, k, v, co = _inputs(B, N, seed, hd)
     out_j, vjp = jax.vjp(
         lambda a, b, c: jax_flat_attention(a, b, c, H, interpret=True),
         *(jnp.asarray(x, jdt) for x in (q, k, v)),
@@ -236,13 +253,13 @@ def test_kernel_support_range():
 @pytest.mark.parametrize("dtype,head_dim,library", [
     (torch.bfloat16, 64, "flat_attention_fwd_sm90"),
     (torch.float32, 64, "flat_attention_fwd_f32_sm90"),
-    (torch.bfloat16, 16, "flat_attention_fwd"),
-    (torch.float32, 16, "flat_attention_fwd"),
+    (torch.bfloat16, 16, "flat_attention_fwd_sm90"),
+    (torch.float32, 16, "flat_attention_fwd_f32_sm90"),
 ])
 def test_forward_route(dtype, head_dim, library):
-    """At hd 64 both dtypes run a wgmma forward (bf16 and fp32 each their
-    own), hd 16 the mma.sync one; each route's library is one the port
-    builds."""
+    """At both head dims each dtype runs its own wgmma forward (hd 16
+    through the kernel of csrc/attention_fwd_hd16.cuh); each route's
+    library is one the port builds."""
     assert A.fwd_library(dtype, head_dim) == library
     assert library in A.fwd_launches
     assert library in _native.LIBRARIES

@@ -22,7 +22,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "PIL",
              "lightly_train_tpu"}
 PORT_FILES = sorted((ROOT / "lightly_train_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_update.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_update.py", ROOT / "time_attention.py"]
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)
 

@@ -75,17 +75,20 @@ def _randn(shape, gen, dtype):
 
 
 # (B, N, H, hd): the ViT-B/14 shapes, N = 1, the top of the range (730 =
-# ViT-B/14 at 378^2, 768) and hd 16. At hd 16 they fall on both sides of
-# the host rule of the mma.sync kernels (resident_pays in csrc/mma.cuh; an
-# H100 has 132 SMs): grids of B * H >= 66 are resident, the smaller ones
-# stream. At hd 64 every shape runs the wgmma kernels of its dtype
-# (flat_attention_{fwd,bwd}_sm90.cu in bf16, *_f32_sm90.cu in fp32).
+# ViT-B/14 at 378^2, 768) and hd 16. Every forward runs the wgmma kernel of
+# its dtype (flat_attention_fwd_sm90.cu in bf16, *_f32_sm90.cu in fp32), at
+# hd 16 the one of csrc/attention_fwd_hd16.cuh, whose one-tile form (N <=
+# 64) and first two-tile shape (65) are here too. At hd 64 the backward is
+# wgmma as well; at hd 16 it is mma.sync, and the shapes fall on both sides
+# of its host rule (resident_pays in csrc/mma.cuh; an H100 has 132 SMs):
+# grids of B * H >= 66 are resident, the smaller ones stream.
 SHAPES = [
     (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
     (6, 300, 12, 64), (6, 730, 12, 64),
     (2, 257, 12, 64), (3, 37, 12, 64), (1, 1, 2, 64), (2, 512, 4, 64),
     (2, 730, 4, 64), (1, 768, 4, 64), (2, 257, 2, 16), (1, 768, 2, 16),
-    (2, 100, 2, 16), (1, 37, 2, 64),
+    (2, 100, 2, 16), (1, 37, 2, 64), (3, 37, 2, 16), (1, 1, 2, 16),
+    (2, 64, 2, 16), (2, 65, 2, 16),
 ]
 
 
@@ -352,15 +355,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                               eps=1e-8)
 
 
+@pytest.mark.parametrize("hd", [16, 64])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("N", [37, 730])
 def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda, dtype, N,
-                                                             monkeypatch):
+                                                             hd, monkeypatch):
     """Unmasked attention on CUDA tensors with N <= 768 launches the kernels,
-    in bf16 and fp32; fp16 raises instead of running plain, and so does
-    LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it to the plain
-    path."""
-    y = torch.zeros((2, N, 12 * HD), dtype=DTYPES[dtype], device=cuda)
+    in bf16 and fp32, at both head dims; fp16 raises instead of running
+    plain, and so does LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it
+    to the plain path."""
+    y = torch.zeros((2, N, 12 * hd), dtype=DTYPES[dtype], device=cuda)
     before = A.flat_attention_fwd.launches
     out = A.attention(y, y, y, 12)
     assert A.flat_attention_fwd.launches == before + 1
@@ -386,21 +390,22 @@ SM90_SHAPES = [
 ]
 
 
-def _bf16_inputs(layout, B, N, H, gen, dtype=torch.bfloat16):
-    """q, k, v (``dtype``, bf16 unless given; hd 64) and the plain forward
-    for ``layout``: "flat" (column slices of one fused (B, N, 3 H hd) qkv
-    output), "bnhd" (the transposed views of (B, N, H, hd) tensors, as
-    vmem_attention hands them over) or "bhnd"."""
+def _bf16_inputs(layout, B, N, H, gen, dtype=torch.bfloat16, hd=HD):
+    """q, k, v (``dtype``, bf16 unless given; hd 64 unless given) and the
+    plain forward for ``layout``: "flat" (column slices of one fused (B, N,
+    3 H hd) qkv output), "bnhd" (the transposed views of (B, N, H, hd)
+    tensors, as vmem_attention hands them over) or "bhnd"."""
+    scale = hd ** -0.5
     if layout == "flat":
-        qkv = _randn((B, N, 3 * H * HD), gen, dtype)
-        q, k, v = qkv.split(H * HD, dim=-1)
-        return (q, k, v), (lambda *x: A.flat_attention_fwd(*x, H, HD ** -0.5),
+        qkv = _randn((B, N, 3 * H * hd), gen, dtype)
+        q, k, v = qkv.split(H * hd, dim=-1)
+        return (q, k, v), (lambda *x: A.flat_attention_fwd(*x, H, scale),
                            lambda *x: A.flat_attention_fwd_plain(
-                               *x, H, HD ** -0.5))
-    q, k, v = (_per_head((B, N, H, HD), layout, gen, dtype)
+                               *x, H, scale))
+    q, k, v = (_per_head((B, N, H, hd), layout, gen, dtype)
                for _ in range(3))
-    return (q, k, v), (lambda *x: A.vmem_attention_fwd(*x, HD ** -0.5),
-                       lambda *x: A.vmem_attention_fwd_plain(*x, HD ** -0.5))
+    return (q, k, v), (lambda *x: A.vmem_attention_fwd(*x, scale),
+                       lambda *x: A.vmem_attention_fwd_plain(*x, scale))
 
 
 @pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
@@ -419,6 +424,48 @@ def test_sm90_forward_matches_plain(cuda, monkeypatch, layout, N, B, H):
     assert asked == ["flat_attention_fwd_sm90"]
     assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
     assert _within(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+
+
+# (N, B, H) for the Hopper forward at hd 16 (csrc/attention_fwd_hd16.cuh):
+# N = 1 and the one-tile form at other last-tile widths (16, 37, 63, 64),
+# one past a tile (65), ragged tails of every wgmma width after an odd and
+# an even number of whole tiles (129, 170, 182, 257), the vittest14 shapes
+# of pretrain at batch 32 (257 at B 64, 37 at B 256) and the top of the
+# range (730, 768: twelve key tiles staged at once).
+HD16_SHAPES = [
+    (1, 1, 2), (16, 3, 2), (37, 256, 2), (63, 2, 3), (64, 4, 2), (65, 3, 2),
+    (129, 2, 2), (170, 2, 5), (182, 3, 2), (257, 8, 2), (257, 64, 2),
+    (730, 2, 2), (768, 1, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", HD16_SHAPES)
+def test_sm90_forward_hd16_matches_plain(cuda, monkeypatch, dtype, layout, N,
+                                         B, H):
+    """At hd 16 both dtypes run their wgmma library (K1 and K4): the one
+    launch goes to flat_attention_fwd_sm90 (bf16) or
+    flat_attention_fwd_f32_sm90 (fp32) and no other, within the dtype's
+    tolerances of the plain forward; o keeps q's layout."""
+    dt = DTYPES[dtype]
+    library = A.fwd_library(dt, 16)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 4)
+    qkv, (fwd, plain) = _bf16_inputs(layout, B, N, H, gen, dt, hd=16)
+    before = dict(A.fwd_launches)
+    o, lse = fwd(*qkv)
+    o_ref, lse_ref = plain(*qkv)
+    assert asked == [library]
+    assert A.fwd_launches == {**before, library: before[library] + 1}
+    assert o.dtype == dt and torch.isfinite(o).all()
+    if layout != "flat":
+        assert o.stride() == qkv[0].stride()
+    assert _within(o, o_ref, dt)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
 
 
