@@ -24,15 +24,16 @@ Phases (any failure exits non-zero):
    (``time_update.py``: its host time, ``update_host_ms``).
    In fp32 a control checks the tolerance itself: the kernels fed inputs
    rounded to bf16 must fail it (each output's verdict is printed). The
-   SASS of the Hopper libraries (every forward, and the backward at hd 64)
-   must hold wgmma (HGMMA) instructions, and that of the two that fill
-   their rings with cp.async (the bf16 forward and backward,
-   ``flat_attention_fwd_sm90.cu`` and ``flat_attention_bwd_sm90.cu``)
-   LDGSTS too (the fp32 hd-64 forward and backward,
-   ``flat_attention_fwd_f32_sm90.cu`` and ``flat_attention_bwd_f32_sm90.cu``,
-   load with ld.global and split in registers; at hd 16 the fp32 forward
-   lands its rows by cp.async as well); their build logs must hold no
-   ptxas warning that it serialized the wgmma products.
+   SASS of every attention library (each forward and backward, both
+   dtypes, at both head dims) must hold wgmma (HGMMA) instructions, and
+   that of the two that fill their rings with cp.async (the bf16 forward
+   and backward, ``flat_attention_fwd_sm90.cu`` and
+   ``flat_attention_bwd_sm90.cu``) LDGSTS too (the fp32 hd-64 forward and
+   backward, ``flat_attention_fwd_f32_sm90.cu`` and
+   ``flat_attention_bwd_f32_sm90.cu``, load with ld.global and split in
+   registers; at hd 16 the fp32 kernels land their rows by cp.async as
+   well); no library's SASS may hold the warp-level mma.sync (HMMA), and
+   no build log a ptxas warning that it serialized the wgmma products.
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks; K3's staging copy) included.
@@ -57,9 +58,8 @@ Phases (any failure exits non-zero):
    images per second. (3e) ``pretrain`` DINOv2 on vittest14 (width 32, 2
    heads: head dim 16) at batch 32 for 2 steps in bf16 and in fp32, on the
    same images, counters set to 0 just before and read just after: every
-   forward on its dtype's wgmma library at hd 16, every backward on the
-   mma.sync one, finite losses, the backbone against an fp32 CPU
-   reference.
+   forward and every backward on its dtype's wgmma library at hd 16,
+   finite losses, the backbone against an fp32 CPU reference.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
@@ -211,23 +211,26 @@ def torch_dtype(name: str):
 
 # kernel -> (wrapper, direction, line of the TPU kernel it replaces in
 # lightly_train_tpu/ops/pallas/attention.py); the CUDA source is the one
-# the dtype and head dim route to (attention.fwd_library, bwd_library).
+# the dtype and head dim route to (attention.fwd_library, bwd_library), at
+# hd 16 the header whose kernel that library launches.
 KERNELS = {
     "K1": ("flat_attention_fwd", "fwd", 241),
     "K2": ("flat_attention_bwd", "bwd", 265),
     "K4": ("vmem_attention_fwd", "fwd", 69),
     "K5": ("vmem_attention_bwd", "bwd", 92),
 }
-# The Hopper (wgmma) libraries, with the instructions their SASS must hold
-# (HGMMA: wgmma; LDGSTS: cp.async, where the design fills its ring with
-# it), and ptxas's warnings that it serialized their wgmma products
-# (C7510-C7519).
+# The attention libraries, all on Hopper's wgmma, with the instructions
+# their SASS must hold (HGMMA: wgmma; LDGSTS: cp.async, where the design
+# fills its ring with it), the warp-level product that no library's SASS
+# may hold (HMMA: mma.sync), and ptxas's warnings that it serialized their
+# wgmma products (C7510-C7519).
 SM90_LIBRARIES = {
     "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS"),
     "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
     "flat_attention_fwd_f32_sm90": ("HGMMA",),
     "flat_attention_bwd_f32_sm90": ("HGMMA",),
 }
+WARP_MMA = "HMMA"
 SERIALIZED = tuple(f"C751{i}" for i in range(10))
 
 
@@ -395,9 +398,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # images (N = 730, at batch 8 and 32), and at hd 16 on a small grid and at
 # the vittest14 shapes of phase 3e; K4/K5 at the ViT-B/14 shapes in both
 # layouts and dtypes, and at the hd-16 shapes in vmem_attention's layout.
-# Between them the shapes take both configurations of the hd-16 backward's
-# host rule (resident_pays in csrc/mma.cuh) and of the fp32 hd-64 forward
-# (resident and streamed), and both forms of each forward (one key tile,
+# Between them the shapes take both configurations of the fp32 hd-64
+# forward (resident and streamed), and both forms of each kernel (one tile,
 # several).
 HD16_SHAPES = (HD16_SMALL, VITTEST_GLOBAL, VITTEST_LOCAL)
 ATTENTION_CASES = [
@@ -822,9 +824,10 @@ def run_vittest_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     at batch 32 for VITTEST_STEPS steps in ``precision``, on phase 3's
     images, with every launch counter set to 0 just before and read just
     after: K1 6 a step (2 blocks x 3 view groups) at VITTEST_GLOBAL and
-    VITTEST_LOCAL, every one on the dtype's wgmma forward; K2 4 a step, on
-    the mma.sync backward (flat_attention_bwd.cu); K3 once a step. Finite
-    losses, and the trained backbone against an fp32 CPU reference."""
+    VITTEST_LOCAL, every one on the dtype's wgmma forward; K2 4 a step,
+    every one on the dtype's wgmma backward (csrc/attention_bwd_hd16.cuh in
+    flat_attention_bwd_sm90 or _f32_sm90); K3 once a step. Finite losses,
+    and the trained backbone against an fp32 CPU reference."""
     import torch
 
     out = work / f"vittest_{precision}"
@@ -1226,18 +1229,24 @@ def main() -> int:
     for name in _native.LIBRARIES:
         log = (_native.BUILD_DIR / f"{name}.log").read_text()
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma")):
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "Compiling entry")):
                 print(f"  {name}: {line.strip()}")
         if name in SM90_LIBRARIES and any(w in log for w in SERIALIZED):
             fail(f"ptxas serialized the wgmma products of {name}")
-    for name, required in SM90_LIBRARIES.items():
+    for name in _native.LIBRARIES:
         sass = _native.sass(name)
-        print(f"  {name}: {sass.count('HGMMA')} HGMMA and "
-              f"{sass.count('LDGSTS')} LDGSTS (cp.async) instructions in its "
-              f"SASS (required: {', '.join(required)})", flush=True)
+        required = SM90_LIBRARIES.get(name, ())
+        print(f"  {name}: {sass.count('HGMMA')} HGMMA, "
+              f"{sass.count('LDGSTS')} LDGSTS (cp.async) and "
+              f"{sass.count(WARP_MMA)} {WARP_MMA} (mma.sync) instructions in "
+              f"its SASS (required: {', '.join(required) or 'none'}; "
+              f"{WARP_MMA} none)", flush=True)
         missing = [op for op in required if op not in sass]
         if missing:
             fail(f"{name}'s SASS lacks {missing}")
+        if WARP_MMA in sass:
+            fail(f"{name}'s SASS holds {WARP_MMA} (mma.sync)")
 
     print("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
@@ -1291,8 +1300,9 @@ def main() -> int:
                                           vittest[dtype]["launches"][i]))
         kernels += [{
             "name": name, "route": "cuda",
-            "source": "lightly_train_tpu_torch/csrc/"
-            + route(torch_dtype(dtype), row["shape"][3]) + ".cu",
+            "source": "lightly_train_tpu_torch/csrc/" + (
+                f"attention_{direction}_hd16.cuh" if row["shape"][3] == 16
+                else route(torch_dtype(dtype), row["shape"][3]) + ".cu"),
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": by_shape.get(tuple(row["shape"]), 0),
             # embed's fp32 forwards (phase 3d) run at the global shape.

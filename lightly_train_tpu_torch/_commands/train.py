@@ -16,7 +16,9 @@ Not ported yet, and refused when set to anything but their defaults:
 loggers where their package is installed (item 7.5; where it is absent the
 run warns and goes on, as the JAX package does). A non-finite step stops the
 run without the JAX package's replay capture (item 7.3). The fields keep the
-JAX package's names and defaults, so configs stay compatible.
+JAX package's names and defaults, so configs stay compatible. A run warns
+that it does not apply ``LIGHTLY_TRAIN_MATMUL_PRECISION`` when that is set
+(item 21).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from lightly_train_tpu_torch._data.image_dataset import (
     list_image_files,
 )
 from lightly_train_tpu_torch._data.loader import PretrainLoader, SyntheticLoader
+from lightly_train_tpu_torch._env import Env
 from lightly_train_tpu_torch._loggers.multi import (
     build_loggers,
     resolve_loggers,
@@ -52,6 +55,7 @@ from lightly_train_tpu_torch._logging import (
     set_up_file_logging,
 )
 from lightly_train_tpu_torch._optim import (
+    JAX_OPTIMIZERS,
     OPTIMIZER_ARGS_TYPES,
     cosine_warmup,
 )
@@ -194,6 +198,13 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     logger.info("Device: %s (%s)", device,
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "CPU")
+    if Env.LIGHTLY_TRAIN_MATMUL_PRECISION.is_set:
+        logger.warning(
+            "LIGHTLY_TRAIN_MATMUL_PRECISION=%r is not applied yet (ROADMAP "
+            "item 21): the fp32 GEMMs run at torch's 'highest' float32 matmul "
+            "precision, in full fp32.",
+            Env.LIGHTLY_TRAIN_MATMUL_PRECISION.value,
+        )
     logger.warning(
         "The port writes less than the JAX package: a non-finite step stops "
         "the run without writing debug/nan_capture.npz (ROADMAP item 7.3); "
@@ -249,6 +260,11 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     else:
         defaults = method.default_optimizer_args()
         optim_type = config.optim if config.optim != "auto" else defaults.type
+        if optim_type not in JAX_OPTIMIZERS:
+            raise ConfigError(
+                f"Unknown optimizer '{optim_type}'. "
+                f"Options: {sorted(JAX_OPTIMIZERS)}"
+            )
         if optim_type not in OPTIMIZER_ARGS_TYPES:
             raise NotImplementedError(
                 f"Optimizer '{optim_type}' is not ported yet (ported: "

@@ -48,6 +48,12 @@ class Env:
     LIGHTLY_TRAIN_LOG_LEVEL: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_LOG_LEVEL", "INFO", str
     )
+    # The JAX package's float32 matmul precision ("default" | "high" |
+    # "highest"). Not applied yet (ROADMAP item 21): pretrain warns when it
+    # is set, and the fp32 GEMMs run at torch's "highest".
+    LIGHTLY_TRAIN_MATMUL_PRECISION: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_MATMUL_PRECISION", "default", str
+    )
     # The attention kernels on the card ("0", "false" or "False" turns them
     # off, the JAX package's switch to its portable path, which the port
     # does not have: the ViT's unmasked attention on the card then raises).

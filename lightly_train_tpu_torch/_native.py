@@ -48,10 +48,6 @@ LIBRARIES: Dict[str, tuple] = {
         "lt_attention_fwd_f32_sm90",
         [_P] * 5 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
     ),
-    "flat_attention_bwd": (
-        "lt_attention_bwd",
-        [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],
-    ),
     "flat_attention_bwd_sm90": (
         "lt_attention_bwd_sm90",
         [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _F, _P],

@@ -1,4 +1,5 @@
 from lightly_train_tpu_torch._optim.optimizers import (
+    JAX_OPTIMIZERS,
     OPTIMIZER_ARGS_TYPES,
     AdamWArgs,
     OptimizerArgs,
@@ -12,6 +13,7 @@ from lightly_train_tpu_torch._optim.schedules import (
 )
 
 __all__ = [
+    "JAX_OPTIMIZERS",
     "OPTIMIZER_ARGS_TYPES",
     "AdamWArgs",
     "OptimizerArgs",

@@ -36,6 +36,9 @@ class AdamWArgs(OptimizerArgs):
 
 
 OPTIMIZER_ARGS_TYPES = {"adamw": AdamWArgs}
+# Every optimizer name the JAX package takes (its OPTIMIZER_ARGS_TYPES): a
+# name here but not above is not ported yet, any other is unknown.
+JAX_OPTIMIZERS = ("adamw", "adamw8bit", "lars", "sgd")
 
 # Names exempt from weight decay in the generic task rule.
 _NO_DECAY_NAMES = ("cls_token", "mask_token", "register_tokens", "pos_embed",

@@ -57,35 +57,6 @@ namespace lt {
 namespace sm90 {
 namespace hd16 {
 
-constexpr int kHD = 16;
-constexpr int kThreads = 128;  // one warpgroup
-constexpr int kMaxTiles = 12;  // N <= 768, the kernels' range
-using G = Geo<kHD>;
-
-// Rows [row0, row0 + 64) of one head as a tile's bf16 plane, or an fp32
-// tile's hi and lo planes (raw until split_tile).
-__device__ __forceinline__ void stage(uint32_t tile, const bf16* head,
-                                      long row_stride, int row0, int N,
-                                      int tid) {
-  load_tile<kThreads, kHD>(tile, head, row_stride, row0, N, tid);
-}
-__device__ __forceinline__ void stage(uint32_t tile, const float* head,
-                                      long row_stride, int row0, int N,
-                                      int tid) {
-  copy_tile_f32<kThreads, kHD>(tile, head, row_stride, row0, N, tid);
-}
-
-// S (64 x NK) of the warpgroup's queries against the key tile at sK: one
-// chain from bf16 planes (P = 1), three from fp32 hi/lo planes (P = 2).
-template <int P, int NK>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t sQ,
-                                       uint32_t sK) {
-  if constexpr (P == 1)
-    issue_scores<NK, kHD>(s, sQ, sK);
-  else
-    issue_scores_split<NK, kHD>(s, sQ, sK);
-}
-
 // Pass 1, key tiles at sKa and sKb (widths NKa and NKb, none if NKb is 0):
 // both S issued at once, the first folded into the row maxima while the
 // second computes.

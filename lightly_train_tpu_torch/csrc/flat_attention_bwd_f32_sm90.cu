@@ -1,16 +1,15 @@
-// Multi-head self-attention, backward, fp32 at head dim 64: K2 (flat layout)
-// and K5 (per-head layout) on Hopper's warpgroup tensor-core products.
+// Multi-head self-attention, backward, fp32: K2 (flat layout) and K5
+// (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
+// 64 (this file's kernels) and 16 (attention_bwd_hd16.cuh's, in fp32).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
-// and ::_bwd_kernel (K5) for fp32 q/k/v with hd = 64; bf16 at hd 64 is
-// flat_attention_bwd_sm90.cu, hd 16 stays on flat_attention_bwd.cu. Each
-// tensor is read or written in place through three strides (batch, token,
-// head; the column stride is 1), as there. dq, dk and dv are fp32; lse is
+// and ::_bwd_kernel (K5) for fp32 q/k/v; bf16 is flat_attention_bwd_sm90.cu.
+// Each tensor is read or written in place through three strides (batch,
+// token, head; the column stride is 1), as there. dq, dk and dv are fp32; lse is
 // the forward's (B, H, N) fp32 log-sum-exp; delta is a (B, H, N) fp32
 // scratch that the dq kernel writes for the dk/dv kernel.
 //
-// Numerics are the TPU kernel's, and those of flat_attention_bwd.cu's fp32
-// route:
+// Numerics are the TPU kernel's:
 //   p  = exp(s - lse)                  (fp32, s = (q . k) * scale)
 //   dv = bf16(p)^T . bf16(do)          dp = bf16(do) . v^T
 //   delta = rowsum(do * o)             (fp32, from the unrounded inputs)
@@ -78,6 +77,7 @@
 //     (dk/dv kernel, one-tile kernel), so p = 0.
 //   - Fixed-count loads and a warp-uniform warpgroup index, or ptxas
 //     serializes the products.
+#include "attention_bwd_hd16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -679,9 +679,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv, as
-// lt_attention_bwd takes them; fp32 (fp32 = 1) at hd = 64 only. For N > 64
-// the dq kernel writes delta (B, H, N) fp32 for the dk/dv kernel.
+// strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. fp32
+// (fp32 = 1) at hd = 64 or 16 (N <= 768). At hd 64 and N > 64 the dq kernel
+// writes delta (B, H, N) fp32 for the dk/dv kernel; hd 16 does not use it.
 extern "C" int lt_attention_bwd_f32_sm90(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* dout, const void* lse,
@@ -689,7 +689,12 @@ extern "C" int lt_attention_bwd_f32_sm90(const void* q, const void* k,
                                          void* delta, int fp32, int B, int N,
                                          int H, int hd, const long* strides,
                                          float scale, void* stream) {
-  if (!fp32 || hd != 64 || N < 1) return cudaErrorInvalidValue;
+  if (!fp32 || N < 1) return cudaErrorInvalidValue;
+  if (hd == 16)
+    return lt::sm90::hd16::launch_bwd<float>(q, k, v, o, dout, lse, dq, dk,
+                                             dv, B, N, H, strides, scale,
+                                             stream);
+  if (hd != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);

@@ -1,10 +1,11 @@
-// Multi-head self-attention, backward, bf16 at head dim 64: K2 (flat layout)
-// and K5 (per-head layout) on Hopper's warpgroup tensor-core products.
+// Multi-head self-attention, backward, bf16: K2 (flat layout) and K5
+// (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
+// 64 (this file's kernels) and 16 (attention_bwd_hd16.cuh's, in bf16).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
-// and ::_bwd_kernel (K5) for bf16 q/k/v with hd = 64; fp32 at hd 64 is
-// flat_attention_bwd_f32_sm90.cu, hd 16 stays on flat_attention_bwd.cu.
-// Each tensor is read or written in place through
+// and ::_bwd_kernel (K5) for bf16 q/k/v; fp32 is
+// flat_attention_bwd_f32_sm90.cu. Each tensor is read or written in place
+// through
 // three strides (batch, token, head; the column stride is 1): the flat
 // layout, views of a fused qkv output, (B, N, H, hd) and (B, H, N, hd). lse
 // is the forward's (B, H, N) fp32 log-sum-exp; delta is a (B, H, N) fp32
@@ -65,6 +66,7 @@
 //     (p = 0) in the dk/dv kernel's last tile.
 //   - As in the forward: fixed-count copy loops and a warp-uniform
 //     warpgroup index, or ptxas serializes the products.
+#include "attention_bwd_hd16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -76,13 +78,6 @@ constexpr int kAhead = 4;           // tile loads in flight ahead of a step
 constexpr int kSlots = kAhead + 1;  // ring slots, each two 64-row tiles
 constexpr int kWg = 2;              // warpgroups a block of the ring kernels
 constexpr int kThreads = kWg * 128;
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // lse and delta of query rows [row0, row0 + 64) into a stats slot (lse at
 // float 0, delta at float 64), one 4-byte copy per thread of the block;
@@ -574,9 +569,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv, as
-// lt_attention_bwd takes them; bf16 (fp32 = 0) at hd = 64 only. For N > 64
-// the dq kernel writes delta (B, H, N) fp32 for the dk/dv kernel.
+// strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. bf16
+// (fp32 = 0) at hd = 64 or 16 (N <= 768). At hd 64 and N > 64 the dq kernel
+// writes delta (B, H, N) fp32 for the dk/dv kernel; hd 16 does not use it.
 extern "C" int lt_attention_bwd_sm90(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* dout, const void* lse,
@@ -584,7 +579,11 @@ extern "C" int lt_attention_bwd_sm90(const void* q, const void* k,
                                      void* delta, int fp32, int B, int N,
                                      int H, int hd, const long* strides,
                                      float scale, void* stream) {
-  if (fp32 || hd != 64 || N < 1) return cudaErrorInvalidValue;
+  if (fp32 || N < 1) return cudaErrorInvalidValue;
+  if (hd == 16)
+    return lt::sm90::hd16::launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv,
+                                            B, N, H, strides, scale, stream);
+  if (hd != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* k_ = static_cast<const bf16*>(k);

@@ -43,8 +43,8 @@
 //     the first tile's row maxima taken while the second computes.
 //   - Pass 2: p and l from S in registers, then o += P . V and the next
 //     tile's S in one batch of products. P is the register A operand (a
-//     warp's 16 rows of an accumulator have mma.sync's C layout, the A
-//     layout once packed); V is an MN-major B operand (transpose bit).
+//     warp's 16 rows of an accumulator are laid out as the A operand once
+//     packed); V is an MN-major B operand (transpose bit).
 //   - The last key tile runs at the narrowest wgmma width that covers its
 //     keys (16, 32, 48 or 64): N = 257 is 4 x 64 + 1.
 //   - The copies are branch-free and the warpgroup index is warp-uniform:

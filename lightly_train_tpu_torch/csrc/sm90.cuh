@@ -1,14 +1,15 @@
-// Hopper (sm_90a) machinery shared by the attention kernels on wgmma
+// Hopper (sm_90a) machinery shared by the attention kernels, all on wgmma
 // (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
 // flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
-// fp32, and attention_fwd_hd16.cuh, the forward at hd 16 in both): the
-// cp.async copies that fill shared-memory tiles, the predicated loads that
-// split fp32 rows into hi/lo planes, the wgmma shared-memory descriptors,
-// the warpgroup products, and the forward's row maxima and probabilities.
+// fp32, and at hd 16 attention_fwd_hd16.cuh and attention_bwd_hd16.cuh in
+// both): the cp.async copies that fill shared-memory tiles, the predicated
+// loads that split fp32 rows into hi/lo planes, the wgmma shared-memory
+// descriptors, the warpgroup products, the forward's row maxima and
+// probabilities, and what the two hd-16 kernels share (namespace hd16).
 //
 // A tile is 64 rows of one head (queries or keys) by hd bf16, hd a template
-// parameter HD (Geo<HD>; every helper's HD defaults to 64, the backward's
-// head dim). A row is one swizzle atom wide, and the copies write the
+// parameter HD (Geo<HD>; every helper's HD defaults to 64, the hd-64
+// kernels' head dim). A row is one swizzle atom wide, and the copies write the
 // swizzle themselves, so a tile is a wgmma operand as it lands (an fp32
 // tile is written as two such bf16 tiles, its hi and lo planes):
 //   hd 64: rows of 128 bytes, the 128-byte swizzle (descriptor mode 1):
@@ -26,10 +27,9 @@
 //     dS . K, Q and dO in P^T . dO and dS^T . Q), through the transpose bit;
 //     hd is one atom wide, so the LBO (the stride between atoms along hd) is
 //     not read either, and both offsets are given the 8-row stride.
-// Accumulators have mma.sync's C layout per warp (a warp's 16 rows, lane
-// 4 g + t holding rows g and g + 8, columns 8 j + 2 t and + 1), so a packed
-// pair of neighbouring accumulators is the register A operand of the next
-// product.
+// Accumulators are laid out per warp as a warp's 16 rows, lane 4 g + t
+// holding rows g and g + 8, columns 8 j + 2 t and + 1, so a packed pair of
+// neighbouring accumulators is the register A operand of the next product.
 #pragma once
 
 #include "mma.cuh"
@@ -52,7 +52,7 @@ struct Geo {
   static constexpr uint64_t kMode = HD == 64 ? 1 : 3;  // descriptor swizzle
 };
 
-// The hd-64 tile, which the backward kernels and the hd-64 forwards use.
+// The hd-64 tile, which the hd-64 kernels use.
 constexpr int kRowBytes = Geo<64>::kRowBytes;
 constexpr int kTileBytes = Geo<64>::kTileBytes;
 
@@ -73,6 +73,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 4 bytes (an fp32 row statistic), zero-filled without a read where !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 template <int N>
@@ -471,21 +479,23 @@ __device__ __forceinline__ void zero(float (&d)[R]) {
   for (int i = 0; i < R; ++i) d[i] = 0.f;
 }
 
-// Keeps the compiler from defining register A operands after a fence.
+// Keeps the compiler from defining register A operands (the first NK / 16
+// k16 steps') after a fence.
+template <int NK = 64>
 __device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4]));
+  for (int i = 0; i < NK / 4; ++i) asm volatile("" : "+r"(a[i / 4][i % 4]));
 }
 
-// This thread's rows of a 64 x 64 accumulator (r0 = its row g, and r0 + 8;
+// This thread's rows of a 64 x 2R accumulator (r0 = its row g, and r0 + 8;
 // columns 8 j + 2 t and + 1) into rows of a head of T, skipping rows at or
 // past N.
-template <typename T>
+template <typename T, int R>
 __device__ __forceinline__ void store_rows(T* head, long row_stride,
-                                           const float (&acc)[32], int r0,
+                                           const float (&acc)[R], int r0,
                                            int N, int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const int col = j * 8 + 2 * t;
     if (r0 < N)
       lt::store2(head + r0 * row_stride + col, acc[4 * j], acc[4 * j + 1]);
@@ -561,6 +571,42 @@ __device__ __forceinline__ void probabilities(const float (&s)[32],
   }
 }
 
+// What the hd-16 forward (attention_fwd_hd16.cuh) and backward
+// (attention_bwd_hd16.cuh) share: a warpgroup's copies of whole tiles, a
+// whole head staged in shared memory at once, and the scores.
+namespace hd16 {
+
+constexpr int kHD = 16;
+constexpr int kThreads = 128;  // a warpgroup
+constexpr int kMaxTiles = 12;  // N <= 768, the kernels' range
+using G = Geo<kHD>;
+
+// Rows [row0, row0 + 64) of one head as a tile's bf16 plane, or an fp32
+// tile's hi and lo planes (raw until split_tile).
+__device__ __forceinline__ void stage(uint32_t tile, const bf16* head,
+                                      long row_stride, int row0, int N,
+                                      int tid) {
+  load_tile<kThreads, kHD>(tile, head, row_stride, row0, N, tid);
+}
+__device__ __forceinline__ void stage(uint32_t tile, const float* head,
+                                      long row_stride, int row0, int N,
+                                      int tid) {
+  copy_tile_f32<kThreads, kHD>(tile, head, row_stride, row0, N, tid);
+}
+
+// S (64 x NK) = A . B^T of the tiles at sA and sB (S = Q . K^T, and
+// S^T = K . Q^T): one chain from bf16 planes (P = 1), three from fp32 hi/lo
+// planes (P = 2).
+template <int P, int NK>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t sA,
+                                       uint32_t sB) {
+  if constexpr (P == 1)
+    issue_scores<NK, kHD>(s, sA, sB);
+  else
+    issue_scores_split<NK, kHD>(s, sA, sB);
+}
+
+}  // namespace hd16
 }  // namespace sm90
 }  // namespace lt
 

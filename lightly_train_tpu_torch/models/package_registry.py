@@ -61,6 +61,14 @@ def get_wrapped_model(
 
 def _build_vit(size: str, patch: int, dtype: torch.dtype,
                **kwargs: Any) -> WrappedModel:
+    # The JAX ViT's activation checkpointing, off at its defaults (0, None).
+    remat_every = kwargs.pop("remat_every", 0)
+    remat_policy = kwargs.pop("remat_policy", None)
+    if remat_every or remat_policy is not None:
+        raise NotImplementedError(
+            "model_args remat_every and remat_policy (activation "
+            "checkpointing) are not ported yet (ROADMAP item 22)."
+        )
     cfg = vit_config(size, patch, flavor="dinov2", dtype=dtype, **kwargs)
     return WrappedModel(
         name=f"dinov2/{size}{patch}",

@@ -294,6 +294,7 @@ _SIZES = {
     "vitb": (768, 12, 12),
     "vitl": (1024, 24, 16),
     "vitg": (1536, 40, 24),
+    "vit7b": (4096, 40, 32),
     # tiny test model (reference _vit_test)
     "vittest": (32, 2, 2),
 }
@@ -318,6 +319,12 @@ def vit_config(
     if size == "vitg":
         raise NotImplementedError(
             "dinov2/vitg14 uses a SwiGLU FFN, not ported yet (ROADMAP item 10)."
+        )
+    if size == "vit7b":
+        raise NotImplementedError(
+            "dinov2/vit7b14 is not ported yet (ROADMAP item 10): its head dim "
+            "128 (4096 / 32 heads) waits for the attention kernels at hd 128 "
+            "(ROADMAP queue 2 item 2)."
         )
     embed_dim, depth, num_heads = _SIZES[size]
     return ViTConfig(

@@ -2,15 +2,14 @@
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
 and backward serve all four TPU kernels (see :func:`fwd_library` and
-:func:`bwd_library`). The forward runs on Hopper's ``wgmma`` at both head
-dims, each dtype on its own source (``csrc/flat_attention_fwd_sm90.cu`` in
-bf16, ``csrc/flat_attention_fwd_f32_sm90.cu`` in fp32; at head dim 16 both
-launch the kernel of ``csrc/attention_fwd_hd16.cuh``). The backward runs
-on ``wgmma`` at head dim 64 (``csrc/flat_attention_bwd_sm90.cu`` in bf16,
-``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32) and on ``mma.sync`` at
-head dim 16 in both dtypes (``csrc/flat_attention_bwd.cu``). The four TPU
-kernels do the same arithmetic and differ only in how a head is
-addressed:
+:func:`bwd_library`), all on Hopper's ``wgmma`` at both head dims, each
+dtype on its own sources (``csrc/flat_attention_fwd_sm90.cu`` and
+``csrc/flat_attention_bwd_sm90.cu`` in bf16,
+``csrc/flat_attention_fwd_f32_sm90.cu`` and
+``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32; at head dim 16 the
+forwards launch the kernel of ``csrc/attention_fwd_hd16.cuh`` and the
+backwards that of ``csrc/attention_bwd_hd16.cuh``). The four TPU kernels
+do the same arithmetic and differ only in how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
   over flat ``(B, N, H * hd)`` projections, autograd :class:`FlatAttention`;
@@ -227,7 +226,7 @@ def _stream(x: torch.Tensor) -> int:
 # together), so that a run can show which kernels it went through.
 fwd_launches = {"flat_attention_fwd_sm90": 0,
                 "flat_attention_fwd_f32_sm90": 0}
-bwd_launches = {"flat_attention_bwd": 0, "flat_attention_bwd_sm90": 0,
+bwd_launches = {"flat_attention_bwd_sm90": 0,
                 "flat_attention_bwd_f32_sm90": 0}
 
 
@@ -251,14 +250,11 @@ def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose backward kernels serve ``dtype`` at ``head_dim``:
-    at hd 64 ``flat_attention_bwd_sm90`` (bf16) or
-    ``flat_attention_bwd_f32_sm90`` (fp32), both wgmma; at hd 16
-    ``flat_attention_bwd`` (mma.sync)."""
+    ``flat_attention_bwd_sm90`` (bf16) or ``flat_attention_bwd_f32_sm90``
+    (fp32), both wgmma at every head dim the kernels take."""
     _check_route(dtype, head_dim)
-    if head_dim == 64:
-        return ("flat_attention_bwd_sm90" if dtype == torch.bfloat16
-                else "flat_attention_bwd_f32_sm90")
-    return "flat_attention_bwd"
+    return ("flat_attention_bwd_sm90" if dtype == torch.bfloat16
+            else "flat_attention_bwd_f32_sm90")
 
 
 def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
@@ -282,6 +278,7 @@ def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
     library = bwd_library(q.dtype, hd)
+    # The hd-64 kernels' scratch (dq kernel to dk/dv kernel).
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     err = _native.function(library)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

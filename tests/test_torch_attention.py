@@ -277,13 +277,13 @@ def test_forward_route_refuses_other_dtypes(dtype):
 @pytest.mark.parametrize("dtype,head_dim,library", [
     (torch.bfloat16, 64, "flat_attention_bwd_sm90"),
     (torch.float32, 64, "flat_attention_bwd_f32_sm90"),
-    (torch.bfloat16, 16, "flat_attention_bwd"),
-    (torch.float32, 16, "flat_attention_bwd"),
+    (torch.bfloat16, 16, "flat_attention_bwd_sm90"),
+    (torch.float32, 16, "flat_attention_bwd_f32_sm90"),
 ])
 def test_backward_route(dtype, head_dim, library):
-    """At hd 64 both dtypes run a wgmma backward (bf16 and fp32 each their
-    own), hd 16 the mma.sync one; each route's library is one the port
-    builds."""
+    """At both head dims each dtype runs its own wgmma backward (hd 16
+    through the kernel of csrc/attention_bwd_hd16.cuh); each route's
+    library is one the port builds."""
     assert A.bwd_library(dtype, head_dim) == library
     assert library in A.bwd_launches
     assert library in _native.LIBRARIES

@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "PIL",
              "lightly_train_tpu"}
 PORT_FILES = sorted((ROOT / "lightly_train_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_update.py", ROOT / "time_attention.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_update.py", ROOT / "time_attention.py",
+    ROOT / "compare_sass.py"]
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)
 
@@ -68,6 +69,15 @@ def test_native_library_sources_match_their_bindings(name):
         source)
     assert len(found) == 1, f"{name}.cu: no extern \"C\" int {symbol}(...)"
     assert len(found[0].split(",")) == len(argtypes)
+
+
+@pytest.mark.parametrize("path", sorted(_native.CSRC.iterdir()),
+                         ids=lambda p: p.name)
+def test_kernels_use_no_warp_level_mma(path):
+    """Every attention kernel runs on Hopper's warpgroup products (wgmma):
+    no source holds the warp-level mma.sync or its ldmatrix loads."""
+    source = path.read_text()
+    assert "mma.sync" not in source and "ldmatrix" not in source
 
 
 def _write_ppm_folder(folder: Path, n: int = 6, size: int = 36) -> None:

@@ -75,13 +75,11 @@ def _randn(shape, gen, dtype):
 
 
 # (B, N, H, hd): the ViT-B/14 shapes, N = 1, the top of the range (730 =
-# ViT-B/14 at 378^2, 768) and hd 16. Every forward runs the wgmma kernel of
-# its dtype (flat_attention_fwd_sm90.cu in bf16, *_f32_sm90.cu in fp32), at
-# hd 16 the one of csrc/attention_fwd_hd16.cuh, whose one-tile form (N <=
-# 64) and first two-tile shape (65) are here too. At hd 64 the backward is
-# wgmma as well; at hd 16 it is mma.sync, and the shapes fall on both sides
-# of its host rule (resident_pays in csrc/mma.cuh; an H100 has 132 SMs):
-# grids of B * H >= 66 are resident, the smaller ones stream.
+# ViT-B/14 at 378^2, 768) and hd 16. Every forward and backward runs the
+# wgmma kernels of its dtype (flat_attention_{fwd,bwd}_sm90.cu in bf16,
+# *_f32_sm90.cu in fp32), at hd 16 those of csrc/attention_fwd_hd16.cuh
+# and csrc/attention_bwd_hd16.cuh, whose one-tile form (N <= 64) and first
+# two-tile shape (65) are here too, beside N = 1 and N = 768.
 SHAPES = [
     (48, 257, 12, 64), (48, 37, 12, 64), (40, 257, 2, 16), (6, 640, 12, 64),
     (6, 300, 12, 64), (6, 730, 12, 64),
@@ -533,18 +531,18 @@ SM90_BWD_SHAPES = [
 ]
 
 
-def _bf16_backward(layout, B, N, H, gen, dtype=torch.bfloat16):
-    """q, k, v, do (``dtype``, bf16 unless given; hd 64) in ``layout`` (as
-    _bf16_inputs; do a tensor of q's layout), and the forward, backward and
-    plain backward."""
-    (q, k, v), (fwd, _) = _bf16_inputs(layout, B, N, H, gen, dtype)
-    scale = HD ** -0.5
+def _bf16_backward(layout, B, N, H, gen, dtype=torch.bfloat16, hd=HD):
+    """q, k, v, do (``dtype``, bf16 unless given; hd 64 unless given) in
+    ``layout`` (as _bf16_inputs; do a tensor of q's layout), and the
+    forward, backward and plain backward."""
+    (q, k, v), (fwd, _) = _bf16_inputs(layout, B, N, H, gen, dtype, hd)
+    scale = hd ** -0.5
     if layout == "flat":
-        do = _randn((B, N, H * HD), gen, dtype)
+        do = _randn((B, N, H * hd), gen, dtype)
         return (q, k, v, do), (
             fwd, lambda *x: A.flat_attention_bwd(*x, H, scale),
             lambda *x: A.flat_attention_bwd_plain(*x, H, scale))
-    do = _per_head((B, N, H, HD), layout, gen, dtype)
+    do = _per_head((B, N, H, hd), layout, gen, dtype)
     return (q, k, v, do), (
         fwd, lambda *x: A.vmem_attention_bwd(*x, scale),
         lambda *x: A.vmem_attention_bwd_plain(*x, scale))
@@ -637,6 +635,64 @@ def test_sm90_f32_backward_library_runs_hgmma(cuda):
     assert not any(f"C751{i}" in log for i in range(10)), log
     spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
     assert spills and all(n == "0" for n in spills), log
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", HD16_SHAPES)
+def test_sm90_backward_hd16_matches_plain(cuda, monkeypatch, dtype, layout,
+                                          N, B, H):
+    """At hd 16 both dtypes run their wgmma backward (K2 and K5, the kernel
+    of csrc/attention_bwd_hd16.cuh): the one launch goes to
+    flat_attention_bwd_sm90 (bf16) or flat_attention_bwd_f32_sm90 (fp32)
+    and no other, within the dtype's tolerances of the plain backward (with
+    the dq/dk floor); the gradients keep the inputs' layout."""
+    dt = DTYPES[dtype]
+    library = A.bwd_library(dt, 16)
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 5)
+    (q, k, v, do), (fwd, bwd, plain) = _bf16_backward(layout, B, N, H, gen,
+                                                      dt, hd=16)
+    o, lse = fwd(q, k, v)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    before = dict(A.bwd_launches)
+    grads = bwd(q, k, v, o, do, lse)
+    refs = plain(q, k, v, o, do, lse)
+    assert asked == [library]
+    assert A.bwd_launches == {**before, library: before[library] + 1}
+    scale = 16 ** -0.5
+    floors = (_floor(scale, 16, do, v, k), _floor(scale, 16, do, v, q), 0.0)
+    for got, ref, x, floor in zip(grads, refs, (q, k, v), floors):
+        assert got.dtype == dt and got.shape == x.shape
+        if layout != "flat":
+            assert got.stride() == x.stride()
+        assert torch.isfinite(got).all()
+        assert _within(got, ref, dt, floor)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N,B", [(37, 16), (257, 8), (768, 1)])
+def test_backward_hd16_is_deterministic(cuda, dtype, N, B):
+    """Every dq, dk and dv element is written by one block, with no
+    atomics: two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(N + B)
+    (q, k, v, do), (fwd, bwd, _) = _bf16_backward("flat", B, N, 2, gen,
+                                                  DTYPES[dtype], hd=16)
+    o, lse = fwd(q, k, v)
+    first, second = bwd(q, k, v, o, do, lse), bwd(q, k, v, o, do, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in _native.LIBRARIES if n.startswith("flat_attention")))
+def test_attention_libraries_run_wgmma_only(cuda, name):
+    """Every attention library is built on wgmma (HGMMA in its SASS) and
+    holds no warp-level mma.sync (HMMA)."""
+    sass = _native.sass(name)
+    assert "HGMMA" in sass and "HMMA" not in sass
 
 
 def test_embed_on_the_card_runs_k1_and_matches_the_cpu(cuda, tmp_path):
