@@ -13,8 +13,9 @@ Phases (any failure exits non-zero):
    kernel, plain version and the nearest single PyTorch call
    (``library_ms``): the attention kernels K1/K2 (flat layout) in bf16 and
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
-   378^2 images) and at head dim 16 (a small grid and the vittest14 shapes
-   of phase 3e); K4/K5 (``vmem_attention``) in both
+   378^2 images), at head dim 16 (a small grid and the vittest14 shapes
+   of phase 3e) and, in fp32, at the frozen DINOv3 ViT-B/16 teacher's
+   shape of phase 3f (N = 201); K4/K5 (``vmem_attention``) in both
    layouts and dtypes at the ViT-B/14 shapes, and in ``vmem_attention``'s
    layout at the hd-16 ones; K3, one launch over the
    ViT-B/14 leaves and synthetic ones that exercise its chunk plan (ragged
@@ -59,7 +60,16 @@ Phases (any failure exits non-zero):
    heads: head dim 16) at batch 32 for 2 steps in bf16 and in fp32, on the
    same images, counters set to 0 just before and read just after: every
    forward and every backward on its dtype's wgmma library at hd 16,
-   finite losses, the backbone against an fp32 CPU reference.
+   finite losses, the backbone against an fp32 CPU reference. (3f)
+   ``pretrain`` at its defaults (no model, no method: distillation v3 of
+   ViT-B/14 from a frozen DINOv3 ViT-B/16 teacher with LARS, batch 64 and
+   queue 16 for the 64 images) for 4 steps in bf16 and 2 in fp32, counters
+   set to 0 just before and read just after: per step 24 K1 launches (12
+   of the fp32 teacher on the fp32 forward at N = 201, 12 of the student
+   on its dtype's forward at N = 257), 12 K2 and no K3; finite losses, the
+   queue full (16 rows), the student and the teacher against fp32 CPU
+   references; then the bf16 run interrupted after its step-2 checkpoint
+   and resumed, held against the uninterrupted one.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
@@ -107,6 +117,15 @@ VITTEST_STEPS = 2
 VITTEST_GLOBAL = (2 * BATCH, 257, 2, 16)
 VITTEST_LOCAL = (8 * BATCH, 37, 2, 16)
 HD16_SMALL = (8, 257, 2, 16)
+# Phase 3f: ``pretrain`` at its defaults on the 64 images: batch
+# min(1536, 64) = 64 of one view, queue 16 (fewer than 1000 images); the
+# frozen DINOv3 ViT-B/16 teacher at 224^2 (14 x 14 patches + CLS + 4
+# registers) in fp32 in every precision, the ViT-B/14 student at GLOBAL.
+DISTILL_BATCH = 2 * BATCH
+TEACHER = (DISTILL_BATCH, 201, HEADS, HEAD_DIM)
+DISTILL_STEPS = {"bf16": 4, "fp32": 2}
+DISTILL_QUEUE = 16
+DISTILL_KEYS = ("train_loss", "loss_global", "loss_local", "grad_norm")
 
 
 def fail(msg: str) -> None:
@@ -396,8 +415,9 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # (kernels, dtype, (B, N, H, hd), layout) of phase 2: K1/K2 at the ViT-B/14
 # global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
 # images (N = 730, at batch 8 and 32), and at hd 16 on a small grid and at
-# the vittest14 shapes of phase 3e; K4/K5 at the ViT-B/14 shapes in both
-# layouts and dtypes, and at the hd-16 shapes in vmem_attention's layout.
+# the vittest14 shapes of phase 3e, and in fp32 at the teacher's shape of
+# phase 3f; K4/K5 at the ViT-B/14 shapes in both layouts and dtypes, and at
+# the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
 # forward (resident and streamed), and both forms of each kernel (one tile,
 # several).
@@ -406,7 +426,7 @@ ATTENTION_CASES = [
     ("flat", dtype, shape, "flat")
     for dtype in DTYPES
     for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, *HD16_SHAPES)
-] + [
+] + [("flat", "fp32", TEACHER, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -701,7 +721,15 @@ def reset_counters(A, F) -> tuple:
         fn.launches = 0
     for by_lib in (A.fwd_launches, A.bwd_launches):
         by_lib.update(dict.fromkeys(by_lib, 0))
+    A.shape_launches.clear()
     return counters
+
+
+def launches_by_shape(A) -> dict:
+    """{(library, (B, N, H, hd)): launches} since the counters were set
+    to 0."""
+    return {(lib, (b, n, h, hd)): count
+            for (lib, (b, h, n, hd)), count in A.shape_launches.items()}
 
 
 def pretrain_main_path(lt, out: Path, data: Path, precision: str,
@@ -873,19 +901,23 @@ class Interrupted(Exception):
     """Raised by the phase-3d loader after its second batch."""
 
 
-def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
-    """Phase 3d, resume: the bf16 main path with ``checkpoint_every=2``,
-    stopped after its step-2 checkpoint by a loader that raises when asked
-    for a third batch, then resumed with ``resume_interrupted=True`` to
-    step STEPS; held against the uninterrupted run ``ref`` (phase 3: the
-    same seed, data and steps). Launch counters are set to 0 before the
-    first run and read after the second."""
+def run_resume_path(lt, A, F, card: str, work: Path, ref: dict, run,
+                    steps: int, keys: tuple, expected: list,
+                    expected_by_library: dict, tag: str) -> dict:
+    """Phase 3d (and 3f), resume: ``run(out, **kwargs)`` (a bf16 main path
+    of ``steps`` steps) with ``checkpoint_every=2``, stopped after its
+    step-2 checkpoint by a loader that raises when asked for a third batch,
+    then resumed with ``resume_interrupted=True`` to step ``steps``; held
+    against the uninterrupted run ``ref`` (the same seed, data and steps)
+    on the logged ``keys`` of the resumed steps and the student. Launch
+    counters are set to 0 before the first run and read after the second:
+    ``expected`` (K1..K5) and ``expected_by_library``."""
     import torch
 
     from lightly_train_tpu_torch._checkpoint import checkpoint as C
     from lightly_train_tpu_torch._commands import train as T
 
-    out = work / "resume"
+    out = work / f"resume_{tag}"
     loader_cls, save = T.PretrainLoader, C.CheckpointManager.save
     saves = []
 
@@ -907,9 +939,8 @@ def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
     C.CheckpointManager.save = timed_save
     T.PretrainLoader = StopAfterTwo
     try:
-        pretrain_main_path(lt, out, work / "images", "bf16",
-                           checkpoint_every=2)
-        fail("the interrupted run was not interrupted")
+        run(out, checkpoint_every=2)
+        fail(f"the interrupted {tag} run was not interrupted")
     except Interrupted:
         pass
     finally:
@@ -921,42 +952,37 @@ def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
         print(f"  interrupted after step 2: checkpoints {saved}, "
               f"exported_last steps {meta['steps']}")
         if saved != ["step_2.pt"] or meta["steps"] != 2:
-            fail(f"interrupted run left {saved}, exported steps "
+            fail(f"interrupted {tag} run left {saved}, exported steps "
                  f"{meta['steps']}")
-        state = pretrain_main_path(lt, out, work / "images", "bf16",
-                                   checkpoint_every=2,
-                                   resume_interrupted=True)
+        state = run(out, checkpoint_every=2, resume_interrupted=True)
         torch.cuda.synchronize()
     finally:
         C.CheckpointManager.save = save
     launches = [fn.launches for fn in counters]
-    expected = [36 * STEPS, 24 * STEPS, STEPS, 0, 0]
+    by_library = {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)}
     print(f"  launches over both runs K1 {launches[0]}, K2 {launches[1]}, K3 "
           f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
-          f"{expected})")
-    if launches != expected:
-        fail(f"resume path launch counts {launches} != {expected}")
-    check_routes(A, "bf16 resume path",
-                 {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)},
-                 torch.bfloat16, HEAD_DIM,
-                 {"fwd": 36 * STEPS, "bwd": 24 * STEPS})
+          f"{expected}); by library {by_library} (expected "
+          f"{expected_by_library})")
+    if launches != expected or by_library != expected_by_library:
+        fail(f"{tag} resume path launch counts {launches}, {by_library}")
     for step, ms, gib in saves:
         print(f"  checkpoint save at step {step}: {ms:.1f} ms, {gib:.3f} GiB "
               f"[{card}]")
 
-    steps = logged_steps(out)
-    if [r["step"] for r in steps] != list(range(1, STEPS + 1)):
-        fail(f"resume path logged steps {[r['step'] for r in steps]}")
+    logged = logged_steps(out)
+    if [r["step"] for r in logged] != list(range(1, steps + 1)):
+        fail(f"{tag} resume path logged steps {[r['step'] for r in logged]}")
     bitwise = True
-    for r, r_ref in zip(steps[2:], ref["steps"][2:]):
-        for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss"):
+    for r, r_ref in zip(logged[2:], ref["steps"][2:]):
+        for key in keys:
             rel = abs(r[key] - r_ref[key]) / max(abs(r_ref[key]), 1e-12)
             bitwise &= r[key] == r_ref[key]
             print(f"  step {r['step']} {key}: resumed {r[key]!r}, "
                   f"uninterrupted {r_ref[key]!r} (relative {rel:.3e}, tol "
                   f"1e-3)")
             if not (math.isfinite(r[key]) and rel <= 1e-3):
-                fail(f"resumed step {r['step']} {key}: relative {rel}")
+                fail(f"{tag} resumed step {r['step']} {key}: relative {rel}")
     student = {k: v.detach().cpu() for k, v in
                state.params["student"].state_dict().items()}
     diff = math.sqrt(sum((student[k] - v).float().pow(2).sum().item()
@@ -968,10 +994,168 @@ def run_resume_path(lt, A, F, card: str, work: Path, ref: dict) -> dict:
     print(f"  resumed student vs uninterrupted: relative L2 {diff / norm:.3e}"
           f" (tol 1e-3); bitwise equal: {bitwise}")
     if not diff <= 1e-3 * norm:
-        fail(f"resumed student: relative L2 {diff / norm}")
+        fail(f"{tag} resumed student: relative L2 {diff / norm}")
     shutil.rmtree(out)
     return {"launches": launches, "save_ms": [ms for _, ms, _ in saves],
             "bitwise": bitwise}
+
+
+def distill_expected(A, precision: str, steps: int) -> tuple:
+    """What ``steps`` steps of phase 3f launch: K1..K5; K1/K2 by library;
+    K1/K2 by (library, shape). Per step 12 teacher forwards on the fp32
+    forward at TEACHER, 12 student forwards and backwards on the run
+    dtype's libraries at GLOBAL."""
+    import torch
+
+    n = 12 * steps
+    dtype = torch_dtype(precision)
+    teacher_fwd = A.fwd_library(torch.float32, HEAD_DIM)
+    fwd, bwd = A.fwd_library(dtype, HEAD_DIM), A.bwd_library(dtype, HEAD_DIM)
+    by_library = {"fwd": dict.fromkeys(A.fwd_launches, 0),
+                  "bwd": dict.fromkeys(A.bwd_launches, 0)}
+    by_library["fwd"][teacher_fwd] += n
+    by_library["fwd"][fwd] += n
+    by_library["bwd"][bwd] += n
+    by_shape = {(teacher_fwd, TEACHER): n, (fwd, GLOBAL): n, (bwd, GLOBAL): n}
+    return [2 * n, n, 0, 0, 0], by_library, by_shape
+
+
+def distill_pretrain(lt, out: Path, data: Path, precision: str, steps: int,
+                     **kwargs):
+    """``pretrain`` at its defaults (no model, no method, batch and queue
+    from the data) for ``steps`` steps, logging every step."""
+    return lt.pretrain(out=str(out), data=str(data), steps=steps,
+                       precision=precision, log_every=1, seed=SEED, **kwargs)
+
+
+def write_teacher(folder: Path) -> None:
+    """An exported DINOv3 ViT-B/16 with seeded weights and LayerScale 0.5,
+    for ``teacher_weights``. At the random init (LayerScale 1e-5) every
+    image's CLS lies within about 1e-5 of the learned token, so the queue's
+    rows coincide, the loss is log Q and the gradient vanishes; this
+    teacher's CLS tells the images apart, as a pretrained one does."""
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import export_model
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    module = get_wrapped_model("dinov3/vitb16").module
+    module.reset_parameters(torch.Generator().manual_seed(SEED + 1))
+    for name, p in module.named_parameters():
+        if name.endswith("gamma"):
+            p.data.fill_(0.5)
+    export_model(folder, "dinov3/vitb16", module.state_dict())
+
+
+def run_distillation_path(lt, A, F, card: str, precision: str, work: Path,
+                          teacher: Path = None) -> dict:
+    """Phase 3f: ``pretrain`` at its defaults on phase 3's 64 images for
+    DISTILL_STEPS[precision] steps (with ``teacher``: its weights as
+    ``teacher_weights``, the one option set), with every launch counter set
+    to 0 just before and read just after. It checkpoints only at the end,
+    after the timed steps."""
+    import torch
+
+    steps = DISTILL_STEPS[precision]
+    tag = precision if teacher is None else f"{precision}_teacher"
+    out = work / f"distill_{tag}"
+    kwargs = {} if teacher is None else {
+        "method_args": {"teacher_weights": str(teacher)}}
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    state = distill_pretrain(lt, out, work / "images", precision, steps,
+                             checkpoint_every=steps, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_library = {"fwd": dict(A.fwd_launches), "bwd": dict(A.bwd_launches)}
+    by_shape = launches_by_shape(A)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    hp = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])[
+        "hyperparams"]
+    resolved = {k: hp[k] for k in ("model", "method", "resolved_batch_size")}
+    resolved.update(optim=hp["optim_args"]["type"],
+                    teacher=hp["method_args"]["teacher"],
+                    queue_size=hp["method_args"]["queue_size"])
+    print(f"  defaults resolved: {resolved}, lr {hp['resolved_lr']!r}")
+    want = {"model": "dinov2/vitb14", "method": "distillation",
+            "resolved_batch_size": DISTILL_BATCH, "optim": "lars",
+            "teacher": "dinov3/vitb16", "queue_size": DISTILL_QUEUE}
+    if resolved != want or not math.isclose(
+            hp["resolved_lr"], 1.8 * DISTILL_BATCH / 1536, rel_tol=1e-12):
+        fail(f"pretrain defaults resolved to {resolved}, expected {want}")
+    logged = logged_steps(out)
+    if [r["step"] for r in logged] != list(range(1, steps + 1)):
+        fail(f"distillation logged steps {[r['step'] for r in logged]}")
+    for r in logged:
+        for key in DISTILL_KEYS:
+            if not math.isfinite(r[key]):
+                fail(f"distillation step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f} (global "
+              f"{r['loss_global']:.4f}, local {r['loss_local']:.4f}), "
+              f"grad_norm {r['grad_norm']:.4e}, "
+              f"{r['profiling/step_time'] * 1e3:.1f} ms, "
+              f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
+    ms = state.method_state
+    filled = min(steps * DISTILL_BATCH, DISTILL_QUEUE)
+    print(f"  queue {tuple(ms['queue'].shape)}: filled {ms['queue_filled']}, "
+          f"ptr {ms['queue_ptr']} (expected {filled}, "
+          f"{steps * DISTILL_BATCH % DISTILL_QUEUE})")
+    if (ms["queue_filled"] != filled
+            or ms["queue_ptr"] != steps * DISTILL_BATCH % DISTILL_QUEUE
+            or not torch.isfinite(ms["queue"]).all()
+            or not (ms["queue"].norm(dim=1) > 0).all()):
+        fail("distillation queue state")
+    expected, expected_by_library, expected_by_shape = distill_expected(
+        A, precision, steps)
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+          f"{expected}); by library {by_library}; by shape {by_shape}; "
+          f"peak memory {peak_gib:.2f} GiB; wall {wall:.1f} s")
+    if (launches != expected or by_library != expected_by_library
+            or by_shape != expected_by_shape):
+        fail(f"distillation launch counts {launches}, {by_library}, "
+             f"{by_shape}")
+    if teacher is not None:
+        # A teacher that tells the images apart: once the queue is full the
+        # loss leaves 2 log Q (both terms' value where the queue's rows
+        # coincide, as with a random teacher), and the gradient is no
+        # longer rounding noise (a random teacher's is ~1e-6).
+        uniform = 2 * math.log(DISTILL_QUEUE)
+        print(f"  with teacher_weights: losses "
+              f"{[r['train_loss'] for r in logged[1:]]} (2 log Q = "
+              f"{uniform:.4f}), grad norms "
+              f"{[r['grad_norm'] for r in logged]}")
+        if (not all(r["grad_norm"] > 1e-2 for r in logged)
+                or all(abs(r["train_loss"] - uniform) < 1e-3
+                       for r in logged[1:])):
+            fail("the exported teacher's run has nothing to learn")
+    teacher = ms["teacher"]
+    if (teacher.cfg.dtype != torch.float32
+            or any(p.requires_grad for p in teacher.parameters())):
+        fail("the teacher is not a frozen fp32 model")
+    student = state.params["student"]
+    check_backbone(student, "dinov2/vitb14", precision, 768)
+    check_backbone(teacher, "dinov3/vitb16", "fp32", 768)
+    meta = json.loads((out / "exported_models" / "exported_last"
+                       / "metadata.json").read_text())
+    if meta["model_name"] != "dinov2/vitb14" or meta["steps"] != steps:
+        fail(f"distillation exported_last metadata {meta}")
+    times = [r["profiling/step_time"] for r in logged]
+    ips = [r["profiling/images_per_sec"] for r in logged]
+    print(f"distillation {tag}: step ms {[t * 1e3 for t in times]}, "
+          f"img/s {ips}, peak {peak_gib:.2f} GiB [{card}]", flush=True)
+    return {
+        "launches": launches, "by_shape": by_shape,
+        "step_ms": [t * 1e3 for t in times], "images_per_sec": ips,
+        "peak_gib": peak_gib, "steps": logged, "out": out,
+        "student": {k: v.detach().cpu() for k, v in
+                    student.state_dict().items()},
+    }
 
 
 def check_grid(out: Path, n_images: int) -> None:
@@ -1129,14 +1313,17 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
     return {"K4": launches[0], "K5": launches[1]}
 
 
-def profile_steps(card: str, precision: str, steps: int = 3) -> None:
-    """Optional (``--profile``): where the main path's step time goes.
+def profile_steps(card: str, precision: str, method_name: str = "dinov2",
+                  steps: int = 3) -> None:
+    """Optional (``--profile``): where a main path's step time goes.
 
-    Runs the pretraining step of ``run_main_path`` in ``precision`` (same
-    model, method and batch; one fixed uint8 batch on the card, so no host
-    data loading) for 2 warm-up steps and ``steps`` profiled steps under
-    ``torch.profiler``, and prints the device's busy share and the kernels
-    that take the most device time.
+    Runs the pretraining step of ``run_main_path`` (``method_name``
+    "dinov2": batch BATCH, the fused update) or of
+    ``run_distillation_path`` ("distillation": batch DISTILL_BATCH, queue
+    DISTILL_QUEUE, LARS on the unfused update) in ``precision``, on one
+    fixed uint8 batch on the card (no host data loading), for 2 warm-up
+    steps and ``steps`` profiled steps under ``torch.profiler``, and prints
+    the device's busy share and the kernels that take the most device time.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1144,25 +1331,35 @@ def profile_steps(card: str, precision: str, steps: int = 3) -> None:
     from lightly_train_tpu_torch._commands.train_loop import make_train_step
     from lightly_train_tpu_torch._optim import cosine_warmup
     from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
+    from lightly_train_tpu_torch._optim.update import build_update
     from lightly_train_tpu_torch.methods.base import TrainState
     from lightly_train_tpu_torch.methods.dinov2 import DINOv2, DINOv2Args
+    from lightly_train_tpu_torch.methods.distillationv3 import (
+        DistillationV3,
+        DistillationV3Args,
+    )
     from lightly_train_tpu_torch.models.package_registry import (
         get_wrapped_model,
     )
 
     dev = torch.device("cuda")
     dtype = torch_dtype(precision)
-    method = DINOv2(get_wrapped_model("dinov2/vitb14", dtype=dtype),
-                    DINOv2Args())
+    wrapped = get_wrapped_model("dinov2/vitb14", dtype=dtype)
+    if method_name == "dinov2":
+        method, build, batch = DINOv2(wrapped, DINOv2Args()), \
+            build_fused_updater, BATCH
+    else:
+        method, build, batch = DistillationV3(wrapped, DistillationV3Args(
+            queue_size=DISTILL_QUEUE)), build_update, DISTILL_BATCH
     params, method_state = method.init(torch.Generator().manual_seed(SEED),
                                        dev)
     named = dict(params.named_parameters())
-    updater = build_fused_updater(method, method.default_optimizer_args(),
-                                  cosine_warmup(1e-3, 1000, 10), named, 1000)
+    updater = build(method, method.default_optimizer_args(),
+                    cosine_warmup(1e-3, 1000, 10), named, 1000)
     state = TrainState(0, params, method_state, updater)
     step = make_train_step(method, 1000, aug_dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    images = torch.randint(0, 256, (BATCH, 256, 256, 3), dtype=torch.uint8,
+    images = torch.randint(0, 256, (batch, 256, 256, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
     for _ in range(2):
         step(state, images, gen)
@@ -1181,7 +1378,7 @@ def profile_steps(card: str, precision: str, steps: int = 3) -> None:
             k[0] += evt.time_range.elapsed_us() / 1e3 / steps  # ms/step
             k[1] += 1
     busy_ms = sum(v[0] for v in kernels.values())
-    print(f"profile {precision}: {steps} steps, wall {wall_ms:.1f} ms/step, "
+    print(f"profile {method_name} {precision}: {steps} steps, wall {wall_ms:.1f} ms/step, "
           f"device busy "
           f"{busy_ms:.1f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(v[1] for v in kernels.values()) // steps} kernel launches "
@@ -1271,7 +1468,17 @@ def main() -> int:
     bf16_out = paths["bf16"]["out"]
     check_grid(bf16_out, 2 * BATCH)
     shutil.rmtree(bf16_out / "checkpoints")  # only its metrics serve now
-    run_resume_path(lt, A, F, card, work, paths["bf16"])
+    run_resume_path(
+        lt, A, F, card, work, paths["bf16"],
+        lambda out, **kw: pretrain_main_path(lt, out, work / "images",
+                                             "bf16", **kw),
+        STEPS, ("train_loss", "dino_loss", "ibot_loss", "koleo_loss"),
+        [36 * STEPS, 24 * STEPS, STEPS, 0, 0],
+        {"fwd": {**dict.fromkeys(A.fwd_launches, 0),
+                 A.fwd_library(torch.bfloat16, HEAD_DIM): 36 * STEPS},
+         "bwd": {**dict.fromkeys(A.bwd_launches, 0),
+                 A.bwd_library(torch.bfloat16, HEAD_DIM): 24 * STEPS}},
+        "dinov2")
     embed_k1 = run_embed_path(
         lt, A, F, card, work, bf16_out / "exported_models" / "exported_last")
     vittest = {}
@@ -1280,6 +1487,31 @@ def main() -> int:
               f"{VITTEST_STEPS} steps, {precision}", flush=True)
         vittest[precision] = run_vittest_path(lt, A, F, card, precision,
                                               work)
+    distill = {}
+    for precision in DTYPES:
+        print(f"phase 3f: pretrain at its defaults (distillation, ViT-B/14 "
+              f"from DINOv3 ViT-B/16, LARS), batch {DISTILL_BATCH}, "
+              f"{DISTILL_STEPS[precision]} steps, {precision}", flush=True)
+        distill[precision] = run_distillation_path(lt, A, F, card, precision,
+                                                   work)
+    shutil.rmtree(distill["fp32"]["out"])
+    teacher = work / "teacher"
+    write_teacher(teacher)
+    print(f"phase 3f: the same with teacher_weights (an exported DINOv3 "
+          f"ViT-B/16, LayerScale 0.5), bf16", flush=True)
+    distill["bf16_teacher"] = run_distillation_path(lt, A, F, card, "bf16",
+                                                    work, teacher)
+    steps = DISTILL_STEPS["bf16"]
+    expected, by_library, _ = distill_expected(A, "bf16", steps)
+    for key, args in (("bf16", {}), ("bf16_teacher", {
+            "method_args": {"teacher_weights": str(teacher)}})):
+        print(f"phase 3f: resume of the {key} distillation run", flush=True)
+        run_resume_path(
+            lt, A, F, card, work, distill[key],
+            lambda out, args=args, **kw: distill_pretrain(
+                lt, out, work / "images", "bf16", steps, **args, **kw),
+            steps, DISTILL_KEYS[:3], expected, by_library,
+            f"distillation_{key}")
     work_dir.cleanup()
 
     # Launches: each wrapper's count over the path that runs it (K1/K2: the
@@ -1298,6 +1530,16 @@ def main() -> int:
                                      paths[dtype]["launches"][i])
             by_shape.update(dict.fromkeys((VITTEST_GLOBAL, VITTEST_LOCAL),
                                           vittest[dtype]["launches"][i]))
+        # Phase 3f's launches of this kernel's library at each shape, per
+        # run: the teacher's K1 at TEACHER (fp32 in both runs), the
+        # student's K1/K2 at GLOBAL (in its run's dtype).
+        library = {"fwd": A.fwd_library, "bwd": A.bwd_library}[direction]
+        lib = library(torch_dtype(dtype), HEAD_DIM)
+        distill_runs = {
+            shape: {p: distill[p]["by_shape"].get((lib, shape), 0)
+                    for p in DTYPES}
+            for shape in (TEACHER, GLOBAL)} if kernel in ("K1", "K2") else {}
+        by_shape[TEACHER] = sum(distill_runs.get(TEACHER, {}).values())
         kernels += [{
             "name": name, "route": "cuda",
             "source": "lightly_train_tpu_torch/csrc/" + (
@@ -1309,6 +1551,11 @@ def main() -> int:
             **({"launches_embed": embed_k1}
                if (kernel, dtype) == ("K1", "fp32")
                and row["shape"] == list(GLOBAL) else {}),
+            **({"launches_distillation": distill_runs[tuple(row["shape"])],
+                "launches_distillation_per_step": {
+                    p: n / DISTILL_STEPS[p] for p, n in
+                    distill_runs[tuple(row["shape"])].items()}}
+               if tuple(row["shape"]) in distill_runs else {}),
             **row,
         } for row in rows]
     kernels.append({
@@ -1317,13 +1564,16 @@ def main() -> int:
         "replaces": "lightly_train_tpu/_optim/fused_update.py:95",
         "launches": paths["bf16"]["launches"][2],
         "launches_fp32": paths["fp32"]["launches"][2],
-        "launches_per_step": paths["bf16"]["launches"][2] / STEPS, **upd,
+        "launches_per_step": paths["bf16"]["launches"][2] / STEPS,
+        "launches_distillation": {p: distill[p]["launches"][2]
+                                  for p in DTYPES}, **upd,
     })
     if "--profile" in sys.argv[1:]:
-        for precision in DTYPES:
-            print(f"phase 4: profile of the pretraining step ({precision})",
-                  flush=True)
-            profile_steps(card, precision)
+        for method in ("dinov2", "distillation"):
+            for precision in DTYPES:
+                print(f"phase 4: profile of the {method} pretraining step "
+                      f"({precision})", flush=True)
+                profile_steps(card, precision, method)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,8 +4,12 @@ Port of ``lightly_train_tpu/_checkpoint/checkpoint.py``. The card has no
 orbax, so both tiers are torch files:
 
 - ``out/checkpoints/step_<n>.pt``: the resumable train state (step, student
-  and method state, the updater's Adam moments and counter, the model and
-  method names). Each is written to a temporary name in the same folder and
+  and method state, the updater's state, the model and method names). The
+  method state is saved whole: DINOv2's EMA teacher and centers,
+  distillation's frozen teacher (saved, not rebuilt from its source), queue
+  and its host integers ``queue_ptr`` and ``queue_filled``. The updater's
+  state is the fused update's Adam moments and count, or the unfused
+  chain's count with its Adam moments or momentum trace. Each is written to a temporary name in the same folder and
   renamed into place, so a run killed mid-save never leaves a newest
   checkpoint that cannot be read; the 2 newest are kept, as the JAX
   manager's ``max_to_keep=2``.
@@ -105,12 +109,14 @@ class CheckpointManager:
         ckpt = torch.load(self.path(step), map_location="cpu",
                           weights_only=True)
         state.params.load_state_dict(ckpt["params"])
-        for key, value in state.method_state.items():
+        for key, value in list(state.method_state.items()):
             saved = ckpt["method_state"][key]
             if isinstance(value, nn.Module):
                 value.load_state_dict(saved)
-            else:
+            elif isinstance(value, torch.Tensor):
                 value.copy_(saved)
+            else:  # a host number
+                state.method_state[key] = saved
         state.updater.load_state_dict(ckpt["optimizer"])
         state.step = ckpt["step"]
         return state

@@ -1,7 +1,9 @@
 """``pretrain`` command: end-to-end SSL pretraining on the card.
 
 Port of ``lightly_train_tpu/_commands/train.py``: output-dir checks, logging,
-dataset + loader, model/method/optimizer resolution with the "auto" cascade,
+dataset + loader, model/method/optimizer resolution with the "auto" cascade
+(the default method is distillation v3; the update is the fused AdamW+EMA
+one for AdamW with an EMA method, else the unfused chain),
 ``embed_dim`` and ``transform_args``, the ``checkpoint=`` warm start from an
 exported artifact, ``resume_interrupted``, the train loop with its
 one-step-lagged non-finite check, ``metrics.jsonl``, the augmentation grid
@@ -60,6 +62,7 @@ from lightly_train_tpu_torch._optim import (
     cosine_warmup,
 )
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
+from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch._scaling import ScalingInfo
 from lightly_train_tpu_torch._visualize.grids import save_augmentation_grid
 from lightly_train_tpu_torch.errors import ConfigError
@@ -289,6 +292,9 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     named = dict(params.named_parameters())
     updater = build_fused_updater(method, optim_args, lr_schedule, named,
                                   total_steps)
+    if updater is None:
+        updater = build_update(method, optim_args, lr_schedule, named,
+                               total_steps)
     state = TrainState(step=0, params=params, method_state=method_state,
                        updater=updater)
     ckpt_mgr = CheckpointManager(out_dir / "checkpoints")

@@ -1,8 +1,11 @@
 """Pretraining runtime: the train step and the host step loop.
 
 Port of ``lightly_train_tpu/_commands/train_loop.py``. One step runs
-augmentation -> teacher and student forward -> loss -> backward -> the fused
-AdamW+EMA update, eagerly on the device. Gradient accumulation is a Python
+augmentation -> teacher and student forward -> loss -> backward -> the
+update, eagerly on the device: the fused AdamW+EMA update where the
+(optimizer, method) pair has one, else the unfused chain
+(``_optim/update.py``) followed by the method's ``mask_updates`` and
+``post_update``, as the JAX step branches. Gradient accumulation is a Python
 loop over microbatches (the JAX package's ``lax.scan``).
 
 Each step's randomness (augmentation, iBOT masks, drop path) comes from one
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from lightly_train_tpu_torch._logging import get_logger
+from lightly_train_tpu_torch._optim.fused_update import FusedAdamWEMA
+from lightly_train_tpu_torch._optim.update import apply_updates
 from lightly_train_tpu_torch.errors import NaNDetectedError
 from lightly_train_tpu_torch.methods.base import Method, TrainState, ViewSpec
 from lightly_train_tpu_torch.ops.augment import (
@@ -100,12 +105,16 @@ def make_train_step(
                 metric_sums[key] = metric_sums.get(key, 0.0) + value
         n = len(views)
         loss = loss_sum / n
-        grad_norm = state.updater.update_and_apply(
-            {name: p.grad for name, p in named.items()},
-            named,
-            dict(method_state["teacher"].named_parameters()),
-            state.step,
-        )
+        grads = {name: p.grad for name, p in named.items()}
+        if isinstance(state.updater, FusedAdamWEMA):
+            grad_norm = state.updater.update_and_apply(
+                grads, named,
+                dict(method_state["teacher"].named_parameters()), state.step)
+        else:
+            updates, grad_norm = state.updater.update(grads, named)
+            apply_updates(named, method.mask_updates(updates, state.step))
+            method_state = method.post_update(params, method_state,
+                                              state.step, total_steps)
         state.method_state = method_state
         state.step += 1
         finite = torch.isfinite(loss) & torch.isfinite(grad_norm)

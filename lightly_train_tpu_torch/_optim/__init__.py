@@ -2,7 +2,9 @@ from lightly_train_tpu_torch._optim.optimizers import (
     JAX_OPTIMIZERS,
     OPTIMIZER_ARGS_TYPES,
     AdamWArgs,
+    LARSArgs,
     OptimizerArgs,
+    SGDArgs,
     dinov2_wd_mask,
     layerwise_lr_scales,
     no_weight_decay_mask,
@@ -16,7 +18,9 @@ __all__ = [
     "JAX_OPTIMIZERS",
     "OPTIMIZER_ARGS_TYPES",
     "AdamWArgs",
+    "LARSArgs",
     "OptimizerArgs",
+    "SGDArgs",
     "cosine_warmup",
     "dinov2_wd_mask",
     "layerwise_lr_scales",

@@ -367,23 +367,15 @@ def build_fused_updater(
     learning_rate,
     params: Mapping[str, torch.Tensor],
     total_steps: int,
-) -> FusedAdamWEMA:
-    """FusedAdamWEMA for an (AdamW, EMA-method) pair.
-
-    The JAX package falls back to an unfused optax chain for other pairs;
-    the port has only the fused path so far, so other pairs raise.
-    """
+) -> Optional[FusedAdamWEMA]:
+    """FusedAdamWEMA for an (AdamW, EMA-method) pair, else None: plain AdamW
+    and a method whose ``post_update`` is exactly the teacher EMA (its
+    ``fused_ema_momentum``). Other pairs take the unfused chain
+    (``_optim/update.py``), as in the JAX package."""
     if type(optim_args) is not AdamWArgs:
-        raise NotImplementedError(
-            f"optimizer {type(optim_args).__name__} is not ported yet: the "
-            "port updates with the fused AdamW+EMA kernel only (ROADMAP "
-            "item 10)."
-        )
+        return None
     if method.fused_ema_momentum(0, total_steps) is None:
-        raise NotImplementedError(
-            f"method '{method.name}' has no fused EMA update; the unfused "
-            "update path is not ported yet (ROADMAP item 8)."
-        )
+        return None
     return FusedAdamWEMA(
         optim_args,
         learning_rate,

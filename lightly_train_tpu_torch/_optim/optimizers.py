@@ -1,12 +1,13 @@
 """Optimizer arguments and per-parameter rules.
 
-Port of ``lightly_train_tpu/_optim/optimizers.py`` for the slice: the AdamW
-arguments and the per-parameter rules the DINOv2 update uses (weight-decay
-masks and layerwise LR decay). Parameters are named by their PyTorch state
-names (``student.blocks.3.attn.q.weight``); each rule gives the same answer
-for a parameter as the JAX rule gives for its Flax path
-(``student/block3/attn/q/kernel``). SGD, LARS and AdamW8bit wait
-(ROADMAP item 10).
+Port of ``lightly_train_tpu/_optim/optimizers.py``: the AdamW, SGD and
+LARS arguments and the per-parameter rules of the updates (weight-decay
+masks and layerwise LR decay); the update chain itself is in ``update.py``
+(and, for AdamW with an EMA teacher, ``fused_update.py``). Parameters are
+named by their PyTorch state names (``student.blocks.3.attn.q.weight``);
+each rule gives the same answer for a parameter as the JAX rule gives for
+its Flax path (``student/block3/attn/q/kernel``). AdamW8bit waits (ROADMAP
+item 10).
 """
 
 from __future__ import annotations
@@ -35,7 +36,24 @@ class AdamWArgs(OptimizerArgs):
     weight_decay: float = 1e-2
 
 
-OPTIMIZER_ARGS_TYPES = {"adamw": AdamWArgs}
+@dataclasses.dataclass
+class SGDArgs(OptimizerArgs):
+    type: Literal["sgd"] = "sgd"
+    lr: Union[float, Auto] = AUTO
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+
+
+@dataclasses.dataclass
+class LARSArgs(OptimizerArgs):
+    type: Literal["lars"] = "lars"
+    lr: Union[float, Auto] = AUTO
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    trust_coefficient: float = 0.001
+
+
+OPTIMIZER_ARGS_TYPES = {"adamw": AdamWArgs, "sgd": SGDArgs, "lars": LARSArgs}
 # Every optimizer name the JAX package takes (its OPTIMIZER_ARGS_TYPES): a
 # name here but not above is not ported yet, any other is unknown.
 JAX_OPTIMIZERS = ("adamw", "adamw8bit", "lars", "sgd")

@@ -6,9 +6,16 @@ runtime differentiates. The JAX package threads immutable trees through a
 jitted step; here the state is mutable and owned by :class:`TrainState`:
 
 - ``params``: trainable ``nn.ModuleDict`` (student backbone + heads);
-- ``method_state``: method-owned buffers (the EMA teacher module, centers),
-  never differentiated;
-- ``updater``: the fused AdamW+EMA updater holding the Adam moments.
+- ``method_state``: method-owned buffers and host numbers (DINOv2's EMA
+  teacher and centers, distillation's frozen teacher and queue), never
+  differentiated;
+- ``updater``: the fused AdamW+EMA updater (``_optim/fused_update.py``) or
+  the unfused chain (``_optim/update.py``), holding the optimizer state.
+
+The unfused path calls the method's :meth:`Method.mask_updates` and
+:meth:`Method.post_update` around the update, as the JAX step does; the
+fused one folds both into its kernel (:meth:`Method.fused_ema_momentum`,
+:meth:`Method.update_scales`).
 """
 
 from __future__ import annotations
@@ -88,8 +95,19 @@ class Method(abc.ABC):
         masks: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any], Dict[str, Any]]]:
         """Returns (loss, (new_method_state, metrics)). ``generator`` drives
-        the method's own randomness; ``masks`` pins it where a method has
-        masks (iBOT)."""
+        the method's own randomness; ``masks`` pins that draw instead (the
+        iBOT masks of DINOv2, mixup's ``(lam, apply)`` of distillation)."""
+
+    def post_update(self, params: nn.ModuleDict, method_state: Dict[str, Any],
+                    step: int, total_steps: int) -> Dict[str, Any]:
+        """After the unfused update (the EMA teacher). Default: no-op."""
+        return method_state
+
+    def mask_updates(self, updates: Dict[str, torch.Tensor], step: int
+                     ) -> Dict[str, torch.Tensor]:
+        """Step-conditional masking of the unfused updates (the frozen
+        prototype warmup). Default: unchanged."""
+        return updates
 
     def default_optimizer_args(self) -> Any:
         from lightly_train_tpu_torch._optim import AdamWArgs

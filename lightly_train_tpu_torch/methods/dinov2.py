@@ -26,7 +26,7 @@ from lightly_train_tpu_torch.models.heads import DINOHead
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
 from lightly_train_tpu_torch.ops import losses as L
 from lightly_train_tpu_torch.ops.augment import ViewAugmentConfig
-from lightly_train_tpu_torch.ops.ema import cosine_schedule
+from lightly_train_tpu_torch.ops.ema import cosine_schedule, ema_update
 from lightly_train_tpu_torch.ops.masking import random_block_masks
 
 
@@ -252,6 +252,19 @@ class DINOv2(Method):
     def wd_mask(self, params: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
         """The reference rule: only bias/norm/gamma are exempt."""
         return dinov2_wd_mask(params)
+
+    def post_update(self, params, method_state, step, total_steps):
+        """The EMA teacher after an unfused update (SGD, LARS)."""
+        ema_update(dict(method_state["teacher"].named_parameters()),
+                   dict(params.named_parameters()),
+                   self.fused_ema_momentum(step, total_steps))
+        return method_state
+
+    def mask_updates(self, updates, step):
+        """Freeze the prototype layers early (the unfused path's
+        :meth:`update_scales`)."""
+        scales = self.update_scales(updates, step)
+        return {name: u * scales[name] for name, u in updates.items()}
 
     def fused_ema_momentum(self, step: int, total_steps: int) -> float:
         a = self.args

@@ -10,7 +10,13 @@ numpy arrays, into a PyTorch state dict for the port's modules:
 - ``WeightNormDense`` keeps ``v`` (transposed to (out, in)) and ``g``;
 - ``block{i}`` -> ``blocks.{i}``, head ``mlp{i}`` -> ``mlp.{i}``;
 - scope names stay, so an ``embed_dim`` model's ``backbone/...`` and
-  ``embed/kernel|bias`` become ``backbone.*`` and ``embed.weight|bias``.
+  ``embed/kernel|bias`` become ``backbone.*`` and ``embed.weight|bias``,
+  a SwiGLU FFN's ``mlp/w1|w2|w3`` become ``mlp.w1|w2|w3``, and
+  distillation's ``global_head/proj`` and ``local_head/proj`` become
+  ``global_head.proj`` and ``local_head.proj``;
+- a DINOv3 ViT's leaves carry over as they are: its ``register_tokens``,
+  and the ``k`` projection without ``bias`` and the model without
+  ``pos_embed`` have nothing to carry.
 
 It takes numpy only and imports nothing of JAX.
 """
@@ -58,8 +64,9 @@ def _convert_leaf(name: str, value: np.ndarray):
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict (float32 tensors) for a Flax parameter tree of numpy
-    arrays: a ViT's params, or a method's ``{"student", "dino_head",
-    "ibot_head"}`` tree."""
+    arrays: a ViT's params, or a method's tree (DINOv2's ``{"student",
+    "dino_head", "ibot_head"}``, distillation's ``{"student",
+    "global_head", "local_head"}``)."""
     state = {}
     for name, value in _flatten(tree).items():
         path, value = _convert_leaf(name, value)
@@ -68,10 +75,20 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def method_state_from_jax(method_state: Mapping[str, Any]) -> Dict[str, Any]:
-    """DINOv2 method state: the EMA teacher tree becomes a state dict; the
-    ``dino_center`` and ``ibot_center`` vectors become tensors."""
-    out: Dict[str, Any] = {"teacher": params_from_jax(method_state["teacher"])}
-    for key in ("dino_center", "ibot_center"):
-        out[key] = torch.from_numpy(
-            np.array(method_state[key], dtype=np.float32))
+    """A method's state: the teacher tree becomes a state dict (DINOv2's EMA
+    teacher params, or distillation's frozen teacher variables, whose
+    ``params`` collection is unwrapped); DINOv2's ``dino_center`` and
+    ``ibot_center`` and distillation's ``queue`` become float32 tensors,
+    and distillation's ``queue_ptr`` and ``queue_filled`` host integers."""
+    teacher = method_state["teacher"]
+    if set(teacher) == {"params"}:
+        teacher = teacher["params"]
+    out: Dict[str, Any] = {"teacher": params_from_jax(teacher)}
+    for key in ("dino_center", "ibot_center", "queue"):
+        if key in method_state:
+            out[key] = torch.from_numpy(
+                np.array(method_state[key], dtype=np.float32))
+    for key in ("queue_ptr", "queue_filled"):
+        if key in method_state:
+            out[key] = int(method_state[key])
     return out

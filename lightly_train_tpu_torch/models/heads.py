@@ -1,8 +1,10 @@
-"""Projection heads: the DINO head with a weight-normalized prototype layer.
+"""Projection heads: the DINO head with a weight-normalized prototype layer,
+and the single linear projection of distillation.
 
 Port of ``lightly_train_tpu/models/heads.py`` (``WeightNormDense``,
-``DINOHead``). Like the ViT, heads keep float32 parameters and compute in
-``dtype``; the l2 normalization and the weight norm run in fp32.
+``DINOHead``, ``ProjectionHead``). Like the ViT, heads keep float32
+parameters and compute in ``dtype``; the l2 normalization and the weight
+norm run in fp32.
 """
 
 from __future__ import annotations
@@ -78,3 +80,20 @@ class DINOHead(nn.Module):
         norm = torch.linalg.vector_norm(h32, dim=-1, keepdim=True)
         h32 = h32 / torch.clamp(norm, min=1e-8)
         return self.prototypes(h32.to(self.dtype))
+
+
+class ProjectionHead(nn.Module):
+    """One Dense layer (distillation's global and local heads). Its compute
+    dtype defaults to fp32, as the JAX head's does, whatever the run's
+    precision."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.proj = Linear(in_dim, out_dim, dtype=dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.proj.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x)

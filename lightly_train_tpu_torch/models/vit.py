@@ -1,21 +1,26 @@
-"""DINOv2-style Vision Transformer in PyTorch.
+"""DINOv2/DINOv3-style Vision Transformer in PyTorch.
 
-Port of ``lightly_train_tpu/models/vit.py`` (DINOv2 flavour): CLS token,
-learnable mask token for iBOT masking, interpolatable learned position
-embedding (torch-exact bicubic weights), separate q/k/v projections,
-LayerScale, per-sample stochastic depth.
+Port of ``lightly_train_tpu/models/vit.py``: CLS token, learnable mask token
+for iBOT masking, separate q/k/v projections, LayerScale, per-sample
+stochastic depth, and either flavour's position code and FFN:
+
+- DINOv2: interpolatable learned position embedding (torch-exact bicubic
+  weights), GELU MLP (SwiGLU on ViT-g), LayerNorm eps 1e-6;
+- DINOv3: 4 register tokens, 2-D axial RoPE on the patch tokens' q and k
+  (no learned position embedding), a key projection without bias, LayerNorm
+  eps 1e-5, SwiGLU on the "plus" sizes.
 
 As in the JAX package, inputs are channels-last (B, H, W, 3), parameters are
 float32 and ``cfg.dtype`` is the compute dtype: every projection casts its
 input and weight to it (bf16 training computes in bf16 against fp32 master
 weights), LayerNorm statistics are taken in fp32. Unmasked attention runs in
 the flat-attention kernels on the card (``ops/kernels/attention.py``).
-RoPE, SwiGLU and register tokens (DINOv3) wait for ROADMAP item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -36,12 +41,22 @@ class ViTConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
+    num_register_tokens: int = 0
     layerscale_init: Optional[float] = 1e-5
     drop_path_rate: float = 0.0
+    use_rope: bool = False
+    rope_base: float = 100.0
+    use_swiglu: bool = False
+    # SwiGLU hidden = int(mlp_ratio * D * 2 / 3) padded up to this multiple.
+    swiglu_align: int = 8
     qkv_bias: bool = True
+    # DINOv3's key projection has no bias.
+    mask_k_bias: bool = False
     proj_bias: bool = True
     ffn_bias: bool = True
-    # LayerNorm epsilon: DINOv2 "layernorm" 1e-6.
+    # DINOv3 has no learned position embedding (RoPE only).
+    use_pos_embed: bool = True
+    # LayerNorm epsilon: DINOv2 "layernorm" 1e-6, DINOv3 1e-5.
     norm_eps: float = 1e-6
     # Base grid the learned pos-embed is stored at (224 / patch).
     pos_embed_size: int = 16
@@ -134,6 +149,59 @@ def interpolate_pos_embed(pos_embed: torch.Tensor,
     return p.reshape(1, gh * gw, -1).to(pos_embed.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def rope_angles(grid_hw: Tuple[int, int], head_dim: int, base: float
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """2-D axial RoPE cos/sin tables, each (gh * gw, head_dim / 2) float32,
+    for a (gh, gw) patch grid: the first half of each table's columns
+    rotate with the y coordinate, the second with x; coordinates in
+    [-1, 1]; angle = 2 pi coord / period with periods
+    base ** (2 i / (head_dim / 2)). Built on the host in numpy float32 in
+    the JAX package's op order (``_rope_angles``), which it holds bitwise:
+    another order lands about 12 ulp away."""
+    gh, gw = grid_hw
+    dim_quarter = head_dim // 4
+    f32 = np.float32
+    periods = f32(base) ** (
+        f32(2) * np.arange(dim_quarter, dtype=f32) / f32(dim_quarter * 2))
+    ys = (np.arange(0.5, gh, dtype=f32) / f32(gh)) * f32(2) - f32(1)
+    xs = (np.arange(0.5, gw, dtype=f32) / f32(gw)) * f32(2) - f32(1)
+    two_pi = f32(2 * math.pi)
+    ang_y = (two_pi * ys)[:, None] / periods[None, :]
+    ang_x = (two_pi * xs)[:, None] / periods[None, :]
+    ang = np.concatenate([
+        np.broadcast_to(ang_y[:, None, :], (gh, gw, dim_quarter)),
+        np.broadcast_to(ang_x[None, :, :], (gh, gw, dim_quarter)),
+    ], axis=-1).reshape(gh * gw, head_dim // 2)
+    return np.cos(ang), np.sin(ang)
+
+
+# (grid, head dim, base, dtype, device) -> the tables on the device, so a
+# forward copies nothing from the host after its first call.
+_ROPE_TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def rope_tables(grid_hw: Tuple[int, int], head_dim: int, base: float,
+                dtype: torch.dtype, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rope_angles` cast to the compute ``dtype`` on ``device``."""
+    key = (tuple(grid_hw), head_dim, float(base), dtype, device)
+    if key not in _ROPE_TABLES:
+        _ROPE_TABLES[key] = tuple(
+            torch.from_numpy(t).to(device=device, dtype=dtype)
+            for t in rope_angles(tuple(grid_hw), head_dim, float(base)))
+    return _ROPE_TABLES[key]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x (B, N, H, hd) by tables (N, hd / 2)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth."""
 
@@ -161,21 +229,31 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, num_prefix_tokens: int):
         super().__init__()
         D = cfg.embed_dim
         self.num_heads = cfg.num_heads
+        self.num_prefix_tokens = num_prefix_tokens
         # Separate q/k/v projections, as in the JAX ViT: the (B, N, D)
         # outputs feed the flat-attention kernel directly.
         self.q = Linear(D, D, cfg.qkv_bias, cfg.dtype)
-        self.k = Linear(D, D, cfg.qkv_bias, cfg.dtype)
+        self.k = Linear(D, D, cfg.qkv_bias and not cfg.mask_k_bias,
+                        cfg.dtype)
         self.v = Linear(D, D, cfg.qkv_bias, cfg.dtype)
         self.proj = Linear(D, D, cfg.proj_bias, cfg.dtype)
 
     def forward(self, x: torch.Tensor,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = attention(self.q(x), self.k(x), self.v(x), self.num_heads,
-                        attn_mask)
+        q, k = self.q(x), self.k(x)
+        if rope is not None:
+            # The prefix tokens (CLS, registers) are not rotated.
+            p = self.num_prefix_tokens
+            q, k = (torch.cat([
+                t[:, :p], apply_rope(
+                    t[:, p:].unflatten(-1, (self.num_heads, -1)), *rope
+                ).flatten(2)], dim=1) for t in (q, k))
+        out = attention(q, k, self.v(x), self.num_heads, attn_mask)
         return self.proj(out)
 
 
@@ -191,14 +269,32 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class SwiGLU(nn.Module):
+    """SwiGLU FFN with separate w1/w2 projections: 2/3 of the MLP hidden
+    width, padded up to ``cfg.swiglu_align``."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        D = cfg.embed_dim
+        d = int(2 * int(D * cfg.mlp_ratio) / 3)
+        hidden = d + (-d % cfg.swiglu_align)
+        self.w1 = Linear(D, hidden, cfg.ffn_bias, cfg.dtype)
+        self.w2 = Linear(D, hidden, cfg.ffn_bias, cfg.dtype)
+        self.w3 = Linear(hidden, D, cfg.ffn_bias, cfg.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w3(F.silu(self.w1(x)) * self.w2(x))
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, drop_path: float):
+    def __init__(self, cfg: ViTConfig, drop_path: float,
+                 num_prefix_tokens: int = 1):
         super().__init__()
         D = cfg.embed_dim
         self.norm1 = LayerNorm(D, cfg.norm_eps, cfg.dtype)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, num_prefix_tokens)
         self.norm2 = LayerNorm(D, cfg.norm_eps, cfg.dtype)
-        self.mlp = Mlp(cfg)
+        self.mlp = SwiGLU(cfg) if cfg.use_swiglu else Mlp(cfg)
         self.ls1 = self.ls2 = None
         if cfg.layerscale_init is not None:
             self.ls1 = LayerScale(cfg.layerscale_init, D)
@@ -206,8 +302,9 @@ class Block(nn.Module):
         self.dp1 = DropPath(drop_path)
         self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, train: bool, generator=None, attn_mask=None):
-        h = self.attn(self.norm1(x), attn_mask)
+    def forward(self, x, train: bool, generator=None, attn_mask=None,
+                rope=None):
+        h = self.attn(self.norm1(x), rope, attn_mask)
         if self.ls1 is not None:
             h = self.ls1(h)
         x = x + self.dp1(h, train, generator)
@@ -223,32 +320,41 @@ class VisionTransformer(nn.Module):
     ``forward(images, mask=None, train=False, generator=None)``: images is
     (B, H, W, 3); mask an optional (B, N) bool of patches to replace with the
     learned mask token (the iBOT student path); ``generator`` drives the
-    per-sample drop path when training.
+    per-sample drop path when training. Returns ``cls_token``,
+    ``patch_tokens``, ``features`` (B, gh, gw, D) and ``register_tokens``.
     """
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
         D = cfg.embed_dim
+        self.num_prefix_tokens = 1 + cfg.num_register_tokens
         self.patch_embed = nn.Conv2d(3, D, cfg.patch_size, cfg.patch_size)
         self.mask_token = nn.Parameter(torch.zeros(D))
-        self.pos_embed = nn.Parameter(
+        self.pos_embed = (nn.Parameter(
             torch.zeros(1, cfg.pos_embed_size * cfg.pos_embed_size, D))
+            if cfg.use_pos_embed else None)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.register_tokens = (
+            nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D))
+            if cfg.num_register_tokens else None)
         dp_rates = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
                     for i in range(cfg.depth)]
-        self.blocks = nn.ModuleList(Block(cfg, r) for r in dp_rates)
+        self.blocks = nn.ModuleList(Block(cfg, r, self.num_prefix_tokens)
+                                    for r in dp_rates)
         self.norm = LayerNorm(D, cfg.norm_eps, cfg.dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """Flax's initializers: lecun-normal kernels, zero biases, normal
-        (0.02) cls token and position embedding, zero mask token."""
+        (0.02) cls and register tokens and position embedding, zero mask
+        token."""
         w = self.patch_embed.weight
         lecun_normal_(w.data, w.shape[1] * w.shape[2] * w.shape[3], generator)
         self.patch_embed.bias.data.zero_()
         self.mask_token.data.zero_()
-        for p in (self.pos_embed, self.cls_token):
-            p.data.normal_(0.0, 0.02, generator=generator)
+        for p in (self.pos_embed, self.cls_token, self.register_tokens):
+            if p is not None:
+                p.data.normal_(0.0, 0.02, generator=generator)
         for m in self.modules():
             if isinstance(m, Linear):
                 m.reset_parameters(generator)
@@ -273,17 +379,27 @@ class VisionTransformer(nn.Module):
         if mask is not None:
             x = torch.where(mask[:, :, None],
                             self.mask_token.to(x.dtype)[None, None, :], x)
-        x = x + interpolate_pos_embed(self.pos_embed, (gh, gw)).to(x.dtype)
-        cls = self.cls_token.to(x.dtype).expand(B, 1, cfg.embed_dim)
-        x = torch.cat([cls, x], dim=1)
+        if self.pos_embed is not None:
+            x = x + interpolate_pos_embed(self.pos_embed,
+                                          (gh, gw)).to(x.dtype)
+        tokens = [self.cls_token.to(x.dtype).expand(B, 1, cfg.embed_dim)]
+        if self.register_tokens is not None:
+            tokens.append(self.register_tokens.to(x.dtype).expand(
+                B, cfg.num_register_tokens, cfg.embed_dim))
+        x = torch.cat(tokens + [x], dim=1)
+        rope = (rope_tables((gh, gw), cfg.embed_dim // cfg.num_heads,
+                            cfg.rope_base, cfg.dtype, x.device)
+                if cfg.use_rope else None)
         for block in self.blocks:
-            x = block(x, train, generator)
+            x = block(x, train, generator, rope=rope)
         x = self.norm(x)
-        patch_tokens = x[:, 1:]
+        p = self.num_prefix_tokens
+        patch_tokens = x[:, p:]
         return {
             "cls_token": x[:, 0],
             "patch_tokens": patch_tokens,
             "features": patch_tokens.reshape(B, gh, gw, cfg.embed_dim),
+            "register_tokens": x[:, 1:p],
         }
 
 
@@ -299,6 +415,23 @@ _SIZES = {
     "vittest": (32, 2, 2),
 }
 
+# DINOv3 hub presets: size: (embed_dim, depth, num_heads, ffn_ratio,
+# use_swiglu, swiglu_align, qkv_bias). All have 4 register tokens, a key
+# projection without bias, LayerNorm eps 1e-5, LayerScale 1e-5 and RoPE
+# base 100.
+_DINOV3_SIZES = {
+    "vitt": (192, 12, 3, 4.0, False, 8, True),
+    "vittplus": (192, 12, 3, 6.0, False, 8, True),
+    "vits": (384, 12, 6, 4.0, False, 8, True),
+    "vitsplus": (384, 12, 6, 6.0, True, 8, True),
+    "vitb": (768, 12, 12, 4.0, False, 8, True),
+    "vitl": (1024, 24, 16, 4.0, False, 8, True),
+    "vitlplus": (1024, 24, 16, 6.0, True, 8, True),
+    "vithplus": (1280, 32, 20, 6.0, True, 8, True),
+    "vit7b": (4096, 40, 32, 3.0, True, 64, False),
+    "vittest": (32, 2, 2, 4.0, False, 8, True),
+}
+
 
 def vit_config(
     size: str,
@@ -308,31 +441,32 @@ def vit_config(
     dtype: torch.dtype = torch.float32,
     drop_path_rate: float = 0.0,
 ) -> ViTConfig:
-    """A ViTConfig for a reference-parity model name (DINOv2 flavour)."""
-    if flavor != "dinov2":
-        raise NotImplementedError(
-            f"ViT flavor '{flavor}' is not ported yet (ROADMAP item 10: the "
-            "DINOv3 features RoPE, SwiGLU and register tokens)."
-        )
-    if size not in _SIZES:
-        raise ValueError(f"Unknown ViT size '{size}'. Options: {sorted(_SIZES)}")
-    if size == "vitg":
-        raise NotImplementedError(
-            "dinov2/vitg14 uses a SwiGLU FFN, not ported yet (ROADMAP item 10)."
-        )
+    """A ViTConfig for a reference-parity model name: flavour "dinov2"
+    (learned position embedding, no registers, GELU MLP but SwiGLU on
+    ViT-g, LayerNorm eps 1e-6) or "dinov3" (the hub presets of
+    ``_DINOV3_SIZES``)."""
+    if flavor not in ("dinov2", "dinov3"):
+        raise ValueError(f"Unknown ViT flavor '{flavor}' (dinov2|dinov3)")
+    sizes = _SIZES if flavor == "dinov2" else _DINOV3_SIZES
+    if size not in sizes:
+        raise ValueError(f"Unknown ViT size '{size}'. Options: {sorted(sizes)}")
     if size == "vit7b":
         raise NotImplementedError(
-            "dinov2/vit7b14 is not ported yet (ROADMAP item 10): its head dim "
-            "128 (4096 / 32 heads) waits for the attention kernels at hd 128 "
-            "(ROADMAP queue 2 item 2)."
+            f"{flavor}/vit7b{patch_size} is not ported yet (ROADMAP item 10): its head "
+            "dim 128 (4096 / 32 heads) waits for the attention kernels at hd "
+            "128 (ROADMAP queue 2 item 2)."
         )
+    common = dict(patch_size=patch_size, pos_embed_size=224 // patch_size,
+                  drop_path_rate=drop_path_rate, dtype=dtype)
+    if flavor == "dinov3":
+        embed_dim, depth, num_heads, ratio, swiglu, align, qkv_bias = (
+            _DINOV3_SIZES[size])
+        return ViTConfig(
+            embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+            mlp_ratio=ratio, num_register_tokens=4, use_rope=True,
+            use_swiglu=swiglu, swiglu_align=align, qkv_bias=qkv_bias,
+            mask_k_bias=True, use_pos_embed=False, norm_eps=1e-5, **common)
     embed_dim, depth, num_heads = _SIZES[size]
-    return ViTConfig(
-        patch_size=patch_size,
-        embed_dim=embed_dim,
-        depth=depth,
-        num_heads=num_heads,
-        pos_embed_size=224 // patch_size,
-        drop_path_rate=drop_path_rate,
-        dtype=dtype,
-    )
+    # DINOv2's ViT-g has a SwiGLU FFN (align 8).
+    return ViTConfig(embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+                     use_swiglu=size == "vitg", **common)

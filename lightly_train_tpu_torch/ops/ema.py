@@ -1,14 +1,26 @@
-"""EMA schedules.
+"""EMA update and schedules.
 
-Port of ``lightly_train_tpu/ops/ema.py::cosine_schedule`` (teacher momentum
-0.992 -> 1.0 and weight decay 0.04 -> 0.4 for DINOv2). The step lives on the
-host, so the schedule returns a Python float. The EMA update itself runs in
-the fused AdamW+EMA kernel (``_optim/fused_update.py``).
+Port of ``lightly_train_tpu/ops/ema.py``: ``cosine_schedule`` (teacher
+momentum 0.992 -> 1.0 and weight decay 0.04 -> 0.4 for DINOv2) and
+``ema_update``. The step lives on the host, so the schedule returns a Python
+float. With AdamW the EMA runs in the fused AdamW+EMA kernel
+(``_optim/fused_update.py``); :func:`ema_update` is the unfused path's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Mapping
+
+import torch
+
+
+@torch.no_grad()
+def ema_update(teacher: Mapping[str, torch.Tensor],
+               student: Mapping[str, torch.Tensor], momentum: float) -> None:
+    """In place: ``t <- m t + (1 - m) s`` for every teacher tensor."""
+    for name, t in teacher.items():
+        t.mul_(momentum).add_(student[name].to(t.dtype), alpha=1.0 - momentum)
 
 
 def cosine_schedule(

@@ -43,6 +43,7 @@ rounded to bf16) and serve as their reference.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -223,11 +224,13 @@ def _stream(x: torch.Tensor) -> int:
 
 
 # Launches of each forward and backward library (K1 and K4, K2 and K5
-# together), so that a run can show which kernels it went through.
+# together), so that a run can show which kernels it went through, and of
+# each library at each (B, N, H, hd) shape.
 fwd_launches = {"flat_attention_fwd_sm90": 0,
                 "flat_attention_fwd_f32_sm90": 0}
 bwd_launches = {"flat_attention_bwd_sm90": 0,
                 "flat_attention_bwd_f32_sm90": 0}
+shape_launches: collections.Counter = collections.Counter()
 
 
 def _check_route(dtype: torch.dtype, head_dim: int) -> None:
@@ -269,6 +272,7 @@ def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
     )
     _native.check(err, name)
     fwd_launches[library] += 1
+    shape_launches[library, shape] += 1
 
 
 def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
@@ -288,6 +292,7 @@ def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
     )
     _native.check(err, name)
     bwd_launches[library] += 1
+    shape_launches[library, shape] += 1
 
 
 def _readable_grad(do: torch.Tensor, num_heads: Optional[int]):

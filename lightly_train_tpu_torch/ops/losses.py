@@ -1,8 +1,9 @@
-"""SSL loss ops of DINOv2 (DINO CE, iBOT patch CE, KoLeo, centering).
+"""SSL loss ops of DINOv2 (DINO CE, iBOT patch CE, KoLeo, centering) and of
+distillation (queue similarity CE, feature MSE).
 
-Port of the DINOv2 losses in ``lightly_train_tpu/ops/losses.py``. Loss math
-runs in float32 whatever the compute dtype. Sinkhorn-Knopp centering waits
-(ROADMAP item 4).
+Port of the DINOv2 and distillation losses in
+``lightly_train_tpu/ops/losses.py``. Loss math runs in float32 whatever the
+compute dtype. Sinkhorn-Knopp centering waits (ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -82,3 +83,27 @@ def koleo_loss(embeddings: torch.Tensor, eps: float = 1e-8,
     nn = torch.gather(xg, 1, nn_idx[..., None].expand_as(xg))
     dist = torch.sqrt(torch.clamp(((xg - nn) ** 2).sum(dim=-1), min=eps))
     return -torch.log(dist + eps).mean()
+
+
+def similarity_queue_ce(student_emb: torch.Tensor, teacher_emb: torch.Tensor,
+                        queue: torch.Tensor,
+                        temperature: float = 0.07) -> torch.Tensor:
+    """Distillation v3's similarity CE against a (Q, D) queue of teacher
+    embeddings: the teacher's softmax over its (l2-normalized) similarities
+    to the queue is the target of the student's. Embeddings are (B, D) or
+    (B, N, D). An all-zero queue row normalizes to 0 and stays in both
+    softmaxes with logit 0, as in the JAX package."""
+    s = l2_normalize(student_emb.float())
+    t = l2_normalize(teacher_emb.float())
+    q = l2_normalize(queue.float())
+    sim_s = torch.einsum("...d,qd->...q", s, q) / temperature
+    sim_t = torch.einsum("...d,qd->...q", t, q) / temperature
+    p_t = torch.softmax(sim_t, dim=-1)
+    logp_s = torch.log_softmax(sim_s, dim=-1)
+    return -(p_t * logp_s).sum(dim=-1).mean()
+
+
+def mse_feature_loss(student_feat: torch.Tensor,
+                     teacher_feat: torch.Tensor) -> torch.Tensor:
+    """Plain feature MSE (distillation v1)."""
+    return ((student_feat.float() - teacher_feat.float()) ** 2).mean()

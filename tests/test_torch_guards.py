@@ -135,7 +135,7 @@ def test_config_errors():
         lt.pretrain(out="unused", accelerator="tpu")
 
 
-@pytest.mark.parametrize("method", ["distillation", "simclr"])
+@pytest.mark.parametrize("method", ["dino", "simclr"])
 def test_unported_methods_name_their_roadmap_item(tmp_path, method):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",

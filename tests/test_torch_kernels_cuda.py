@@ -106,6 +106,75 @@ def test_attention_kernels_match_plain(cuda, dtype, B, N, H, hd):
     _close_grads(o, grads, o_ref, refs, dt, scale, hd, q, k, v, do)
 
 
+@pytest.mark.parametrize("B", [64, 3])
+def test_teacher_forward_matches_plain(cuda, B):
+    """K1 in fp32 at the frozen DINOv3 ViT-B/16 teacher's shape (14 x 14
+    patches + CLS + 4 registers: N = 201 = 3 * 64 + 9, a ragged last row
+    tile), forward only, as distillation runs it in every precision."""
+    N, H, hd = 201, 12, 64
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = (_randn((B, N, H * hd), gen, torch.float32) for _ in range(3))
+    scale = hd ** -0.5
+    before = A.fwd_launches["flat_attention_fwd_f32_sm90"]
+    with torch.no_grad():
+        o, lse = A.flat_attention_fwd(q, k, v, H, scale)
+    assert A.fwd_launches["flat_attention_fwd_f32_sm90"] == before + 1
+    o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, H, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+    assert o.dtype == torch.float32 and _within(o, o_ref, torch.float32)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's default fp32 weight-gradient algorithm for the 32-wide
+    vittest14 patch embed accumulates in no fixed order (two calls'
+    gradients differ in their last bits); at ViT-B/14's width it picks a
+    deterministic one (chip_smoke.py's resumed runs are bitwise). Pinned
+    here, so that the test holds the distillation path's own ops."""
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prior
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_distillation_gradients_are_deterministic(cuda, deterministic_cudnn,
+                                                  precision):
+    """Two backward passes of the distillation loss (vittest14 student,
+    dinov3/vittest16 teacher, the patch grid resampled 8 x 8 -> 7 x 7) on
+    the same inputs give bitwise the same gradients and queue: a resumed
+    run on the card repeats the uninterrupted one."""
+    from lightly_train_tpu_torch.methods.distillationv3 import (
+        DistillationV3,
+        DistillationV3Args,
+    )
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    method = DistillationV3(
+        get_wrapped_model("dinov2/vittest14", dtype=DTYPES[precision]),
+        DistillationV3Args(teacher="dinov3/vittest16", image_size=112,
+                           queue_size=16))
+    params, state = method.init(torch.Generator().manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    images = torch.randn((32, 112, 112, 3), generator=gen, device=cuda)
+    runs = []
+    for _ in range(2):
+        for p in params.parameters():
+            p.grad = None
+        gen.manual_seed(2)
+        loss, (new_state, _) = method.loss_fn(params, state, [images], 0, 10,
+                                              generator=gen)
+        loss.backward()
+        runs.append((loss.detach(), new_state["queue"],
+                     [p.grad.clone() for p in params.parameters()
+                      if p.grad is not None]))
+    (l0, q0, g0), (l1, q1, g1) = runs
+    assert torch.equal(l0, l1) and torch.equal(q0, q1) and len(g0) == len(g1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
 @pytest.mark.parametrize("B,N,H,hd", [(48, 257, 12, 64), (2, 257, 12, 64),
                                       (16, 37, 12, 64)])
 def test_fp32_tolerance_rejects_bf16_inputs(cuda, B, N, H, hd):

@@ -42,12 +42,18 @@ def test_jax_optimizer_names_are_the_jax_packages():
 @pytest.mark.parametrize("name", sorted(JAX_OPTIMIZERS))
 def test_optimizer_names_follow_the_jax_package(tmp_path, name):
     """A misspelt name is unknown, as in the JAX package
-    (``_commands/train.py:294-298``); a name the JAX package knows and the
-    port lacks is not ported yet (ROADMAP item 10)."""
+    (``_commands/train.py:294-298``); SGD and LARS run one CPU step on the
+    unfused update; AdamW8bit, which the port lacks, is not ported yet
+    (ROADMAP item 10)."""
     typo = name[:-1] + "x"  # adamx, adamw8bix, larx, sgx
     with pytest.raises(ConfigError, match=f"Unknown optimizer '{typo}'"):
         _pretrain(tmp_path / "typo", optim=typo)
-    if name != "adamw":
+    if name in ("sgd", "lars"):
+        state = _pretrain(tmp_path / "known", optim=name)
+        assert state.step == 1 and state.updater.count == 1
+        assert type(state.updater).__name__ == "UnfusedUpdate"
+        assert "trace" in state.updater.state_dict()
+    elif name != "adamw":
         with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
             _pretrain(tmp_path / "known", optim=name)
 
@@ -56,11 +62,14 @@ def test_optimizer_names_follow_the_jax_package(tmp_path, name):
     ("dinov2/vittest14", {"remat_every": 2}, "22"),
     ("dinov2/vittest14", {"remat_policy": "dots_saveable"}, "22"),
     ("dinov2/vit7b14", {}, "10"),
+    ("dinov3/vit7b16", {}, "10"),
+    ("dinov3/convnext-tiny", {}, "10"),
 ])
 def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
                                                         model_args, item):
-    """The JAX ViT's activation checkpointing (item 22) and ViT-7B/14,
-    which needs the attention kernels at head dim 128 (item 10)."""
+    """The JAX ViT's activation checkpointing (item 22), the 7B ViTs, which
+    need the attention kernels at head dim 128 (item 10), and the DINOv3
+    ConvNeXts (item 10)."""
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         _pretrain(tmp_path, model=model, model_args=model_args)
 
