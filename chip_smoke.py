@@ -69,14 +69,31 @@ Phases (any failure exits non-zero):
    on its dtype's forward at N = 257), 12 K2 and no K3; finite losses, the
    queue full (16 rows), the student and the teacher against fp32 CPU
    references; then the bf16 run interrupted after its step-2 checkpoint
-   and resumed, held against the uninterrupted one.
+   and resumed, held against the uninterrupted one. (3g) DINOv2 ViT-B/14
+   in bf16 with ``model_args={"remat_every": 2, "drop_path_rate": 0.1}``
+   and Sinkhorn centering for 3 steps: K1 48 a step (6 blocks recomputed
+   in each of the 2 student forwards), peak memory beside phase 3's; and
+   one fixed batch stepped twice with and without remat (and with
+   ``remat_policy="dots_saveable"``), the losses and parameters against
+   the run without remat. (3h) The fp32 DINOv2 and distillation paths for
+   2 steps under each ``LIGHTLY_TRAIN_MATMUL_PRECISION`` value: the TF32
+   switches each run leaves, step times, peak memory, and the trained CLS
+   against the fp32 CPU reference. (3i) vittest14 in bf16 with a parameter
+   set to NaN after a chosen step: the capture, ``NaNDetectedError``
+   naming the step, and ``replay_nan_capture`` on the card naming the
+   poisoned parameter. ``pretrain`` applies
+   ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
+   convolutions by default), so every path runs under ``default`` unless a
+   phase sets it, and IEEE fp32 is pinned back before any plain version
+   runs.
 
 The kernels run unless ``LIGHTLY_TRAIN_VMEM_ATTENTION`` turns them off, and
 then this check fails.
 
 ``--profile`` adds a phase 4: a ``torch.profiler`` window over a few
-training steps in each precision, printing the device's busy share and the
-kernels that take the most device time.
+training steps in each precision (fp32 under the variable, as ``pretrain``
+runs it), printing the device's busy share and the kernels that take the
+most device time.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 results, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -126,6 +143,30 @@ TEACHER = (DISTILL_BATCH, 201, HEADS, HEAD_DIM)
 DISTILL_STEPS = {"bf16": 4, "fp32": 2}
 DISTILL_QUEUE = 16
 DISTILL_KEYS = ("train_loss", "loss_global", "loss_local", "grad_norm")
+# ViT-B/14's blocks.
+DEPTH = 12
+# Phase 3g: DINOv2 bf16 with activation checkpointing every 2nd block,
+# drop path 0.1 and Sinkhorn centering; the fixed-batch comparison's
+# variants (the model_args of each beside drop path 0.1).
+REMAT = {"remat_every": 2, "drop_path_rate": 0.1}
+REMAT_STEPS = 3
+REMAT_VARIANTS = {
+    "no remat": {},
+    "remat": {"remat_every": 2},
+    "remat dots_saveable": {"remat_every": 2,
+                            "remat_policy": "dots_saveable"},
+}
+# Phase 3h: the fp32 steps under each LIGHTLY_TRAIN_MATMUL_PRECISION value
+# (TF32 in the CUDA fp32 GEMMs and convolutions, or not); the trained CLS
+# is held to 1e-2 in each (check_backbone).
+PRECISIONS = {"default": True, "high": True, "highest": False}
+PRECISION_STEPS = 2
+# Phase 3i: vittest14 in bf16 for NAN_STEPS steps, checkpointing every
+# NAN_STEP steps, with NAN_LEAF set to NaN once state step NAN_STEP has run
+# (before that step's checkpoint is written): state step NAN_STEP is the
+# first non-finite step, step NAN_STEP + 1 of metrics.jsonl.
+NAN_STEPS, NAN_STEP = 4, 2
+NAN_LEAF = "student.blocks.1.mlp.fc1.weight"
 
 
 def fail(msg: str) -> None:
@@ -733,13 +774,34 @@ def launches_by_shape(A) -> dict:
 
 
 def pretrain_main_path(lt, out: Path, data: Path, precision: str,
-                       **kwargs):
-    """``pretrain`` DINOv2 ViT-B/14 at batch 32 for STEPS steps, logging
-    every step."""
+                       steps: int = STEPS, **kwargs):
+    """``pretrain`` DINOv2 ViT-B/14 at batch 32 for ``steps`` steps,
+    logging every step."""
     return lt.pretrain(
         out=str(out), data=str(data), model="dinov2/vitb14",
-        method="dinov2", batch_size=BATCH, steps=STEPS, precision=precision,
+        method="dinov2", batch_size=BATCH, steps=steps, precision=precision,
         log_every=1, canonical_size=256, seed=SEED, **kwargs)
+
+
+def pin_ieee() -> None:
+    """The CUDA fp32 GEMMs and convolutions in IEEE fp32 (no TF32), as the
+    plain versions are held: ``pretrain`` applies
+    LIGHTLY_TRAIN_MATMUL_PRECISION (TF32 by default), so this follows every
+    phase that runs it."""
+    from lightly_train_tpu_torch._system import set_tf32
+
+    set_tf32(False)
+
+
+def dinov2_expected(steps: int, remat_every: int = 0) -> list:
+    """K1..K5 launches of ``steps`` DINOv2 ViT-B/14 steps: K1 once a block
+    in the teacher's and the student's two forwards, and again in each
+    recomputed block of the student's (every ``remat_every``-th: the
+    teacher runs under no_grad, where nothing is checkpointed); K2 once a
+    block in each student backward; K3 once a step."""
+    recomputed = len(range(0, DEPTH, remat_every)) if remat_every else 0
+    return [(3 * DEPTH + 2 * recomputed) * steps, 2 * DEPTH * steps, steps,
+            0, 0]
 
 
 def logged_steps(out: Path) -> list:
@@ -816,12 +878,17 @@ def run_main_path(lt, A, F, card: str, precision: str, work: Path) -> dict:
     }
 
 
-def check_backbone(student, model: str, precision: str, width: int) -> None:
+def check_backbone(student, model: str, precision: str, width: int,
+                   label: str = "") -> None:
     """The trained backbone on a small input against an fp32 CPU reference
     (plain attention): bf16 over 12 blocks keeps the CLS features within 5%
-    relative L2; fp32 (bf16 probabilities only, as on the TPU) within 1%.
-    The run's dtype shows that the attention launches came from the
-    kernels' fp32 form."""
+    relative L2; fp32 (bf16 probabilities only, as on the TPU) within 1%,
+    with IEEE fp32 or TF32 GEMMs alike (TF32 rounds each GEMM input to
+    2^-11 relative, an eighth of bf16's 2^-8, whose runs land at up to
+    1.07e-2 (PERF.md section 6): TF32 should land near 1.3e-3). The run's
+    dtype shows that the attention launches came from the kernels' fp32
+    form. The card's forward runs under the CUDA backend's TF32 switches as
+    they are."""
     import torch
 
     from lightly_train_tpu_torch.models.package_registry import (
@@ -840,7 +907,7 @@ def check_backbone(student, model: str, precision: str, width: int) -> None:
             {k: v.float().cpu() for k, v in student.state_dict().items()})
         ref = ref_model(images.cpu())["cls_token"]
     rel = ((got - ref).norm() / ref.norm()).item()
-    print(f"  trained {model} cls on 2 images vs fp32 CPU reference: "
+    print(f"  trained {model} cls on 2 images vs fp32 CPU reference{label}: "
           f"relative L2 {rel:.3e} (tol {tol:g})")
     if not (got.shape == (2, width) and torch.isfinite(got).all()
             and rel <= tol):
@@ -1313,6 +1380,309 @@ def run_vmem_path(A, card: str, dtype: str) -> dict:
     return {"K4": launches[0], "K5": launches[1]}
 
 
+def run_remat_path(lt, A, F, card: str, work: Path, main: dict) -> dict:
+    """Phase 3g: ``pretrain`` DINOv2 ViT-B/14 in bf16 at batch 32 for
+    REMAT_STEPS steps with ``model_args`` REMAT (every 2nd block recomputed
+    in the backward pass, drop path 0.1) and Sinkhorn centering, every
+    launch counter set to 0 just before and read just after: K1 once more
+    in each recomputed block of the two student forwards
+    (``dinov2_expected``), K2 and K3 as without remat. Finite losses, the
+    centers left at 0 (Sinkhorn does not move them), the backbone against
+    the fp32 CPU reference, and the peak memory beside phase 3's."""
+    import torch
+
+    out = work / "remat"
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    state = pretrain_main_path(
+        lt, out, work / "images", "bf16", steps=REMAT_STEPS,
+        checkpoint_every=REMAT_STEPS, model_args=REMAT,
+        method_args={"center_method": "sinkhorn"})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hp = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])[
+        "hyperparams"]
+    if (hp["model_args"] != REMAT
+            or hp["method_args"]["center_method"] != "sinkhorn"):
+        fail(f"phase 3g ran {hp['model_args']}, {hp['method_args']}")
+    steps = logged_steps(out)
+    if [r["step"] for r in steps] != list(range(1, REMAT_STEPS + 1)):
+        fail(f"remat logged steps {[r['step'] for r in steps]}")
+    for r in steps:
+        for key in ("train_loss", "dino_loss", "ibot_loss", "koleo_loss",
+                    "grad_norm"):
+            if not math.isfinite(r[key]):
+                fail(f"remat step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f} (dino "
+              f"{r['dino_loss']:.4f}, ibot {r['ibot_loss']:.4f}), "
+              f"grad_norm {r['grad_norm']:.4f}, "
+              f"{r['profiling/step_time'] * 1e3:.1f} ms, "
+              f"{r['profiling/images_per_sec']:.1f} img/s [{card}]")
+    expected = dinov2_expected(REMAT_STEPS, REMAT["remat_every"])
+    recomputed = len(range(0, DEPTH, REMAT["remat_every"]))
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    n = REMAT_STEPS
+    expected_by_shape = {(fwd, GLOBAL): (2 * DEPTH + recomputed) * n,
+                         (fwd, LOCAL): (DEPTH + recomputed) * n,
+                         (bwd, GLOBAL): DEPTH * n, (bwd, LOCAL): DEPTH * n}
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}, K5 {launches[4]} (expected "
+          f"{expected}: K1 {expected[0] // n} a step, {DEPTH * 3} without "
+          f"remat plus {recomputed} recomputed blocks x 2 student "
+          f"forwards); by shape {by_shape}; peak memory {peak_gib:.2f} GiB "
+          f"(phase 3, no remat: {main['peak_gib']:.2f} GiB); wall "
+          f"{wall:.1f} s")
+    if launches != expected or by_shape != expected_by_shape:
+        fail(f"remat launch counts {launches}, {by_shape}")
+    centers = [state.method_state[k] for k in ("dino_center", "ibot_center")]
+    if any(c.any() for c in centers):
+        fail("Sinkhorn centering moved the centers")
+    check_backbone(state.params["student"], "dinov2/vitb14", "bf16", 768)
+    shutil.rmtree(out)
+    return {"launches": launches, "by_shape": by_shape, "peak_gib": peak_gib,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps]}
+
+
+def remat_step_comparison(A, F, card: str) -> None:
+    """Phase 3g, fixed batch: two DINOv2 ViT-B/14 bf16 steps (drop path
+    0.1, Sinkhorn) of each REMAT_VARIANTS model from the same initial state,
+    batch and generator; the losses and the trained parameters against the
+    run without remat (bitwise, or else within the bf16 tolerances: 1e-2
+    relative on the losses and relative L2 on every parameter), each
+    variant's K1/K2/K3 launches against ``dinov2_expected``, its second
+    step's time and its peak memory."""
+    import torch
+
+    from lightly_train_tpu_torch._commands.train_loop import make_train_step
+    from lightly_train_tpu_torch._optim import cosine_warmup
+    from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
+    from lightly_train_tpu_torch.methods.base import TrainState
+    from lightly_train_tpu_torch.methods.dinov2 import DINOv2, DINOv2Args
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    dev = torch.device("cuda")
+    images = torch.randint(
+        0, 256, (BATCH, 256, 256, 3), dtype=torch.uint8, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+    ref = None
+    for tag, args in REMAT_VARIANTS.items():
+        wrapped = get_wrapped_model("dinov2/vitb14", dtype=torch.bfloat16,
+                                    drop_path_rate=0.1, **args)
+        method = DINOv2(wrapped, DINOv2Args(center_method="sinkhorn"))
+        params, method_state = method.init(
+            torch.Generator().manual_seed(SEED), dev)
+        named = dict(params.named_parameters())
+        updater = build_fused_updater(method, method.default_optimizer_args(),
+                                      cosine_warmup(1e-3, 100), named, 100)
+        state = TrainState(0, params, method_state, updater)
+        step = make_train_step(method, 100, aug_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters(A, F)
+        losses = []
+        for i in range(2):
+            gen.manual_seed(SEED + 5 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, images, gen)["train_loss"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = [fn.launches for fn in counters]
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = dinov2_expected(2, args.get("remat_every", 0))
+        if ref is None:
+            ref = {"losses": losses, "params": {
+                k: v.detach().clone() for k, v in named.items()}}
+            verdict = "the reference"
+        else:
+            rel = max(((named[k].detach() - v).float().norm()
+                       / v.float().norm().clamp_min(1e-30)).item()
+                      for k, v in ref["params"].items())
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref["losses"]))
+            bitwise = losses == ref["losses"] and all(
+                torch.equal(named[k], v) for k, v in ref["params"].items())
+            verdict = (f"losses relative {loss_rel:.3e}, parameters' largest "
+                       f"relative L2 {rel:.3e} (tol 1e-2); bitwise equal: "
+                       f"{bitwise}")
+            if not (bitwise or (loss_rel <= 1e-2 and rel <= 1e-2)):
+                fail(f"{tag} step against the run without remat: {verdict}")
+        print(f"  {tag}: losses {losses}; {verdict}; launches K1 "
+              f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]} (expected "
+              f"{expected[:3]}); second step {ms:.1f} ms; peak "
+              f"{peak_gib:.2f} GiB [{card}]")
+        if launches != expected:
+            fail(f"{tag} launches {launches} != {expected}")
+        del state, params, method_state, updater, named, step
+        torch.cuda.empty_cache()
+
+
+def run_precision_path(lt, A, F, card: str, work: Path) -> None:
+    """Phase 3h: under each LIGHTLY_TRAIN_MATMUL_PRECISION value, the fp32
+    DINOv2 ViT-B/14 main path and the fp32 distillation path of phase 3f
+    for PRECISION_STEPS steps each, every launch counter set to 0 just
+    before each and read just after: the CUDA backend's TF32 switches the
+    run leaves, step times, peak memory, and the trained CLS (on the card,
+    under those switches) against the fp32 CPU reference. IEEE fp32 is
+    pinned back after each run."""
+    import os
+
+    import torch
+
+    data = work / "images"
+    prior = os.environ.get("LIGHTLY_TRAIN_MATMUL_PRECISION")
+    for value, tf32 in PRECISIONS.items():
+        os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = value
+        try:
+            for path in ("dinov2", "distillation"):
+                out = work / f"precision_{value}_{path}"
+                pin_ieee()  # what the run must move, where tf32 is True
+                torch.cuda.reset_peak_memory_stats()
+                counters = reset_counters(A, F)
+                if path == "dinov2":
+                    state = pretrain_main_path(
+                        lt, out, data, "fp32", PRECISION_STEPS,
+                        checkpoint_every=PRECISION_STEPS)
+                    expected = dinov2_expected(PRECISION_STEPS)
+                else:
+                    state = distill_pretrain(
+                        lt, out, data, "fp32", PRECISION_STEPS,
+                        checkpoint_every=PRECISION_STEPS)
+                    expected = distill_expected(A, "fp32",
+                                                PRECISION_STEPS)[0]
+                torch.cuda.synchronize()
+                flags = (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32)
+                launches = [fn.launches for fn in counters]
+                peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                steps = logged_steps(out)
+                if flags != (tf32, tf32):
+                    fail(f"{value}: the run left the TF32 switches {flags}")
+                if launches != expected:
+                    fail(f"{value} {path} launches {launches} != {expected}")
+                for r in steps:
+                    if not (math.isfinite(r["train_loss"])
+                            and math.isfinite(r["grad_norm"])):
+                        fail(f"{value} {path} step {r['step']} not finite")
+                check_backbone(
+                    state.params["student"], "dinov2/vitb14", "fp32", 768,
+                    f" under {value!r} ({'TF32' if tf32 else 'IEEE fp32'})")
+                ms = [r["profiling/step_time"] * 1e3 for r in steps]
+                print(f"  {value} {path} fp32: TF32 switches (matmul, cuDNN) "
+                      f"{flags}; step ms {ms}; peak {peak_gib:.2f} GiB; "
+                      f"launches {launches}; losses "
+                      f"{[r['train_loss'] for r in steps]} [{card}]",
+                      flush=True)
+                del state
+                shutil.rmtree(out)
+        finally:
+            os.environ.pop("LIGHTLY_TRAIN_MATMUL_PRECISION")
+            if prior is not None:
+                os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = prior
+            pin_ieee()
+
+
+def run_nan_path(lt, A, F, card: str, work: Path) -> None:
+    """Phase 3i: ``pretrain`` DINOv2 vittest14 in bf16 at batch 32 for
+    NAN_STEPS steps (checkpoint every NAN_STEP), NAN_LEAF set to NaN once
+    state step NAN_STEP has run, before that step's checkpoint: the run
+    writes ``debug/nan_capture_step<NAN_STEP>.npz`` and raises
+    ``NaNDetectedError`` naming step NAN_STEP + 1 once the next step is
+    dispatched; then ``replay_nan_capture`` on the card, from the step-NAN_STEP
+    checkpoint, reports a non-finite loss and names the poisoned leaf. The
+    counters are set to 0 before the run and read after the replay: the
+    run's NAN_STEPS steps (K1 6, K2 4, K3 1 each) and the replay's one
+    forward and backward (K1 6, K2 4)."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._commands import train as T
+    from lightly_train_tpu_torch._debug import replay_nan_capture
+    from lightly_train_tpu_torch._debug.nan_guard import replay_capture
+    from lightly_train_tpu_torch.errors import NaNDetectedError
+
+    make = T.make_train_step
+
+    def poisoned(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def train_step(state, images, generator, **kw):
+            metrics = step(state, images, generator, **kw)
+            if state.step == NAN_STEP:
+                with torch.no_grad():
+                    dict(state.params.named_parameters())[NAN_LEAF][0, 0] = (
+                        float("nan"))
+            return metrics
+
+        return train_step
+
+    out = work / "nan"
+    counters = reset_counters(A, F)
+    T.make_train_step = poisoned
+    t0 = time.perf_counter()
+    try:
+        lt.pretrain(
+            out=str(out), data=str(work / "images"),
+            model="dinov2/vittest14", method="dinov2", batch_size=BATCH,
+            steps=NAN_STEPS, precision="bf16", log_every=50,
+            canonical_size=256, seed=SEED, checkpoint_every=NAN_STEP)
+        fail("the poisoned run finished without NaNDetectedError")
+    except NaNDetectedError as err:
+        said = str(err)
+    finally:
+        T.make_train_step = make
+    run_s = time.perf_counter() - t0
+    # Every parameter is NaN by then (the NaN gradients went through the
+    # update): the error names the first 20 by name, as the JAX package's.
+    first, named = said.splitlines()[0], said.splitlines()[2:]
+    print(f"  NaNDetectedError: {first} ({len(named)} leaves named, the "
+          f"first {named[:1]})")
+    if f"at step {NAN_STEP + 1} " not in first or len(named) != 20:
+        fail(f"NaNDetectedError names the wrong step or leaves: {said}")
+    captures = sorted(p.name for p in (out / "debug").iterdir())
+    capture = replay_capture(out / "debug" / f"nan_capture_step{NAN_STEP}.npz")
+    print(f"  captures {captures}: step {int(capture['step'])}, batch "
+          f"{capture['batch'].shape} {capture['batch'].dtype}, generator "
+          f"state {capture['generator'].nbytes} bytes "
+          f"({capture['generator_device']})")
+    if (captures != [f"nan_capture_step{NAN_STEP}.npz"]
+            or int(capture["step"]) != NAN_STEP
+            or capture["batch"].shape != (BATCH, 256, 256, 3)
+            or capture["batch"].dtype != np.uint8
+            or str(capture["generator_device"]) != "cuda"):
+        fail("the NaN capture")
+    t0 = time.perf_counter()
+    report = replay_nan_capture(out)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    expected = [6 * NAN_STEPS + 6, 4 * NAN_STEPS + 4, NAN_STEPS, 0, 0]
+    params = [o for o in report["offenders"] if o.startswith("params/")]
+    print(f"  replay on the card: step {report['step']}, checkpoint step "
+          f"{report['restored_checkpoint_step']}, loss {report['loss']}, "
+          f"finite {report['finite']}, {len(report['offenders'])} offenders,"
+          f" parameters {params}; run {run_s:.1f} s, replay {replay_s:.1f} s;"
+          f" launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+          f"K4 {launches[3]}, K5 {launches[4]} (expected {expected}) "
+          f"[{card}]")
+    if (report["step"] != NAN_STEP or report["finite"]
+            or report["restored_checkpoint_step"] != NAN_STEP
+            or math.isfinite(report["loss"])
+            or params != [f"params/{NAN_LEAF}"]):
+        fail(f"the replay's report {report}")
+    if launches != expected:
+        fail(f"NaN path launches {launches} != {expected}")
+    shutil.rmtree(out)
+
+
 def profile_steps(card: str, precision: str, method_name: str = "dinov2",
                   steps: int = 3) -> None:
     """Optional (``--profile``): where a main path's step time goes.
@@ -1342,6 +1712,11 @@ def profile_steps(card: str, precision: str, method_name: str = "dinov2",
         get_wrapped_model,
     )
 
+    from lightly_train_tpu_torch._system import apply_matmul_precision
+
+    # The fp32 products as pretrain runs them (LIGHTLY_TRAIN_MATMUL_PRECISION,
+    # TF32 by default); IEEE fp32 again after the window.
+    apply_matmul_precision()
     dev = torch.device("cuda")
     dtype = torch_dtype(precision)
     wrapped = get_wrapped_model("dinov2/vitb14", dtype=dtype)
@@ -1385,6 +1760,7 @@ def profile_steps(card: str, precision: str, method_name: str = "dinov2",
           f"per step [{card}]")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {ms:8.3f} ms/step {n // steps:5d} launches  {name[:110]}")
+    pin_ieee()
 
 
 def main() -> int:
@@ -1411,7 +1787,7 @@ def main() -> int:
         fail("LIGHTLY_TRAIN_VMEM_ATTENTION disables the attention kernels; "
              "this check runs them")
     # The plain versions' fp32 products in full fp32, not TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_ieee()
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1461,6 +1837,7 @@ def main() -> int:
         print(f"main path {precision}: step ms {r['step_ms']}, img/s "
               f"{r['images_per_sec']}, peak {r['peak_gib']:.2f} GiB [{card}]")
     shutil.rmtree(paths["fp32"]["out"])
+    pin_ieee()
     print("phase 3c: the K4/K5 path (vmem_attention, ViT-B/14 global shape)",
           flush=True)
     vmem = {dtype: run_vmem_path(A, card, dtype) for dtype in DTYPES}
@@ -1512,6 +1889,20 @@ def main() -> int:
                 lt, out, work / "images", "bf16", steps, **args, **kw),
             steps, DISTILL_KEYS[:3], expected, by_library,
             f"distillation_{key}")
+    print(f"phase 3g: pretrain DINOv2 ViT-B/14 bf16, batch {BATCH}, "
+          f"{REMAT_STEPS} steps, model_args {REMAT}, Sinkhorn centering",
+          flush=True)
+    remat = run_remat_path(lt, A, F, card, work, paths["bf16"])
+    print("phase 3g: one fixed batch, two steps, with and without remat",
+          flush=True)
+    remat_step_comparison(A, F, card)
+    print(f"phase 3h: LIGHTLY_TRAIN_MATMUL_PRECISION, fp32 DINOv2 and "
+          f"distillation, {PRECISION_STEPS} steps each", flush=True)
+    run_precision_path(lt, A, F, card, work)
+    print(f"phase 3i: the NaN capture and its replay (vittest14 bf16, "
+          f"{NAN_LEAF} set to NaN after state step {NAN_STEP})", flush=True)
+    run_nan_path(lt, A, F, card, work)
+    pin_ieee()
     work_dir.cleanup()
 
     # Launches: each wrapper's count over the path that runs it (K1/K2: the
@@ -1556,6 +1947,14 @@ def main() -> int:
                     p: n / DISTILL_STEPS[p] for p, n in
                     distill_runs[tuple(row["shape"])].items()}}
                if tuple(row["shape"]) in distill_runs else {}),
+            # Phase 3g's launches (remat every 2nd block, bf16) at the row's
+            # shape, K1's recomputed blocks included.
+            **({"launches_remat": remat["by_shape"].get(
+                (lib, tuple(row["shape"])), 0),
+                "launches_remat_per_step": remat["by_shape"].get(
+                    (lib, tuple(row["shape"])), 0) / REMAT_STEPS}
+               if (kernel in ("K1", "K2") and dtype == "bf16"
+                   and tuple(row["shape"]) in (GLOBAL, LOCAL)) else {}),
             **row,
         } for row in rows]
     kernels.append({
@@ -1566,7 +1965,8 @@ def main() -> int:
         "launches_fp32": paths["fp32"]["launches"][2],
         "launches_per_step": paths["bf16"]["launches"][2] / STEPS,
         "launches_distillation": {p: distill[p]["launches"][2]
-                                  for p in DTYPES}, **upd,
+                                  for p in DTYPES},
+        "launches_remat": remat["launches"][2], **upd,
     })
     if "--profile" in sys.argv[1:]:
         for method in ("dinov2", "distillation"):

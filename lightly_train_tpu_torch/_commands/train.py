@@ -12,15 +12,16 @@ at step 0, checkpoints every ``checkpoint_every`` steps and at the end
 ``exported_models/exported_last`` beside each. The run is placed on the card
 (``accelerator="cuda"``, the default) or, only when asked, on the CPU.
 
+``LIGHTLY_TRAIN_MATMUL_PRECISION`` is applied at the start of every run
+(``_system.py``); a non-finite step writes ``debug/nan_capture_step<N>.npz``
+and stops the run (``_debug/``), which ``replay_nan_capture`` re-runs.
+
 Not ported yet, and refused when set to anything but their defaults:
 ``fsdp`` > 1 (ROADMAP item 7.6), ``mask_dir``, ``profile``,
 ``profile_start``, ``profile_steps``, and the tensorboard, wandb and mlflow
 loggers where their package is installed (item 7.5; where it is absent the
-run warns and goes on, as the JAX package does). A non-finite step stops the
-run without the JAX package's replay capture (item 7.3). The fields keep the
-JAX package's names and defaults, so configs stay compatible. A run warns
-that it does not apply ``LIGHTLY_TRAIN_MATMUL_PRECISION`` when that is set
-(item 21).
+run warns and goes on, as the JAX package does). The fields keep the JAX
+package's names and defaults, so configs stay compatible.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from lightly_train_tpu_torch._data.image_dataset import (
     list_image_files,
 )
 from lightly_train_tpu_torch._data.loader import PretrainLoader, SyntheticLoader
-from lightly_train_tpu_torch._env import Env
+from lightly_train_tpu_torch._debug.nan_guard import NaNGuard
 from lightly_train_tpu_torch._loggers.multi import (
     build_loggers,
     resolve_loggers,
@@ -64,6 +65,7 @@ from lightly_train_tpu_torch._optim import (
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
 from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch._scaling import ScalingInfo
+from lightly_train_tpu_torch._system import apply_matmul_precision
 from lightly_train_tpu_torch._visualize.grids import save_augmentation_grid
 from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.methods.base import TrainState
@@ -158,6 +160,18 @@ def resolve_device(accelerator: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def build_updater(method, optim_args, lr_schedule, named: Dict[str, Any],
+                  total_steps: int):
+    """The fused AdamW+EMA updater where the (optimizer, method) pair has
+    one, else the unfused chain."""
+    updater = build_fused_updater(method, optim_args, lr_schedule, named,
+                                  total_steps)
+    if updater is None:
+        updater = build_update(method, optim_args, lr_schedule, named,
+                               total_steps)
+    return updater
+
+
 def pretrain(
     out: str,
     data: Union[str, List[str], None] = None,
@@ -171,8 +185,6 @@ def pretrain(
         {"out": out, "data": data, "model": model, "method": method, **kwargs},
     )
     return pretrain_from_config(config)
-
-
 
 
 def pretrain_from_config(config: TrainConfig) -> TrainState:
@@ -201,18 +213,11 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     logger.info("Device: %s (%s)", device,
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "CPU")
-    if Env.LIGHTLY_TRAIN_MATMUL_PRECISION.is_set:
-        logger.warning(
-            "LIGHTLY_TRAIN_MATMUL_PRECISION=%r is not applied yet (ROADMAP "
-            "item 21): the fp32 GEMMs run at torch's 'highest' float32 matmul "
-            "precision, in full fp32.",
-            Env.LIGHTLY_TRAIN_MATMUL_PRECISION.value,
-        )
+    apply_matmul_precision()
     logger.warning(
-        "The port writes less than the JAX package: a non-finite step stops "
-        "the run without writing debug/nan_capture.npz (ROADMAP item 7.3); "
-        "the profile trace (profile=True) and the tensorboard, wandb and "
-        "mlflow logger backends are refused (ROADMAP item 7.5)."
+        "The port writes less than the JAX package: the profile trace "
+        "(profile=True) and the tensorboard, wandb and mlflow logger "
+        "backends are refused (ROADMAP item 7.5)."
     )
 
     # ---- data -------------------------------------------------------------
@@ -290,11 +295,8 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     if pretrained is not None:
         _load_pretrained(params, method_state, pretrained, config)
     named = dict(params.named_parameters())
-    updater = build_fused_updater(method, optim_args, lr_schedule, named,
-                                  total_steps)
-    if updater is None:
-        updater = build_update(method, optim_args, lr_schedule, named,
-                               total_steps)
+    updater = build_updater(method, optim_args, lr_schedule, named,
+                            total_steps)
     state = TrainState(step=0, params=params, method_state=method_state,
                        updater=updater)
     ckpt_mgr = CheckpointManager(out_dir / "checkpoints")
@@ -366,7 +368,8 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
         fit(train_step, state, loader, total_steps, step_gen,
             seed=config.seed, log_every=config.log_every, on_log=on_log,
             on_checkpoint=on_checkpoint, checkpoint_every=checkpoint_every,
-            nan_check=config.nan_check, on_first_batch=on_first_batch)
+            nan_guard=NaNGuard(out_dir, enabled=config.nan_check),
+            on_first_batch=on_first_batch)
     finally:
         run_loggers.close()
     ckpt_mgr.wait()

@@ -22,10 +22,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from lightly_train_tpu_torch._debug.nan_guard import NaNGuard
 from lightly_train_tpu_torch._logging import get_logger
 from lightly_train_tpu_torch._optim.fused_update import FusedAdamWEMA
 from lightly_train_tpu_torch._optim.update import apply_updates
-from lightly_train_tpu_torch.errors import NaNDetectedError
 from lightly_train_tpu_torch.methods.base import Method, TrainState, ViewSpec
 from lightly_train_tpu_torch.ops.augment import (
     augment_view_with_geometry,
@@ -69,15 +69,17 @@ def make_train_step(
     ``transform_args`` overrides the method's views
     (:func:`override_view_specs`). ``views`` (one list per microbatch) and
     ``masks`` replace the sampled augmentation and iBOT masks, so a test can
-    pin them.
+    pin them. ``train_step.loss_and_grads`` (same arguments) is the step up
+    to its update: ``(loss, grads, method_state, metrics)``, with ``state``
+    left as it was and the gradients in the parameters' ``.grad``; the NaN
+    replay runs it.
     """
     view_specs = override_view_specs(method.view_specs(), transform_args)
 
-    def train_step(state: TrainState, images_u8: Optional[torch.Tensor],
-                   generator: Optional[torch.Generator],
-                   views: Optional[List[List[torch.Tensor]]] = None,
-                   masks: Optional[List[torch.Tensor]] = None,
-                   ) -> Dict[str, Any]:
+    def loss_and_grads(state: TrainState, images_u8: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator],
+                       views: Optional[List[List[torch.Tensor]]] = None,
+                       masks: Optional[List[torch.Tensor]] = None):
         k = grad_accum_steps
         if views is None:
             b = images_u8.shape[0]
@@ -86,8 +88,7 @@ def make_train_step(
                     f"batch size {b} not divisible by grad_accum_steps {k}")
             views = [make_views(view_specs, mb, generator, aug_dtype)
                      for mb in images_u8.chunk(k)]
-        params = state.params
-        named = dict(params.named_parameters())
+        named = dict(state.params.named_parameters())
         for p in named.values():
             p.grad = None
         loss_sum = 0.0
@@ -95,8 +96,8 @@ def make_train_step(
         method_state = state.method_state
         for i, mb_views in enumerate(views):
             loss, (method_state, metrics) = method.loss_fn(
-                params, method_state, mb_views, state.step, total_steps,
-                generator=generator,
+                state.params, method_state, mb_views, state.step,
+                total_steps, generator=generator,
                 masks=None if masks is None else masks[i],
             )
             (loss / len(views)).backward()
@@ -104,8 +105,19 @@ def make_train_step(
             for key, value in metrics.items():
                 metric_sums[key] = metric_sums.get(key, 0.0) + value
         n = len(views)
-        loss = loss_sum / n
         grads = {name: p.grad for name, p in named.items()}
+        metrics = {key: value / n for key, value in metric_sums.items()}
+        return loss_sum / n, grads, method_state, metrics
+
+    def train_step(state: TrainState, images_u8: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator],
+                   views: Optional[List[List[torch.Tensor]]] = None,
+                   masks: Optional[List[torch.Tensor]] = None,
+                   ) -> Dict[str, Any]:
+        loss, grads, method_state, metrics = loss_and_grads(
+            state, images_u8, generator, views, masks)
+        params = state.params
+        named = dict(params.named_parameters())
         if isinstance(state.updater, FusedAdamWEMA):
             grad_norm = state.updater.update_and_apply(
                 grads, named,
@@ -119,8 +131,9 @@ def make_train_step(
         state.step += 1
         finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
         return {"train_loss": loss, "grad_norm": grad_norm, "finite": finite,
-                **{key: value / n for key, value in metric_sums.items()}}
+                **metrics}
 
+    train_step.loss_and_grads = loss_and_grads
     return train_step
 
 
@@ -136,20 +149,6 @@ def _read_back(flag: torch.Tensor):
     return host, event
 
 
-def _check_finite(host: torch.Tensor, event, step: int) -> None:
-    """Raises NaNDetectedError naming ``step`` if its flag is false. The
-    JAX package also writes debug/nan_capture.npz here; the port's capture
-    is ROADMAP item 7.3."""
-    if event is not None:
-        event.synchronize()  # this step's work only, not the one after it
-    if not bool(host):
-        raise NaNDetectedError(
-            f"Non-finite loss/gradients at step {step} (the step's number "
-            "in metrics.jsonl). No replay capture is written yet (ROADMAP "
-            "item 7.3)."
-        )
-
-
 def fit(
     train_step: Callable,
     state: TrainState,
@@ -161,27 +160,37 @@ def fit(
     on_log: Optional[Callable[[int, Dict[str, float]], None]] = None,
     on_checkpoint: Optional[Callable[[int, TrainState], None]] = None,
     checkpoint_every: Optional[int] = None,
-    nan_check: bool = False,
+    nan_guard: Optional[NaNGuard] = None,
     on_first_batch: Optional[Callable[[torch.Tensor], None]] = None,
 ) -> TrainState:
     """Host step loop: feed batches, log throughput, checkpoint.
 
     Before each step ``generator`` is seeded from (``seed``, the step's
     number). The host reads metrics back (a device sync) only on logged
-    steps, so the loop otherwise runs ahead of the device. With
-    ``nan_check`` every step's ``finite`` flag is read one step later, as
+    steps, so the loop otherwise runs ahead of the device. With an enabled
+    ``nan_guard`` every step's ``finite`` flag is read one step later, as
     the JAX loop does: once the next step is dispatched, so the device
-    stays fed, and a non-finite step stops the run there, named by its
-    number. ``on_checkpoint`` runs every ``checkpoint_every`` steps before
-    the last, and once at the end; ``on_first_batch`` on the run's first
-    batch.
+    stays fed; a non-finite step is captured (its batch, its number and
+    the generator's state at its start) and stops the run there.
+    ``on_checkpoint`` runs every ``checkpoint_every`` steps before the
+    last, and once at the end; ``on_first_batch`` on the run's first batch.
     """
     burn_in = {1, 2, 5, 10, 50, 100}
     current = state.step
     t_window = time.perf_counter()
     window_steps = 0
     data_wait = 0.0
-    lagged = None  # the previous step's (host flag, event, step number)
+    # The previous step's (host flag, event, state step, batch, generator
+    # state at its start).
+    lagged = None
+    checking = nan_guard is not None and nan_guard.enabled
+
+    def check(host, event, step, batch, generator_state) -> None:
+        if event is not None:
+            event.synchronize()  # this step's work only, not the one after
+        nan_guard.check(bool(host), step, batch, generator_state,
+                        dict(state.params.named_parameters()))
+
     batch_iter = iter(batches)
     while current < total_steps:
         t_data = time.perf_counter()
@@ -191,13 +200,15 @@ def fit(
             on_first_batch(batch)
             on_first_batch = None
         generator.manual_seed(step_seed(seed, current))
+        start = generator.get_state() if checking else None
         metrics = train_step(state, batch, generator)
         current += 1
         window_steps += 1
-        if nan_check:
+        if checking:
             if lagged is not None:
-                _check_finite(*lagged)
-            lagged = (*_read_back(metrics["finite"]), current)
+                check(*lagged)
+            lagged = (*_read_back(metrics["finite"]), current - 1, batch,
+                      start)
         if current in burn_in or current % log_every == 0 or current == total_steps:
             values = {k: float(v) for k, v in metrics.items()}  # device sync
             dt = time.perf_counter() - t_window
@@ -218,7 +229,7 @@ def fit(
                 and current % checkpoint_every == 0 and current < total_steps):
             on_checkpoint(current, state)
     if lagged is not None:
-        _check_finite(*lagged)  # the last step's flag
+        check(*lagged)  # the last step's flag
     if on_checkpoint is not None:
         on_checkpoint(current, state)
     return state

@@ -48,9 +48,9 @@ class Env:
     LIGHTLY_TRAIN_LOG_LEVEL: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_LOG_LEVEL", "INFO", str
     )
-    # The JAX package's float32 matmul precision ("default" | "high" |
-    # "highest"). Not applied yet (ROADMAP item 21): pretrain warns when it
-    # is set, and the fp32 GEMMs run at torch's "highest".
+    # The float32 matmul precision ("default" | "high" | "highest"), which
+    # pretrain applies to the CUDA backend at the start of every run
+    # (``_system.py``: TF32 for the first two, IEEE fp32 for "highest").
     LIGHTLY_TRAIN_MATMUL_PRECISION: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_MATMUL_PRECISION", "default", str
     )

@@ -4,10 +4,11 @@ Port of ``lightly_train_tpu/methods/dinov2.py``: 2 global views and N local
 views; an EMA teacher (backbone + DINO head + iBOT head) with cosine momentum
 0.992 -> 1.0; DINO CLS cross-entropy across view pairs, iBOT masked-patch CE
 on the global views with a fixed mask budget, KoLeo (weight 0.1);
-softmax centering; teacher temperature warmup 0.04 -> 0.07, weight decay
-cosine 0.04 -> 0.4, layerwise LR decay 0.9 with patch-embed multiplier 0.2,
-grad clip 3.0, prototype layers frozen for the first 1250 steps.
-Sinkhorn-Knopp centering waits for ROADMAP item 4.
+softmax centering (EMA centers) or Sinkhorn-Knopp centering
+(``center_method="sinkhorn"``); teacher temperature warmup 0.04 -> 0.07,
+weight decay cosine 0.04 -> 0.4, layerwise LR decay 0.9 with patch-embed
+multiplier 0.2, grad clip 3.0, prototype layers frozen for the first 1250
+steps.
 """
 
 from __future__ import annotations
@@ -77,10 +78,6 @@ class DINOv2(Method):
     def __init__(self, wrapped: WrappedModel, args: DINOv2Args):
         super().__init__(wrapped, args)
         self.args: DINOv2Args = args
-        if args.center_method != "softmax":
-            raise NotImplementedError(
-                "center_method='sinkhorn' is not ported yet (ROADMAP item 4)."
-            )
         # Heads follow the backbone compute dtype, as in the JAX package.
         self.head_dtype = getattr(getattr(wrapped.module, "cfg", None),
                                   "dtype", torch.float32)
@@ -167,16 +164,28 @@ class DINOv2(Method):
             t_ibot_logits = teacher[ibot_key](
                 _gather_tokens(t_out["patch_tokens"], sel_idx))
             t_ibot_flat = t_ibot_logits.reshape(-1, a.output_dim)
-            t_dino_probs = L.softmax_center_teacher(
-                t_dino_logits, method_state["dino_center"], teacher_temp)
-            t_ibot_probs = L.softmax_center_teacher(
-                t_ibot_flat, method_state["ibot_center"], teacher_temp,
-            ).reshape(2 * B, budget, a.output_dim)
-            new_dino_center = L.update_center(
-                method_state["dino_center"], t_dino_logits, a.center_momentum)
-            new_ibot_center = L.update_center(
-                method_state["ibot_center"], t_ibot_flat, a.center_momentum,
-                sample_weights=sel_mask.reshape(-1))
+            if a.center_method == "softmax":
+                t_dino_probs = L.softmax_center_teacher(
+                    t_dino_logits, method_state["dino_center"], teacher_temp)
+                t_ibot_probs = L.softmax_center_teacher(
+                    t_ibot_flat, method_state["ibot_center"], teacher_temp)
+                new_dino_center = L.update_center(
+                    method_state["dino_center"], t_dino_logits,
+                    a.center_momentum)
+                new_ibot_center = L.update_center(
+                    method_state["ibot_center"], t_ibot_flat,
+                    a.center_momentum, sample_weights=sel_mask.reshape(-1))
+            else:
+                # As the JAX package: at the starting temperature, over the
+                # masked patches only for iBOT; the centers stay.
+                t_dino_probs = L.sinkhorn_knopp_teacher(
+                    t_dino_logits, a.teacher_temp_start)
+                t_ibot_probs = L.sinkhorn_knopp_teacher(
+                    t_ibot_flat, a.teacher_temp_start,
+                    sample_weights=sel_mask.reshape(-1))
+                new_dino_center = method_state["dino_center"]
+                new_ibot_center = method_state["ibot_center"]
+            t_ibot_probs = t_ibot_probs.reshape(2 * B, budget, a.output_dim)
 
         # ---- student forward ----
         s_out_g = self.wrapped.forward_features(

@@ -74,14 +74,6 @@ _CONVNEXT_NAMES = tuple(f"dinov3/convnext-{size}" for size in
 def _build_vit(size: str, patch: int, dtype: torch.dtype,
                flavor: str = "dinov2", model_name: str = "",
                **kwargs: Any) -> WrappedModel:
-    # The JAX ViT's activation checkpointing, off at its defaults (0, None).
-    remat_every = kwargs.pop("remat_every", 0)
-    remat_policy = kwargs.pop("remat_policy", None)
-    if remat_every or remat_policy is not None:
-        raise NotImplementedError(
-            "model_args remat_every and remat_policy (activation "
-            "checkpointing) are not ported yet (ROADMAP item 22)."
-        )
     cfg = vit_config(size, patch, flavor=flavor, dtype=dtype, **kwargs)
     return WrappedModel(
         name=model_name or f"{flavor}/{size}{patch}",

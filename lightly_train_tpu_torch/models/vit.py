@@ -15,6 +15,11 @@ float32 and ``cfg.dtype`` is the compute dtype: every projection casts its
 input and weight to it (bf16 training computes in bf16 against fp32 master
 weights), LayerNorm statistics are taken in fp32. Unmasked attention runs in
 the flat-attention kernels on the card (``ops/kernels/attention.py``).
+
+Activation checkpointing (``remat_every``, ``remat_policy``): where the JAX
+ViT wraps block ``i`` in ``nn.remat`` (``i % remat_every == 0``), the port
+runs it under ``torch.utils.checkpoint`` when gradients are taken; the
+policy names are those of ``jax.checkpoint_policies`` (:data:`REMAT_POLICIES`).
 """
 
 from __future__ import annotations
@@ -28,7 +33,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.ops.kernels.attention import attention
 
 
@@ -60,7 +71,30 @@ class ViTConfig:
     norm_eps: float = 1e-6
     # Base grid the learned pos-embed is stored at (224 / patch).
     pos_embed_size: int = 16
+    # Recompute every Nth block in the backward pass (0 = off), under the
+    # ``jax.checkpoint_policies`` name ``remat_policy`` (None = save
+    # nothing).
+    remat_every: int = 0
+    remat_policy: Optional[str] = None
     dtype: torch.dtype = torch.float32  # compute dtype (bf16 for training)
+
+
+# The jax.checkpoint_policies names that are policies themselves -> the ops
+# whose outputs a recomputed block keeps (None: no checkpoint at all). The
+# "dots" policies keep the matrix products (torch's aten.mm / addmm; bmm
+# where batch dimensions are allowed), and everything else, the attention
+# kernels' outputs included, is recomputed, as a Pallas call is no dot for
+# JAX either.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES: Dict[Optional[str], Optional[tuple]] = {
+    None: (),
+    "nothing_saveable": (),
+    "everything_saveable": None,
+    "dots_saveable": _DOTS + (torch.ops.aten.bmm.default,),
+    "checkpoint_dots": _DOTS + (torch.ops.aten.bmm.default,),
+    "dots_with_no_batch_dims_saveable": _DOTS,
+    "checkpoint_dots_with_no_batch_dims": _DOTS,
+}
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -314,6 +348,42 @@ class Block(nn.Module):
         return x + self.dp2(h, train, generator)
 
 
+def checkpointed_block(block: "Block", x: torch.Tensor, train: bool,
+                       generator: Optional[torch.Generator], rope,
+                       saved_ops: tuple) -> torch.Tensor:
+    """``block(x, ...)`` whose activations are recomputed in the backward
+    pass, keeping the outputs of ``saved_ops`` (every other op is
+    recomputed).
+
+    Drop path draws from ``generator``, which torch's checkpoint does not
+    stash: the recompute restores the generator's state at the block's
+    start, so that it draws the forward's masks, and then puts back the
+    state it found, so that no later draw of the step moves."""
+    start = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        calls[0] += 1
+        if calls[0] == 1 or start is None:
+            return block(h, train, generator, rope=rope)
+        found = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(h, train, generator, rope=rope)
+        finally:
+            generator.set_state(found)
+
+    kwargs = {}
+    if saved_ops:
+        def policy(ctx, op, *args, **kw):
+            return (CheckpointPolicy.MUST_SAVE if op in saved_ops
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return checkpoint(run, x, use_reentrant=False, **kwargs)
+
+
 class VisionTransformer(nn.Module):
     """ViT trunk returning the cls token, patch tokens and the feature map.
 
@@ -390,8 +460,15 @@ class VisionTransformer(nn.Module):
         rope = (rope_tables((gh, gw), cfg.embed_dim // cfg.num_heads,
                             cfg.rope_base, cfg.dtype, x.device)
                 if cfg.use_rope else None)
-        for block in self.blocks:
-            x = block(x, train, generator, rope=rope)
+        saved_ops = REMAT_POLICIES[cfg.remat_policy]
+        remat = (cfg.remat_every > 0 and saved_ops is not None
+                 and torch.is_grad_enabled())
+        for i, block in enumerate(self.blocks):
+            if remat and i % cfg.remat_every == 0:
+                x = checkpointed_block(block, x, train, generator, rope,
+                                       saved_ops)
+            else:
+                x = block(x, train, generator, rope=rope)
         x = self.norm(x)
         p = self.num_prefix_tokens
         patch_tokens = x[:, p:]
@@ -440,11 +517,22 @@ def vit_config(
     flavor: str = "dinov2",
     dtype: torch.dtype = torch.float32,
     drop_path_rate: float = 0.0,
+    remat_every: int = 0,
+    remat_policy: Optional[str] = None,
 ) -> ViTConfig:
     """A ViTConfig for a reference-parity model name: flavour "dinov2"
     (learned position embedding, no registers, GELU MLP but SwiGLU on
     ViT-g, LayerNorm eps 1e-6) or "dinov3" (the hub presets of
-    ``_DINOV3_SIZES``)."""
+    ``_DINOV3_SIZES``). ``remat_policy`` takes the names of
+    :data:`REMAT_POLICIES`; the factories of ``jax.checkpoint_policies``
+    (``save_only_these_names``, ...) are no policy as a name."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ConfigError(
+            f"Unknown remat_policy {remat_policy!r}. Options: "
+            f"{sorted(n for n in REMAT_POLICIES if n is not None)} or None "
+            "(the jax.checkpoint_policies names that are policies "
+            "themselves)."
+        )
     if flavor not in ("dinov2", "dinov3"):
         raise ValueError(f"Unknown ViT flavor '{flavor}' (dinov2|dinov3)")
     sizes = _SIZES if flavor == "dinov2" else _DINOV3_SIZES
@@ -457,7 +545,8 @@ def vit_config(
             "128 (ROADMAP queue 2 item 2)."
         )
     common = dict(patch_size=patch_size, pos_embed_size=224 // patch_size,
-                  drop_path_rate=drop_path_rate, dtype=dtype)
+                  drop_path_rate=drop_path_rate, remat_every=remat_every,
+                  remat_policy=remat_policy, dtype=dtype)
     if flavor == "dinov3":
         embed_dim, depth, num_heads, ratio, swiglu, align, qkv_bias = (
             _DINOV3_SIZES[size])

@@ -1,9 +1,10 @@
-"""SSL loss ops of DINOv2 (DINO CE, iBOT patch CE, KoLeo, centering) and of
-distillation (queue similarity CE, feature MSE).
+"""SSL loss ops of DINOv2 (DINO CE, iBOT patch CE, KoLeo, softmax and
+Sinkhorn-Knopp centering) and of distillation (queue similarity CE, feature
+MSE).
 
 Port of the DINOv2 and distillation losses in
 ``lightly_train_tpu/ops/losses.py``. Loss math runs in float32 whatever the
-compute dtype. Sinkhorn-Knopp centering waits (ROADMAP item 4).
+compute dtype.
 """
 
 from __future__ import annotations
@@ -42,6 +43,38 @@ def update_center(
     else:
         batch_center = t.mean(dim=dims)
     return center * momentum + batch_center * (1.0 - momentum)
+
+
+def sinkhorn_knopp_teacher(
+    teacher_logits: torch.Tensor,
+    temp: float,
+    n_iterations: int = 3,
+    sample_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sinkhorn-Knopp centering of (B, K) teacher logits into (B, K) targets.
+
+    As the JAX package computes it: ``exp(t / temp)`` with no maximum
+    subtracted, ``n_iterations`` alternations of prototype (row) and sample
+    (column) normalization. ``sample_weights``, an optional (B,) 0/1 mask
+    of the rows that take part (the iBOT variant: the masked patches),
+    zeroes the others and sets the sample count. One process, so no sums
+    across devices."""
+    Q = torch.exp(teacher_logits.float() / temp).T  # (K, B)
+    if sample_weights is not None:
+        w = sample_weights.float()
+        Q = Q * w[None, :]
+        n_samples = torch.clamp(w.sum(), min=1.0)
+    else:
+        n_samples = torch.tensor(float(Q.shape[1]), device=Q.device)
+    K = Q.shape[0]
+    Q = Q / Q.sum()
+    for _ in range(n_iterations):
+        # Each prototype's total weight 1 / K, then each sample's 1 / B.
+        Q = Q / Q.sum(dim=1, keepdim=True)
+        Q = Q / K
+        Q = Q / torch.clamp(Q.sum(dim=0, keepdim=True), min=1e-12)
+        Q = Q / n_samples
+    return (Q * n_samples).T
 
 
 def dino_cross_entropy(teacher_probs: torch.Tensor,

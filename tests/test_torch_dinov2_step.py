@@ -217,3 +217,119 @@ def test_key_bias_gradient_is_zero(jax_setup):
             assert p.grad.abs().max() < 1e-5 * loss.abs()
         elif name.endswith("attn.q.weight"):
             assert p.grad.abs().max() > 1e-4
+
+
+# The step of the one-step tests: past the lr warmup (2 steps), so the
+# update moves the parameters.
+STEP = 2
+
+
+def _one_step(center_method, dtype):
+    """DINOv2 step STEP (loss, gradient, fused AdamW+EMA update) of each
+    package in ``dtype`` from shared parameters, views and iBOT masks:
+    (port state, port metrics, JAX loss, JAX gradients, JAX params, JAX
+    method state); the port's gradients stay in its parameters' ``.grad``.
+    """
+    args = {**SMALL, "center_method": center_method}
+    j_dtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    j_method = JaxDINOv2(jax_get_wrapped_model("dinov2/vittest14",
+                                               dtype=j_dtype),
+                         JaxDINOv2Args(**args))
+    j_params, j_model_state, j_method_state = j_method.init(
+        jax.random.key(0), jnp.zeros((2, 32, 32, 3), jnp.uint8))
+    j_params = checkpoint_scale(j_params, 0)
+    j_method_state = {**j_method_state,
+                      "teacher": jax.tree_util.tree_map(jnp.copy, j_params)}
+    method = DINOv2(get_wrapped_model("dinov2/vittest14", dtype=dtype),
+                    DINOv2Args(**args))
+    params, method_state = method.init(torch.Generator().manual_seed(0),
+                                       torch.device("cpu"))
+    params.load_state_dict(params_from_jax(jax.device_get(j_params)))
+    method_state["teacher"].load_state_dict(params_from_jax(
+        jax.device_get(j_params)))
+    named = dict(params.named_parameters())
+    updater = build_fused_updater(method, method.default_optimizer_args(),
+                                  cosine_warmup(LR, TOTAL, 2), named, TOTAL)
+    state = TrainState(STEP, params, method_state, updater)
+
+    j_lr = jax_cw(LR, TOTAL, 2)
+    j_args = j_method.default_optimizer_args()
+    j_opt = build_optimizer(
+        j_args, j_lr, j_params, grad_clip_norm=j_method.grad_clip_norm(),
+        lr_scales=j_method.lr_scales(j_params),
+        weight_decay_schedule=j_method.weight_decay_schedule(TOTAL),
+        wd_mask=j_method.wd_mask(j_params)).init(j_params)
+    j_upd = jbfu(j_method, j_args, j_lr, j_params, TOTAL, mode="jnp")
+    views = _views(0)
+    rng = jax.random.key(1000)
+    mask, _ = random_block_masks(jax.random.split(rng, 3)[0], 2 * B, (2, 2),
+                                 0.5, (0.1, 0.5))
+    j_grad = jax.jit(lambda p, ms, views, rng: jax.value_and_grad(
+        lambda p: j_method.loss_fn(p, j_model_state, ms, views, rng,
+                                   jnp.asarray(STEP), TOTAL),
+        has_aux=True)(p))
+    (j_loss, (_, j_method_state, _)), grads = j_grad(
+        j_params, j_method_state, [jnp.asarray(v) for v in views], rng)
+    j_params, teacher, _, _ = jax.jit(j_upd.update_and_apply)(
+        grads, j_opt, j_params, j_method_state["teacher"], jnp.asarray(STEP))
+    j_method_state = {**j_method_state, "teacher": teacher}
+    metrics = make_train_step(method, TOTAL)(
+        state, None, None, views=[[torch.tensor(v) for v in views]],
+        masks=[torch.tensor(np.asarray(mask))])
+    return state, metrics, j_loss, grads, j_params, j_method_state
+
+
+def _grad_errors(state, j_grads):
+    """name -> relative L2 error of the port's gradient against the JAX
+    one, the key bias left out (its gradient is zero, DEGENERATE)."""
+    ref = params_from_jax(jax.device_get(j_grads))
+    named = dict(state.params.named_parameters())
+    return {name: ((named[name].grad - r).norm() / r.norm()).item()
+            for name, r in ref.items() if not name.endswith(DEGENERATE)}
+
+
+def test_a_sinkhorn_step_matches_jax():
+    """center_method="sinkhorn": the teacher targets by Sinkhorn-Knopp at
+    the starting temperature (the masked patches only for iBOT), the
+    centers left as they were; fp32, the tolerances of the softmax steps."""
+    state, metrics, j_loss, j_grads, j_params, j_method_state = _one_step(
+        "sinkhorn", torch.float32)
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss),
+                               rtol=1e-4)
+    assert max(_grad_errors(state, j_grads).values()) < 1e-4
+    _assert_tree_close(dict(state.params.named_parameters()), j_params,
+                       rtol=1e-4, atol=1e-5, what="sinkhorn params")
+    _assert_tree_close(
+        dict(state.method_state["teacher"].named_parameters()),
+        j_method_state["teacher"], rtol=1e-4, atol=1e-5,
+        what="sinkhorn teacher")
+    for key in ("dino_center", "ibot_center"):
+        assert not state.method_state[key].any()
+        assert not np.asarray(j_method_state[key]).any()
+
+
+def test_a_bf16_step_matches_jax():
+    """bf16, the default precision: both packages compute the ViT and the
+    heads in bf16 against fp32 parameters, the losses in fp32, and round
+    in different orders. Measured on the CPU: the loss 5.1e-4 relative
+    apart, the gradients 9.8e-3 relative L2 per leaf in the median and
+    2.8e-2 at most (the q projections, whose gradient passes through the
+    bf16 softmax), the centers 1.4e-4 (of 0.06). Tolerances: the loss
+    5e-3 (about one bf16 rounding, 2^-8), the gradients 3e-2 in the median
+    and 1e-1 per leaf, the centers 1e-3; the first Adam step moves each
+    parameter by lr times its gradient's sign in both, which the
+    parameters and the EMA teacher are held to as in fp32."""
+    state, metrics, j_loss, j_grads, j_params, j_method_state = _one_step(
+        "softmax", torch.bfloat16)
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss),
+                               rtol=5e-3)
+    errors = list(_grad_errors(state, j_grads).values())
+    assert np.median(errors) < 3e-2 and max(errors) < 1e-1
+    _assert_tree_close(dict(state.params.named_parameters()), j_params,
+                       rtol=1e-4, atol=1e-5, what="bf16 params")
+    _assert_tree_close(
+        dict(state.method_state["teacher"].named_parameters()),
+        j_method_state["teacher"], rtol=1e-4, atol=1e-5, what="bf16 teacher")
+    for key in ("dino_center", "ibot_center"):
+        np.testing.assert_allclose(state.method_state[key].numpy(),
+                                   np.asarray(j_method_state[key]), atol=1e-3)

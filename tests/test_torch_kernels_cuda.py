@@ -797,3 +797,51 @@ def test_embed_on_the_card_runs_k1_and_matches_the_cpu(cuda, tmp_path):
     g, r = got["embeddings"], ref["embeddings"]
     assert g.shape == r.shape == (4, 192) and np.isfinite(g).all()
     assert np.linalg.norm(g - r) <= 1e-2 * np.linalg.norm(r)
+
+
+@pytest.mark.parametrize("policy", [None, "dots_saveable"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_checkpointed_block_recomputes_k1(cuda, dtype, policy):
+    """A ViT block (width 128, 2 heads of 64, drop path 0.2) under
+    activation checkpointing: K1 runs again in the backward pass (no policy
+    keeps the attention kernels' outputs, which are no matrix product), K2
+    once, and the gradients and the generator's next draw are bitwise those
+    of the block without checkpointing."""
+    from lightly_train_tpu_torch.models import vit as TV
+
+    cfg = TV.ViTConfig(embed_dim=128, depth=1, num_heads=2,
+                       drop_path_rate=0.2, dtype=DTYPES[dtype])
+    block = TV.Block(cfg, drop_path=0.2)
+    init = torch.Generator().manual_seed(0)
+    for p in block.parameters():
+        p.data.normal_(0.0, 0.1, generator=init)
+    block = block.to(cuda)
+    x0 = torch.randn((16, 257, 128), generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    runs = []
+    for remat in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        x = x0.to(DTYPES[dtype]).requires_grad_()
+        for p in block.parameters():
+            p.grad = None
+        before = A.flat_attention_fwd.launches, A.flat_attention_bwd.launches
+        if remat:
+            out = TV.checkpointed_block(block, x, True, gen, None,
+                                        TV.REMAT_POLICIES[policy])
+        else:
+            out = block(x, True, gen)
+        after_fwd = A.flat_attention_fwd.launches
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        runs.append({
+            "fwd": (after_fwd - before[0],
+                    A.flat_attention_fwd.launches - before[0]),
+            "bwd": A.flat_attention_bwd.launches - before[1],
+            "grads": [x.grad] + [p.grad for p in block.parameters()],
+            "next": torch.rand(4, generator=gen, device=cuda)})
+    plain, remat = runs
+    assert plain["fwd"] == (1, 1) and remat["fwd"] == (1, 2)
+    assert plain["bwd"] == remat["bwd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(plain["grads"],
+                                                 remat["grads"]))
+    assert torch.equal(plain["next"], remat["next"])

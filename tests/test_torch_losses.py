@@ -84,3 +84,29 @@ def test_cosine_schedule(step):
     ref = float(jax_cosine_schedule(step, 10, 0.992, 1.0, warmup_steps=2,
                                     warmup_start=0.5))
     assert got == pytest.approx(ref, rel=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n_iterations", [1, 3])
+def test_sinkhorn_knopp_teacher(weighted, n_iterations):
+    """Logits of prototype-like scale (|t| <= 1, as the weight-normed heads
+    give) at the starting temperature 0.04: exp(t / temp) with no maximum
+    subtracted, as the JAX package computes it. With ``sample_weights``
+    (the iBOT variant) the rows left out are all zero."""
+    from lightly_train_tpu_torch.ops.sinkhorn import sinkhorn_knopp_teacher
+
+    logits = np.tanh(_rand(5, 12, 64))
+    weights = (np.arange(12) % 3 != 0).astype(np.float32) if weighted else None
+    got = sinkhorn_knopp_teacher(
+        torch.tensor(logits), 0.04, n_iterations,
+        None if weights is None else torch.tensor(weights))
+    ref = JL.sinkhorn_knopp_teacher(
+        jnp.asarray(logits), 0.04, n_iterations,
+        None if weights is None else jnp.asarray(weights))
+    _close(got, ref, rtol=1e-5, atol=1e-7)
+    rows = got.sum(dim=1).numpy()
+    if weighted:
+        assert (got.numpy()[weights == 0] == 0).all()
+        np.testing.assert_allclose(rows[weights == 1], 1.0, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(rows, 1.0, rtol=1e-5)

@@ -71,11 +71,13 @@ def test_nan_on_an_unlogged_step_stops_the_run_one_step_later(
         tmp_path, monkeypatch):
     """As the JAX loop does (train_loop.py:295-330): step 3 is not logged
     (log_every 50, burn-in 1, 2, 5), and its flag is read once step 4 is
-    dispatched."""
+    dispatched; the capture is step 3's (state step 2)."""
     dispatched = _poison_step(monkeypatch, 3)
     with pytest.raises(NaNDetectedError, match="at step 3 "):
         _pretrain(tmp_path, steps=6, log_every=50)
     assert dispatched == [1, 2, 3, 4]
+    assert [p.name for p in (tmp_path / "out" / "debug").iterdir()] == [
+        "nan_capture_step2.npz"]
     logged = [r["step"] for r in _records(tmp_path / "out" / "metrics.jsonl")
               if "step" in r]
     assert logged == [1, 2]
@@ -137,15 +139,14 @@ def test_the_default_run_warns_what_it_does_not_write(tmp_path, caplog):
         _pretrain(tmp_path, steps=1)
     warnings = [r.getMessage() for r in caplog.records
                 if r.levelno == logging.WARNING]
-    # It names what is still not written (the NaN capture, the profile
-    # trace, the logger backends), and no longer the checkpoints, the grid
-    # or the export, which the run now writes.
-    assert any("nan_capture" in m and "profile" in m
-               and "tensorboard, wandb and mlflow" in m
-               and "ROADMAP item 7.3" in m and "ROADMAP item 7.5" in m
-               for m in warnings), warnings
+    # It names what is still not written (the profile trace, the logger
+    # backends), and no longer the checkpoints, the grid, the export or the
+    # NaN capture, which the run now writes.
+    assert any("profile" in m and "tensorboard, wandb and mlflow" in m
+               and "ROADMAP item 7.5" in m for m in warnings), warnings
     assert not any("checkpoint" in m or "augmentations.png" in m
-                   or "exported_last" in m for m in warnings), warnings
+                   or "exported_last" in m or "nan_capture" in m
+                   or "item 7.3" in m for m in warnings), warnings
     out = tmp_path / "out"
     assert (out / "checkpoints" / "step_1.pt").exists()
     assert (out / "augmentations.png").exists()

@@ -1,12 +1,16 @@
-"""What the port's ``pretrain`` refuses or warns about where the JAX package
-takes an option the port has not ported yet: each names the ROADMAP item
-that ports it, and a name the JAX package does not know either stays a
-config error. All on the CPU at the ``vittest14`` size."""
+"""What the port's ``pretrain`` refuses where the JAX package takes an option
+the port has not ported yet: each names the ROADMAP item that ports it, and
+a name the JAX package does not know either stays a config error. The
+options refused until they were ported (activation checkpointing, item 22;
+``LIGHTLY_TRAIN_MATMUL_PRECISION``, item 21) keep their cases here, which
+now hold what the port does with them. All on the CPU at the ``vittest14``
+size."""
 
 import logging
 
 import numpy as np
 import pytest
+import torch
 
 import lightly_train_tpu_torch as lt
 from lightly_train_tpu_torch._optim import JAX_OPTIMIZERS
@@ -67,9 +71,19 @@ def test_optimizer_names_follow_the_jax_package(tmp_path, name):
 ])
 def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
                                                         model_args, item):
-    """The JAX ViT's activation checkpointing (item 22), the 7B ViTs, which
-    need the attention kernels at head dim 128 (item 10), and the DINOv3
-    ConvNeXts (item 10)."""
+    """The 7B ViTs, which need the attention kernels at head dim 128 (item
+    10), and the DINOv3 ConvNeXts (item 10) are refused naming their item.
+    The JAX ViT's activation checkpointing (item 22) is ported: a run with
+    it takes its step, with the options in the ViT's config (a policy
+    without ``remat_every`` checkpoints nothing, as in the JAX ViT)."""
+    if item == "22":
+        state = _pretrain(tmp_path, model=model, model_args=model_args)
+        assert state.step == 1
+        cfg = state.params["student"].cfg
+        assert (cfg.remat_every, cfg.remat_policy) == (
+            model_args.get("remat_every", 0),
+            model_args.get("remat_policy"))
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         _pretrain(tmp_path, model=model, model_args=model_args)
 
@@ -85,14 +99,18 @@ def test_remat_at_its_defaults_builds_the_model():
 @pytest.mark.parametrize("value", ["default", "high", "highest"])
 def test_matmul_precision_variable_warns_once(tmp_path, monkeypatch, caplog,
                                               value):
-    """The port does not apply LIGHTLY_TRAIN_MATMUL_PRECISION yet (ROADMAP
-    item 21), and a run that is given it says so once."""
+    """LIGHTLY_TRAIN_MATMUL_PRECISION is applied (ROADMAP item 21, which
+    this case once found missing): the run says so once, warns of nothing
+    about it, and leaves the CUDA backend's TF32 switches at the value's
+    setting (``tests/test_torch_precision.py`` holds the mapping)."""
     monkeypatch.setenv("LIGHTLY_TRAIN_MATMUL_PRECISION", value)
-    with caplog.at_level(logging.WARNING, logger="lightly_train_tpu_torch"):
+    with caplog.at_level(logging.INFO, logger="lightly_train_tpu_torch"):
         state = _pretrain(tmp_path)
     assert state.step == 1
-    said = [r.getMessage() for r in caplog.records
-            if "LIGHTLY_TRAIN_MATMUL_PRECISION" in r.getMessage()]
-    assert len(said) == 1, said
-    assert repr(value) in said[0] and "ROADMAP item 21" in said[0]
-    assert "'highest'" in said[0]
+    said = [r for r in caplog.records
+            if "matmul precision" in r.getMessage().lower()]
+    assert len(said) == 1, [r.getMessage() for r in said]
+    assert said[0].levelno == logging.INFO and repr(value) in said[0].getMessage()
+    tf32 = value != "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    assert torch.backends.cudnn.allow_tf32 is tf32

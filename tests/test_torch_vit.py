@@ -238,3 +238,49 @@ def test_vitb14_parameter_count():
     n_jax = sum(int(np.prod(x.shape))
                 for x in jax.tree_util.tree_leaves(shapes["params"]))
     assert n_torch == n_jax == 85_724_928
+
+
+def test_vitb14_forward_matches_jax():
+    """ViT-B/14 (12 blocks, width 768, 12 heads) at batch 1 and 224^2, fp32,
+    on checkpoint-scale weights carried by ``params_from_jax``. Measured on
+    the CPU: 4.8e-7 relative L2 on the CLS token, 3.6e-6 max-abs on
+    outputs of magnitude up to 5.6; held to the tolerance of the vittest14
+    cases, rtol and atol 1e-4."""
+    wrapped_j, params, wrapped_t = _vit_pair(model="dinov2/vitb14")
+    images = np.random.default_rng(7).standard_normal(
+        (1, 224, 224, 3)).astype(np.float32)
+    out_j = jax.jit(lambda p, x: wrapped_j.forward_features(
+        {"params": p}, x))(params, jnp.asarray(images))
+    with torch.no_grad():
+        out_t = wrapped_t.forward_features(torch.tensor(images), None)
+    for key in ("cls_token", "patch_tokens"):
+        np.testing.assert_allclose(out_t[key].numpy(), np.asarray(out_j[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("model", ["dinov2/vittest14", "dinov3/vittest16"])
+def test_bf16_vit_forward_matches_jax(model):
+    """bf16 compute against fp32 parameters in both packages (projections
+    in bf16, LayerNorm statistics in fp32), at batch 3 and 224^2 (256
+    tokens, 2 blocks). The two round in different orders: measured on the
+    CPU, 4.5e-3 to 5.2e-3 relative L2 and at most 1.26e-2 of the largest
+    magnitude apart (about three bf16 ulps); held to 2e-2 relative L2 and
+    2^-5 of the largest magnitude (eight ulps)."""
+    wrapped_j, params, _ = _vit_pair(model=model)
+    wrapped_j = jax_get_wrapped_model(model, dtype=jnp.bfloat16)
+    wrapped_t = get_wrapped_model(model, dtype=torch.bfloat16)
+    wrapped_t.module.load_state_dict(params_from_jax(params))
+    images = np.random.default_rng(3).standard_normal(
+        (3, 224, 224, 3)).astype(np.float32)
+    out_j = wrapped_j.forward_features({"params": params},
+                                       jnp.asarray(images))
+    with torch.no_grad():
+        out_t = wrapped_t.forward_features(torch.tensor(images), None)
+    for key in ("cls_token", "patch_tokens"):
+        got = out_t[key].float().numpy()
+        ref = np.asarray(out_j[key].astype(jnp.float32))
+        assert out_t[key].dtype == torch.bfloat16
+        assert out_j[key].dtype == jnp.bfloat16
+        rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert rel < 2e-2, (key, rel)
+        assert np.abs(got - ref).max() <= 2 ** -5 * np.abs(ref).max(), key
