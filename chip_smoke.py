@@ -15,9 +15,12 @@ Phases (any failure exits non-zero):
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
    378^2 images), at head dim 16 (a small grid and the vittest14 shapes
    of phase 3e) and, in fp32, at the frozen DINOv3 ViT-B/16 teacher's
-   shape of phase 3f (N = 201); K4/K5 (``vmem_attention``) in both
-   layouts and dtypes at the ViT-B/14 shapes, and in ``vmem_attention``'s
-   layout at the hd-16 ones; K3, one launch over the
+   shape of phase 3f (N = 201); K1 alone at head dim 128 (its backward is
+   ROADMAP queue 2 item 2b) in both dtypes at the 7B teacher's and 7B
+   embed's shapes of phases 3j and 3k, at N = 37 and at N = 730; K4/K5
+   (``vmem_attention``) in both layouts and dtypes at the ViT-B/14
+   shapes, and in ``vmem_attention``'s layout at the hd-16 ones, and K4
+   alone in both layouts at the 7B embed shape; K3, one launch over the
    ViT-B/14 leaves and synthetic ones that exercise its chunk plan (ragged
    sizes, a leaf of no gradient), with lr 0 (bitwise), over two steps of
    ``FusedAdamWEMA`` with every gradient reallocated in between, at several
@@ -26,15 +29,17 @@ Phases (any failure exits non-zero):
    In fp32 a control checks the tolerance itself: the kernels fed inputs
    rounded to bf16 must fail it (each output's verdict is printed). The
    SASS of every attention library (each forward and backward, both
-   dtypes, at both head dims) must hold wgmma (HGMMA) instructions, and
+   dtypes, at every head dim) must hold wgmma (HGMMA) instructions, and
    that of the two that fill their rings with cp.async (the bf16 forward
    and backward, ``flat_attention_fwd_sm90.cu`` and
    ``flat_attention_bwd_sm90.cu``) LDGSTS too (the fp32 hd-64 forward and
    backward, ``flat_attention_fwd_f32_sm90.cu`` and
    ``flat_attention_bwd_f32_sm90.cu``, load with ld.global and split in
-   registers; at hd 16 the fp32 kernels land their rows by cp.async as
-   well); no library's SASS may hold the warp-level mma.sync (HMMA), and
-   no build log a ptxas warning that it serialized the wgmma products.
+   registers; at hd 16 and 128 the fp32 kernels land their rows by
+   cp.async as well); no library's SASS may hold the warp-level mma.sync
+   (HMMA), and no build log a ptxas warning that it serialized the wgmma
+   products (the build's report, spills included, is printed for every
+   kernel, the hd-128 ones too).
    Those times are device times (calls captured in a CUDA graph and
    replayed); ``host_ms`` is the kernel's time with its host-side launch
    (Python, ctypes, argument checks; K3's staging copy) included.
@@ -81,7 +86,21 @@ Phases (any failure exits non-zero):
    against the fp32 CPU reference. (3i) vittest14 in bf16 with a parameter
    set to NaN after a chosen step: the capture, ``NaNDetectedError``
    naming the step, and ``replay_nan_capture`` on the card naming the
-   poisoned parameter. ``pretrain`` applies
+   poisoned parameter. (3j) ``pretrain`` distillation v3 of ViT-B/14 in
+   bf16 from a frozen random DINOv3 7B/16 teacher (fp32, head dim 128,
+   built on the card and drawn leaf by leaf) at batch 64 for 2 steps:
+   per step 40 K1 launches of the teacher on the fp32 forward at
+   (64, 201, 32, 128), 12 K1 and 12 K2 of the student at hd 64, no K3;
+   finite losses, the teacher's CLS and patch features on 2 images
+   against itself with the plain attention (IEEE fp32), the method's
+   init time, step times, peak memory and the end-of-run checkpoint's
+   size and save time. (3k) ``embed`` in bf16 at batch 64 with a DINOv2
+   7B/14 export (30 GiB, written by ``export_model`` from a model drawn
+   on the card): 40 K1 launches on the bf16 forward at
+   (64, 257, 32, 128), no K2; two images' embeddings against the same
+   model with its kernels and with the plain attention; the export's
+   write and load times, img/s and peak memory. Both delete what they
+   wrote. Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -145,6 +164,18 @@ DISTILL_QUEUE = 16
 DISTILL_KEYS = ("train_loss", "loss_global", "loss_local", "grad_norm")
 # ViT-B/14's blocks.
 DEPTH = 12
+# The 7B ViTs (width 4096, 32 heads: head dim 128, 40 blocks) run forward
+# only. Phase 3j: distillation v3 of ViT-B/14 from a frozen random DINOv3
+# 7B/16 teacher (fp32 in every precision) at 224^2: 196 patches + CLS + 4
+# registers. Phase 3k: embed with a DINOv2 7B/14 export in bf16 at 224^2:
+# 256 patches + CLS. Both at batch 64. Phase 2 adds an N <= 64 shape (the
+# one-tile form) and N = 730 (the 7B/14 on 378^2 images).
+HEADS_7B, HEAD_DIM_7B, DEPTH_7B = 32, 128, 40
+TEACHER_7B = (DISTILL_BATCH, 201, HEADS_7B, HEAD_DIM_7B)
+EMBED_7B = (DISTILL_BATCH, 257, HEADS_7B, HEAD_DIM_7B)
+LOCAL_7B = (DISTILL_BATCH, 37, HEADS_7B, HEAD_DIM_7B)
+GLOBAL_378_7B = (16, 730, HEADS_7B, HEAD_DIM_7B)
+TEACHER_7B_STEPS = 2
 # Phase 3g: DINOv2 bf16 with activation checkpointing every 2nd block,
 # drop path 0.1 and Sinkhorn centering; the fixed-batch comparison's
 # variants (the model_args of each beside drop path 0.1).
@@ -167,6 +198,28 @@ PRECISION_STEPS = 2
 # first non-finite step, step NAN_STEP + 1 of metrics.jsonl.
 NAN_STEPS, NAN_STEP = 4, 2
 NAN_LEAF = "student.blocks.1.mlp.fc1.weight"
+
+
+# The phase running now and when it started (``phase``).
+_CLOCK = {"name": None, "t0": 0.0}
+
+
+def phase(msg: str, **kwargs) -> None:
+    """Prints ``msg`` ("phase <id>: ..."); when <id> differs from the
+    phase running, first that phase's wall time."""
+    name = msg.split(":")[0]
+    if name != _CLOCK["name"]:
+        end_phase()
+        _CLOCK.update(name=name, t0=time.perf_counter())
+    print(msg, flush=True)
+
+
+def end_phase() -> None:
+    """Prints the wall time of the phase running, if any, and ends it."""
+    if _CLOCK["name"] is not None:
+        print(f"  ({_CLOCK['name']}: {time.perf_counter() - _CLOCK['t0']:.1f}"
+              " s)", flush=True)
+    _CLOCK["name"] = None
 
 
 def fail(msg: str) -> None:
@@ -344,7 +397,9 @@ def attention_bounds(B: int, N: int, H: int, hd: int, dtype: str) -> tuple:
 def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
                    layout: str) -> tuple:
     """One forward and one backward kernel against their plain versions at
-    ``shape`` = (B, N, H, hd), then timed: (forward row, backward row).
+    ``shape`` = (B, N, H, hd), then timed: (forward row, backward row); at a
+    head dim the backward does not take (128: ROADMAP queue 2 item 2b), the
+    forward alone: (forward row,).
 
     ``kernels`` "flat" runs K1/K2 on (B, N, H * hd) tensors; "vmem" runs
     K4/K5 on (B, H, N, hd) tensors, real ones (``layout`` "bhnd") or the
@@ -358,6 +413,7 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
     B, N, H, hd = shape
     dt = torch_dtype(dtype)
     scale = hd ** -0.5
+    backward = hd in A.HEAD_DIMS["bwd"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + N + hd)
     if kernels == "flat":
         q, k, v, do = (torch.randn((B, N, H * hd), generator=gen,
@@ -393,7 +449,7 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 
     o, lse = fwd()
     o_ref, lse_ref = fwd_plain()
-    grads, grads_ref = bwd(), bwd_plain()
+    grads, grads_ref = (bwd(), bwd_plain()) if backward else ((), ())
     torch.cuda.synchronize()
     floors = {"dq": cancel_floor(scale, hd, do, v, k),
               "dk": cancel_floor(scale, hd, do, v, q)}
@@ -408,8 +464,10 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
     if dtype == "fp32":
         r = [x.to(torch.bfloat16).float() for x in (q, k, v, do)]
         o_c, lse_c = fwd_k(*r[:3], *heads, scale)
-        got_c = (o_c, *bwd_k(*r[:3], o_c, r[3], lse_c, *heads, scale))
-        ref_c = (o_ref, *bwd_p(q, k, v, o_ref, do, lse_ref, *heads, scale))
+        got_c = (o_c, *(bwd_k(*r[:3], o_c, r[3], lse_c, *heads, scale)
+                        if backward else ()))
+        ref_c = (o_ref, *(bwd_p(q, k, v, o_ref, do, lse_ref, *heads, scale)
+                          if backward else ()))
         verdicts = {name: compare(got, ref, dtype, floors.get(name, 0.0))
                     for name, got, ref in zip(("o", "dq", "dk", "dv"), got_c,
                                               ref_c)}
@@ -437,13 +495,15 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
                  qh, kh, vh, scale=scale), per_graph=10),
          "host_ms": time_ms(fwd),
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
-        {**common, "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
-         "ms": device_ms(bwd, per_graph=10),
-         "plain_ms": device_ms(bwd_plain),
-         "library_ms": library_backward_ms(qh, kh, vh, doh, scale),
-         "host_ms": time_ms(bwd),
-         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
     )
+    if backward:
+        rows += ({
+            **common, "max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
+            "ms": device_ms(bwd, per_graph=10),
+            "plain_ms": device_ms(bwd_plain),
+            "library_ms": library_backward_ms(qh, kh, vh, doh, scale),
+            "host_ms": time_ms(bwd),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},)
     for name, r in zip(names, rows):
         print(f"  {name} {dtype} {layout} {shape}: {r['ms']:.4f} ms (with "
               f"host launch {r['host_ms']:.4f} ms), plain "
@@ -457,21 +517,26 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
 # images (N = 730, at batch 8 and 32), and at hd 16 on a small grid and at
 # the vittest14 shapes of phase 3e, and in fp32 at the teacher's shape of
-# phase 3f; K4/K5 at the ViT-B/14 shapes in both layouts and dtypes, and at
-# the hd-16 shapes in vmem_attention's layout.
+# phase 3f; K1 alone at hd 128 (the 7B teacher's and embed's shapes of
+# phases 3j and 3k, N = 37 and N = 730); K4/K5 at the ViT-B/14 shapes in
+# both layouts and dtypes, at the hd-16 shapes in vmem_attention's layout,
+# and K4 alone at the 7B embed shape in both layouts.
 # Between them the shapes take both configurations of the fp32 hd-64
 # forward (resident and streamed), and both forms of each kernel (one tile,
 # several).
 HD16_SHAPES = (HD16_SMALL, VITTEST_GLOBAL, VITTEST_LOCAL)
+HD128_SHAPES = (TEACHER_7B, EMBED_7B, LOCAL_7B, GLOBAL_378_7B)
 ATTENTION_CASES = [
     ("flat", dtype, shape, "flat")
     for dtype in DTYPES
-    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, *HD16_SHAPES)
+    for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, *HD16_SHAPES,
+                  *HD128_SHAPES)
 ] + [("flat", "fp32", TEACHER, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
-    for shape in (GLOBAL, LOCAL, *(HD16_SHAPES if layout == "bnhd" else ()))
+    for shape in (GLOBAL, LOCAL, *(HD16_SHAPES if layout == "bnhd" else ()),
+                  EMBED_7B)
 ]
 
 
@@ -480,10 +545,10 @@ def check_attention(A, card: str) -> dict:
     [row, ...]} for the kernels JSON line."""
     rows = {}
     for kernels, dtype, shape, layout in ATTENTION_CASES:
-        fwd, bwd = attention_case(A, card, kernels, dtype, shape, layout)
         names = ("K1", "K2") if kernels == "flat" else ("K4", "K5")
-        rows.setdefault((names[0], dtype), []).append(fwd)
-        rows.setdefault((names[1], dtype), []).append(bwd)
+        for name, row in zip(names, attention_case(A, card, kernels, dtype,
+                                                   shape, layout)):
+            rows.setdefault((name, dtype), []).append(row)
     return rows
 
 
@@ -1318,6 +1383,292 @@ def check_routes(A, tag: str, by_library: dict, dtype, head_dim: int,
             fail(f"{tag}: {direction} launches by library {got}")
 
 
+def plain_attention(A):
+    """The ViT's attention with its kernels' plain version in their place
+    (``flat_attention_fwd_plain``: the kernels' arithmetic in PyTorch), for
+    holding a model on the card against itself."""
+
+    def attention(q, k, v, num_heads, mask=None):
+        if mask is not None:
+            return A.dot_product_attention(q, k, v, num_heads, mask)
+        hd = q.shape[-1] // num_heads
+        return A.flat_attention_fwd_plain(q, k, v, num_heads, hd ** -0.5)[0]
+
+    return attention
+
+
+def held_to_plain_attention(A, module, images, keys, tol: float,
+                            pool=None) -> dict:
+    """``module`` on ``images`` with its attention kernels, then with their
+    plain version (``plain_attention``), under IEEE fp32: {key: relative
+    L2} of the outputs ``keys`` (or of ``pool`` of them), each within
+    ``tol``."""
+    import torch
+
+    from lightly_train_tpu_torch.models import vit
+
+    pin_ieee()
+    with torch.no_grad():
+        got = module(images)
+        vit.attention = plain_attention(A)
+        try:
+            ref = module(images)
+        finally:
+            vit.attention = A.attention
+    if pool is not None:
+        got, ref = ({"pooled": pool(x)} for x in (got, ref))
+    rel = {}
+    for key in keys:
+        g, r = got[key].float(), ref[key].float()
+        rel[key] = ((g - r).norm() / r.norm()).item()
+        if not (torch.isfinite(g).all() and rel[key] <= tol):
+            fail(f"{key} with the kernels against the plain attention: "
+                 f"relative L2 {rel[key]} (tol {tol})")
+    return rel
+
+
+def timed_saves():
+    """Wraps ``CheckpointManager.save`` to record each call's seconds;
+    returns (the list they land in, a function that puts it back)."""
+    from lightly_train_tpu_torch._checkpoint import checkpoint as C
+
+    seconds = []
+    save = C.CheckpointManager.save
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        save(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+
+    C.CheckpointManager.save = timed
+    return seconds, lambda: setattr(C.CheckpointManager, "save", save)
+
+
+def two_images(work: Path, size: int = 224):
+    """The first two of phase 3's images at ``size``^2, on the card, in
+    [0, 1]."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._data.image_dataset import (
+        ImageDataset,
+        list_image_files,
+    )
+
+    dataset = ImageDataset(list_image_files(work / "images"), (size, size))
+    images = torch.from_numpy(np.stack([dataset[0], dataset[1]]))
+    return images.cuda().float() / 255.0
+
+
+def run_teacher_7b_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3j: ``pretrain`` distillation v3 of ViT-B/14 from a frozen
+    random DINOv3 7B/16 teacher (``method_args={"teacher":
+    "dinov3/vit7b16"}``), bf16, batch 64 on phase 3's 64 images, for
+    TEACHER_7B_STEPS steps, with every launch counter set to 0 just before
+    and read just after. Per step: 40 K1 launches of the teacher on the
+    fp32 forward at TEACHER_7B (hd 128), 12 K1 and 12 K2 of the student on
+    the bf16 libraries at GLOBAL, no K3 (LARS is unfused). The teacher is
+    built on the card and drawn leaf by leaf from the CPU generator; its
+    CLS and patch features on 2 images are held against itself with the
+    plain attention under IEEE fp32. It checkpoints once, at the end (the
+    frozen teacher is in the method state, as in the JAX package)."""
+    import torch
+
+    from lightly_train_tpu_torch.methods import distillationv3 as V3
+
+    steps = TEACHER_7B_STEPS
+    out = work / "distill_7b"
+    init = V3.DistillationV3.init
+    built = []
+
+    def timed_init(self, generator, device):
+        t0 = time.perf_counter()
+        result = init(self, generator, device)
+        torch.cuda.synchronize()
+        built.append(time.perf_counter() - t0)
+        return result
+
+    V3.DistillationV3.init = timed_init
+    saves, restore = timed_saves()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        state = distill_pretrain(
+            lt, out, work / "images", "bf16", steps, checkpoint_every=steps,
+            method_args={"teacher": "dinov3/vit7b16"})
+        torch.cuda.synchronize()
+    finally:
+        V3.DistillationV3.init = init
+        restore()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    teacher_fwd = A.fwd_library(torch.float32, HEAD_DIM_7B)
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    expected = [(DEPTH_7B + DEPTH) * steps, DEPTH * steps, 0, 0, 0]
+    expected_by_shape = {(teacher_fwd, TEACHER_7B): DEPTH_7B * steps,
+                         (fwd, GLOBAL): DEPTH * steps,
+                         (bwd, GLOBAL): DEPTH * steps}
+    logged = logged_steps(out)
+    for r in logged:
+        for key in DISTILL_KEYS:
+            if not math.isfinite(r[key]):
+                fail(f"7B-teacher step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f}, grad_norm "
+              f"{r['grad_norm']:.4e}, {r['profiling/step_time'] * 1e3:.1f} "
+              f"ms, {r['profiling/images_per_sec']:.1f} img/s [{card}]")
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+          f"K4 {launches[3]}, K5 {launches[4]} (expected {expected}); by "
+          f"shape {by_shape}")
+    if ([r["step"] for r in logged] != list(range(1, steps + 1))
+            or launches != expected or by_shape != expected_by_shape):
+        fail(f"7B-teacher run: steps {[r['step'] for r in logged]}, "
+             f"launches {launches}, by shape {by_shape}")
+    teacher = state.method_state["teacher"]
+    n_params = sum(p.numel() for p in teacher.parameters())
+    if (teacher.cfg.dtype != torch.float32 or n_params != 6_716_035_072
+            or any(p.requires_grad for p in teacher.parameters())):
+        fail("the 7B teacher is not the frozen fp32 DINOv3 7B/16")
+    rel = held_to_plain_attention(A, teacher, two_images(work),
+                                  ("cls_token", "patch_tokens"), 1e-3)
+    ckpt = out / "checkpoints" / f"step_{steps}.pt"
+    ckpt_gib = ckpt.stat().st_size / 2 ** 30
+    times = [r["profiling/step_time"] * 1e3 for r in logged]
+    print(f"  teacher vs itself with the plain attention (IEEE fp32, 2 "
+          f"images): relative L2 {rel} (tol 1e-3)")
+    print(f"7B teacher: {n_params} parameters, method init (student, heads, "
+          f"teacher drawn leaf by leaf) {built[0]:.1f} s; step ms {times}; "
+          f"peak {peak_gib:.2f} GiB; checkpoint {ckpt_gib:.2f} GiB saved in "
+          f"{saves[-1]:.1f} s; wall {wall:.1f} s [{card}]", flush=True)
+    del state, teacher
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_shape": by_shape, "step_ms": times,
+            "peak_gib": peak_gib, "init_s": built[0], "checkpoint_gib":
+            ckpt_gib, "checkpoint_save_s": saves[-1], "wall_s": wall,
+            "rel_l2": rel}
+
+
+def seeded_7b14():
+    """A DINOv2 7B/14 built on the card and drawn there from a seeded CUDA
+    generator, with LayerScale 0.1 so that its 40 blocks tell the images
+    apart (at the init's 1e-5 every image's CLS is the learned token's)."""
+    import torch
+
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    with torch.device("cuda"):
+        module = get_wrapped_model("dinov2/vit7b14").module
+    module.reset_parameters(torch.Generator("cuda").manual_seed(SEED + 7))
+    for name, p in module.named_parameters():
+        if name.endswith("gamma"):
+            p.data.fill_(0.1)
+    return module
+
+
+def run_embed_7b_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3k: ``embed`` in bf16 at batch 64 over phase 3's 64 images with
+    a DINOv2 7B/14 export (30 GiB of fp32, written by ``export_model`` from
+    ``seeded_7b14``), counters set to 0 just before and read just after: 40
+    K1 launches on the bf16 forward at EMBED_7B (hd 128), no K2, no K3. Two
+    images' embeddings held against the same model on the card in bf16 with
+    the plain attention. The artifact is deleted afterwards."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import export_model
+    from lightly_train_tpu_torch._commands import embed as E
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    artifact = work / "vit7b14_export"
+    t0 = time.perf_counter()
+    module = seeded_7b14()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_model(artifact, "dinov2/vit7b14", module.state_dict())
+    write_s = time.perf_counter() - t0
+    export_gib = sum(f.stat().st_size for f in artifact.iterdir()) / 2 ** 30
+    del module
+    torch.cuda.empty_cache()
+
+    load = E.load_exported_model
+    loads = []
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        result = load(path)
+        loads.append(time.perf_counter() - t0)
+        return result
+
+    E.load_exported_model = timed_load
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        path = lt.embed(out=str(work / "embeddings_7b.npz"),
+                        data=str(work / "images"), checkpoint=str(artifact),
+                        image_size=224, batch_size=DISTILL_BATCH,
+                        precision="bf16", format="npz")
+        torch.cuda.synchronize()
+    finally:
+        E.load_exported_model = load
+    embed_s = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    shutil.rmtree(artifact)
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM_7B)
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+          f"K4 {launches[3]}, K5 {launches[4]} (expected [{DEPTH_7B}, 0, 0, "
+          f"0, 0]); by shape {by_shape}")
+    if (launches != [DEPTH_7B, 0, 0, 0, 0]
+            or by_shape != {(fwd, EMBED_7B): DEPTH_7B}):
+        fail(f"7B embed launch counts {launches}, {by_shape}")
+    emb = np.load(path)["embeddings"]
+    if emb.shape != (2 * BATCH, 4096) or not np.isfinite(emb).all():
+        fail(f"7B embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+
+    # The same model: drawn again from the same CUDA generator, computing
+    # in bf16 on the exported (fp32) parameters.
+    with torch.device("meta"):
+        wrapped = get_wrapped_model("dinov2/vit7b14", dtype=torch.bfloat16)
+    wrapped.module.load_state_dict(seeded_7b14().state_dict(), assign=True)
+    # bf16 through 40 blocks: the two attentions round p in other orders
+    # and every bf16 GEMM after carries the difference on; held to
+    # check_backbone's bf16 tolerance.
+    rel = held_to_plain_attention(A, wrapped.module, two_images(work),
+                                  ("pooled",), 5e-2, wrapped.forward_pool)
+    with torch.no_grad():
+        mine = wrapped.forward_pool(wrapped.module(two_images(work)))
+    rel_embed = float(np.linalg.norm(emb[:2] - mine.float().cpu().numpy())
+                      / np.linalg.norm(mine.float().cpu().numpy()))
+    if not rel_embed <= 5e-2:
+        fail(f"7B embed's embeddings against the model on the card: "
+             f"relative L2 {rel_embed}")
+    del wrapped
+    torch.cuda.empty_cache()
+    ips = 2 * BATCH / (embed_s - loads[0])
+    print(f"  embeddings of 2 images: against the model's kernel forward "
+          f"relative L2 {rel_embed:.3e}, kernels vs plain attention (bf16) "
+          f"{rel['pooled']:.3e} (tol 5e-2 each)")
+    print(f"7B embed: export {export_gib:.2f} GiB written in {write_s:.1f} s "
+          f"(model drawn on the card in {init_s:.1f} s), embed "
+          f"{embed_s:.1f} s of which artifact load {loads[0]:.1f} s: "
+          f"{ips:.1f} img/s after the load; peak {peak_gib:.2f} GiB "
+          f"[{card}]", flush=True)
+    return {"launches": launches, "by_shape": by_shape, "peak_gib": peak_gib,
+            "export_gib": export_gib, "write_s": write_s, "load_s": loads[0],
+            "embed_s": embed_s, "images_per_sec": ips, "rel_l2": rel}
+
+
 def run_vmem_path(A, card: str, dtype: str) -> dict:
     """The K4/K5 path: ``vmem_attention`` over (B, N, H, hd) and
     ``vmem_attention_bhnd`` over real (B, H, N, hd) tensors, forward and
@@ -1821,7 +2172,7 @@ def main() -> int:
         if WARP_MMA in sass:
             fail(f"{name}'s SASS holds {WARP_MMA} (mma.sync)")
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    phase("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
     upd = check_fused_update(F, card)
 
@@ -1829,8 +2180,8 @@ def main() -> int:
     work = Path(work_dir.name)
     write_images(work / "images", 2 * BATCH, 256)
     paths = {}
-    for phase, precision in zip(("3", "3b"), DTYPES):
-        print(f"phase {phase}: main path (pretrain DINOv2 ViT-B/14, batch "
+    for label, precision in zip(("3", "3b"), DTYPES):
+        phase(f"phase {label}: main path (pretrain DINOv2 ViT-B/14, batch "
               f"{BATCH}, {precision})", flush=True)
         paths[precision] = run_main_path(lt, A, F, card, precision, work)
         r = paths[precision]
@@ -1838,10 +2189,10 @@ def main() -> int:
               f"{r['images_per_sec']}, peak {r['peak_gib']:.2f} GiB [{card}]")
     shutil.rmtree(paths["fp32"]["out"])
     pin_ieee()
-    print("phase 3c: the K4/K5 path (vmem_attention, ViT-B/14 global shape)",
+    phase("phase 3c: the K4/K5 path (vmem_attention, ViT-B/14 global shape)",
           flush=True)
     vmem = {dtype: run_vmem_path(A, card, dtype) for dtype in DTYPES}
-    print("phase 3d: resume, augmentation grid and embed", flush=True)
+    phase("phase 3d: resume, augmentation grid and embed", flush=True)
     bf16_out = paths["bf16"]["out"]
     check_grid(bf16_out, 2 * BATCH)
     shutil.rmtree(bf16_out / "checkpoints")  # only its metrics serve now
@@ -1860,13 +2211,13 @@ def main() -> int:
         lt, A, F, card, work, bf16_out / "exported_models" / "exported_last")
     vittest = {}
     for precision in DTYPES:
-        print(f"phase 3e: pretrain DINOv2 vittest14 (hd 16), batch {BATCH}, "
+        phase(f"phase 3e: pretrain DINOv2 vittest14 (hd 16), batch {BATCH}, "
               f"{VITTEST_STEPS} steps, {precision}", flush=True)
         vittest[precision] = run_vittest_path(lt, A, F, card, precision,
                                               work)
     distill = {}
     for precision in DTYPES:
-        print(f"phase 3f: pretrain at its defaults (distillation, ViT-B/14 "
+        phase(f"phase 3f: pretrain at its defaults (distillation, ViT-B/14 "
               f"from DINOv3 ViT-B/16, LARS), batch {DISTILL_BATCH}, "
               f"{DISTILL_STEPS[precision]} steps, {precision}", flush=True)
         distill[precision] = run_distillation_path(lt, A, F, card, precision,
@@ -1874,7 +2225,7 @@ def main() -> int:
     shutil.rmtree(distill["fp32"]["out"])
     teacher = work / "teacher"
     write_teacher(teacher)
-    print(f"phase 3f: the same with teacher_weights (an exported DINOv3 "
+    phase(f"phase 3f: the same with teacher_weights (an exported DINOv3 "
           f"ViT-B/16, LayerScale 0.5), bf16", flush=True)
     distill["bf16_teacher"] = run_distillation_path(lt, A, F, card, "bf16",
                                                     work, teacher)
@@ -1882,27 +2233,36 @@ def main() -> int:
     expected, by_library, _ = distill_expected(A, "bf16", steps)
     for key, args in (("bf16", {}), ("bf16_teacher", {
             "method_args": {"teacher_weights": str(teacher)}})):
-        print(f"phase 3f: resume of the {key} distillation run", flush=True)
+        phase(f"phase 3f: resume of the {key} distillation run", flush=True)
         run_resume_path(
             lt, A, F, card, work, distill[key],
             lambda out, args=args, **kw: distill_pretrain(
                 lt, out, work / "images", "bf16", steps, **args, **kw),
             steps, DISTILL_KEYS[:3], expected, by_library,
             f"distillation_{key}")
-    print(f"phase 3g: pretrain DINOv2 ViT-B/14 bf16, batch {BATCH}, "
+    phase(f"phase 3g: pretrain DINOv2 ViT-B/14 bf16, batch {BATCH}, "
           f"{REMAT_STEPS} steps, model_args {REMAT}, Sinkhorn centering",
           flush=True)
     remat = run_remat_path(lt, A, F, card, work, paths["bf16"])
-    print("phase 3g: one fixed batch, two steps, with and without remat",
+    phase("phase 3g: one fixed batch, two steps, with and without remat",
           flush=True)
     remat_step_comparison(A, F, card)
-    print(f"phase 3h: LIGHTLY_TRAIN_MATMUL_PRECISION, fp32 DINOv2 and "
+    phase(f"phase 3h: LIGHTLY_TRAIN_MATMUL_PRECISION, fp32 DINOv2 and "
           f"distillation, {PRECISION_STEPS} steps each", flush=True)
     run_precision_path(lt, A, F, card, work)
-    print(f"phase 3i: the NaN capture and its replay (vittest14 bf16, "
+    phase(f"phase 3i: the NaN capture and its replay (vittest14 bf16, "
           f"{NAN_LEAF} set to NaN after state step {NAN_STEP})", flush=True)
     run_nan_path(lt, A, F, card, work)
     pin_ieee()
+    phase(f"phase 3j: pretrain distillation v3 of ViT-B/14 from a frozen "
+          f"random DINOv3 7B/16 teacher (hd 128, fp32), bf16, batch "
+          f"{DISTILL_BATCH}, {TEACHER_7B_STEPS} steps", flush=True)
+    teacher_7b = run_teacher_7b_path(lt, A, F, card, work)
+    pin_ieee()
+    phase(f"phase 3k: embed with a DINOv2 7B/14 export (hd 128), bf16, "
+          f"batch {DISTILL_BATCH}", flush=True)
+    embed_7b = run_embed_7b_path(lt, A, F, card, work)
+    end_phase()
     work_dir.cleanup()
 
     # Launches: each wrapper's count over the path that runs it (K1/K2: the
@@ -1921,6 +2281,14 @@ def main() -> int:
                                      paths[dtype]["launches"][i])
             by_shape.update(dict.fromkeys((VITTEST_GLOBAL, VITTEST_LOCAL),
                                           vittest[dtype]["launches"][i]))
+            # hd 128: the 7B teacher's fp32 forwards (phase 3j) and 7B
+            # embed's bf16 ones (phase 3k).
+            by_shape.update({
+                TEACHER_7B: teacher_7b["by_shape"].get((A.fwd_library(
+                    torch_dtype(dtype), HEAD_DIM_7B), TEACHER_7B), 0),
+                EMBED_7B: embed_7b["by_shape"].get((A.fwd_library(
+                    torch_dtype(dtype), HEAD_DIM_7B), EMBED_7B), 0),
+            } if kernel == "K1" else {})
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
         # student's K1/K2 at GLOBAL (in its run's dtype).
@@ -1931,10 +2299,13 @@ def main() -> int:
                     for p in DTYPES}
             for shape in (TEACHER, GLOBAL)} if kernel in ("K1", "K2") else {}
         by_shape[TEACHER] = sum(distill_runs.get(TEACHER, {}).values())
+        per_step_7b = {TEACHER_7B: ("launches_per_step", TEACHER_7B_STEPS),
+                       EMBED_7B: ("launches_per_batch", 1)}
         kernels += [{
             "name": name, "route": "cuda",
             "source": "lightly_train_tpu_torch/csrc/" + (
-                f"attention_{direction}_hd16.cuh" if row["shape"][3] == 16
+                f"attention_{direction}_hd{row['shape'][3]}.cuh"
+                if row["shape"][3] in (16, 128)
                 else route(torch_dtype(dtype), row["shape"][3]) + ".cu"),
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": by_shape.get(tuple(row["shape"]), 0),
@@ -1949,6 +2320,11 @@ def main() -> int:
                if tuple(row["shape"]) in distill_runs else {}),
             # Phase 3g's launches (remat every 2nd block, bf16) at the row's
             # shape, K1's recomputed blocks included.
+            **({per_step_7b[tuple(row["shape"])][0]:
+                by_shape.get(tuple(row["shape"]), 0)
+                / per_step_7b[tuple(row["shape"])][1]}
+               if kernel == "K1" and tuple(row["shape"]) in per_step_7b
+               else {}),
             **({"launches_remat": remat["by_shape"].get(
                 (lib, tuple(row["shape"])), 0),
                 "launches_remat_per_step": remat["by_shape"].get(
@@ -1971,7 +2347,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for method in ("dinov2", "distillation"):
             for precision in DTYPES:
-                print(f"phase 4: profile of the {method} pretraining step "
+                phase(f"phase 4: profile of the {method} pretraining step "
                       f"({precision})", flush=True)
                 profile_steps(card, precision, method)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -62,9 +62,13 @@ def embed_from_config(config: EmbedConfig) -> Path:
     device = resolve_device(config.accelerator)
     artifact = load_exported_model(Path(config.checkpoint))
     dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
-    wrapped = get_wrapped_model(artifact["model_name"], dtype=dtype)
+    # Built on the meta device and given the artifact's tensors as its
+    # parameters: nothing is allocated or initialised only to be
+    # overwritten (a 7B export is 30 GiB).
+    with torch.device("meta"):
+        wrapped = get_wrapped_model(artifact["model_name"], dtype=dtype)
     model = wrapped.module
-    model.load_state_dict(artifact["state_dict"])
+    model.load_state_dict(artifact["state_dict"], assign=True)
     model.to(device).eval()
     # The JAX command reports the run to its event tracker here; the port's
     # tracker waits for ROADMAP item 7.5.

@@ -71,7 +71,10 @@ from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
 from lightly_train_tpu_torch.models.embedding import project_wrapped
-from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from lightly_train_tpu_torch.models.package_registry import (
+    get_wrapped_model,
+    refuse_pretraining,
+)
 from lightly_train_tpu_torch.ops.augment import (
     augment_view_with_geometry,
     override_view_specs,
@@ -132,6 +135,7 @@ _NOT_PORTED = {
 def _check_config(config: TrainConfig) -> list:
     """Raises for an option that is not ported and for options that
     contradict each other; returns the resolved loggers."""
+    refuse_pretraining(config.model)
     for key, (default, item) in _NOT_PORTED.items():
         if getattr(config, key) != default:
             raise NotImplementedError(

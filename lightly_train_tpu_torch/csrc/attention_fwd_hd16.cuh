@@ -57,55 +57,6 @@ namespace lt {
 namespace sm90 {
 namespace hd16 {
 
-// Pass 1, key tiles at sKa and sKb (widths NKa and NKb, none if NKb is 0):
-// both S issued at once, the first folded into the row maxima while the
-// second computes.
-template <int P, int NKa, bool kMaskA, int NKb, bool kMaskB>
-__device__ __forceinline__ void max_step(float (&sa)[32], float (&sb)[32],
-                                         uint32_t sQ, uint32_t sKa,
-                                         uint32_t sKb, int kv0, int N,
-                                         float scale, int t, float& m0,
-                                         float& m1) {
-  wgmma_fence();
-  scores<P, NKa>(sa, sQ, sKa);
-  wgmma_commit();
-  if constexpr (NKb > 0) {
-    scores<P, NKb>(sb, sQ, sKb);
-    wgmma_commit();
-    wgmma_wait<1>();
-  } else {
-    wgmma_wait<0>();
-  }
-  fence_registers(sa);
-  row_max<NKa, kMaskA>(sa, kv0, N, scale, t, m0, m1);
-  if constexpr (NKb > 0) {
-    wgmma_wait<0>();
-    fence_registers(sb);
-    row_max<NKb, kMaskB>(sb, kv0 + kRows, N, scale, t, m0, m1);
-  }
-}
-
-// Pass 2, one tile: S of this tile (width NK) is in s; p and l from it,
-// then o += P . V (one chain, or P . V_hi + P . V_lo) and the next tile's S
-// (width NKn, none if 0) into s in one batch of products.
-template <int P, int NK, bool kMask, int NKn>
-__device__ __forceinline__ void output_step(float (&s)[32], float (&o)[8],
-                                            uint32_t sQ, uint32_t sKn,
-                                            uint32_t sV, int kv0, int N,
-                                            float scale2, int t, float c0,
-                                            float c1, float& l0, float& l1) {
-  uint32_t a[4][4];
-  probabilities<NK, kMask>(s, a, kv0, N, scale2, t, c0, c1, l0, l1);
-  wgmma_fence();
-  issue_pv<NK, kHD>(o, a, sV);
-  if constexpr (P == 2) issue_pv<NK, kHD>(o, a, sV + G::kTileBytes);
-  if constexpr (NKn > 0) scores<P, NKn>(s, sQ, sKn);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_registers(o);
-  fence_registers(s);
-}
-
 // kOneTile: N <= 64, one key tile, S computed once for both passes.
 template <typename T, bool kOneTile>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -165,8 +116,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_registers(s);                                                   \
   row_max<W, true>(s, 0, N, scale, t, m0, m1);                          \
   quad_max(m0, m1);                                                     \
-  output_step<P, W, true, 0>(s, acc, sQ, 0, slot(0) + kPlanes, 0, N,    \
-                             scale2, t, m0 * kLog2e, m1 * kLog2e, l0, l1)
+  fwd_output_step<P, kHD, W, true, 0>(s, acc, sQ, 0, slot(0) + kPlanes, 0, \
+                                      N, scale2, t, m0 * kLog2e,           \
+                                      m1 * kLog2e, l0, l1)
     LT_BY_TAIL(tail16, LT_ONE);
 #undef LT_ONE
   } else {
@@ -178,19 +130,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     {
       const int kv0 = (nt - 1) * kRows;
 #define LT_STEP(W)                                                         \
-  max_step<P, W, true, 0, false>(s, s2, sQ, slot(nt - 1), 0, kv0, N, scale, \
-                                 t, m0, m1)
+  fwd_max_step<P, kHD, W, true, 0, false>(s, s2, sQ, slot(nt - 1), 0, kv0, \
+                                          N, scale, t, m0, m1)
       LT_BY_TAIL(tail16, LT_STEP);
 #undef LT_STEP
     }
     for (int i = 0; i < nt - 1; i += 2) {
       const int kv0 = i * kRows;
       if (i + 1 < nt - 1)
-        max_step<P, 64, false, 64, false>(s, s2, sQ, slot(i), slot(i + 1),
-                                          kv0, N, scale, t, m0, m1);
+        fwd_max_step<P, kHD, 64, false, 64, false>(
+            s, s2, sQ, slot(i), slot(i + 1), kv0, N, scale, t, m0, m1);
       else
-        max_step<P, 64, false, 0, false>(s, s2, sQ, slot(i), 0, kv0, N,
-                                         scale, t, m0, m1);
+        fwd_max_step<P, kHD, 64, false, 0, false>(s, s2, sQ, slot(i), 0, kv0,
+                                                  N, scale, t, m0, m1);
     }
     quad_max(m0, m1);
 
@@ -205,18 +157,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t sKn = slot(j + 1), sV = slot(j) + kPlanes;
       const int kv0 = j * kRows;
       if (j < nt - 2) {
-        output_step<P, 64, false, 64>(s, acc, sQ, sKn, sV, kv0, N, scale2, t,
-                                      c0, c1, l0, l1);
+        fwd_output_step<P, kHD, 64, false, 64>(s, acc, sQ, sKn, sV, kv0, N,
+                                               scale2, t, c0, c1, l0, l1);
       } else if (j == nt - 2) {
 #define LT_STEP(W)                                                          \
-  output_step<P, 64, false, W>(s, acc, sQ, sKn, sV, kv0, N, scale2, t, c0, \
-                               c1, l0, l1)
+  fwd_output_step<P, kHD, 64, false, W>(s, acc, sQ, sKn, sV, kv0, N,       \
+                                        scale2, t, c0, c1, l0, l1)
         LT_BY_TAIL(tail16, LT_STEP);
 #undef LT_STEP
       } else {
 #define LT_STEP(W)                                                       \
-  output_step<P, W, true, 0>(s, acc, sQ, 0, sV, kv0, N, scale2, t, c0, c1, \
-                             l0, l1)
+  fwd_output_step<P, kHD, W, true, 0>(s, acc, sQ, 0, sV, kv0, N, scale2,   \
+                                      t, c0, c1, l0, l1)
         LT_BY_TAIL(tail16, LT_STEP);
 #undef LT_STEP
       }

@@ -1,6 +1,7 @@
 // Multi-head self-attention, forward, fp32: K1 (flat layout) and K4
 // (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
-// 64 (this file's kernel) and 16 (attention_fwd_hd16.cuh's, in fp32).
+// 64 (this file's kernel), 16 (attention_fwd_hd16.cuh's, in fp32) and 128
+// (attention_fwd_hd128.cuh's, in fp32).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
@@ -26,7 +27,8 @@
 // are sm90.cuh's at their default head dim, 64. At hd 16 the C entry
 // launches attention_fwd_hd16.cuh's kernel in fp32, which lands the rows
 // by cp.async and splits them in shared memory instead (one round trip for
-// a whole head).
+// a whole head); at hd 128 attention_fwd_hd128.cuh's, which lands them by
+// cp.async and splits them in shared memory too, through a ring.
 //
 // What bounds it on an H100: at the ViT-B/14 global shape (B=64, N=257,
 // H=12) q/k/v in and o out are 202 MB, ~60 us at 3.35 TB/s; the products
@@ -62,6 +64,7 @@
 // leaving P . V in flight under the next tile's probabilities made ptxas
 // serialize the products (C7511, C7519), as did register fences before
 // wgmma.fence. PERF.md has the measurements.
+#include "attention_fwd_hd128.cuh"
 #include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
@@ -318,8 +321,8 @@ __global__ void __launch_bounds__(kOneTile ? 128 : 256, 1)
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o. fp32 (fp32 = 1) at hd = 64
-// or 16 (N <= 768).
+// strides: (batch, token, head) for q, k, v, o. fp32 (fp32 = 1) at hd = 64,
+// 16 or 128 (N <= 768).
 extern "C" int lt_attention_fwd_f32_sm90(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int fp32, int B, int N, int H,
@@ -329,6 +332,9 @@ extern "C" int lt_attention_fwd_f32_sm90(const void* q, const void* k,
   if (hd == 16)
     return lt::sm90::hd16::launch<float>(q, k, v, o, lse, B, N, H, strides,
                                          scale, stream);
+  if (hd == 128)
+    return lt::sm90::hd128::launch<float>(q, k, v, o, lse, B, N, H, strides,
+                                          scale, stream);
   if (hd != 64) return cudaErrorInvalidValue;
   const int nt = (N + kRows - 1) / kRows;
   const bool one = nt == 1, resident = nt <= kMaxResident;

@@ -1,6 +1,7 @@
 // Multi-head self-attention, forward, bf16: K1 (flat layout) and K4
 // (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
-// 64 (this file's kernel) and 16 (attention_fwd_hd16.cuh's, in bf16).
+// 64 (this file's kernel), 16 (attention_fwd_hd16.cuh's, in bf16) and 128
+// (attention_fwd_hd128.cuh's, in bf16).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
@@ -19,7 +20,8 @@
 // The kernel below is the hd-64 one; its tiles, descriptors and products
 // are sm90.cuh's at their default head dim, 64. At hd 16 the C entry
 // launches attention_fwd_hd16.cuh's kernel, which takes the same helpers at
-// hd 16 (the 32-byte swizzle) and stages a whole head at once.
+// hd 16 (the 32-byte swizzle) and stages a whole head at once; at hd 128
+// attention_fwd_hd128.cuh's, whose tiles are two hd-64 sub-tiles a row.
 //
 // What bounds it on an H100: at the ViT-B/14 global shape (B=64, N=257,
 // H=12) q/k/v in and o out are 101 MB, ~30 us at 3.35 TB/s; the three N^2 hd
@@ -52,6 +54,7 @@
 // Each warpgroup still alternates products and softmax between block
 // barriers, and q . k runs twice; PERF.md has the measurements. Later work:
 // TMA loads from a warp-specialised producer.
+#include "attention_fwd_hd128.cuh"
 #include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
@@ -292,8 +295,8 @@ __global__ void __launch_bounds__(kOneTile ? 128 : 256, 1)
 
 }  // namespace
 
-// strides: (batch, token, head) for q, k, v, o. bf16 (fp32 = 0) at hd = 64
-// or 16 (N <= 768).
+// strides: (batch, token, head) for q, k, v, o. bf16 (fp32 = 0) at hd = 64,
+// 16 or 128 (N <= 768).
 extern "C" int lt_attention_fwd_sm90(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int fp32, int B, int N, int H, int hd,
@@ -303,6 +306,9 @@ extern "C" int lt_attention_fwd_sm90(const void* q, const void* k,
   if (hd == 16)
     return lt::sm90::hd16::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
                                         scale, stream);
+  if (hd == 128)
+    return lt::sm90::hd128::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
+                                         scale, stream);
   if (hd != 64) return cudaErrorInvalidValue;
   const int q_tiles = (N + kRows - 1) / kRows;
   const bool one = q_tiles == 1;

@@ -1,32 +1,42 @@
 // Hopper (sm_90a) machinery shared by the attention kernels, all on wgmma
 // (flat_attention_fwd_sm90.cu and flat_attention_bwd_sm90.cu in bf16,
 // flat_attention_fwd_f32_sm90.cu and flat_attention_bwd_f32_sm90.cu in
-// fp32, and at hd 16 attention_fwd_hd16.cuh and attention_bwd_hd16.cuh in
-// both): the cp.async copies that fill shared-memory tiles, the predicated
-// loads that split fp32 rows into hi/lo planes, the wgmma shared-memory
-// descriptors, the warpgroup products, the forward's row maxima and
-// probabilities, and what the two hd-16 kernels share (namespace hd16).
+// fp32, at hd 16 attention_fwd_hd16.cuh and attention_bwd_hd16.cuh and at
+// hd 128 attention_fwd_hd128.cuh in both): the cp.async copies that fill
+// shared-memory tiles, the predicated loads that split fp32 rows into hi/lo
+// planes, the wgmma shared-memory descriptors, the warpgroup products, the
+// forward's row maxima, probabilities and steps, and what the two hd-16
+// kernels share (namespace hd16).
 //
 // A tile is 64 rows of one head (queries or keys) by hd bf16, hd a template
 // parameter HD (Geo<HD>; every helper's HD defaults to 64, the hd-64
-// kernels' head dim). A row is one swizzle atom wide, and the copies write the
-// swizzle themselves, so a tile is a wgmma operand as it lands (an fp32
-// tile is written as two such bf16 tiles, its hi and lo planes):
-//   hd 64: rows of 128 bytes, the 128-byte swizzle (descriptor mode 1):
-//     16-byte chunk c of row r at chunk c ^ (r & 7); 8-row groups 1024
-//     bytes apart (the SBO), a k16 step 2048 bytes of rows (MN-major).
+// kernels' head dim). A swizzle atom is 8 rows of one atom row; the copies
+// write the swizzle themselves, so a tile is a wgmma operand as it lands
+// (an fp32 tile is written as two such bf16 tiles, its hi and lo planes):
+//   hd 64: rows of 128 bytes, one atom row, the 128-byte swizzle
+//     (descriptor mode 1): 16-byte chunk c of row r at chunk c ^ (r & 7);
+//     8-row groups 1024 bytes apart (the SBO), a k16 step 2048 bytes of
+//     rows (MN-major).
 //   hd 16: rows of 32 bytes, the 32-byte swizzle (mode 3): chunk c of row r
 //     at chunk c ^ ((r >> 2) & 1); 8-row groups 256 bytes apart (the SBO),
 //     a k16 step 512 bytes of rows (MN-major).
-// Both are the swizzle of byte-offset bits 4.. by bits 7.. (chunk_at), so a
+//   hd 128: a bf16 row is 256 bytes, two atom rows, so the tile is two
+//     hd-64 sub-tiles side by side, 8 KB apart: columns [0, 64) of every
+//     row in the first, [64, 128) in the second, each laid out as at hd 64
+//     (chunk c of row r at byte 8192 (c / 8) + 128 r + 16 ((c % 8) ^
+//     (r & 7))).
+// All are the swizzle of byte-offset bits 4.. by bits 7.. (chunk_at), so a
 // tile starts on a 1024-byte boundary. A tile is read either way:
 //   K-major: the row index is M or N of the product and hd is its depth
 //     (Q, dO or K as A, or K, V, Q, dO as the B of X . Y^T); the LBO is not
 //     read (the depth of a k16 step is the atom's 32 bytes, or within it).
+//     At hd 128, k16 steps 4 to 7 start in the second sub-tile.
 //   MN-major: the row index is the depth and hd is N (V in P . V, K in
 //     dS . K, Q and dO in P^T . dO and dS^T . Q), through the transpose bit;
-//     hd is one atom wide, so the LBO (the stride between atoms along hd) is
-//     not read either, and both offsets are given the 8-row stride.
+//     the SBO is the 8-row stride and the LBO the stride between atoms
+//     along hd: at hd 64 and 16 hd is one atom wide, so the LBO is not read
+//     and is given the 8-row stride too; at hd 128 (V of P . V, N = 128)
+//     it is the 8 KB between the sub-tiles.
 // Accumulators are laid out per warp as a warp's 16 rows, lane 4 g + t
 // holding rows g and g + 8, columns 8 j + 2 t and + 1, so a packed pair of
 // neighbouring accumulators is the register A operand of the next product.
@@ -42,14 +52,18 @@ constexpr int kRows = 64;  // rows of a tile: queries or keys
 // The shared-memory geometry of a tile at head dim HD (see above).
 template <int HD>
 struct Geo {
-  static_assert(HD == 16 || HD == 64, "a bf16 row must be one swizzle atom");
-  static constexpr int kRowBytes = 2 * HD;
-  static constexpr int kTileBytes = kRows * kRowBytes;
+  static_assert(HD == 16 || HD == 64 || HD == 128, "head dim 16, 64 or 128");
+  static constexpr int kAtomCols = HD == 16 ? 16 : 64;  // an atom row's bf16
+  static constexpr int kAtoms = HD / kAtomCols;  // atoms across a row
+  static constexpr int kRowBytes = 2 * kAtomCols;  // a row within one atom
+  static constexpr int kAtomBytes = kRows * kRowBytes;  // a sub-tile
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;
   static constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: the SBO
   static constexpr int kChunks = HD / 8;             // 16-byte chunks a row
-  static constexpr int kLogChunks = HD == 64 ? 3 : 1;
-  static constexpr int kRowShift = HD == 64 ? 0 : 2;  // log2(128 / kRowBytes)
-  static constexpr uint64_t kMode = HD == 64 ? 1 : 3;  // descriptor swizzle
+  static constexpr int kAtomChunks = kAtomCols / 8;  // ... an atom row
+  static constexpr int kLogChunks = HD == 128 ? 4 : HD == 64 ? 3 : 1;
+  static constexpr int kRowShift = HD == 16 ? 2 : 0;  // log2(128 / kRowBytes)
+  static constexpr uint64_t kMode = HD == 16 ? 3 : 1;  // descriptor swizzle
 };
 
 // The hd-64 tile, which the hd-64 kernels use.
@@ -60,8 +74,12 @@ constexpr int kTileBytes = Geo<64>::kTileBytes;
 template <int HD = 64>
 __device__ __forceinline__ uint32_t chunk_at(uint32_t tile, int r, int c) {
   using G = Geo<HD>;
+  if constexpr (G::kAtoms > 1) {
+    tile += (c / G::kAtomChunks) * G::kAtomBytes;
+    c %= G::kAtomChunks;
+  }
   return tile + r * G::kRowBytes +
-         ((c ^ ((r >> G::kRowShift) & (G::kChunks - 1))) << 4);
+         ((c ^ ((r >> G::kRowShift) & (G::kAtomChunks - 1))) << 4);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -125,18 +143,27 @@ __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
 }
 
 // A K-major operand at step kk of hd: 16 columns = 32 bytes a step (hd 16
-// has one), 8-row groups kGroupBytes apart.
+// has one), 8-row groups kGroupBytes apart; at hd 128 steps 4 to 7 in the
+// second sub-tile.
 template <int HD = 64>
 __device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
-  return descriptor<HD>(tile + 32 * kk, 16, Geo<HD>::kGroupBytes);
+  using G = Geo<HD>;
+  if constexpr (G::kAtoms > 1)
+    return descriptor<HD>(tile + (kk / 4) * G::kAtomBytes + 32 * (kk % 4),
+                          16, G::kGroupBytes);
+  else
+    return descriptor<HD>(tile + 32 * kk, 16, G::kGroupBytes);
 }
 
-// An MN-major operand at step kk of the rows: 16 rows a step; hd is a
-// single swizzle atom wide, so only the stride between 8-row groups is read.
+// An MN-major operand at step kk of the rows: 16 rows a step, 8-row groups
+// kGroupBytes apart (the SBO); the LBO steps from one atom to the next
+// along hd (hd 128's sub-tiles), and is not read where hd is a single atom
+// wide.
 template <int HD = 64>
 __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
   using G = Geo<HD>;
-  return descriptor<HD>(tile + 2 * G::kGroupBytes * kk, G::kGroupBytes,
+  return descriptor<HD>(tile + 2 * G::kGroupBytes * kk,
+                        G::kAtoms > 1 ? G::kAtomBytes : G::kGroupBytes,
                         G::kGroupBytes);
 }
 
@@ -259,6 +286,41 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The same at N = 128 (d 64 x 128: P . V at hd 128).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -571,6 +633,69 @@ __device__ __forceinline__ void probabilities(const float (&s)[32],
   }
 }
 
+// S (64 x NK) = A . B^T of tiles of head dim HD at sA and sB (S = Q . K^T,
+// and S^T = K . Q^T): one chain from bf16 planes (P = 1), three from fp32
+// hi/lo planes (P = 2).
+template <int P, int NK, int HD>
+__device__ __forceinline__ void plane_scores(float (&s)[32], uint32_t sA,
+                                             uint32_t sB) {
+  if constexpr (P == 1)
+    issue_scores<NK, HD>(s, sA, sB);
+  else
+    issue_scores_split<NK, HD>(s, sA, sB);
+}
+
+// The forward's steps at head dim HD over tiles of P bf16 planes, as the
+// hd-16 and hd-128 kernels take them.
+//
+// Pass 1, key tiles at sKa and sKb (widths NKa and NKb, none if NKb is 0):
+// both S issued at once, the first folded into the row maxima while the
+// second computes.
+template <int P, int HD, int NKa, bool kMaskA, int NKb, bool kMaskB>
+__device__ __forceinline__ void fwd_max_step(float (&sa)[32],
+                                             float (&sb)[32], uint32_t sQ,
+                                             uint32_t sKa, uint32_t sKb,
+                                             int kv0, int N, float scale,
+                                             int t, float& m0, float& m1) {
+  wgmma_fence();
+  plane_scores<P, NKa, HD>(sa, sQ, sKa);
+  wgmma_commit();
+  if constexpr (NKb > 0) {
+    plane_scores<P, NKb, HD>(sb, sQ, sKb);
+    wgmma_commit();
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_registers(sa);
+  row_max<NKa, kMaskA>(sa, kv0, N, scale, t, m0, m1);
+  if constexpr (NKb > 0) {
+    wgmma_wait<0>();
+    fence_registers(sb);
+    row_max<NKb, kMaskB>(sb, kv0 + kRows, N, scale, t, m0, m1);
+  }
+}
+
+// Pass 2, one tile: S of this tile (width NK) is in s; p and l from it,
+// then o += P . V (one chain, or P . V_hi + P . V_lo) and the next tile's S
+// (width NKn, none if 0) into s in one batch of products.
+template <int P, int HD, int NK, bool kMask, int NKn>
+__device__ __forceinline__ void fwd_output_step(
+    float (&s)[32], float (&o)[HD / 2], uint32_t sQ, uint32_t sKn,
+    uint32_t sV, int kv0, int N, float scale2, int t, float c0, float c1,
+    float& l0, float& l1) {
+  uint32_t a[4][4];
+  probabilities<NK, kMask>(s, a, kv0, N, scale2, t, c0, c1, l0, l1);
+  wgmma_fence();
+  issue_pv<NK, HD>(o, a, sV);
+  if constexpr (P == 2) issue_pv<NK, HD>(o, a, sV + Geo<HD>::kTileBytes);
+  if constexpr (NKn > 0) plane_scores<P, NKn, HD>(s, sQ, sKn);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_registers(o);
+  fence_registers(s);
+}
+
 // What the hd-16 forward (attention_fwd_hd16.cuh) and backward
 // (attention_bwd_hd16.cuh) share: a warpgroup's copies of whole tiles, a
 // whole head staged in shared memory at once, and the scores.
@@ -595,15 +720,11 @@ __device__ __forceinline__ void stage(uint32_t tile, const float* head,
 }
 
 // S (64 x NK) = A . B^T of the tiles at sA and sB (S = Q . K^T, and
-// S^T = K . Q^T): one chain from bf16 planes (P = 1), three from fp32 hi/lo
-// planes (P = 2).
+// S^T = K . Q^T) at hd 16 (plane_scores).
 template <int P, int NK>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t sA,
                                        uint32_t sB) {
-  if constexpr (P == 1)
-    issue_scores<NK, kHD>(s, sA, sB);
-  else
-    issue_scores_split<NK, kHD>(s, sA, sB);
+  plane_scores<P, NK, kHD>(s, sA, sB);
 }
 
 }  // namespace hd16

@@ -192,6 +192,10 @@ class DistillationV3(Method):
         params = nn.ModuleDict(modules).to(device)
         teacher = self.teacher.module
         if self._teacher_state is None:
+            # Allocated on the device and drawn leaf by leaf from the CPU
+            # generator: the values of an init on the CPU, without the
+            # whole teacher standing on the host first (a 7B one is 25 GiB).
+            teacher.to_empty(device=device)
             teacher.reset_parameters(generator)
         else:
             teacher.load_state_dict(self._teacher_state)

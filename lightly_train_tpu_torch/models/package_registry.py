@@ -3,7 +3,9 @@
 Port of ``lightly_train_tpu/models/package_registry.py`` for the ViTs of
 the ``dinov2/*`` and ``dinov3/*`` names. Test-size models are registered but
 hidden from ``list_models``. The 7B ViTs (``dinov2/vit7b14``,
-``dinov3/vit7b16``: head dim 128) and the other packages (the
+``dinov3/vit7b16``: head dim 128) build everywhere and run forward only (a
+frozen distillation teacher, ``embed``); pretraining one is refused
+(:func:`refuse_pretraining`). The other packages (the
 ``dinov3/convnext-*`` ConvNeXts, resnet, timm, ...) wait for ROADMAP item
 10.
 """
@@ -64,6 +66,32 @@ def get_wrapped_model(
             "dinov3/* ViTs so far (other packages: ROADMAP item 10)."
         )
     return entry.build(dtype=dtype, **kwargs)
+
+
+# Models the port runs forward only: their attention at head dim 128 has no
+# backward kernel yet (ROADMAP queue 2 item 2b), and training one keeps four
+# fp32 copies of its parameters, more than one card holds (FSDP, ROADMAP
+# item 7.6).
+FORWARD_ONLY = ("dinov2/vit7b14", "dinov3/vit7b16")
+
+
+def refuse_pretraining(name: str) -> None:
+    """Raises NotImplementedError, before anything is allocated, where
+    ``pretrain`` is asked to train a model of :data:`FORWARD_ONLY`; its
+    parameters are counted on the meta device."""
+    if name not in FORWARD_ONLY:
+        return
+    with torch.device("meta"):
+        n = sum(p.numel() for p in get_wrapped_model(name).module.parameters())
+    raise NotImplementedError(
+        f"model='{name}' runs forward only in the port (ROADMAP item 10): as "
+        "a distillation teacher (method_args={'teacher': ...}) and in embed. "
+        "Pretraining it waits for the attention backward at head dim 128 "
+        "(ROADMAP queue 2 item 2b) and for FSDP (ROADMAP item 7.6): its "
+        f"{n / 1e9:.2f} B parameters, their AdamW moments mu and nu and a "
+        f"teacher of its size are four fp32 copies, about {16 * n / 1e9:.0f} "
+        "GB, against an H100's 80 GB."
+    )
 
 
 # The JAX package's DINOv3 ConvNeXts, refused by name.

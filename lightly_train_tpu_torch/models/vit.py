@@ -97,12 +97,28 @@ REMAT_POLICIES: Dict[Optional[str], Optional[tuple]] = {
 }
 
 
+def _drawn(w: torch.Tensor, draw, generator: Optional[torch.Generator]
+           ) -> None:
+    """``draw(t)`` fills ``t`` from ``generator``: in ``w`` itself, or, where
+    ``w`` lies on another device than the generator (a model built on the
+    card, drawn from the CPU generator), in a buffer on the generator's
+    device that is then copied into ``w``. Either way ``w`` gets the same
+    values, and a model initialised leaf by leaf never stands whole on the
+    host."""
+    if generator is None or generator.device == w.device:
+        draw(w)
+        return
+    buf = torch.empty(w.shape, dtype=w.dtype, device=generator.device)
+    draw(buf)
+    w.copy_(buf)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator] = None) -> None:
     """Flax's default kernel init: truncated normal, variance 1 / fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
+    _drawn(w, lambda t: nn.init.trunc_normal_(
+        t, std=std, a=-2 * std, b=2 * std, generator=generator), generator)
 
 
 class Linear(nn.Module):
@@ -417,17 +433,28 @@ class VisionTransformer(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """Flax's initializers: lecun-normal kernels, zero biases, normal
         (0.02) cls and register tokens and position embedding, zero mask
-        token."""
+        token, LayerNorm scale 1 and bias 0, LayerScale at its init value.
+        Every parameter is set, so a module made with ``to_empty`` (on the
+        card) is initialised in full; the draws come from ``generator`` in
+        one order whatever the device, so a seed gives the same values on
+        the card as on the CPU."""
         w = self.patch_embed.weight
         lecun_normal_(w.data, w.shape[1] * w.shape[2] * w.shape[3], generator)
         self.patch_embed.bias.data.zero_()
         self.mask_token.data.zero_()
         for p in (self.pos_embed, self.cls_token, self.register_tokens):
             if p is not None:
-                p.data.normal_(0.0, 0.02, generator=generator)
+                _drawn(p.data, lambda t: t.normal_(0.0, 0.02,
+                                                   generator=generator),
+                       generator)
         for m in self.modules():
             if isinstance(m, Linear):
                 m.reset_parameters(generator)
+            elif isinstance(m, LayerNorm):
+                m.weight.data.fill_(1.0)
+                m.bias.data.zero_()
+            elif isinstance(m, LayerScale):
+                m.gamma.data.fill_(self.cfg.layerscale_init)
 
     def forward(
         self,
@@ -538,12 +565,6 @@ def vit_config(
     sizes = _SIZES if flavor == "dinov2" else _DINOV3_SIZES
     if size not in sizes:
         raise ValueError(f"Unknown ViT size '{size}'. Options: {sorted(sizes)}")
-    if size == "vit7b":
-        raise NotImplementedError(
-            f"{flavor}/vit7b{patch_size} is not ported yet (ROADMAP item 10): its head "
-            "dim 128 (4096 / 32 heads) waits for the attention kernels at hd "
-            "128 (ROADMAP queue 2 item 2)."
-        )
     common = dict(patch_size=patch_size, pos_embed_size=224 // patch_size,
                   drop_path_rate=drop_path_rate, remat_every=remat_every,
                   remat_policy=remat_policy, dtype=dtype)

@@ -2,13 +2,14 @@
 
 Port of ``lightly_train_tpu/ops/pallas/attention.py``. The CUDA forward
 and backward serve all four TPU kernels (see :func:`fwd_library` and
-:func:`bwd_library`), all on Hopper's ``wgmma`` at both head dims, each
-dtype on its own sources (``csrc/flat_attention_fwd_sm90.cu`` and
-``csrc/flat_attention_bwd_sm90.cu`` in bf16,
+:func:`bwd_library`), all on Hopper's ``wgmma`` at every head dim they
+take, each dtype on its own sources (``csrc/flat_attention_fwd_sm90.cu``
+and ``csrc/flat_attention_bwd_sm90.cu`` in bf16,
 ``csrc/flat_attention_fwd_f32_sm90.cu`` and
 ``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32; at head dim 16 the
 forwards launch the kernel of ``csrc/attention_fwd_hd16.cuh`` and the
-backwards that of ``csrc/attention_bwd_hd16.cuh``). The four TPU kernels
+backwards that of ``csrc/attention_bwd_hd16.cuh``, at head dim 128 the
+forwards that of ``csrc/attention_fwd_hd128.cuh``). The four TPU kernels
 do the same arithmetic and differ only in how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
@@ -23,9 +24,14 @@ layout in place through strides (no transpose, no copy).
 
 What the kernels take, as the TPU kernels do: bf16 or fp32 q/k/v of one
 dtype (o, dq, dk, dv take it; lse stays fp32), N with :func:`fits_vmem`
-(N <= 768) and head dim 16 or 64 (every ViT size the port has). A CUDA
-tensor of any other dtype, mixed dtypes, another head dim or N, or strides
-the kernels cannot read raise; they never fall back to a plain version.
+(N <= 768) and the head dims of :data:`HEAD_DIMS`: 16, 64 and 128 forward
+(every ViT size the port has), 16 and 64 backward. A CUDA tensor of any
+other dtype, mixed dtypes, another head dim or N, or strides the kernels
+cannot read raise; they never fall back to a plain version. The backward
+at head dim 128 is ROADMAP queue 2 item 2b: on the card, attention at hd
+128 that autograd would record (grad enabled and an input that requires
+grad) raises before the forward runs (:func:`check_recordable`), so the
+7B ViTs run forward only, as a frozen teacher or through ``embed``.
 
 Which path the ViT's :func:`attention` runs is the JAX ViT's gate: the
 kernels for unmasked attention on a CUDA tensor when :func:`fits_vmem`
@@ -52,7 +58,10 @@ import torch
 from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch._env import Env
 
-HEAD_DIMS = (16, 64)
+# Head dims the kernels take, by direction: the backward at hd 128 (the 7B
+# ViTs') waits for ROADMAP queue 2 item 2b.
+HEAD_DIMS = {"fwd": (16, 64, 128), "bwd": (16, 64)}
+_FORWARD_ONLY = set(HEAD_DIMS["fwd"]) - set(HEAD_DIMS["bwd"])
 DTYPES = (torch.bfloat16, torch.float32)
 # The JAX package's VMEM budget; fits_vmem(N) holds exactly for N <= 768.
 _VMEM_BUDGET_BYTES = 10 * 1024 * 1024
@@ -66,9 +75,30 @@ def fits_vmem(n_tokens: int) -> bool:
     return scratch <= _VMEM_BUDGET_BYTES
 
 
-def kernel_supports(n_tokens: int, head_dim: int) -> bool:
-    """Whether the CUDA kernels take this sequence length and head dim."""
-    return n_tokens >= 1 and fits_vmem(n_tokens) and head_dim in HEAD_DIMS
+def kernel_supports(n_tokens: int, head_dim: int, direction: str) -> bool:
+    """Whether the CUDA kernels of ``direction`` ("fwd" or "bwd") take this
+    sequence length and head dim."""
+    return (n_tokens >= 1 and fits_vmem(n_tokens)
+            and head_dim in HEAD_DIMS[direction])
+
+
+_BWD_MISSING = ("the attention backward at head dim 128 is not ported to "
+                "the card yet (ROADMAP queue 2 item 2b)")
+
+
+def check_recordable(head_dim: int, tensors) -> None:
+    """Raises NotImplementedError where autograd would record an attention
+    whose backward the kernels do not take (head dim 128: grad enabled and
+    an input that requires grad), before anything is launched. A frozen
+    module under ``torch.no_grad()`` or with ``requires_grad_(False)``
+    passes."""
+    if head_dim in _FORWARD_ONLY and torch.is_grad_enabled() and any(
+            x.requires_grad for x in tensors):
+        raise NotImplementedError(
+            f"{_BWD_MISSING}: run attention at head dim {head_dim} on the "
+            "card without gradients (under torch.no_grad(), or with "
+            "parameters that do not require grad: a frozen teacher, embed)."
+        )
 
 
 def use_vmem_attention(x: Optional[torch.Tensor] = None) -> bool:
@@ -173,7 +203,8 @@ def _kernel_readable(x: torch.Tensor, strides) -> bool:
             and strides[2] % vec == 0)
 
 
-def _check_kernel_inputs(name: str, tensors, num_heads: Optional[int]):
+def _check_kernel_inputs(name: str, tensors, num_heads: Optional[int],
+                         direction: str):
     """The (B, H, N, hd) shape and each tensor's strides; raises on what
     the kernels do not take."""
     ref = tensors[0]
@@ -199,9 +230,10 @@ def _check_kernel_inputs(name: str, tensors, num_heads: Optional[int]):
             )
         strides.append(st)
     B, H, N, hd = shape
-    if not kernel_supports(N, hd):
-        raise ValueError(f"{name}: the kernels take head dim {HEAD_DIMS} and "
-                         f"1 <= N <= 768; got N={N}, hd={hd}")
+    if not kernel_supports(N, hd, direction):
+        raise ValueError(f"{name}: the kernels take head dim "
+                         f"{HEAD_DIMS[direction]} and 1 <= N <= 768; got "
+                         f"N={N}, hd={hd}")
     return shape, strides
 
 
@@ -233,20 +265,24 @@ bwd_launches = {"flat_attention_bwd_sm90": 0,
 shape_launches: collections.Counter = collections.Counter()
 
 
-def _check_route(dtype: torch.dtype, head_dim: int) -> None:
-    """Raises for a dtype or head dim that no library takes."""
+def _check_route(dtype: torch.dtype, head_dim: int, direction: str) -> None:
+    """Raises for a dtype or head dim that no library of ``direction``
+    takes: NotImplementedError for the backward at hd 128, ValueError
+    otherwise."""
     if dtype not in DTYPES:
         raise ValueError(f"the kernels take bf16 or fp32, got {dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the kernels take head dim {HEAD_DIMS}, got "
-                         f"{head_dim}")
+    if direction == "bwd" and head_dim in _FORWARD_ONLY:
+        raise NotImplementedError(_BWD_MISSING + ".")
+    if head_dim not in HEAD_DIMS[direction]:
+        raise ValueError(f"the kernels take head dim {HEAD_DIMS[direction]}"
+                         f", got {head_dim}")
 
 
 def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose forward kernel serves ``dtype`` at ``head_dim``:
     ``flat_attention_fwd_sm90`` (bf16) or ``flat_attention_fwd_f32_sm90``
-    (fp32), both wgmma at every head dim the kernels take."""
-    _check_route(dtype, head_dim)
+    (fp32), both wgmma at every head dim the forward takes (16, 64, 128)."""
+    _check_route(dtype, head_dim, "fwd")
     return ("flat_attention_fwd_sm90" if dtype == torch.bfloat16
             else "flat_attention_fwd_f32_sm90")
 
@@ -254,14 +290,16 @@ def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose backward kernels serve ``dtype`` at ``head_dim``:
     ``flat_attention_bwd_sm90`` (bf16) or ``flat_attention_bwd_f32_sm90``
-    (fp32), both wgmma at every head dim the kernels take."""
-    _check_route(dtype, head_dim)
+    (fp32), both wgmma at hd 16 and 64; hd 128 raises NotImplementedError
+    (ROADMAP queue 2 item 2b)."""
+    _check_route(dtype, head_dim, "bwd")
     return ("flat_attention_bwd_sm90" if dtype == torch.bfloat16
             else "flat_attention_bwd_f32_sm90")
 
 
 def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
-    shape, strides = _check_kernel_inputs(name, (q, k, v, o), num_heads)
+    shape, strides = _check_kernel_inputs(name, (q, k, v, o), num_heads,
+                                          "fwd")
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
     library = fwd_library(q.dtype, hd)
@@ -278,7 +316,7 @@ def _launch_fwd(name, q, k, v, o, lse, scale, num_heads=None):
 def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
                 num_heads=None):
     shape, strides = _check_kernel_inputs(
-        name, (q, k, v, o, do, dq, dk, dv), num_heads)
+        name, (q, k, v, o, do, dq, dk, dv), num_heads, "bwd")
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
     library = bwd_library(q.dtype, hd)
@@ -372,9 +410,14 @@ def flat_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unmasked self-attention over flat (B, N, D) q/k/v, D = heads * hd."""
+    """Unmasked self-attention over flat (B, N, D) q/k/v, D = heads * hd.
+    On the card, raises before the launch where autograd would record it
+    at a head dim the backward does not take (:func:`check_recordable`)."""
+    head_dim = q.shape[-1] // num_heads
+    if q.is_cuda:
+        check_recordable(head_dim, (q, k, v))
     if scale is None:
-        scale = (q.shape[-1] // num_heads) ** -0.5
+        scale = head_dim ** -0.5
     return FlatAttention.apply(q, k, v, num_heads, float(scale))
 
 
@@ -443,7 +486,11 @@ def vmem_attention_bhnd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unmasked self-attention over (B, H, N, hd) q/k/v."""
+    """Unmasked self-attention over (B, H, N, hd) q/k/v. On the card,
+    raises before the launch where autograd would record it at a head dim
+    the backward does not take (:func:`check_recordable`)."""
+    if q.is_cuda:
+        check_recordable(q.shape[-1], (q, k, v))
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return VmemAttention.apply(q, k, v, float(scale))

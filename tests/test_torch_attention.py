@@ -241,13 +241,20 @@ def test_gate_runs_plain_attention_on_cpu_and_for_masks():
 
 def test_kernel_support_range():
     """The JAX gate's range (fits_vmem: N <= 768) and the head dims of the
-    port's ViT sizes (64, and 16 for vittest)."""
-    for n in (1, 37, 257, 512, 577, 730, 768):
-        assert A.kernel_supports(n, 64) and A.kernel_supports(n, 16)
-    assert not A.kernel_supports(769, 64)
-    assert not A.kernel_supports(0, 64)
-    assert not A.kernel_supports(257, 32)
-    assert not A.kernel_supports(257, 128)
+    port's ViT sizes (64, 16 for vittest, and 128 for the 7B ViTs, whose
+    attention runs forward only: its backward is ROADMAP queue 2 item
+    2b)."""
+    for direction in ("fwd", "bwd"):
+        for n in (1, 37, 257, 512, 577, 730, 768):
+            assert A.kernel_supports(n, 64, direction)
+            assert A.kernel_supports(n, 16, direction)
+        assert not A.kernel_supports(769, 64, direction)
+        assert not A.kernel_supports(0, 64, direction)
+        assert not A.kernel_supports(257, 32, direction)
+    for n in (1, 201, 257, 768):
+        assert A.kernel_supports(n, 128, "fwd")
+        assert not A.kernel_supports(n, 128, "bwd")
+    assert not A.kernel_supports(769, 128, "fwd")
 
 
 @pytest.mark.parametrize("dtype,head_dim,library", [
@@ -255,11 +262,14 @@ def test_kernel_support_range():
     (torch.float32, 64, "flat_attention_fwd_f32_sm90"),
     (torch.bfloat16, 16, "flat_attention_fwd_sm90"),
     (torch.float32, 16, "flat_attention_fwd_f32_sm90"),
+    (torch.bfloat16, 128, "flat_attention_fwd_sm90"),
+    (torch.float32, 128, "flat_attention_fwd_f32_sm90"),
 ])
 def test_forward_route(dtype, head_dim, library):
-    """At both head dims each dtype runs its own wgmma forward (hd 16
-    through the kernel of csrc/attention_fwd_hd16.cuh); each route's
-    library is one the port builds."""
+    """At every head dim each dtype runs its own wgmma forward (hd 16
+    through the kernel of csrc/attention_fwd_hd16.cuh, hd 128 through that
+    of csrc/attention_fwd_hd128.cuh); each route's library is one the port
+    builds."""
     assert A.fwd_library(dtype, head_dim) == library
     assert library in A.fwd_launches
     assert library in _native.LIBRARIES
@@ -267,7 +277,7 @@ def test_forward_route(dtype, head_dim, library):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_forward_route_refuses_other_dtypes(dtype):
-    for head_dim in (16, 64):
+    for head_dim in (16, 64, 128):
         with pytest.raises(ValueError, match="bf16 or fp32"):
             A.fwd_library(dtype, head_dim)
     with pytest.raises(ValueError, match="head dim"):
@@ -291,11 +301,17 @@ def test_backward_route(dtype, head_dim, library):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_backward_route_refuses_other_dtypes(dtype):
+    """Other dtypes and head dims raise ValueError; hd 128, which the
+    forward takes, raises NotImplementedError naming the item that ports
+    its backward."""
     for head_dim in (16, 64):
         with pytest.raises(ValueError, match="bf16 or fp32"):
             A.bwd_library(dtype, head_dim)
     with pytest.raises(ValueError, match="head dim"):
         A.bwd_library(torch.bfloat16, 32)
+    for ok_dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
+            A.bwd_library(ok_dtype, 128)
 
 
 def _planes(x: torch.Tensor):

@@ -422,15 +422,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                               eps=1e-8)
 
 
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("N", [37, 730])
 def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda, dtype, N,
                                                              hd, monkeypatch):
     """Unmasked attention on CUDA tensors with N <= 768 launches the kernels,
-    in bf16 and fp32, at both head dims; fp16 raises instead of running
-    plain, and so does LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it
-    to the plain path."""
+    in bf16 and fp32, at every head dim (hd 128 forward only: these inputs
+    do not require grad); fp16 raises instead of running plain, and so does
+    LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it to the plain
+    path."""
     y = torch.zeros((2, N, 12 * hd), dtype=DTYPES[dtype], device=cuda)
     before = A.flat_attention_fwd.launches
     out = A.attention(y, y, y, 12)
@@ -534,6 +535,103 @@ def test_sm90_forward_hd16_matches_plain(cuda, monkeypatch, dtype, layout, N,
         assert o.stride() == qkv[0].stride()
     assert _within(o, o_ref, dt)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+
+
+# (N, B, H) for the Hopper forward at hd 128 (csrc/attention_fwd_hd128.cuh):
+# N = 1 and the one-tile form (37, 64), one past a tile (65), ragged tails
+# of every wgmma width after an odd and an even number of whole tiles (129,
+# 170, 182), the 7B/16 teacher's and the 7B/14 embed's token counts (201,
+# 257; last tiles of 9 and 1 keys) and the top of the range (730, 768).
+HD128_SHAPES = [
+    (1, 1, 2), (37, 4, 2), (64, 2, 2), (65, 3, 2), (129, 2, 3), (170, 2, 5),
+    (182, 3, 2), (201, 4, 8), (257, 4, 8), (730, 2, 2), (768, 1, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N,B,H", HD128_SHAPES)
+def test_sm90_forward_hd128_matches_plain(cuda, monkeypatch, dtype, layout,
+                                          N, B, H):
+    """At hd 128 both dtypes run their wgmma library (K1 and K4): the one
+    launch goes to flat_attention_fwd_sm90 (bf16) or
+    flat_attention_fwd_f32_sm90 (fp32) and no other, within the dtype's
+    tolerances of the plain forward; o keeps q's layout."""
+    dt = DTYPES[dtype]
+    library = A.fwd_library(dt, 128)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    gen = torch.Generator(device=cuda).manual_seed(N + B + H + 8)
+    qkv, (fwd, plain) = _bf16_inputs(layout, B, N, H, gen, dt, hd=128)
+    before = dict(A.fwd_launches)
+    o, lse = fwd(*qkv)
+    o_ref, lse_ref = plain(*qkv)
+    assert asked == [library]
+    assert A.fwd_launches == {**before, library: before[library] + 1}
+    assert o.dtype == dt and torch.isfinite(o).all()
+    if layout != "flat":
+        assert o.stride() == qkv[0].stride()
+    assert _within(o, o_ref, dt)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (768, 1)])
+def test_forward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
+    """Each block sums its rows in one fixed order: two launches on the
+    same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(N + 128)
+    q, k, v = (_randn((B, N, 4 * 128), gen, DTYPES[dtype]) for _ in range(3))
+    first = A.flat_attention_fwd(q, k, v, 4, 128 ** -0.5)
+    again = A.flat_attention_fwd(q, k, v, 4, 128 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_forward_hd128_addresses_past_2_31_bytes(cuda):
+    """bf16 at (1024, 257, 32, 128): each of q, k, v and o is 2.16 GB, past
+    2^31 bytes, so every address the kernel forms must be 64-bit. The first
+    and the last batch rows (the latter wholly past 2^31 bytes) are held
+    to the plain forward of those rows."""
+    B, N, H, hd = 1024, 257, 32, 128
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v = (torch.randn((B, N, H * hd), generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    assert q.numel() * q.element_size() > 2 ** 31
+    o, lse = A.flat_attention_fwd(q, k, v, H, hd ** -0.5)
+    for rows in (slice(0, 2), slice(B - 2, B)):
+        o_ref, lse_ref = A.flat_attention_fwd_plain(
+            q[rows], k[rows], v[rows], H, hd ** -0.5)
+        assert _within(o[rows], o_ref, torch.bfloat16)
+        torch.testing.assert_close(lse[rows], lse_ref, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_hd128_attention_under_grad_is_refused_before_launch(cuda, dtype):
+    """Attention at hd 128 that autograd would record raises
+    NotImplementedError naming ROADMAP queue 2 item 2b before any launch
+    (its backward is not ported), through every public entry; under
+    torch.no_grad() the same call runs the forward kernel."""
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    flat = [_randn((2, 37, 2 * 128), gen, dt).requires_grad_()
+            for _ in range(3)]
+    heads = [x.detach().view(2, 37, 2, 128).requires_grad_() for x in flat]
+    before = dict(A.fwd_launches)
+    for call in (lambda: A.flat_attention(*flat, 2),
+                 lambda: A.attention(*flat, 2),
+                 lambda: A.vmem_attention(*heads),
+                 lambda: A.vmem_attention_bhnd(
+                     *(x.transpose(1, 2) for x in heads))):
+        with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
+            call()
+    assert A.fwd_launches == before
+    with torch.no_grad():
+        out = A.flat_attention(*flat, 2)
+    library = A.fwd_library(dt, 128)
+    assert A.fwd_launches[library] == before[library] + 1
+    assert torch.isfinite(out).all()
 
 
 def test_sm90_forward_library_runs_hgmma(cuda):
@@ -762,6 +860,25 @@ def test_attention_libraries_run_wgmma_only(cuda, name):
     holds no warp-level mma.sync (HMMA)."""
     sass = _native.sass(name)
     assert "HGMMA" in sass and "HMMA" not in sass
+
+
+@pytest.mark.parametrize("model", ["dinov3/vittest16", "dinov2/vittest14"])
+def test_a_teacher_drawn_on_the_card_has_the_cpu_init(cuda, model):
+    """A random distillation teacher is allocated on the card with
+    ``to_empty`` and drawn leaf by leaf from the CPU generator: the same
+    values, bitwise, as the module built and initialised on the CPU from
+    the same seed."""
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    on_cpu = get_wrapped_model(model).module
+    on_cpu.reset_parameters(torch.Generator().manual_seed(5))
+    on_card = get_wrapped_model(model).module.to_empty(device=cuda)
+    on_card.reset_parameters(torch.Generator().manual_seed(5))
+    want = on_cpu.state_dict()
+    for name, value in on_card.state_dict().items():
+        assert value.is_cuda and torch.equal(value.cpu(), want[name]), name
 
 
 def test_embed_on_the_card_runs_k1_and_matches_the_cpu(cuda, tmp_path):

@@ -71,11 +71,14 @@ def test_optimizer_names_follow_the_jax_package(tmp_path, name):
 ])
 def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
                                                         model_args, item):
-    """The 7B ViTs, which need the attention kernels at head dim 128 (item
-    10), and the DINOv3 ConvNeXts (item 10) are refused naming their item.
-    The JAX ViT's activation checkpointing (item 22) is ported: a run with
-    it takes its step, with the options in the ViT's config (a policy
-    without ``remat_every`` checkpoints nothing, as in the JAX ViT)."""
+    """The DINOv3 ConvNeXts (item 10) are refused naming their item. The 7B
+    ViTs (item 10) build and run forward only: as a student they are
+    refused before anything is built, naming the attention backward at
+    head dim 128 (queue 2 item 2b) and FSDP (item 7.6), with their
+    parameter count. The JAX ViT's activation checkpointing (item 22) is
+    ported: a run with it takes its step, with the options in the ViT's
+    config (a policy without ``remat_every`` checkpoints nothing, as in the
+    JAX ViT)."""
     if item == "22":
         state = _pretrain(tmp_path, model=model, model_args=model_args)
         assert state.step == 1
@@ -84,8 +87,16 @@ def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
             model_args.get("remat_every", 0),
             model_args.get("remat_policy"))
         return
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP item {item}\b") as err:
         _pretrain(tmp_path, model=model, model_args=model_args)
+    if "vit7b" in model:
+        said = str(err.value)
+        assert "ROADMAP queue 2 item 2b" in said
+        assert "ROADMAP item 7.6" in said
+        count = {"dinov2/vit7b14": "8.06 B", "dinov3/vit7b16": "6.72 B"}
+        assert count[model] in said
+        assert not (tmp_path / "out").exists()
 
 
 def test_remat_at_its_defaults_builds_the_model():
