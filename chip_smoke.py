@@ -15,12 +15,13 @@ Phases (any failure exits non-zero):
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
    378^2 images), at head dim 16 (a small grid and the vittest14 shapes
    of phase 3e) and, in fp32, at the frozen DINOv3 ViT-B/16 teacher's
-   shape of phase 3f (N = 201); K1 alone at head dim 128 (its backward is
-   ROADMAP queue 2 item 2b) in both dtypes at the 7B teacher's and 7B
-   embed's shapes of phases 3j and 3k, at N = 37 and at N = 730; K4/K5
+   shape of phase 3f (N = 201); K1/K2 at head dim 128 in both dtypes at
+   the 7B teacher's and 7B student's shape of phases 3j and 3l, the 7B
+   embed shape of phase 3k, at N = 37 and at N = 730; K4/K5
    (``vmem_attention``) in both layouts and dtypes at the ViT-B/14
-   shapes, and in ``vmem_attention``'s layout at the hd-16 ones, and K4
-   alone in both layouts at the 7B embed shape; K3, one launch over the
+   shapes and at the 7B embed shape, and in ``vmem_attention``'s layout at
+   the hd-16 ones; every backward run twice and held bitwise equal to
+   itself; K3, one launch over the
    ViT-B/14 leaves and synthetic ones that exercise its chunk plan (ragged
    sizes, a leaf of no gradient), with lr 0 (bitwise), over two steps of
    ``FusedAdamWEMA`` with every gradient reallocated in between, at several
@@ -99,8 +100,21 @@ Phases (any failure exits non-zero):
    on the card): 40 K1 launches on the bf16 forward at
    (64, 257, 32, 128), no K2; two images' embeddings against the same
    model with its kernels and with the plain attention; the export's
-   write and load times, img/s and peak memory. Both delete what they
-   wrote. Each phase's wall time is printed. ``pretrain`` applies
+   write and load times, img/s and peak memory. (3l) ``pretrain``
+   distillation v3 of a full-width, full-depth DINOv3 7B/16 student (head
+   dim 128, drawn on the card) in bf16 with LARS at momentum 0 and
+   ``model_args={"remat_every": 1}``, batch 64, for 2 steps: per step 80
+   K1 launches of the student on the bf16 forward at (64, 201, 32, 128)
+   (40 forward, 40 recomputed), 40 K2 on the bf16 backward there, 12 K1 of
+   the fp32 ViT-B/16 teacher at (64, 201, 12, 64), no K3; finite losses,
+   step times, peak memory, the checkpoint and the export written; one
+   profiled step (the share of the device's time in K1 and K2); on one
+   fixed batch, the student's gradients with the kernels held to those
+   with K2's plain version in its place (5e-2 relative L2 on each checked
+   leaf), and those with autograd through the plain forward written down;
+   and DINOv2 with the same student refused, with the card's own
+   capacity, before anything is allocated. 3j, 3k and 3l delete what
+   they wrote. Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -130,6 +144,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor peak
@@ -164,18 +179,35 @@ DISTILL_QUEUE = 16
 DISTILL_KEYS = ("train_loss", "loss_global", "loss_local", "grad_norm")
 # ViT-B/14's blocks.
 DEPTH = 12
-# The 7B ViTs (width 4096, 32 heads: head dim 128, 40 blocks) run forward
-# only. Phase 3j: distillation v3 of ViT-B/14 from a frozen random DINOv3
-# 7B/16 teacher (fp32 in every precision) at 224^2: 196 patches + CLS + 4
-# registers. Phase 3k: embed with a DINOv2 7B/14 export in bf16 at 224^2:
-# 256 patches + CLS. Both at batch 64. Phase 2 adds an N <= 64 shape (the
-# one-tile form) and N = 730 (the 7B/14 on 378^2 images).
+# The 7B ViTs (width 4096, 32 heads: head dim 128, 40 blocks). Phase 3j:
+# distillation v3 of ViT-B/14 from a frozen random DINOv3 7B/16 teacher
+# (fp32 in every precision) at 224^2: 196 patches + CLS + 4 registers.
+# Phase 3k: embed with a DINOv2 7B/14 export in bf16 at 224^2: 256 patches
+# + CLS. Phase 3l: distillation v3 of a DINOv3 7B/16 student in bf16 (its
+# attention at TEACHER_7B's shape) from the default ViT-B/16 teacher, with
+# LARS at momentum 0 (parameters and gradients alone: 2 fp32 copies, 50
+# GiB) and every block recomputed in the backward. All at batch 64. Phase 2
+# adds an N <= 64 shape and N = 730 (the 7B/14 on 378^2 images).
 HEADS_7B, HEAD_DIM_7B, DEPTH_7B = 32, 128, 40
 TEACHER_7B = (DISTILL_BATCH, 201, HEADS_7B, HEAD_DIM_7B)
 EMBED_7B = (DISTILL_BATCH, 257, HEADS_7B, HEAD_DIM_7B)
 LOCAL_7B = (DISTILL_BATCH, 37, HEADS_7B, HEAD_DIM_7B)
 GLOBAL_378_7B = (16, 730, HEADS_7B, HEAD_DIM_7B)
 TEACHER_7B_STEPS = 2
+STUDENT_7B = "dinov3/vit7b16"
+STUDENT_7B_STEPS = 2
+STUDENT_7B_ARGS = {"method": "distillationv3",
+                   "optim_args": {"momentum": 0.0},
+                   "model_args": {"remat_every": 1}}
+# The student leaves whose gradients phase 3l holds to those with K2's
+# plain version: the first and last blocks' attention and MLP, a middle
+# block, the tokens and the patch embedding.
+STUDENT_7B_LEAVES = (
+    "student.cls_token", "student.patch_embed.weight",
+    "student.blocks.0.attn.q.weight", "student.blocks.0.mlp.w1.weight",
+    "student.blocks.20.attn.k.weight", "student.blocks.39.attn.v.weight",
+    "student.blocks.39.mlp.w2.weight", "student.norm.weight",
+)
 # Phase 3g: DINOv2 bf16 with activation checkpointing every 2nd block,
 # drop path 0.1 and Sinkhorn centering; the fixed-batch comparison's
 # variants (the model_args of each beside drop path 0.1).
@@ -397,9 +429,10 @@ def attention_bounds(B: int, N: int, H: int, hd: int, dtype: str) -> tuple:
 def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
                    layout: str) -> tuple:
     """One forward and one backward kernel against their plain versions at
-    ``shape`` = (B, N, H, hd), then timed: (forward row, backward row); at a
-    head dim the backward does not take (128: ROADMAP queue 2 item 2b), the
-    forward alone: (forward row,).
+    ``shape`` = (B, N, H, hd), then timed: (forward row, backward row), the
+    backward run twice and held bitwise equal to itself (no atomics); at a
+    head dim the backward does not take, the forward alone: (forward
+    row,).
 
     ``kernels`` "flat" runs K1/K2 on (B, N, H * hd) tensors; "vmem" runs
     K4/K5 on (B, H, N, hd) tensors, real ones (``layout`` "bhnd") or the
@@ -450,6 +483,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
     o, lse = fwd()
     o_ref, lse_ref = fwd_plain()
     grads, grads_ref = (bwd(), bwd_plain()) if backward else ((), ())
+    if backward and not all(torch.equal(a, b) for a, b in zip(grads, bwd())):
+        fail(f"{tag}: two backwards of the same inputs differ")
     torch.cuda.synchronize()
     floors = {"dq": cancel_floor(scale, hd, do, v, k),
               "dk": cancel_floor(scale, hd, do, v, q)}
@@ -517,13 +552,13 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # global and local shapes of both pretrain paths, at ViT-B/14 on 378^2
 # images (N = 730, at batch 8 and 32), and at hd 16 on a small grid and at
 # the vittest14 shapes of phase 3e, and in fp32 at the teacher's shape of
-# phase 3f; K1 alone at hd 128 (the 7B teacher's and embed's shapes of
-# phases 3j and 3k, N = 37 and N = 730); K4/K5 at the ViT-B/14 shapes in
-# both layouts and dtypes, at the hd-16 shapes in vmem_attention's layout,
-# and K4 alone at the 7B embed shape in both layouts.
+# phase 3f; K1/K2 at hd 128 (the 7B teacher's and student's shape of
+# phases 3j and 3l, the embed shape of phase 3k, N = 37 and N = 730);
+# K4/K5 at the ViT-B/14 shapes and the 7B embed shape in both layouts and
+# dtypes, and at the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
-# forward (resident and streamed), and both forms of each kernel (one tile,
-# several).
+# forward (resident and streamed), and both forms of each hd-16 and hd-64
+# kernel (one tile, several).
 HD16_SHAPES = (HD16_SMALL, VITTEST_GLOBAL, VITTEST_LOCAL)
 HD128_SHAPES = (TEACHER_7B, EMBED_7B, LOCAL_7B, GLOBAL_378_7B)
 ATTENTION_CASES = [
@@ -1427,18 +1462,24 @@ def held_to_plain_attention(A, module, images, keys, tol: float,
     return rel
 
 
-def timed_saves():
+def timed_saves(drop: bool = False, sizes: Optional[list] = None):
     """Wraps ``CheckpointManager.save`` to record each call's seconds;
-    returns (the list they land in, a function that puts it back)."""
+    returns (the list they land in, a function that puts it back). With
+    ``drop`` each step file is deleted as soon as it is written, its size
+    in GiB appended to ``sizes`` first, so that a 7B run holds one 25 GiB
+    file on disk at a time: its checkpoint, then its export."""
     from lightly_train_tpu_torch._checkpoint import checkpoint as C
 
     seconds = []
     save = C.CheckpointManager.save
 
-    def timed(self, *args, **kwargs):
+    def timed(self, step, *args, **kwargs):
         t0 = time.perf_counter()
-        save(self, *args, **kwargs)
+        save(self, step, *args, **kwargs)
         seconds.append(time.perf_counter() - t0)
+        if drop:
+            sizes.append(self.path(step).stat().st_size / 2 ** 30)
+            self.path(step).unlink()
 
     C.CheckpointManager.save = timed
     return seconds, lambda: setattr(C.CheckpointManager, "save", save)
@@ -1667,6 +1708,232 @@ def run_embed_7b_path(lt, A, F, card: str, work: Path) -> dict:
     return {"launches": launches, "by_shape": by_shape, "peak_gib": peak_gib,
             "export_gib": export_gib, "write_s": write_s, "load_s": loads[0],
             "embed_s": embed_s, "images_per_sec": ips, "rel_l2": rel}
+
+
+def refuse_dinov2_7b(lt, work: Path) -> str:
+    """Phase 3l: ``pretrain`` DINOv2 with the 7B/16 student must raise
+    NotImplementedError naming FSDP (item 7.6) and ``adamw8bit`` (item 10)
+    with the card's own capacity, before anything is allocated on the card
+    or written."""
+    import torch
+
+    out = work / "dinov2_7b"
+    before = torch.cuda.memory_allocated()
+    try:
+        lt.pretrain(out=str(out), data=str(work / "images"),
+                    model=STUDENT_7B, method="dinov2",
+                    batch_size=DISTILL_BATCH, steps=1, precision="bf16")
+    except NotImplementedError as err:
+        said = str(err)
+    else:
+        fail("pretrain DINOv2 with a 7B/16 student was not refused")
+    if (torch.cuda.memory_allocated() != before or out.exists()
+            or "ROADMAP item 7.6" not in said or "adamw8bit" not in said):
+        fail(f"the DINOv2 7B refusal allocated, wrote or said: {said}")
+    return said
+
+
+def student_7b_fixed_batch(A, method, state, images, steps: int) -> dict:
+    """Phase 3l's fixed batch, on the state the run left: one whole train
+    step (forward, backward, the update) under ``torch.profiler``, for the
+    device's busy time and the share of it in K1 and K2 at hd 128 (the
+    fp32 teacher under the precision variable, as ``pretrain`` runs it);
+    then, from the state after it, the loss and the STUDENT_7B_LEAVES
+    gradients, from the same images and generator, under IEEE fp32: with
+    the attention kernels ("kernels"); with K2's plain version
+    (``flat_attention_bwd_plain``) in its place ("plain_backward"); and
+    with autograd through the plain forward (``plain_attention``,
+    "plain_attention"). Returns {"profile": {...}, tag: (loss, {leaf:
+    gradient})}. Each pass frees its gradients before the next."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightly_train_tpu_torch._commands.train_loop import make_train_step
+    from lightly_train_tpu_torch._system import apply_matmul_precision
+    from lightly_train_tpu_torch.models import vit
+
+    step = make_train_step(method, steps, aug_dtype=torch.bfloat16)
+    named = dict(state.params.named_parameters())
+    apply_matmul_precision()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, images, torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {"busy": 0.0, "K1": 0.0, "K2": 0.0}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms = evt.time_range.elapsed_us() / 1e3
+            by_kind["busy"] += ms
+            if "attention_fwd_hd128" in evt.name:
+                by_kind["K1"] += ms
+            elif "attention_bwd_hd128" in evt.name:
+                by_kind["K2"] += ms
+    del prof
+    results = {"profile": {"wall_ms": wall_ms, **{
+        f"{k}_ms": v for k, v in by_kind.items()}}}
+    pin_ieee()
+    kernel_bwd = A.flat_attention_bwd
+    for tag in ("kernels", "plain_backward", "plain_attention"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        if tag == "plain_backward":
+            A.flat_attention_bwd = A.flat_attention_bwd_plain
+        if tag == "plain_attention":
+            vit.attention = plain_attention(A)
+        try:
+            loss, grads, _, _ = step.loss_and_grads(state, images, gen)
+        finally:
+            vit.attention = A.attention
+            A.flat_attention_bwd = kernel_bwd
+        results[tag] = (float(loss), {
+            n: grads[n].detach().float().clone() for n in STUDENT_7B_LEAVES})
+        del grads
+        for p in named.values():
+            p.grad = None
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3l: ``pretrain`` distillation v3 of a full-width, full-depth
+    DINOv3 7B/16 student (STUDENT_7B_ARGS: LARS at momentum 0, every block
+    recomputed) in bf16 at batch 64 on phase 3's 64 images, for
+    STUDENT_7B_STEPS steps, with every launch counter set to 0 just before
+    and read just after. Per step: 80 K1 launches of the student on the
+    bf16 forward at TEACHER_7B (40 forward, 40 recomputed), 40 K2 on the
+    bf16 backward there, 12 K1 of the fp32 ViT-B/16 teacher at TEACHER, no
+    K3. The student is built on the card and drawn leaf by leaf from the
+    CPU generator. Then: the checkpoint and the export it wrote, one
+    profiled step and the student's gradients on a fixed batch with the
+    kernels against K2's plain version and the plain attention
+    (``student_7b_fixed_batch``), and DINOv2 with the same student refused
+    (``refuse_dinov2_7b``, run first, on an empty card)."""
+    import torch
+
+    from lightly_train_tpu_torch.methods import distillationv3 as V3
+
+    refused = refuse_dinov2_7b(lt, work)
+    print(f"  DINOv2 with the 7B/16 student: refused before any allocation: "
+          f"{refused}")
+    steps = STUDENT_7B_STEPS
+    out = work / "student_7b"
+    init = V3.DistillationV3.init
+    built, methods = [], []
+
+    def timed_init(self, generator, device):
+        t0 = time.perf_counter()
+        result = init(self, generator, device)
+        torch.cuda.synchronize()
+        built.append(time.perf_counter() - t0)
+        methods.append(self)
+        return result
+
+    V3.DistillationV3.init = timed_init
+    ckpt_gib = []
+    saves, restore = timed_saves(drop=True, sizes=ckpt_gib)
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        state = lt.pretrain(
+            out=str(out), data=str(work / "images"), model=STUDENT_7B,
+            batch_size=DISTILL_BATCH, steps=steps, precision="bf16",
+            log_every=1, seed=SEED, checkpoint_every=steps,
+            **STUDENT_7B_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        V3.DistillationV3.init = init
+        restore()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM_7B)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM_7B)
+    teacher_fwd = A.fwd_library(torch.float32, HEAD_DIM)
+    expected = [(2 * DEPTH_7B + DEPTH) * steps, DEPTH_7B * steps, 0, 0, 0]
+    expected_by_shape = {(fwd, TEACHER_7B): 2 * DEPTH_7B * steps,
+                         (bwd, TEACHER_7B): DEPTH_7B * steps,
+                         (teacher_fwd, TEACHER): DEPTH * steps}
+    logged = logged_steps(out)
+    for r in logged:
+        for key in DISTILL_KEYS:
+            if not math.isfinite(r[key]):
+                fail(f"7B-student step {r['step']}: {key} = {r[key]}")
+        print(f"  step {r['step']}: loss {r['train_loss']:.4f}, grad_norm "
+              f"{r['grad_norm']:.4e}, {r['profiling/step_time'] * 1e3:.1f} "
+              f"ms, {r['profiling/images_per_sec']:.1f} img/s [{card}]")
+    print(f"  launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, "
+          f"K4 {launches[3]}, K5 {launches[4]} (expected {expected}); by "
+          f"shape {by_shape}")
+    if ([r["step"] for r in logged] != list(range(1, steps + 1))
+            or launches != expected or by_shape != expected_by_shape):
+        fail(f"7B-student run: steps {[r['step'] for r in logged]}, "
+             f"launches {launches}, by shape {by_shape}")
+    student = state.params["student"]
+    n_params = sum(p.numel() for p in student.parameters())
+    if n_params != 6_716_035_072 or student.cfg.remat_every != 1:
+        fail("the student is not the full DINOv3 7B/16 with remat_every 1")
+    # One checkpoint, at the end, deleted as it was written (timed_saves).
+    export = out / "exported_models" / "exported_last" / "model.pt"
+    if len(ckpt_gib) != 1 or not export.is_file():
+        fail(f"7B-student run wrote checkpoints of {ckpt_gib} GiB, export "
+             f"{export.is_file()}")
+    export_gib = export.stat().st_size / 2 ** 30
+    shutil.rmtree(out)
+    times = [r["profiling/step_time"] * 1e3 for r in logged]
+
+    images = torch.randint(
+        0, 256, (DISTILL_BATCH, 256, 256, 3), dtype=torch.uint8,
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+    fixed = student_7b_fixed_batch(A, methods[0], state, images, steps)
+    prof = fixed["profile"]
+    print(f"  one profiled step on a fixed batch of {DISTILL_BATCH}: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+          f"K1 at hd 128 {prof['K1_ms']:.1f} ms "
+          f"({100 * prof['K1_ms'] / prof['busy_ms']:.2f}%), K2 at hd 128 "
+          f"{prof['K2_ms']:.1f} ms "
+          f"({100 * prof['K2_ms'] / prof['busy_ms']:.2f}%) [{card}]")
+    # Held: the kernels against the same step with K2's plain version in
+    # its place (the same forward), 5e-2 relative L2 a leaf. Written down,
+    # not held: against autograd through the plain forward, which changes
+    # the forward too. At a random init the loss is that of a uniform
+    # prediction and its gradient moves with bf16-sized changes of the
+    # forward: leaves whose gradient passes through no attention backward
+    # (the final norm, the last block's MLP) differ by a few percent there
+    # (PERF.md §6).
+    got = fixed["kernels"][1]
+    rel = {ref: {n: ((got[n] - fixed[ref][1][n]).norm()
+                     / fixed[ref][1][n].norm()).item()
+                 for n in STUDENT_7B_LEAVES}
+           for ref in ("plain_backward", "plain_attention")}
+    for name, r in rel["plain_backward"].items():
+        if not (torch.isfinite(got[name]).all() and r <= 5e-2):
+            fail(f"7B student's {name} gradient with the kernels against "
+                 f"K2's plain version: relative L2 {r} (tol 5e-2)")
+    print(f"  fixed batch of {DISTILL_BATCH}: losses "
+          + ", ".join(f"{t} {fixed[t][0]:.7f}" for t in (
+              "kernels", "plain_backward", "plain_attention")))
+    for ref, tol in (("plain_backward", "tol 5e-2 each"),
+                     ("plain_attention", "written down, not held")):
+        print(f"  gradients' relative L2 against {ref} ({tol}): "
+              + ", ".join(f"{n} {v:.3e}" for n, v in rel[ref].items()))
+    print(f"7B student: {n_params} parameters, method init (student drawn "
+          f"leaf by leaf on the card, heads, teacher) {built[0]:.1f} s; step "
+          f"ms {times}; peak {peak_gib:.2f} GiB; checkpoint "
+          f"{ckpt_gib[0]:.2f} GiB saved in {saves[-1]:.1f} s, export "
+          f"{export_gib:.2f} GiB; "
+          f"wall {wall:.1f} s [{card}]", flush=True)
+    del state, student, fixed, got
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_shape": by_shape, "step_ms": times,
+            "profile": prof,
+            "peak_gib": peak_gib, "init_s": built[0],
+            "checkpoint_gib": ckpt_gib[0], "checkpoint_save_s": saves[-1],
+            "export_gib": export_gib, "wall_s": wall, "grad_rel_l2": rel}
 
 
 def run_vmem_path(A, card: str, dtype: str) -> dict:
@@ -2262,6 +2529,11 @@ def main() -> int:
     phase(f"phase 3k: embed with a DINOv2 7B/14 export (hd 128), bf16, "
           f"batch {DISTILL_BATCH}", flush=True)
     embed_7b = run_embed_7b_path(lt, A, F, card, work)
+    pin_ieee()
+    phase(f"phase 3l: pretrain distillation v3 of a DINOv3 7B/16 student "
+          f"(hd 128, K2 at hd 128), bf16, batch {DISTILL_BATCH}, "
+          f"{STUDENT_7B_STEPS} steps, {STUDENT_7B_ARGS}", flush=True)
+    student_7b = run_student_7b_path(lt, A, F, card, work)
     end_phase()
     work_dir.cleanup()
 
@@ -2281,14 +2553,15 @@ def main() -> int:
                                      paths[dtype]["launches"][i])
             by_shape.update(dict.fromkeys((VITTEST_GLOBAL, VITTEST_LOCAL),
                                           vittest[dtype]["launches"][i]))
-            # hd 128: the 7B teacher's fp32 forwards (phase 3j) and 7B
-            # embed's bf16 ones (phase 3k).
+            # hd 128: the 7B teacher's fp32 forwards (phase 3j), 7B
+            # embed's bf16 ones (phase 3k), the 7B student's bf16 forwards
+            # and backwards (phase 3l) at TEACHER_7B.
+            lib7 = route(torch_dtype(dtype), HEAD_DIM_7B)
             by_shape.update({
-                TEACHER_7B: teacher_7b["by_shape"].get((A.fwd_library(
-                    torch_dtype(dtype), HEAD_DIM_7B), TEACHER_7B), 0),
-                EMBED_7B: embed_7b["by_shape"].get((A.fwd_library(
-                    torch_dtype(dtype), HEAD_DIM_7B), EMBED_7B), 0),
-            } if kernel == "K1" else {})
+                TEACHER_7B: sum(r["by_shape"].get((lib7, TEACHER_7B), 0)
+                                for r in (teacher_7b, student_7b)),
+                EMBED_7B: embed_7b["by_shape"].get((lib7, EMBED_7B), 0),
+            })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
         # student's K1/K2 at GLOBAL (in its run's dtype).
@@ -2299,7 +2572,10 @@ def main() -> int:
                     for p in DTYPES}
             for shape in (TEACHER, GLOBAL)} if kernel in ("K1", "K2") else {}
         by_shape[TEACHER] = sum(distill_runs.get(TEACHER, {}).values())
-        per_step_7b = {TEACHER_7B: ("launches_per_step", TEACHER_7B_STEPS),
+        # At TEACHER_7B the fp32 K1 launches are phase 3j's teacher's, the
+        # bf16 K1 and K2 ones phase 3l's student's.
+        per_step_7b = {TEACHER_7B: ("launches_per_step", TEACHER_7B_STEPS
+                                    if dtype == "fp32" else STUDENT_7B_STEPS),
                        EMBED_7B: ("launches_per_batch", 1)}
         kernels += [{
             "name": name, "route": "cuda",
@@ -2323,8 +2599,8 @@ def main() -> int:
             **({per_step_7b[tuple(row["shape"])][0]:
                 by_shape.get(tuple(row["shape"]), 0)
                 / per_step_7b[tuple(row["shape"])][1]}
-               if kernel == "K1" and tuple(row["shape"]) in per_step_7b
-               else {}),
+               if kernel in ("K1", "K2")
+               and tuple(row["shape"]) in per_step_7b else {}),
             **({"launches_remat": remat["by_shape"].get(
                 (lib, tuple(row["shape"])), 0),
                 "launches_remat_per_step": remat["by_shape"].get(

@@ -132,10 +132,45 @@ _NOT_PORTED = {
 }
 
 
+def _resolve_optim_args(config: TrainConfig, defaults):
+    """The run's optimizer arguments: the method's defaults unless
+    ``optim`` or ``optim_args`` is given (the JAX package's cascade)."""
+    if config.optim == "auto" and not config.optim_args:
+        return defaults
+    optim_type = config.optim if config.optim != "auto" else defaults.type
+    if optim_type not in JAX_OPTIMIZERS:
+        raise ConfigError(
+            f"Unknown optimizer '{optim_type}'. "
+            f"Options: {sorted(JAX_OPTIMIZERS)}"
+        )
+    if optim_type not in OPTIMIZER_ARGS_TYPES:
+        raise NotImplementedError(
+            f"Optimizer '{optim_type}' is not ported yet (ported: "
+            f"{sorted(OPTIMIZER_ARGS_TYPES)}; ROADMAP item 10)."
+        )
+    merged = {**({"lr": defaults.lr} if defaults.type == optim_type
+                 else {}), **config.optim_args}
+    return config_validate(OPTIMIZER_ARGS_TYPES[optim_type], merged)
+
+
+def _device_capacity(accelerator: str) -> Optional[int]:
+    """Bytes of memory of the card a run would use; None on the CPU and
+    without a card (where :func:`resolve_device` raises)."""
+    if accelerator == "cpu" or not torch.cuda.is_available():
+        return None
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+
+
 def _check_config(config: TrainConfig) -> list:
     """Raises for an option that is not ported and for options that
-    contradict each other; returns the resolved loggers."""
-    refuse_pretraining(config.model)
+    contradict each other, and for a model whose training state does not
+    fit the card; returns the resolved loggers."""
+    method_cls, _ = get_method_cls(config.method)
+    refuse_pretraining(
+        config.model,
+        _resolve_optim_args(config, method_cls.default_optimizer_args()),
+        method_cls.ema_teacher, _device_capacity(config.accelerator))
     for key, (default, item) in _NOT_PORTED.items():
         if getattr(config, key) != default:
             raise NotImplementedError(
@@ -267,24 +302,7 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
         loader = SyntheticLoader(batch_size, device, canonical_hw, config.seed)
 
     # ---- optimizer --------------------------------------------------------
-    if config.optim == "auto" and not config.optim_args:
-        optim_args = method.default_optimizer_args()
-    else:
-        defaults = method.default_optimizer_args()
-        optim_type = config.optim if config.optim != "auto" else defaults.type
-        if optim_type not in JAX_OPTIMIZERS:
-            raise ConfigError(
-                f"Unknown optimizer '{optim_type}'. "
-                f"Options: {sorted(JAX_OPTIMIZERS)}"
-            )
-        if optim_type not in OPTIMIZER_ARGS_TYPES:
-            raise NotImplementedError(
-                f"Optimizer '{optim_type}' is not ported yet (ported: "
-                f"{sorted(OPTIMIZER_ARGS_TYPES)}; ROADMAP item 10)."
-            )
-        merged = {**({"lr": defaults.lr} if defaults.type == optim_type
-                     else {}), **config.optim_args}
-        optim_args = config_validate(OPTIMIZER_ARGS_TYPES[optim_type], merged)
+    optim_args = _resolve_optim_args(config, method.default_optimizer_args())
     base_lr = (
         config.learning_rate if config.learning_rate != AUTO
         else (optim_args.lr if optim_args.lr != AUTO else 1e-3)

@@ -25,7 +25,6 @@ import torch
 from lightly_train_tpu_torch._debug.nan_guard import NaNGuard
 from lightly_train_tpu_torch._logging import get_logger
 from lightly_train_tpu_torch._optim.fused_update import FusedAdamWEMA
-from lightly_train_tpu_torch._optim.update import apply_updates
 from lightly_train_tpu_torch.methods.base import Method, TrainState, ViewSpec
 from lightly_train_tpu_torch.ops.augment import (
     augment_view_with_geometry,
@@ -123,8 +122,14 @@ def make_train_step(
                 grads, named,
                 dict(method_state["teacher"].named_parameters()), state.step)
         else:
-            updates, grad_norm = state.updater.update(grads, named)
-            apply_updates(named, method.mask_updates(updates, state.step))
+            # The grads dict holds the only reference to each gradient, so
+            # the leaf-by-leaf update frees each as it goes.
+            for p in named.values():
+                p.grad = None
+            step = state.step
+            grad_norm = state.updater.update_and_apply(
+                grads, named,
+                lambda name, u: method.mask_updates({name: u}, step)[name])
             method_state = method.post_update(params, method_state,
                                               state.step, total_steps)
         state.method_state = method_state

@@ -23,14 +23,17 @@ order:
 
 The method then masks the updates (``Method.mask_updates``), they are added
 to the parameters, and the method's ``post_update`` runs (the train step,
-``_commands/train_loop.py``). The count, the lr and the weight decay are
-host numbers; everything else is plain tensor ops on the parameters'
-device, so nothing waits on the card. No ``torch.optim`` class runs.
+``_commands/train_loop.py``). All of that runs one leaf at a time
+(:meth:`UnfusedUpdate.update_and_apply`), so that a model whose parameters
+and gradients fill most of the card (a 7B ViT) is updated without a copy of
+either tree. The count, the lr and the weight decay are host numbers;
+everything else is plain tensor ops on the parameters' device, so nothing
+waits on the card. No ``torch.optim`` class runs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -100,66 +103,82 @@ class UnfusedUpdate:
         return float(self.args.weight_decay)
 
     @torch.no_grad()
-    def update(
+    def update_and_apply(
         self,
-        grads: Mapping[str, Optional[torch.Tensor]],
+        grads: Dict[str, Optional[torch.Tensor]],
         params: Mapping[str, torch.Tensor],
-    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """(updates by name, the global grad norm before clipping). A
-        ``None`` gradient counts as zeros. Advances the step count."""
+        mask: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Updates ``params`` in place, leaf by leaf; returns the global grad
+        norm before clipping. A ``None`` gradient counts as zeros. Each
+        gradient is taken out of ``grads`` as its leaf is updated, so that
+        it is freed there when the caller holds no other reference. ``mask``
+        (the method's ``mask_updates`` of one leaf) gets each update by
+        name before it is added. Advances the step count.
+
+        The global norm comes first. Then each leaf goes through the whole
+        chain (clip, the trust ratio and its two norms, trace or moments,
+        weight decay, lr scale, -lr, mask) and is added before the next
+        leaf starts: beyond the parameters and gradients the update holds
+        a few tensors of one leaf at a time, never a tree of them. The
+        arithmetic and its order within a leaf are those of the chain over
+        whole trees, so the parameters are bitwise what it gave.
+        """
         a = self.args
-        p = [params[n] for n in self.names]
-        g = [grads[n].float() if grads[n] is not None
-             else torch.zeros_like(params[n], dtype=torch.float32)
-             for n in self.names]
-        norm = global_norm(g)
-        if self.grad_clip_norm is not None:
-            keep = norm < self.grad_clip_norm
-            g = [torch.where(keep, x, x / norm * self.grad_clip_norm)
-                 for x in g]
         f32 = np.float32
+        # A missing gradient's norm is that of zeros: a 0-d zero stands in
+        # for the leaf.
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=params[self.names[0]].device)
+        norm = global_norm([zero if grads[n] is None else grads[n].float()
+                            for n in self.names])
+        clip = self.grad_clip_norm
+        keep = None if clip is None else norm < clip
         if type(a) is AdamWArgs:
             b1, b2 = a.betas
-            mu, nu = (list(self.moments[k].values()) for k in ("mu", "nu"))
             n_inc = f32(self.count + 1)
             bc1 = float(f32(1) - f32(b1) ** n_inc)
             bc2 = float(f32(1) - f32(b2) ** n_inc)
-            u = []
-            for gi, m, v in zip(g, mu, nu):
-                m.copy_((1 - b1) * gi + b1 * m)
-                v.copy_((1 - b2) * (gi * gi) + b2 * v)
-                u.append((m / bc1) / (torch.sqrt(v / bc2) + a.eps))
-        else:
-            if type(a) is LARSArgs:
-                pn = torch.stack(torch._foreach_norm(p))
-                gn = torch.stack(torch._foreach_norm(g))
-                ratio = torch.where((pn == 0) | (gn == 0), torch.ones_like(pn),
-                                    a.trust_coefficient * pn / gn)
-                g = [x * r for x, r in zip(g, ratio.unbind())]
-            u = g
-            if a.momentum > 0:
-                trace = list(self.moments["trace"].values())
-                for gi, t in zip(g, trace):
-                    t.copy_(gi + a.momentum * t)
-                u = trace
         wd = self._weight_decay()
-        if wd > 0 or self.weight_decay_schedule is not None:
-            u = [ui + wd * pi if d else ui
-                 for ui, pi, d in zip(u, p, self.decays)]
-        if self.lr_scales is not None:
-            u = [ui * s for ui, s in zip(u, self.lr_scales)]
+        decay = wd > 0 or self.weight_decay_schedule is not None
         lr = self.learning_rate
         step = -float(f32(lr(self.count) if callable(lr) else lr))
+        for i, name in enumerate(self.names):
+            p = params[name]
+            g = grads.pop(name)
+            g = (g.float() if g is not None
+                 else torch.zeros_like(p, dtype=torch.float32))
+            if keep is not None:
+                g = torch.where(keep, g, g / norm * clip)
+            if type(a) is AdamWArgs:
+                m, v = self.moments["mu"][name], self.moments["nu"][name]
+                m.copy_((1 - b1) * g + b1 * m)
+                v.copy_((1 - b2) * (g * g) + b2 * v)
+                u = (m / bc1) / (torch.sqrt(v / bc2) + a.eps)
+            else:
+                if type(a) is LARSArgs:
+                    pn, gn = torch._foreach_norm([p, g])
+                    ratio = torch.where((pn == 0) | (gn == 0),
+                                        torch.ones_like(pn),
+                                        a.trust_coefficient * pn / gn)
+                    g = g * ratio
+                u = g
+                if a.momentum > 0:
+                    trace = self.moments["trace"][name]
+                    trace.copy_(g + a.momentum * trace)
+                    u = trace
+            del g
+            if decay and self.decays[i]:
+                u = u + wd * p
+            if self.lr_scales is not None:
+                u = u * self.lr_scales[i]
+            u = u * step
+            if mask is not None:
+                u = mask(name, u)
+            p.add_(u.to(p.dtype))
+            del u
         self.count += 1
-        return {n: ui * step for n, ui in zip(self.names, u)}, norm
-
-
-def apply_updates(params: Mapping[str, torch.Tensor],
-                  updates: Mapping[str, torch.Tensor]) -> None:
-    """``p <- p + u`` in place (``optax.apply_updates``)."""
-    with torch.no_grad():
-        for name, u in updates.items():
-            params[name].add_(u.to(params[name].dtype))
+        return norm
 
 
 def build_update(

@@ -68,6 +68,9 @@ class Method(abc.ABC):
     name: str = "method"
     default_steps: int = 125_000
     default_batch_size: int = 1024
+    # Whether the method keeps an EMA teacher of the student's size (its
+    # parameters a further fp32 copy of the student's).
+    ema_teacher: bool = False
 
     def __init__(self, wrapped: WrappedModel, args: MethodArgs):
         self.wrapped = wrapped
@@ -109,7 +112,8 @@ class Method(abc.ABC):
         prototype warmup). Default: unchanged."""
         return updates
 
-    def default_optimizer_args(self) -> Any:
+    @classmethod
+    def default_optimizer_args(cls) -> Any:
         from lightly_train_tpu_torch._optim import AdamWArgs
 
         return AdamWArgs(lr=1e-3)

@@ -74,6 +74,7 @@ class DINOv2(Method):
     name = "dinov2"
     default_steps = 125_000
     default_batch_size = 1024
+    ema_teacher = True
 
     def __init__(self, wrapped: WrappedModel, args: DINOv2Args):
         super().__init__(wrapped, args)
@@ -231,7 +232,8 @@ class DINOv2(Method):
         return loss, (new_method_state, metrics)
 
     # -- optimization -------------------------------------------------------
-    def default_optimizer_args(self) -> AdamWArgs:
+    @classmethod
+    def default_optimizer_args(cls) -> AdamWArgs:
         return AdamWArgs(lr=4e-3, betas=(0.9, 0.999), weight_decay=0.04)
 
     def grad_clip_norm(self) -> float:

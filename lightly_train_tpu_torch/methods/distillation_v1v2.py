@@ -38,7 +38,8 @@ class DistillationV1(DistillationV3):
         return loss, (method_state, {"loss_global": loss_global.detach(),
                                      "loss_local": loss_local.detach()})
 
-    def default_optimizer_args(self) -> AdamWArgs:
+    @classmethod
+    def default_optimizer_args(cls) -> AdamWArgs:
         return AdamWArgs(lr=1e-3, weight_decay=1e-5)
 
 

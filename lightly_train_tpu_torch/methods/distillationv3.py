@@ -187,14 +187,15 @@ class DistillationV3(Method):
         modules = {"student": self.wrapped.module,
                    "global_head": self.global_head,
                    "local_head": self.local_head}
+        # The student, its heads and the teacher are allocated on the device
+        # and drawn leaf by leaf from the CPU generator: the values of an
+        # init on the CPU, without the whole model standing on the host
+        # first (a 7B one is 25 GiB).
+        params = nn.ModuleDict(modules).to_empty(device=device)
         for m in modules.values():
             m.reset_parameters(generator)
-        params = nn.ModuleDict(modules).to(device)
         teacher = self.teacher.module
         if self._teacher_state is None:
-            # Allocated on the device and drawn leaf by leaf from the CPU
-            # generator: the values of an init on the CPU, without the
-            # whole teacher standing on the host first (a 7B one is 25 GiB).
             teacher.to_empty(device=device)
             teacher.reset_parameters(generator)
         else:
@@ -271,5 +272,6 @@ class DistillationV3(Method):
                    "loss_local": loss_local.detach()}
         return loss, (new_method_state, metrics)
 
-    def default_optimizer_args(self) -> LARSArgs:
+    @classmethod
+    def default_optimizer_args(cls) -> LARSArgs:
         return LARSArgs(lr=1.8, momentum=0.9, weight_decay=1e-6)

@@ -3,21 +3,21 @@
 Port of ``lightly_train_tpu/models/package_registry.py`` for the ViTs of
 the ``dinov2/*`` and ``dinov3/*`` names. Test-size models are registered but
 hidden from ``list_models``. The 7B ViTs (``dinov2/vit7b14``,
-``dinov3/vit7b16``: head dim 128) build everywhere and run forward only (a
-frozen distillation teacher, ``embed``); pretraining one is refused
-(:func:`refuse_pretraining`). The other packages (the
-``dinov3/convnext-*`` ConvNeXts, resnet, timm, ...) wait for ROADMAP item
-10.
+``dinov3/vit7b16``: head dim 128) build everywhere; ``pretrain`` refuses a
+run whose fp32 state does not fit the card (:func:`refuse_pretraining`).
+The other packages (the ``dinov3/convnext-*`` ConvNeXts, resnet, timm, ...)
+wait for ROADMAP item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from lightly_train_tpu_torch._optim.optimizers import AdamWArgs
 from lightly_train_tpu_torch.errors import UnknownModelError
 from lightly_train_tpu_torch.models.vit import (
     _DINOV3_SIZES,
@@ -68,29 +68,40 @@ def get_wrapped_model(
     return entry.build(dtype=dtype, **kwargs)
 
 
-# Models the port runs forward only: their attention at head dim 128 has no
-# backward kernel yet (ROADMAP queue 2 item 2b), and training one keeps four
-# fp32 copies of its parameters, more than one card holds (FSDP, ROADMAP
-# item 7.6).
-FORWARD_ONLY = ("dinov2/vit7b14", "dinov3/vit7b16")
-
-
-def refuse_pretraining(name: str) -> None:
-    """Raises NotImplementedError, before anything is allocated, where
-    ``pretrain`` is asked to train a model of :data:`FORWARD_ONLY`; its
-    parameters are counted on the meta device."""
-    if name not in FORWARD_ONLY:
+def refuse_pretraining(name: str, optim_args: Any, ema_teacher: bool,
+                       capacity: Optional[int]) -> None:
+    """Raises NotImplementedError, before anything is allocated, where the
+    fp32 state a run of ``name`` must hold exceeds ``capacity`` bytes (the
+    card's total memory; None: no limit). That state is the parameters, the
+    gradients, the optimizer's moments (AdamW 2, SGD and LARS 1 with
+    momentum, else 0) and, with ``ema_teacher``, a teacher the student's
+    size; the parameters are counted on the meta device. On one 80 GB card
+    a 7B ViT trains with LARS or SGD at momentum 0 in a method without an
+    EMA teacher (distillation); DINOv2 or AdamW waits for FSDP or the 8-bit
+    AdamW."""
+    if capacity is None:
         return
     with torch.device("meta"):
         n = sum(p.numel() for p in get_wrapped_model(name).module.parameters())
+    moments = (2 if isinstance(optim_args, AdamWArgs)
+               else int(optim_args.momentum > 0))
+    copies = 2 + moments + int(ema_teacher)
+    need = 4 * n * copies
+    if need <= capacity:
+        return
+    held = ["parameters", "gradients"]
+    held += {2: ["AdamW's mu and nu"], 1: ["the momentum trace"],
+             0: []}[moments]
+    held += ["an EMA teacher"] if ema_teacher else []
     raise NotImplementedError(
-        f"model='{name}' runs forward only in the port (ROADMAP item 10): as "
-        "a distillation teacher (method_args={'teacher': ...}) and in embed. "
-        "Pretraining it waits for the attention backward at head dim 128 "
-        "(ROADMAP queue 2 item 2b) and for FSDP (ROADMAP item 7.6): its "
-        f"{n / 1e9:.2f} B parameters, their AdamW moments mu and nu and a "
-        f"teacher of its size are four fp32 copies, about {16 * n / 1e9:.0f} "
-        "GB, against an H100's 80 GB."
+        f"model='{name}' does not fit the card: its {n / 1e9:.2f} B "
+        f"parameters as {copies} fp32 copies ({', '.join(held)}) are "
+        f"{need} bytes ({need / 2 ** 30:.1f} GiB), more than the card's "
+        f"{capacity / 2 ** 30:.1f} GiB. Training it with this method and "
+        "optimizer waits for FSDP over several cards (ROADMAP item 7.6) or "
+        "for optim='adamw8bit' (ROADMAP item 10). On one card it trains "
+        "with a method without an EMA teacher (distillation) and LARS or "
+        "SGD at momentum 0 (optim_args={'momentum': 0.0})."
     )
 
 

@@ -9,7 +9,8 @@ and ``csrc/flat_attention_bwd_sm90.cu`` in bf16,
 ``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32; at head dim 16 the
 forwards launch the kernel of ``csrc/attention_fwd_hd16.cuh`` and the
 backwards that of ``csrc/attention_bwd_hd16.cuh``, at head dim 128 the
-forwards that of ``csrc/attention_fwd_hd128.cuh``). The four TPU kernels
+forwards that of ``csrc/attention_fwd_hd128.cuh`` and the backwards those
+of ``csrc/attention_bwd_hd128.cuh``). The four TPU kernels
 do the same arithmetic and differ only in how a head is addressed:
 
 - K1/K2 (``_flat_fwd_kernel`` / ``_flat_bwd_kernel``): :func:`flat_attention`
@@ -24,14 +25,10 @@ layout in place through strides (no transpose, no copy).
 
 What the kernels take, as the TPU kernels do: bf16 or fp32 q/k/v of one
 dtype (o, dq, dk, dv take it; lse stays fp32), N with :func:`fits_vmem`
-(N <= 768) and the head dims of :data:`HEAD_DIMS`: 16, 64 and 128 forward
-(every ViT size the port has), 16 and 64 backward. A CUDA tensor of any
-other dtype, mixed dtypes, another head dim or N, or strides the kernels
-cannot read raise; they never fall back to a plain version. The backward
-at head dim 128 is ROADMAP queue 2 item 2b: on the card, attention at hd
-128 that autograd would record (grad enabled and an input that requires
-grad) raises before the forward runs (:func:`check_recordable`), so the
-7B ViTs run forward only, as a frozen teacher or through ``embed``.
+(N <= 768) and the head dims of :data:`HEAD_DIMS`: 16, 64 and 128 in both
+directions (every ViT size the port has). A CUDA tensor of any other dtype,
+mixed dtypes, another head dim or N, or strides the kernels cannot read
+raise; they never fall back to a plain version.
 
 Which path the ViT's :func:`attention` runs is the JAX ViT's gate: the
 kernels for unmasked attention on a CUDA tensor when :func:`fits_vmem`
@@ -58,10 +55,8 @@ import torch
 from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch._env import Env
 
-# Head dims the kernels take, by direction: the backward at hd 128 (the 7B
-# ViTs') waits for ROADMAP queue 2 item 2b.
-HEAD_DIMS = {"fwd": (16, 64, 128), "bwd": (16, 64)}
-_FORWARD_ONLY = set(HEAD_DIMS["fwd"]) - set(HEAD_DIMS["bwd"])
+# Head dims the kernels take, by direction.
+HEAD_DIMS = {"fwd": (16, 64, 128), "bwd": (16, 64, 128)}
 DTYPES = (torch.bfloat16, torch.float32)
 # The JAX package's VMEM budget; fits_vmem(N) holds exactly for N <= 768.
 _VMEM_BUDGET_BYTES = 10 * 1024 * 1024
@@ -80,25 +75,6 @@ def kernel_supports(n_tokens: int, head_dim: int, direction: str) -> bool:
     sequence length and head dim."""
     return (n_tokens >= 1 and fits_vmem(n_tokens)
             and head_dim in HEAD_DIMS[direction])
-
-
-_BWD_MISSING = ("the attention backward at head dim 128 is not ported to "
-                "the card yet (ROADMAP queue 2 item 2b)")
-
-
-def check_recordable(head_dim: int, tensors) -> None:
-    """Raises NotImplementedError where autograd would record an attention
-    whose backward the kernels do not take (head dim 128: grad enabled and
-    an input that requires grad), before anything is launched. A frozen
-    module under ``torch.no_grad()`` or with ``requires_grad_(False)``
-    passes."""
-    if head_dim in _FORWARD_ONLY and torch.is_grad_enabled() and any(
-            x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            f"{_BWD_MISSING}: run attention at head dim {head_dim} on the "
-            "card without gradients (under torch.no_grad(), or with "
-            "parameters that do not require grad: a frozen teacher, embed)."
-        )
 
 
 def use_vmem_attention(x: Optional[torch.Tensor] = None) -> bool:
@@ -266,13 +242,10 @@ shape_launches: collections.Counter = collections.Counter()
 
 
 def _check_route(dtype: torch.dtype, head_dim: int, direction: str) -> None:
-    """Raises for a dtype or head dim that no library of ``direction``
-    takes: NotImplementedError for the backward at hd 128, ValueError
-    otherwise."""
+    """Raises ValueError for a dtype or head dim that no library of
+    ``direction`` takes."""
     if dtype not in DTYPES:
         raise ValueError(f"the kernels take bf16 or fp32, got {dtype}")
-    if direction == "bwd" and head_dim in _FORWARD_ONLY:
-        raise NotImplementedError(_BWD_MISSING + ".")
     if head_dim not in HEAD_DIMS[direction]:
         raise ValueError(f"the kernels take head dim {HEAD_DIMS[direction]}"
                          f", got {head_dim}")
@@ -290,8 +263,8 @@ def fwd_library(dtype: torch.dtype, head_dim: int) -> str:
 def bwd_library(dtype: torch.dtype, head_dim: int) -> str:
     """The library whose backward kernels serve ``dtype`` at ``head_dim``:
     ``flat_attention_bwd_sm90`` (bf16) or ``flat_attention_bwd_f32_sm90``
-    (fp32), both wgmma at hd 16 and 64; hd 128 raises NotImplementedError
-    (ROADMAP queue 2 item 2b)."""
+    (fp32), both wgmma at every head dim the backward takes (16, 64,
+    128)."""
     _check_route(dtype, head_dim, "bwd")
     return ("flat_attention_bwd_sm90" if dtype == torch.bfloat16
             else "flat_attention_bwd_f32_sm90")
@@ -320,7 +293,8 @@ def _launch_bwd(name, q, k, v, o, do, lse, dq, dk, dv, scale,
     _check_lse(name, lse, shape, q)
     B, H, N, hd = shape
     library = bwd_library(q.dtype, hd)
-    # The hd-64 kernels' scratch (dq kernel to dk/dv kernel).
+    # The scratch of the hd-64 and hd-128 kernels: delta, from the dq
+    # kernel (hd 64) or role (hd 128) to the one that forms dk.
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     err = _native.function(library)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -410,14 +384,9 @@ def flat_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unmasked self-attention over flat (B, N, D) q/k/v, D = heads * hd.
-    On the card, raises before the launch where autograd would record it
-    at a head dim the backward does not take (:func:`check_recordable`)."""
-    head_dim = q.shape[-1] // num_heads
-    if q.is_cuda:
-        check_recordable(head_dim, (q, k, v))
+    """Unmasked self-attention over flat (B, N, D) q/k/v, D = heads * hd."""
     if scale is None:
-        scale = head_dim ** -0.5
+        scale = (q.shape[-1] // num_heads) ** -0.5
     return FlatAttention.apply(q, k, v, num_heads, float(scale))
 
 
@@ -486,11 +455,7 @@ def vmem_attention_bhnd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unmasked self-attention over (B, H, N, hd) q/k/v. On the card,
-    raises before the launch where autograd would record it at a head dim
-    the backward does not take (:func:`check_recordable`)."""
-    if q.is_cuda:
-        check_recordable(q.shape[-1], (q, k, v))
+    """Unmasked self-attention over (B, H, N, hd) q/k/v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return VmemAttention.apply(q, k, v, float(scale))

@@ -241,20 +241,17 @@ def test_gate_runs_plain_attention_on_cpu_and_for_masks():
 
 def test_kernel_support_range():
     """The JAX gate's range (fits_vmem: N <= 768) and the head dims of the
-    port's ViT sizes (64, 16 for vittest, and 128 for the 7B ViTs, whose
-    attention runs forward only: its backward is ROADMAP queue 2 item
-    2b)."""
+    port's ViT sizes (64, 16 for vittest, and 128 for the 7B ViTs), in both
+    directions."""
     for direction in ("fwd", "bwd"):
-        for n in (1, 37, 257, 512, 577, 730, 768):
+        for n in (1, 37, 201, 257, 512, 577, 730, 768):
             assert A.kernel_supports(n, 64, direction)
             assert A.kernel_supports(n, 16, direction)
+            assert A.kernel_supports(n, 128, direction)
         assert not A.kernel_supports(769, 64, direction)
+        assert not A.kernel_supports(769, 128, direction)
         assert not A.kernel_supports(0, 64, direction)
         assert not A.kernel_supports(257, 32, direction)
-    for n in (1, 201, 257, 768):
-        assert A.kernel_supports(n, 128, "fwd")
-        assert not A.kernel_supports(n, 128, "bwd")
-    assert not A.kernel_supports(769, 128, "fwd")
 
 
 @pytest.mark.parametrize("dtype,head_dim,library", [
@@ -289,11 +286,14 @@ def test_forward_route_refuses_other_dtypes(dtype):
     (torch.float32, 64, "flat_attention_bwd_f32_sm90"),
     (torch.bfloat16, 16, "flat_attention_bwd_sm90"),
     (torch.float32, 16, "flat_attention_bwd_f32_sm90"),
+    (torch.bfloat16, 128, "flat_attention_bwd_sm90"),
+    (torch.float32, 128, "flat_attention_bwd_f32_sm90"),
 ])
 def test_backward_route(dtype, head_dim, library):
-    """At both head dims each dtype runs its own wgmma backward (hd 16
-    through the kernel of csrc/attention_bwd_hd16.cuh); each route's
-    library is one the port builds."""
+    """At every head dim each dtype runs its own wgmma backward (hd 16
+    through the kernel of csrc/attention_bwd_hd16.cuh, hd 128 through those
+    of csrc/attention_bwd_hd128.cuh); each route's library is one the port
+    builds."""
     assert A.bwd_library(dtype, head_dim) == library
     assert library in A.bwd_launches
     assert library in _native.LIBRARIES
@@ -301,17 +301,13 @@ def test_backward_route(dtype, head_dim, library):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_backward_route_refuses_other_dtypes(dtype):
-    """Other dtypes and head dims raise ValueError; hd 128, which the
-    forward takes, raises NotImplementedError naming the item that ports
-    its backward."""
-    for head_dim in (16, 64):
+    """Other dtypes and head dims raise ValueError, as in the forward."""
+    for head_dim in (16, 64, 128):
         with pytest.raises(ValueError, match="bf16 or fp32"):
             A.bwd_library(dtype, head_dim)
-    with pytest.raises(ValueError, match="head dim"):
-        A.bwd_library(torch.bfloat16, 32)
-    for ok_dtype in (torch.bfloat16, torch.float32):
-        with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
-            A.bwd_library(ok_dtype, 128)
+    for head_dim in (32, 96, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            A.bwd_library(torch.bfloat16, head_dim)
 
 
 def _planes(x: torch.Tensor):

@@ -4,14 +4,16 @@ JAX package on the CPU.
 - the plain forward and backward at hd 128 (what the card's hd-128 forward
   is held to, and the backward's oracle) against the JAX Pallas kernels in
   interpret mode and their custom VJP;
-- the gate: the forward takes hd 128, the backward does not, and attention
-  that autograd would record at hd 128 on the card is refused
-  (``check_recordable``), naming ROADMAP queue 2 item 2b;
+- the routes: both directions take hd 128, and ``pretrain`` refuses a
+  model only where its fp32 training state exceeds the card
+  (``refuse_pretraining``, counted on the meta device at 80 GiB);
 - narrow ViTs of both 7B flavours (width 256, 2 heads, depth 2) against the
   JAX ViT in fp32 and bf16, their weights carried by ``params_from_jax``;
 - the full 7B parameter trees, built on the meta device against
   ``jax.eval_shape`` of the JAX init (nothing of 7B size is allocated);
-- a distillation step whose frozen teacher is the narrow DINOv3 hd-128 ViT;
+- a distillation step whose frozen teacher is the narrow DINOv3 hd-128 ViT,
+  and one whose student is a narrow hd-128 ViT of either flavour, every
+  block recomputed, with LARS at momentum 0 (the 7B student's path);
 - the leaf-by-leaf teacher init: the values of an init on the CPU.
 """
 
@@ -29,6 +31,7 @@ from test_torch_distillation import checkpoint_scale as distill_scale
 from test_torch_vit import checkpoint_scale
 
 from lightly_train_tpu._optim import build_optimizer
+from lightly_train_tpu._optim.optimizers import LARSArgs as JaxLARSArgs
 from lightly_train_tpu._optim import cosine_warmup as jax_cw
 from lightly_train_tpu.methods import distillationv3 as JV3
 from lightly_train_tpu.models import vit as JV
@@ -41,7 +44,7 @@ from lightly_train_tpu.ops.pallas.attention import (
     flat_attention as jax_flat_attention,
 )
 from lightly_train_tpu_torch._commands.train_loop import make_train_step
-from lightly_train_tpu_torch._optim import cosine_warmup
+from lightly_train_tpu_torch._optim import AdamWArgs, LARSArgs, cosine_warmup
 from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch.methods import distillationv3 as V3
 from lightly_train_tpu_torch.methods.base import TrainState
@@ -52,7 +55,11 @@ from lightly_train_tpu_torch.models.from_jax import (
     method_state_from_jax,
     params_from_jax,
 )
-from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
+from lightly_train_tpu_torch.models.package_registry import (
+    get_wrapped_model,
+    refuse_pretraining,
+)
 from lightly_train_tpu_torch.ops.kernels import attention as A
 
 HD, H = 128, 2
@@ -137,56 +144,74 @@ def test_lse_at_hd128_matches_pallas():
 
 
 # ---------------------------------------------------------------------------
-# The gate
+# The routes
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_hd128_routes_forward_only(dtype):
-    """hd 128 runs each dtype's forward library; its backward raises
-    NotImplementedError naming ROADMAP queue 2 item 2b."""
-    assert A.fwd_library(dtype, 128) == A.fwd_library(dtype, 64)
-    assert A.kernel_supports(201, 128, "fwd")
-    assert not A.kernel_supports(201, 128, "bwd")
-    with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
-        A.bwd_library(dtype, 128)
+def test_hd128_routes_both_directions(dtype):
+    """hd 128 runs each dtype's forward and backward libraries, as hd 64
+    does: nothing is forward-only."""
+    assert A.HEAD_DIMS["fwd"] == A.HEAD_DIMS["bwd"] == (16, 64, 128)
+    for direction in ("fwd", "bwd"):
+        library = getattr(A, f"{direction}_library")
+        assert library(dtype, 128) == library(dtype, 64)
+        assert A.kernel_supports(201, 128, direction)
+        assert not A.kernel_supports(769, 128, direction)
+    with pytest.raises(ValueError, match="head dim"):
+        A.bwd_library(dtype, 96)
 
 
-def _qkv(requires_grad, hd=HD):
-    return [torch.zeros((1, 8, H * hd), requires_grad=requires_grad)
-            for _ in range(3)]
+# (model, method, optimizer args, refused at 80 GiB): the fp32 state is the
+# parameters, the gradients, the optimizer's moments and an EMA teacher.
+GIB80 = 80 * 2 ** 30
+REFUSALS = {
+    # 5 copies of 6.72 B parameters: 134.3 GB (125.1 GiB).
+    "dinov2_7b": ("dinov3/vit7b16", "dinov2", AdamWArgs(), True),
+    # 4 copies: 107.5 GB (100.1 GiB).
+    "distillation_adamw_7b": ("dinov3/vit7b16", "distillationv3",
+                              AdamWArgs(), True),
+    # p, g and the trace: 80.6 GB (75.1 GiB), under 80 GiB.
+    "distillation_lars_7b": ("dinov3/vit7b16", "distillationv3",
+                             LARSArgs(), False),
+    # p and g: 53.7 GB, the path chip_smoke.py's phase 3l runs.
+    "distillation_lars_momentum0_7b": ("dinov3/vit7b16", "distillationv3",
+                                       LARSArgs(momentum=0.0), False),
+    "dinov2_vitb": ("dinov2/vitb14", "dinov2", AdamWArgs(), False),
+}
 
 
-def test_recording_attention_at_hd128_is_refused():
-    """What autograd would record at hd 128 (grad enabled, an input that
-    requires grad) raises before any launch, naming item 2b."""
-    with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
-        A.check_recordable(HD, _qkv(True))
-    q, k, v = _qkv(False)
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        A.check_recordable(HD, (q, k.requires_grad_(), v))
-
-
-@pytest.mark.parametrize("case", ["no_grad", "frozen", "hd64", "hd16",
-                                  "hd32"])
-def test_forward_only_attention_at_hd128_passes_the_gate(case):
-    """A frozen teacher (inputs without grad), anything under
-    ``torch.no_grad()``, and the head dims the backward takes pass; so does
-    a head dim no kernel takes (the launch raises ValueError for it)."""
-    if case == "no_grad":
-        with torch.no_grad():
-            A.check_recordable(HD, _qkv(True))
-    elif case == "frozen":
-        A.check_recordable(HD, _qkv(False))
-    else:
-        hd = int(case[2:])
-        A.check_recordable(hd, _qkv(True, hd))
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_refuse_pretraining_counts_the_training_state(case):
+    """``refuse_pretraining`` on the meta device at 80 GiB: DINOv2 (AdamW and
+    an EMA teacher) and AdamW with a 7B student are refused, naming the
+    byte count, FSDP (item 7.6) and adamw8bit (item 10); distillation with
+    LARS is not, with or without momentum; ViT-B never is. Without a
+    capacity (the CPU) nothing is refused."""
+    model, method, optim_args, refused = REFUSALS[case]
+    ema = get_method_cls(method)[0].ema_teacher
+    with torch.device("meta"):
+        n = sum(p.numel()
+                for p in get_wrapped_model(model).module.parameters())
+    moments = 2 if isinstance(optim_args, AdamWArgs) else int(
+        optim_args.momentum > 0)
+    need = 4 * n * (2 + moments + int(ema))
+    assert (need > GIB80) == refused
+    refuse_pretraining(model, optim_args, ema, None)
+    if not refused:
+        refuse_pretraining(model, optim_args, ema, GIB80)
+        return
+    with pytest.raises(NotImplementedError) as err:
+        refuse_pretraining(model, optim_args, ema, GIB80)
+    said = str(err.value)
+    for part in (str(need), "ROADMAP item 7.6", "adamw8bit",
+                 "ROADMAP item 10", f"{n / 1e9:.2f} B"):
+        assert part in said
 
 
 def test_cpu_attention_at_hd128_keeps_its_plain_backward():
     """On the CPU the plain versions stand in for the kernels in both
-    directions, so autograd through hd-128 attention works there (the
-    refusal is the card's)."""
+    directions, so autograd through hd-128 attention works there."""
     q, k, v = (torch.randn((1, 9, H * HD), requires_grad=True)
                for _ in range(3))
     A.flat_attention(q, k, v, H).sum().backward()
@@ -387,6 +412,81 @@ def test_distillation_step_from_an_hd128_teacher_matches_jax(monkeypatch):
                                atol=1e-5)
     assert not any(p.requires_grad
                    for p in state.method_state["teacher"].parameters())
+
+
+@pytest.mark.parametrize("flavour,patch", FLAVOURS)
+def test_distillation_step_of_an_hd128_student_matches_jax(flavour, patch):
+    """One distillation v3 step of a narrow hd-128 student of either 7B
+    flavour (width 256, 2 heads, depth 2) with every block recomputed in
+    the backward (``remat_every`` 1) and LARS at momentum 0, from the
+    frozen vittest16 teacher at 112^2, batch 4, queue 16, fp32: the path of
+    a 7B student on one card. Held to the JAX step with the same batch and
+    parameters as ``test_torch_distillation.py`` holds the default
+    student's: the loss within 1e-4 relative, the student and heads within
+    1e-4 / 1e-5, the queue likewise."""
+    name = f"{flavour}/hd128"
+    cfg_j = _narrow(JV, flavour, patch, remat_every=1)
+    cfg_t = _narrow(TV, flavour, patch, remat_every=1)
+    args = dict(teacher="dinov3/vittest16", image_size=SIZE, queue_size=Q)
+    j_method = JV3.DistillationV3(
+        JW.WrappedModel(name, JV.VisionTransformer(cfg_j), 256, patch),
+        JV3.DistillationV3Args(**args))
+    j_params, j_model_state, j_ms = j_method.init(
+        jax.random.key(0), jnp.zeros((2, SIZE, SIZE, 3), jnp.float32))
+    j_params = distill_scale(j_params, 0)
+    j_ms = {**j_ms, "teacher": {
+        "params": distill_scale(j_ms["teacher"]["params"], 1)}}
+
+    method = V3.DistillationV3(
+        TW.WrappedModel(name, TV.VisionTransformer(cfg_t), 256, patch),
+        V3.DistillationV3Args(**args))
+    params, method_state = method.init(torch.Generator().manual_seed(0),
+                                       torch.device("cpu"))
+    params.load_state_dict(params_from_jax(jax.device_get(j_params)))
+    carried = method_state_from_jax(jax.device_get(j_ms))
+    method_state["teacher"].load_state_dict(carried["teacher"])
+    method_state.update({k: v for k, v in carried.items() if k != "teacher"})
+    student = params["student"].cfg
+    assert (student.embed_dim // student.num_heads, student.remat_every) == (
+        HD, 1)
+    lr = LR["distillationv3"]
+    updater = build_update(method, LARSArgs(lr=lr, momentum=0.0,
+                                            weight_decay=1e-6),
+                           cosine_warmup(lr, TOTAL, 2),
+                           dict(params.named_parameters()), TOTAL)
+    assert "trace" not in updater.state_dict()
+    state = TrainState(0, params, method_state, updater)
+
+    j_opt = build_optimizer(
+        JaxLARSArgs(lr=lr, momentum=0.0, weight_decay=1e-6),
+        jax_cw(lr, TOTAL, 2), j_params,
+        grad_clip_norm=j_method.grad_clip_norm(),
+        lr_scales=j_method.lr_scales(j_params),
+        weight_decay_schedule=j_method.weight_decay_schedule(TOTAL),
+        wd_mask=j_method.wd_mask(j_params))
+    j_opt_state = j_opt.init(j_params)
+    view = np.random.default_rng(101).standard_normal(
+        (B, SIZE, SIZE, 3)).astype(np.float32)
+    rng = jax.random.key(1001)
+    (j_loss, (_, j_ms, _)), grads = jax.value_and_grad(
+        lambda p: j_method.loss_fn(p, j_model_state, j_ms, [jnp.asarray(view)],
+                                   rng, jnp.asarray(0), TOTAL),
+        has_aux=True)(j_params)
+    updates, j_opt_state = j_opt.update(grads, j_opt_state, j_params)
+    j_params = optax.apply_updates(j_params,
+                                   j_method.mask_updates(updates, 0))
+
+    lam, apply = jax_mixup_draw(rng, method.args.mixup_prob)
+    masks = [(torch.tensor(np.asarray(lam)), torch.tensor(np.asarray(apply)))]
+    metrics = make_train_step(method, TOTAL)(
+        state, None, None, views=[[torch.tensor(view)]], masks=masks)
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss),
+                               rtol=1e-4)
+    assert_params_close(dict(state.params.named_parameters()), j_params,
+                        "step 0 params")
+    np.testing.assert_allclose(state.method_state["queue"].numpy(),
+                               np.asarray(j_ms["queue"]), rtol=1e-4,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -428,8 +428,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_vit_attention_on_the_card_never_runs_the_plain_path(cuda, dtype, N,
                                                              hd, monkeypatch):
     """Unmasked attention on CUDA tensors with N <= 768 launches the kernels,
-    in bf16 and fp32, at every head dim (hd 128 forward only: these inputs
-    do not require grad); fp16 raises instead of running plain, and so does
+    in bf16 and fp32, at every head dim (these inputs do not require
+    grad: the forward alone); fp16 raises instead of running plain, and so does
     LIGHTLY_TRAIN_VMEM_ATTENTION=0. Only a mask sends it to the plain
     path."""
     y = torch.zeros((2, N, 12 * hd), dtype=DTYPES[dtype], device=cuda)
@@ -607,31 +607,134 @@ def test_forward_hd128_addresses_past_2_31_bytes(cuda):
         torch.testing.assert_close(lse[rows], lse_ref, rtol=0, atol=5e-3)
 
 
+# N for the Hopper backward at hd 128 (csrc/attention_bwd_hd128.cuh): the
+# one-tile shapes (37, 64), one past a tile (65), the 7B/16 student's and
+# the 7B/14 embed's token counts (201, 257) and N = 730 (378^2 images).
+HD128_BWD_TOKENS = [37, 64, 65, 201, 257, 730]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_hd128_attention_under_grad_is_refused_before_launch(cuda, dtype):
-    """Attention at hd 128 that autograd would record raises
-    NotImplementedError naming ROADMAP queue 2 item 2b before any launch
-    (its backward is not ported), through every public entry; under
-    torch.no_grad() the same call runs the forward kernel."""
+@pytest.mark.parametrize("layout", ["flat", "bnhd", "bhnd"])
+@pytest.mark.parametrize("N", HD128_BWD_TOKENS)
+def test_sm90_backward_hd128_matches_plain(cuda, monkeypatch, dtype, layout,
+                                           N):
+    """At hd 128 both dtypes run their wgmma backward (K2 and K5, the
+    kernels of csrc/attention_bwd_hd128.cuh): the one launch goes to
+    flat_attention_bwd_sm90 (bf16) or flat_attention_bwd_f32_sm90 (fp32)
+    and no other, within the dtype's tolerances of the plain backward (with
+    the dq/dk floor); the gradients keep the inputs' layout. Autograd
+    through ``flat_attention`` at hd 128 runs the same kernel."""
     dt = DTYPES[dtype]
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    flat = [_randn((2, 37, 2 * 128), gen, dt).requires_grad_()
-            for _ in range(3)]
-    heads = [x.detach().view(2, 37, 2, 128).requires_grad_() for x in flat]
-    before = dict(A.fwd_launches)
-    for call in (lambda: A.flat_attention(*flat, 2),
-                 lambda: A.attention(*flat, 2),
-                 lambda: A.vmem_attention(*heads),
-                 lambda: A.vmem_attention_bhnd(
-                     *(x.transpose(1, 2) for x in heads))):
-        with pytest.raises(NotImplementedError, match="queue 2 item 2b"):
-            call()
-    assert A.fwd_launches == before
-    with torch.no_grad():
-        out = A.flat_attention(*flat, 2)
-    library = A.fwd_library(dt, 128)
-    assert A.fwd_launches[library] == before[library] + 1
-    assert torch.isfinite(out).all()
+    B, H = (3, 2) if N < 200 else (2, 3)
+    library = A.bwd_library(dt, 128)
+    gen = torch.Generator(device=cuda).manual_seed(N + 128)
+    (q, k, v, do), (fwd, bwd, plain) = _bf16_backward(layout, B, N, H, gen,
+                                                      dt, hd=128)
+    o, lse = fwd(q, k, v)
+    asked = []
+    function = _native.function
+    monkeypatch.setattr(_native, "function",
+                        lambda name: asked.append(name) or function(name))
+    before = dict(A.bwd_launches)
+    grads = bwd(q, k, v, o, do, lse)
+    refs = plain(q, k, v, o, do, lse)
+    assert asked == [library]
+    assert A.bwd_launches == {**before, library: before[library] + 1}
+    scale = 128 ** -0.5
+    floors = (_floor(scale, 128, do, v, k), _floor(scale, 128, do, v, q),
+              0.0)
+    for got, ref, x, floor in zip(grads, refs, (q, k, v), floors):
+        assert got.dtype == dt and got.shape == x.shape
+        if layout != "flat":
+            assert got.stride() == x.stride()
+        assert torch.isfinite(got).all()
+        assert _within(got, ref, dt, floor)
+    if layout == "flat":
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        A.flat_attention(*leaves, H).backward(do)
+        assert A.bwd_launches[library] == before[library] + 2
+        for leaf, got in zip(leaves, grads):
+            assert torch.equal(leaf.grad, got)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (768, 1)])
+def test_backward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
+    """Every dq, dk and dv element is written by one warpgroup of one role,
+    with no atomics: two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(N + B + 128)
+    (q, k, v, do), (fwd, bwd, _) = _bf16_backward("flat", B, N, 4, gen,
+                                                  DTYPES[dtype], hd=128)
+    o, lse = fwd(q, k, v)
+    first, second = bwd(q, k, v, o, do, lse), bwd(q, k, v, o, do, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_hd128_addresses_past_2_31_bytes(cuda):
+    """bf16 at (1024, 257, 32, 128): each of q, k, v, o, do, dq, dk and dv
+    is 2.16 GB, past 2^31 bytes, so every address the three role kernels
+    form must be 64-bit. The first and the last batch rows (the latter
+    wholly past 2^31 bytes) are held to the plain backward of those
+    rows."""
+    B, N, H, hd = 1024, 257, 32, 128
+    scale = hd ** -0.5
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    q, k, v, do = (torch.randn((B, N, H * hd), generator=gen, device=cuda,
+                               dtype=torch.bfloat16) for _ in range(4))
+    assert q.numel() * q.element_size() > 2 ** 31
+    o, lse = A.flat_attention_fwd(q, k, v, H, scale)
+    grads = A.flat_attention_bwd(q, k, v, o, do, lse, H, scale)
+    for rows in (slice(0, 2), slice(B - 2, B)):
+        refs = A.flat_attention_bwd_plain(q[rows], k[rows], v[rows],
+                                          o[rows], do[rows], lse[rows], H,
+                                          scale)
+        floors = (_floor(scale, hd, do[rows], v[rows], k[rows]),
+                  _floor(scale, hd, do[rows], v[rows], q[rows]), 0.0)
+        for got, ref, floor in zip(grads, refs, floors):
+            assert _within(got[rows], ref, torch.bfloat16, floor)
+
+
+def test_backward_hd128_library_spills_nothing(cuda):
+    """ptxas reports no spill and no serialized wgmma (C751x) in either
+    backward library, whose hd-128 role kernels are its largest."""
+    for name in ("flat_attention_bwd_sm90", "flat_attention_bwd_f32_sm90"):
+        _native.function(name)
+        log = (_native.BUILD_DIR / f"{name}.log").read_text()
+        assert "attention_bwd_hd128_kernel" in log
+        assert not any(f"C751{i}" in log for i in range(10)), log
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+        assert spills and all(n == "0" for n in spills), log
+
+
+def test_unfused_update_holds_a_few_leaves_beyond_p_and_g(cuda):
+    """The leaf-by-leaf update (LARS at momentum 0 with clipping, weight
+    decay and lr scales, as a 7B student runs it) holds, beyond the
+    parameters and the gradients it is given, less than 3 of the largest
+    leaf at its peak; the chain over whole trees held several copies of
+    the gradients."""
+    from lightly_train_tpu_torch._optim import LARSArgs
+    from lightly_train_tpu_torch._optim.update import UnfusedUpdate
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shapes = [(4096, 4096), (8192, 4096), (4096, 8192), (4096,), (1, 4096),
+              (3, 4096, 16, 16)] * 4
+    params = {f"p{i}": torch.randn(s, generator=gen, device=cuda)
+              for i, s in enumerate(shapes)}
+    update = UnfusedUpdate(LARSArgs(lr=0.1, momentum=0.0, weight_decay=1e-4),
+                           0.1, params, grad_clip_norm=1.0,
+                           lr_scales={n: 0.5 for n in params})
+    largest = max(p.numel() * 4 for p in params.values())
+    grads = {n: torch.randn(p.shape, generator=gen, device=cuda)
+             for n, p in params.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    norm = update.update_and_apply(grads, params)
+    torch.cuda.synchronize()
+    beyond = torch.cuda.max_memory_allocated() - base
+    assert torch.isfinite(norm) and grads == {}
+    assert beyond < 3 * largest, (beyond, largest)
 
 
 def test_sm90_forward_library_runs_hgmma(cuda):

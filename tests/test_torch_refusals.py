@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import lightly_train_tpu_torch as lt
+from lightly_train_tpu_torch._commands import train
 from lightly_train_tpu_torch._optim import JAX_OPTIMIZERS
 from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
@@ -69,13 +70,16 @@ def test_optimizer_names_follow_the_jax_package(tmp_path, name):
     ("dinov3/vit7b16", {}, "10"),
     ("dinov3/convnext-tiny", {}, "10"),
 ])
-def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
-                                                        model_args, item):
-    """The DINOv3 ConvNeXts (item 10) are refused naming their item. The 7B
-    ViTs (item 10) build and run forward only: as a student they are
-    refused before anything is built, naming the attention backward at
-    head dim 128 (queue 2 item 2b) and FSDP (item 7.6), with their
-    parameter count. The JAX ViT's activation checkpointing (item 22) is
+def test_unported_model_options_name_their_roadmap_item(tmp_path, monkeypatch,
+                                                        model, model_args,
+                                                        item):
+    """The DINOv3 ConvNeXts (item 10) are refused naming their item. A 7B
+    ViT trains where its fp32 state fits the card: as a DINOv2 student
+    (AdamW's two moments and an EMA teacher, five copies of its
+    parameters) it is refused on an 80 GiB card before anything is built,
+    naming FSDP (item 7.6) and ``adamw8bit`` (item 10), with its parameter
+    count and the bytes it would need (the card's capacity is patched in:
+    the CPU has none). The JAX ViT's activation checkpointing (item 22) is
     ported: a run with it takes its step, with the options in the ViT's
     config (a policy without ``remat_every`` checkpoints nothing, as in the
     JAX ViT)."""
@@ -87,15 +91,19 @@ def test_unported_model_options_name_their_roadmap_item(tmp_path, model,
             model_args.get("remat_every", 0),
             model_args.get("remat_policy"))
         return
+    if "vit7b" in model:
+        monkeypatch.setattr(train, "_device_capacity",
+                            lambda accelerator: 80 * 2 ** 30)
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP item {item}\b") as err:
         _pretrain(tmp_path, model=model, model_args=model_args)
     if "vit7b" in model:
         said = str(err.value)
-        assert "ROADMAP queue 2 item 2b" in said
-        assert "ROADMAP item 7.6" in said
-        count = {"dinov2/vit7b14": "8.06 B", "dinov3/vit7b16": "6.72 B"}
-        assert count[model] in said
+        assert "ROADMAP item 7.6" in said and "adamw8bit" in said
+        count = {"dinov2/vit7b14": 8_058_998_784,
+                 "dinov3/vit7b16": 6_716_035_072}[model]
+        assert f"{count / 1e9:.2f} B" in said
+        assert f"{5 * 4 * count} bytes" in said
         assert not (tmp_path / "out").exists()
 
 

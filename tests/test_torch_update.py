@@ -5,7 +5,9 @@ Each case runs three steps of AdamW, SGD or LARS, with and without a clip
 norm, and with the generic weight-decay mask, with a given mask and lr
 scales, or with a weight-decay schedule, on the same parameters and
 gradients in both packages (float32). The parameters, the returned grad
-norm and the count are compared after every step.
+norm and the count are compared after every step. The update runs leaf by
+leaf; it is held bitwise to the chain over whole trees that it replaced,
+kept here as ``listwise_update``.
 """
 
 import jax
@@ -35,11 +37,8 @@ from lightly_train_tpu_torch._optim import (
     cosine_warmup,
 )
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
-from lightly_train_tpu_torch._optim.update import (
-    UnfusedUpdate,
-    apply_updates,
-    build_update,
-)
+from lightly_train_tpu_torch._optim.fused_update import global_norm
+from lightly_train_tpu_torch._optim.update import UnfusedUpdate, build_update
 from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.methods.dinov2 import DINOv2, DINOv2Args
 from lightly_train_tpu_torch.models.from_jax import (
@@ -119,8 +118,7 @@ def test_unfused_chain_matches_optax(opt, clip, rules):
         t_grads = params_from_jax(j_grads)
         if step == 1:
             t_grads["norm.weight"] = None  # None counts as zeros
-        t_updates, norm = update.update(t_grads, params)
-        apply_updates(params, t_updates)
+        norm = update.update_and_apply(t_grads, params)
         np.testing.assert_allclose(float(norm),
                                    float(optax.global_norm(j_grads)),
                                    rtol=1e-6)
@@ -138,13 +136,150 @@ def test_unfused_state_round_trips():
                        (SGDArgs(momentum=0.0), ["count"]),
                        (LARSArgs(), ["count", "trace"])):
         a = UnfusedUpdate(args, 0.1, params)
-        a.update({"w": torch.full((3, 2), 0.5)}, params)
+        a.update_and_apply({"w": torch.full((3, 2), 0.5)}, params)
         assert sorted(a.state_dict()) == sorted(keys)
         b = UnfusedUpdate(args, 0.1, params)
         b.load_state_dict(a.state_dict())
         assert b.count == 1
         for key in keys[1:]:
             assert torch.equal(b.moments[key]["w"], a.moments[key]["w"])
+
+
+@torch.no_grad()
+def listwise_update(self: UnfusedUpdate, grads, params, mask=None):
+    """The chain as it ran before the leaf-by-leaf update: each step a new
+    list over all leaves, then the method's mask and ``p += u`` over the
+    whole tree (a copy of the port's earlier ``UnfusedUpdate.update`` and
+    ``apply_updates``). Returns the global norm."""
+    a = self.args
+    p = [params[n] for n in self.names]
+    g = [grads[n].float() if grads[n] is not None
+         else torch.zeros_like(params[n], dtype=torch.float32)
+         for n in self.names]
+    norm = global_norm(g)
+    if self.grad_clip_norm is not None:
+        keep = norm < self.grad_clip_norm
+        g = [torch.where(keep, x, x / norm * self.grad_clip_norm)
+             for x in g]
+    f32 = np.float32
+    if type(a) is AdamWArgs:
+        b1, b2 = a.betas
+        mu, nu = (list(self.moments[k].values()) for k in ("mu", "nu"))
+        n_inc = f32(self.count + 1)
+        bc1 = float(f32(1) - f32(b1) ** n_inc)
+        bc2 = float(f32(1) - f32(b2) ** n_inc)
+        u = []
+        for gi, m, v in zip(g, mu, nu):
+            m.copy_((1 - b1) * gi + b1 * m)
+            v.copy_((1 - b2) * (gi * gi) + b2 * v)
+            u.append((m / bc1) / (torch.sqrt(v / bc2) + a.eps))
+    else:
+        if type(a) is LARSArgs:
+            pn = torch.stack(torch._foreach_norm(p))
+            gn = torch.stack(torch._foreach_norm(g))
+            ratio = torch.where((pn == 0) | (gn == 0), torch.ones_like(pn),
+                                a.trust_coefficient * pn / gn)
+            g = [x * r for x, r in zip(g, ratio.unbind())]
+        u = g
+        if a.momentum > 0:
+            trace = list(self.moments["trace"].values())
+            for gi, t in zip(g, trace):
+                t.copy_(gi + a.momentum * t)
+            u = trace
+    wd = self._weight_decay()
+    if wd > 0 or self.weight_decay_schedule is not None:
+        u = [ui + wd * pi if d else ui
+             for ui, pi, d in zip(u, p, self.decays)]
+    if self.lr_scales is not None:
+        u = [ui * s for ui, s in zip(u, self.lr_scales)]
+    lr = self.learning_rate
+    step = -float(f32(lr(self.count) if callable(lr) else lr))
+    self.count += 1
+    updates = {n: ui * step for n, ui in zip(self.names, u)}
+    if mask is not None:
+        updates = mask(updates)
+    for name, ui in updates.items():
+        params[name].add_(ui.to(params[name].dtype))
+    return norm
+
+
+BITWISE_OPTIMIZERS = {
+    "adamw": AdamWArgs(lr=0.1, weight_decay=0.05),
+    "sgd": SGDArgs(lr=0.1, momentum=0.9, weight_decay=0.05),
+    "sgd_no_momentum": SGDArgs(lr=0.1, momentum=0.0, weight_decay=0.05),
+    "lars": LARSArgs(lr=0.1, weight_decay=0.05, trust_coefficient=0.01),
+    "lars_no_momentum": LARSArgs(lr=0.1, momentum=0.0, weight_decay=1e-6,
+                                 trust_coefficient=0.001),
+}
+
+
+@pytest.mark.parametrize("rules", ["generic", "mask_scales_and_freeze"])
+@pytest.mark.parametrize("clip", [None, 0.5, 100.0])
+@pytest.mark.parametrize("opt", sorted(BITWISE_OPTIMIZERS))
+def test_leaf_by_leaf_update_is_bitwise_the_listwise_chain(opt, clip, rules):
+    """Three steps of the leaf-by-leaf update and of the chain over whole
+    trees from the same parameters, gradients and state give bitwise the
+    same parameters, norms, moments and counts: with and without momentum
+    and clipping (0.5 clips, 100 does not), a None gradient, a zero
+    parameter, and with a weight-decay mask, lr scales, a weight-decay
+    schedule and a method mask that freezes one leaf at the first step."""
+    rng = np.random.default_rng(1)
+    names = ["embed.weight", "blocks.0.fc.weight", "blocks.0.fc.bias",
+             "norm.weight", "head.prototypes.weight", "zero.weight"]
+    shapes = [(7, 3), (5, 4), (4,), (4,), (6, 5), (3, 2)]
+    start = {n: torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+             for n, s in zip(names, shapes)}
+    start["zero.weight"].zero_()
+    kw, freeze = {}, None
+    if rules == "mask_scales_and_freeze":
+        kw = dict(
+            wd_mask={n: not n.endswith("bias") for n in names},
+            lr_scales={n: 0.5 + 0.25 * i for i, n in enumerate(names)},
+            weight_decay_schedule=lambda step: cosine_schedule(
+                step, TOTAL, 0.04, 0.4))
+
+        def freeze(step):
+            live = 1.0 if step >= 1 else 0.0
+            return lambda name: live if "prototypes" in name else 1.0
+    params = {"new": {n: x.clone() for n, x in start.items()},
+              "old": {n: x.clone() for n, x in start.items()}}
+    updaters = {k: UnfusedUpdate(BITWISE_OPTIMIZERS[opt],
+                                 cosine_warmup(0.1, TOTAL, 1), params[k],
+                                 grad_clip_norm=clip, **kw)
+                for k in params}
+    for step in range(3):
+        grads = {n: torch.tensor(rng.standard_normal(x.shape),
+                                 dtype=torch.float32)
+                 for n, x in start.items()}
+        if step == 1:
+            grads["norm.weight"] = None
+        scale = freeze(step) if freeze else None
+        norm_new = updaters["new"].update_and_apply(
+            dict(grads), params["new"],
+            None if scale is None else lambda name, u: u * scale(name))
+        norm_old = listwise_update(
+            updaters["old"], grads, params["old"],
+            None if scale is None else
+            lambda updates: {n: u * scale(n) for n, u in updates.items()})
+        assert torch.equal(norm_new, norm_old)
+        for n in names:
+            assert torch.equal(params["new"][n], params["old"][n]), (step, n)
+        for key, tensors in updaters["old"].moments.items():
+            for n, value in tensors.items():
+                assert torch.equal(updaters["new"].moments[key][n], value)
+    assert updaters["new"].count == updaters["old"].count == 3
+    assert not torch.equal(params["new"]["embed.weight"],
+                           start["embed.weight"])
+
+
+def test_leaf_by_leaf_update_takes_each_gradient_out():
+    """The gradients leave the dict the update is given, so that a caller
+    holding no other reference frees each as its leaf is applied."""
+    params = {"a": torch.ones(3), "b": torch.ones(2)}
+    update = UnfusedUpdate(LARSArgs(momentum=0.0), 0.1, params)
+    grads = {"a": torch.full((3,), 0.5), "b": None}
+    update.update_and_apply(grads, params)
+    assert grads == {}
 
 
 def test_only_adamw_with_an_ema_method_takes_the_fused_update():
