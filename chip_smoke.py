@@ -33,7 +33,9 @@ Phases (any failure exits non-zero):
    dtypes, at every head dim) must hold wgmma (HGMMA) instructions, and
    that of the two that fill their rings with cp.async (the bf16 forward
    and backward, ``flat_attention_fwd_sm90.cu`` and
-   ``flat_attention_bwd_sm90.cu``) LDGSTS too (the fp32 hd-64 forward and
+   ``flat_attention_bwd_sm90.cu``) LDGSTS too, and that of the bf16 forward
+   UTMALDG (the TMA loads of its hd-128 kernel for 64 < N <= 304,
+   ``attention_fwd_hd128_resident.cuh``) (the fp32 hd-64 forward and
    backward, ``flat_attention_fwd_f32_sm90.cu`` and
    ``flat_attention_bwd_f32_sm90.cu``, load with ld.global and split in
    registers; at hd 16 and 128 the fp32 kernels land their rows by
@@ -366,17 +368,35 @@ KERNELS = {
 }
 # The attention libraries, all on Hopper's wgmma, with the instructions
 # their SASS must hold (HGMMA: wgmma; LDGSTS: cp.async, where the design
-# fills its ring with it), the warp-level product that no library's SASS
+# fills its ring with it; UTMALDG: TMA loads, the bf16 hd-128 forward's
+# resident kernel), the warp-level product that no library's SASS
 # may hold (HMMA: mma.sync), and ptxas's warnings that it serialized their
 # wgmma products (C7510-C7519).
 SM90_LIBRARIES = {
-    "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS"),
+    "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
     "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
     "flat_attention_fwd_f32_sm90": ("HGMMA",),
     "flat_attention_bwd_f32_sm90": ("HGMMA",),
 }
 WARP_MMA = "HMMA"
 SERIALIZED = tuple(f"C751{i}" for i in range(10))
+
+
+# The largest N whose bf16 hd-128 forward runs the resident kernel
+# (csrc/attention_fwd_hd128_resident.cuh, kResidentMaxN; above 64).
+RESIDENT_MAX_N = 304
+
+
+def kernel_source(direction: str, dtype: str, hd: int, n_tokens: int,
+                  library: str) -> str:
+    """The CUDA source whose kernel ``library`` launches for this dtype,
+    head dim and N: at hd 16 and 128 the header the library includes."""
+    if (direction, dtype, hd) == ("fwd", "bf16", 128) and (
+            64 < n_tokens <= RESIDENT_MAX_N):
+        return "attention_fwd_hd128_resident.cuh"
+    if hd in (16, 128):
+        return f"attention_{direction}_hd{hd}.cuh"
+    return library + ".cu"
 
 
 def cancel_floor(scale: float, hd: int, do, v, other) -> float:
@@ -2429,7 +2449,8 @@ def main() -> int:
         sass = _native.sass(name)
         required = SM90_LIBRARIES.get(name, ())
         print(f"  {name}: {sass.count('HGMMA')} HGMMA, "
-              f"{sass.count('LDGSTS')} LDGSTS (cp.async) and "
+              f"{sass.count('LDGSTS')} LDGSTS (cp.async), "
+              f"{sass.count('UTMALDG')} UTMALDG (TMA loads) and "
               f"{sass.count(WARP_MMA)} {WARP_MMA} (mma.sync) instructions in "
               f"its SASS (required: {', '.join(required) or 'none'}; "
               f"{WARP_MMA} none)", flush=True)
@@ -2579,10 +2600,9 @@ def main() -> int:
                        EMBED_7B: ("launches_per_batch", 1)}
         kernels += [{
             "name": name, "route": "cuda",
-            "source": "lightly_train_tpu_torch/csrc/" + (
-                f"attention_{direction}_hd{row['shape'][3]}.cuh"
-                if row["shape"][3] in (16, 128)
-                else route(torch_dtype(dtype), row["shape"][3]) + ".cu"),
+            "source": "lightly_train_tpu_torch/csrc/" + kernel_source(
+                direction, dtype, row["shape"][3], row["shape"][1],
+                route(torch_dtype(dtype), row["shape"][3])),
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": by_shape.get(tuple(row["shape"]), 0),
             # embed's fp32 forwards (phase 3d) run at the global shape.

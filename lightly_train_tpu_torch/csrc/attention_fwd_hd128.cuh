@@ -1,7 +1,9 @@
 // Multi-head self-attention, forward, at head dim 128 on Hopper's warpgroup
 // tensor-core products: K1 (flat layout) and K4 (per-head layout), one
 // kernel template for both dtypes, launched by flat_attention_fwd_sm90.cu
-// (bf16) and flat_attention_fwd_f32_sm90.cu (fp32) when hd = 128.
+// (bf16, where attention_fwd_hd128_resident.cuh's kernel does not take N:
+// N <= 64 and N > 304) and flat_attention_fwd_f32_sm90.cu (fp32, every N)
+// when hd = 128.
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1)
 // and ::_fwd_kernel (K4) at hd 128, the 7B ViTs' head dim (4096 / 32

@@ -1,7 +1,8 @@
 // Multi-head self-attention, forward, bf16: K1 (flat layout) and K4
 // (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
 // 64 (this file's kernel), 16 (attention_fwd_hd16.cuh's, in bf16) and 128
-// (attention_fwd_hd128.cuh's, in bf16).
+// (attention_fwd_hd128_resident.cuh's for 64 < N <= 304 and scale > 0,
+// else attention_fwd_hd128.cuh's, in bf16).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
@@ -55,6 +56,7 @@
 // barriers, and q . k runs twice; PERF.md has the measurements. Later work:
 // TMA loads from a warp-specialised producer.
 #include "attention_fwd_hd128.cuh"
+#include "attention_fwd_hd128_resident.cuh"
 #include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
@@ -306,9 +308,13 @@ extern "C" int lt_attention_fwd_sm90(const void* q, const void* k,
   if (hd == 16)
     return lt::sm90::hd16::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
                                         scale, stream);
-  if (hd == 128)
+  if (hd == 128) {
+    if (N > kRows && N <= lt::sm90::hd128::kResidentMaxN && scale > 0.f)
+      return lt::sm90::hd128::launch_resident(q, k, v, o, lse, B, N, H,
+                                              strides, scale, stream);
     return lt::sm90::hd128::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
                                          scale, stream);
+  }
   if (hd != 64) return cudaErrorInvalidValue;
   const int q_tiles = (N + kRows - 1) / kRows;
   const bool one = q_tiles == 1;

@@ -265,8 +265,9 @@ def test_kernel_support_range():
 def test_forward_route(dtype, head_dim, library):
     """At every head dim each dtype runs its own wgmma forward (hd 16
     through the kernel of csrc/attention_fwd_hd16.cuh, hd 128 through that
-    of csrc/attention_fwd_hd128.cuh); each route's library is one the port
-    builds."""
+    of csrc/attention_fwd_hd128.cuh, or in bf16 at 64 < N <= 304 that of
+    csrc/attention_fwd_hd128_resident.cuh); each route's library is one the
+    port builds."""
     assert A.fwd_library(dtype, head_dim) == library
     assert library in A.fwd_launches
     assert library in _native.LIBRARIES

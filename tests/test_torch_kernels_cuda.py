@@ -537,14 +537,21 @@ def test_sm90_forward_hd16_matches_plain(cuda, monkeypatch, dtype, layout, N,
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
 
 
-# (N, B, H) for the Hopper forward at hd 128 (csrc/attention_fwd_hd128.cuh):
-# N = 1 and the one-tile form (37, 64), one past a tile (65), ragged tails
-# of every wgmma width after an odd and an even number of whole tiles (129,
-# 170, 182), the 7B/16 teacher's and the 7B/14 embed's token counts (201,
-# 257; last tiles of 9 and 1 keys) and the top of the range (730, 768).
+# (N, B, H) for the Hopper forward at hd 128: N = 1 and the one-tile form
+# (37, 64) of csrc/attention_fwd_hd128.cuh; one past a tile (65), ragged
+# tails of every wgmma width after an odd and an even number of whole tiles
+# (129, 170, 182), a whole last tile (192, 256), the 7B/16 teacher's and
+# the 7B/14 embed's token counts (201, 257; last tiles of 9 and 1 keys), 257
+# again over 384 heads (about three a block of the persistent grid, so the
+# K and V rings wrap), 288 and 304 (the top of the form) in bf16 on
+# csrc/attention_fwd_hd128_resident.cuh, in fp32 on attention_fwd_hd128.cuh;
+# 305 (the first N past the resident form), 320, 321 and the top of the
+# range (730, 768) on attention_fwd_hd128.cuh in both.
 HD128_SHAPES = [
     (1, 1, 2), (37, 4, 2), (64, 2, 2), (65, 3, 2), (129, 2, 3), (170, 2, 5),
-    (182, 3, 2), (201, 4, 8), (257, 4, 8), (730, 2, 2), (768, 1, 2),
+    (182, 3, 2), (192, 2, 3), (201, 4, 8), (256, 2, 4), (257, 4, 8),
+    (257, 12, 32), (288, 2, 3), (304, 3, 2), (305, 2, 3), (320, 3, 2),
+    (321, 2, 2), (730, 2, 2), (768, 1, 2),
 ]
 
 
@@ -578,10 +585,12 @@ def test_sm90_forward_hd128_matches_plain(cuda, monkeypatch, dtype, layout,
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (768, 1)])
+@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (257, 40),
+                                 (304, 8), (768, 1)])
 def test_forward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
-    """Each block sums its rows in one fixed order: two launches on the
-    same inputs give the same bits."""
+    """Each warpgroup sums its rows in one fixed order, whichever block of
+    the persistent grid takes the head (B = 40: 160 heads, more than the
+    card's SMs): two launches on the same inputs give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(N + 128)
     q, k, v = (_randn((B, N, 4 * 128), gen, DTYPES[dtype]) for _ in range(3))
     first = A.flat_attention_fwd(q, k, v, 4, 128 ** -0.5)
@@ -590,10 +599,11 @@ def test_forward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
 
 
 def test_forward_hd128_addresses_past_2_31_bytes(cuda):
-    """bf16 at (1024, 257, 32, 128): each of q, k, v and o is 2.16 GB, past
-    2^31 bytes, so every address the kernel forms must be 64-bit. The first
-    and the last batch rows (the latter wholly past 2^31 bytes) are held
-    to the plain forward of those rows."""
+    """bf16 at (1024, 257, 32, 128), on the resident kernel: each of q, k, v
+    and o is 2.16 GB, past 2^31 bytes, so the tensor maps' strides and every
+    address the kernel forms must be 64-bit. The first and the last batch
+    rows (the latter wholly past 2^31 bytes) are held to the plain forward
+    of those rows."""
     B, N, H, hd = 1024, 257, 32, 128
     gen = torch.Generator(device=cuda).manual_seed(31)
     q, k, v = (torch.randn((B, N, H * hd), generator=gen, device=cuda,
@@ -605,6 +615,64 @@ def test_forward_hd128_addresses_past_2_31_bytes(cuda):
             q[rows], k[rows], v[rows], H, hd ** -0.5)
         assert _within(o[rows], o_ref, torch.bfloat16)
         torch.testing.assert_close(lse[rows], lse_ref, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype,N,resident", [
+    ("bf16", 37, False), ("bf16", 64, False), ("bf16", 65, True),
+    ("bf16", 201, True), ("bf16", 257, True), ("bf16", 304, True),
+    ("bf16", 305, False), ("bf16", 730, False), ("fp32", 201, False),
+    ("fp32", 257, False)])
+def test_forward_hd128_route_by_tokens(cuda, dtype, N, resident):
+    """The kernel the card ran, by name (torch.profiler): the bf16 forward
+    at hd 128 takes attention_fwd_hd128_resident.cuh's kernel for 64 < N
+    <= 304 and attention_fwd_hd128.cuh's otherwise; fp32 always the
+    latter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = (_randn((2, N, 2 * 128), gen, DTYPES[dtype]) for _ in range(3))
+    A.flat_attention_fwd(q, k, v, 2, 128 ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.flat_attention_fwd(q, k, v, 2, 128 ** -0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1, names
+    assert "attention_fwd_hd128" in names[0]
+    assert ("attention_fwd_hd128_resident_kernel" in names[0]) == resident
+
+
+def test_forward_hd128_library_spills_nothing(cuda):
+    """ptxas reports no spill and no serialized wgmma (C751x) in the bf16
+    forward library, whose resident hd-128 kernels (one per key-tile count
+    and last-tile width, 15) hold S in registers."""
+    name = "flat_attention_fwd_sm90"
+    _native.function(name)
+    log = (_native.BUILD_DIR / f"{name}.log").read_text()
+    assert log.count("attention_fwd_hd128_resident_kernel") >= 15
+    assert not any(f"C751{i}" in log for i in range(10)), log
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    assert spills and all(n == "0" for n in spills), log
+
+
+def _sass_functions(sass: str) -> dict:
+    """{function name: its SASS} of a cuobjdump --dump-sass listing."""
+    parts = re.split(r"\s*Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def test_forward_hd128_resident_runs_hgmma_and_tma(cuda):
+    """Every resident hd-128 kernel of the bf16 forward is built on wgmma
+    (HGMMA), loads its tiles by TMA (UTMALDG) and holds no warp-level
+    mma.sync (HMMA)."""
+    kernels = {name: body for name, body in _sass_functions(
+        _native.sass("flat_attention_fwd_sm90")).items()
+        if "attention_fwd_hd128_resident_kernel" in name}
+    assert len(kernels) == 15
+    for name, body in kernels.items():
+        assert "HGMMA" in body and "UTMALDG" in body, name
+        assert not re.search(r"\bHMMA\b", body), name
 
 
 # N for the Hopper backward at hd 128 (csrc/attention_bwd_hd128.cuh): the

@@ -2,11 +2,12 @@
 """Time the PyTorch port's attention kernels (K1/K2, K4/K5) on one NVIDIA
 card, at the shapes of ``PERF.md``'s kernel table.
 
-    python3 time_attention.py [ROOT]
+    python3 time_attention.py [ROOT] [--hd128]
 
 ROOT is the root of a checkout whose ``lightly_train_tpu_torch`` is timed
 (default: the directory of this file), so that two trees can be compared in
-one run on one card (parent, change, change, parent). Rows (B, N, H, hd):
+one run on one card (parent, change, change, parent). ``--hd128`` times the
+hd-128 rows alone. Rows (B, N, H, hd):
 
 - hd 64: K1/K2 (flat layout) at ViT-B/14's global and local shapes and at
   N = 730 (batch 8 and 32), K4/K5 (``vmem_attention_fwd``/``_bwd``) in
@@ -14,6 +15,11 @@ one run on one card (parent, change, change, parent). Rows (B, N, H, hd):
 - hd 16: K1/K2 and K4/K5 (the (B, N, H, hd) views ``vmem_attention`` hands
   over) at (8, 257, 2, 16) and at vittest14's pretrain shapes at batch 32,
   global (64, 257, 2, 16) and local (256, 37, 2, 16);
+- hd 128, the forward alone (K1 and K4), beside SDPA on the same inputs
+  (``library_ms``): K1 and K4 (``vmem_attention``'s (B, N, H, hd) views) at
+  ``chip_smoke.HD128_SHAPES`` (the 7B/16's N = 201, the 7B/14's N = 257,
+  N = 37 and N = 730), and K4 on (B, H, N, hd) tensors at the 7B/14 embed
+  shape;
 
 each in bf16 and fp32, as device time (``chip_smoke.device_ms``: ten calls
 captured in a CUDA graph, replayed). The inputs are random, from a seed; the
@@ -52,9 +58,48 @@ def inputs(layout: str, shape: tuple, dtype, gen):
     return [x.transpose(1, 2) for x in xs] if layout == "bnhd" else xs
 
 
+def rows_128(smoke) -> list:
+    """(layout, shape) of the hd-128 forward rows."""
+    return ([(layout, s) for layout in ("flat", "bnhd")
+             for s in smoke.HD128_SHAPES] + [("bhnd", smoke.EMBED_7B)])
+
+
+def measure_128(smoke, rows) -> list:
+    """The hd-128 forward rows (K1, K4) and SDPA's time on the same inputs,
+    for the ``lightly_train_tpu_torch`` on sys.path."""
+    import torch
+
+    from lightly_train_tpu_torch.ops.kernels import attention as A
+
+    out = []
+    for dtype in ("bf16", "fp32"):
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        for layout, shape in rows:
+            gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+            q, k, v, _ = inputs(layout, shape, dt, gen)
+            scale = shape[3] ** -0.5
+            if layout == "flat":
+                name, heads, fwd_k = "K1", (shape[2],), A.flat_attention_fwd
+                views = [A._heads(x, shape[2]) for x in (q, k, v)]
+            else:
+                name, heads, fwd_k = "K4", (), A.vmem_attention_fwd
+                views = [q, k, v]
+            ms = smoke.device_ms(lambda: fwd_k(q, k, v, *heads, scale),
+                                 per_graph=10)
+            sdpa = smoke.device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *views, scale=scale), per_graph=10)
+            out.append({"kernel": name, "dtype": dtype, "layout": layout,
+                        "shape": list(shape), "ms": ms, "library_ms": sdpa})
+            print(f"  {name} {dtype} {layout} {shape}: {ms:.4f} ms, SDPA "
+                  f"{sdpa:.4f} ms", flush=True)
+            del q, k, v, views
+    return out
+
+
 def measure(device_ms) -> list:
-    """The rows above for the ``lightly_train_tpu_torch`` on sys.path,
-    timed by ``device_ms``."""
+    """The hd-64 and hd-16 rows above for the ``lightly_train_tpu_torch`` on
+    sys.path, timed by ``device_ms``."""
     import torch
 
     from lightly_train_tpu_torch.ops.kernels import attention as A
@@ -97,7 +142,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
         return 1
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else HERE).resolve()
+    args = [a for a in sys.argv[1:] if a != "--hd128"]
+    only_128 = "--hd128" in sys.argv[1:]
+    root = Path(args[0] if args else HERE).resolve()
     # The timing of this directory's chip_smoke.py, whatever ROOT holds.
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   HERE / "chip_smoke.py")
@@ -109,12 +156,19 @@ def main() -> int:
     if Path(lightly_train_tpu_torch.__file__).resolve().parent.parent != root:
         print(f"time_attention: no port under {root}", file=sys.stderr)
         return 1
+    from lightly_train_tpu_torch import _native
+
+    # The forward libraries (and, for the other rows, the backward ones),
+    # one nvcc each, in parallel.
+    _native.build([name for name in _native.LIBRARIES
+                   if "attention" in name and (not only_128 or "fwd" in name)])
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; port under {root}", flush=True)
-    rows = measure(smoke.device_ms)
+    rows = [] if only_128 else measure(smoke.device_ms)
+    rows += measure_128(smoke, rows_128(smoke))
     print(json.dumps({"root": str(root), "card": card, "rows": rows}))
     return 0
 
