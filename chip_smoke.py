@@ -30,16 +30,16 @@ Phases (any failure exits non-zero):
    In fp32 a control checks the tolerance itself: the kernels fed inputs
    rounded to bf16 must fail it (each output's verdict is printed). The
    SASS of every attention library (each forward and backward, both
-   dtypes, at every head dim) must hold wgmma (HGMMA) instructions, and
-   that of the two that fill their rings with cp.async (the bf16 forward
-   and backward, ``flat_attention_fwd_sm90.cu`` and
-   ``flat_attention_bwd_sm90.cu``) LDGSTS too, and that of the bf16 forward
-   UTMALDG (the TMA loads of its hd-128 kernel for 64 < N <= 304,
-   ``attention_fwd_hd128_resident.cuh``) (the fp32 hd-64 forward and
-   backward, ``flat_attention_fwd_f32_sm90.cu`` and
+   dtypes, at every head dim) must hold wgmma (HGMMA) instructions; that
+   of the three that fill rings with cp.async (the bf16 forward and
+   backward, ``flat_attention_fwd_sm90.cu`` and
+   ``flat_attention_bwd_sm90.cu``, and the fp32 forward, whose two-pass
+   hd-128 and hd-16 kernels land their rows by cp.async) LDGSTS too; and
+   that of both forwards UTMALDG (the TMA loads of their hd-128 kernel for
+   64 < N <= 304, ``attention_fwd_hd128_resident.cuh``; the fp32 hd-64
+   forward and backward, ``flat_attention_fwd_f32_sm90.cu`` and
    ``flat_attention_bwd_f32_sm90.cu``, load with ld.global and split in
-   registers; at hd 16 and 128 the fp32 kernels land their rows by
-   cp.async as well); no library's SASS may hold the warp-level mma.sync
+   registers); no library's SASS may hold the warp-level mma.sync
    (HMMA), and no build log a ptxas warning that it serialized the wgmma
    products (the build's report, spills included, is printed for every
    kernel, the hd-128 ones too).
@@ -97,9 +97,11 @@ Phases (any failure exits non-zero):
    finite losses, the teacher's CLS and patch features on 2 images
    against itself with the plain attention (IEEE fp32), the method's
    init time, step times, peak memory and the end-of-run checkpoint's
-   size and save time. (3k) ``embed`` in bf16 at batch 64 with a DINOv2
-   7B/14 export (30 GiB, written by ``export_model`` from a model drawn
-   on the card): 40 K1 launches on the bf16 forward at
+   size and save time; one more step under ``torch.profiler`` (the
+   device's busy share, the teacher's K1 share, the five kernels that
+   take the most device time). (3k) ``embed`` in bf16 at batch 64 with a
+   DINOv2 7B/14 export (30 GiB, written by ``export_model`` from a model
+   drawn on the card): 40 K1 launches on the bf16 forward at
    (64, 257, 32, 128), no K2; two images' embeddings against the same
    model with its kernels and with the plain attention; the export's
    write and load times, img/s and peak memory. (3l) ``pretrain``
@@ -367,23 +369,24 @@ KERNELS = {
     "K5": ("vmem_attention_bwd", "bwd", 92),
 }
 # The attention libraries, all on Hopper's wgmma, with the instructions
-# their SASS must hold (HGMMA: wgmma; LDGSTS: cp.async, where the design
-# fills its ring with it; UTMALDG: TMA loads, the bf16 hd-128 forward's
-# resident kernel), the warp-level product that no library's SASS
+# their SASS must hold (HGMMA: wgmma; LDGSTS: cp.async, where a design fills
+# its ring with it: the bf16 forward and backward, and the fp32 forward's
+# two-pass hd-128 and hd-16 kernels; UTMALDG: TMA loads, both forwards'
+# resident hd-128 kernel), the warp-level product that no library's SASS
 # may hold (HMMA: mma.sync), and ptxas's warnings that it serialized their
 # wgmma products (C7510-C7519).
 SM90_LIBRARIES = {
     "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
     "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
-    "flat_attention_fwd_f32_sm90": ("HGMMA",),
+    "flat_attention_fwd_f32_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
     "flat_attention_bwd_f32_sm90": ("HGMMA",),
 }
 WARP_MMA = "HMMA"
 SERIALIZED = tuple(f"C751{i}" for i in range(10))
 
 
-# The largest N whose bf16 hd-128 forward runs the resident kernel
-# (csrc/attention_fwd_hd128_resident.cuh, kResidentMaxN; above 64).
+# The largest N whose hd-128 forward runs the resident kernel in either
+# dtype (csrc/attention_fwd_hd128_resident.cuh, kResidentMaxN; above 64).
 RESIDENT_MAX_N = 304
 
 
@@ -391,7 +394,7 @@ def kernel_source(direction: str, dtype: str, hd: int, n_tokens: int,
                   library: str) -> str:
     """The CUDA source whose kernel ``library`` launches for this dtype,
     head dim and N: at hd 16 and 128 the header the library includes."""
-    if (direction, dtype, hd) == ("fwd", "bf16", 128) and (
+    if (direction, hd) == ("fwd", 128) and (
             64 < n_tokens <= RESIDENT_MAX_N):
         return "attention_fwd_hd128_resident.cuh"
     if hd in (16, 128):
@@ -1532,21 +1535,27 @@ def run_teacher_7b_path(lt, A, F, card: str, work: Path) -> dict:
     built on the card and drawn leaf by leaf from the CPU generator; its
     CLS and patch features on 2 images are held against itself with the
     plain attention under IEEE fp32. It checkpoints once, at the end (the
-    frozen teacher is in the method state, as in the JAX package)."""
+    frozen teacher is in the method state, as in the JAX package). Then one
+    more step on a fixed batch under ``torch.profiler``
+    (``profiled_step``): the device's busy share, the teacher's K1 (fp32,
+    hd 128) device ms and share, and the five kernels that take the most
+    device time."""
     import torch
 
+    from lightly_train_tpu_torch._commands.train_loop import make_train_step
     from lightly_train_tpu_torch.methods import distillationv3 as V3
 
     steps = TEACHER_7B_STEPS
     out = work / "distill_7b"
     init = V3.DistillationV3.init
-    built = []
+    built, methods = [], []
 
     def timed_init(self, generator, device):
         t0 = time.perf_counter()
         result = init(self, generator, device)
         torch.cuda.synchronize()
         built.append(time.perf_counter() - t0)
+        methods.append(self)
         return result
 
     V3.DistillationV3.init = timed_init
@@ -1600,6 +1609,24 @@ def run_teacher_7b_path(lt, A, F, card: str, work: Path) -> dict:
     times = [r["profiling/step_time"] * 1e3 for r in logged]
     print(f"  teacher vs itself with the plain attention (IEEE fp32, 2 "
           f"images): relative L2 {rel} (tol 1e-3)")
+    images = torch.randint(
+        0, 256, (DISTILL_BATCH, 256, 256, 3), dtype=torch.uint8,
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+    wall_ms, kernels = profiled_step(
+        make_train_step(methods[0], steps, aug_dtype=torch.bfloat16), state,
+        images)
+    busy_ms = sum(kernels.values())
+    k1_ms = sum(ms for name, ms in kernels.items()
+                if "attention_fwd_hd128" in name)
+    prof = {"wall_ms": wall_ms, "busy_ms": busy_ms, "K1_ms": k1_ms,
+            "top": sorted(kernels.items(), key=lambda kv: -kv[1])[:5]}
+    print(f"  one profiled step on a fixed batch of {DISTILL_BATCH}: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), the teacher's K1 (fp32, hd "
+          f"128) {k1_ms:.2f} ms ({100 * k1_ms / busy_ms:.2f}%) [{card}]")
+    for name, ms in prof["top"]:
+        print(f"    {ms:9.3f} ms ({100 * ms / busy_ms:5.2f}%)  {name[:110]}")
     print(f"7B teacher: {n_params} parameters, method init (student, heads, "
           f"teacher drawn leaf by leaf) {built[0]:.1f} s; step ms {times}; "
           f"peak {peak_gib:.2f} GiB; checkpoint {ckpt_gib:.2f} GiB saved in "
@@ -1608,9 +1635,9 @@ def run_teacher_7b_path(lt, A, F, card: str, work: Path) -> dict:
     shutil.rmtree(out)
     torch.cuda.empty_cache()
     return {"launches": launches, "by_shape": by_shape, "step_ms": times,
-            "peak_gib": peak_gib, "init_s": built[0], "checkpoint_gib":
-            ckpt_gib, "checkpoint_save_s": saves[-1], "wall_s": wall,
-            "rel_l2": rel}
+            "profile": prof, "peak_gib": peak_gib, "init_s": built[0],
+            "checkpoint_gib": ckpt_gib, "checkpoint_save_s": saves[-1],
+            "wall_s": wall, "rel_l2": rel}
 
 
 def seeded_7b14():
@@ -1753,6 +1780,34 @@ def refuse_dinov2_7b(lt, work: Path) -> str:
     return said
 
 
+def profiled_step(step, state, images) -> tuple:
+    """One train step on ``images`` (uint8, on the card) under
+    ``torch.profiler``, the fp32 GEMMs under the precision variable as
+    ``pretrain`` runs them, IEEE fp32 pinned back after: (wall ms, {kernel
+    name: device ms})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightly_train_tpu_torch._system import apply_matmul_precision
+
+    apply_matmul_precision()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, images, torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    del prof
+    pin_ieee()
+    return wall_ms, kernels
+
+
 def student_7b_fixed_batch(A, method, state, images, steps: int) -> dict:
     """Phase 3l's fixed batch, on the state the run left: one whole train
     step (forward, backward, the update) under ``torch.profiler``, for the
@@ -1766,35 +1821,19 @@ def student_7b_fixed_batch(A, method, state, images, steps: int) -> dict:
     "plain_attention"). Returns {"profile": {...}, tag: (loss, {leaf:
     gradient})}. Each pass frees its gradients before the next."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from lightly_train_tpu_torch._commands.train_loop import make_train_step
-    from lightly_train_tpu_torch._system import apply_matmul_precision
     from lightly_train_tpu_torch.models import vit
 
     step = make_train_step(method, steps, aug_dtype=torch.bfloat16)
     named = dict(state.params.named_parameters())
-    apply_matmul_precision()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, images, torch.Generator(device="cuda").manual_seed(SEED))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = {"busy": 0.0, "K1": 0.0, "K2": 0.0}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            ms = evt.time_range.elapsed_us() / 1e3
-            by_kind["busy"] += ms
-            if "attention_fwd_hd128" in evt.name:
-                by_kind["K1"] += ms
-            elif "attention_bwd_hd128" in evt.name:
-                by_kind["K2"] += ms
-    del prof
-    results = {"profile": {"wall_ms": wall_ms, **{
-        f"{k}_ms": v for k, v in by_kind.items()}}}
-    pin_ieee()
+    wall_ms, kernels = profiled_step(step, state, images)
+    results = {"profile": {
+        "wall_ms": wall_ms, "busy_ms": sum(kernels.values()),
+        "K1_ms": sum(ms for name, ms in kernels.items()
+                     if "attention_fwd_hd128" in name),
+        "K2_ms": sum(ms for name, ms in kernels.items()
+                     if "attention_bwd_hd128" in name)}}
     kernel_bwd = A.flat_attention_bwd
     for tag in ("kernels", "plain_backward", "plain_attention"):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 9)

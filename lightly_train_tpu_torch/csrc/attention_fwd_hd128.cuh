@@ -1,9 +1,10 @@
 // Multi-head self-attention, forward, at head dim 128 on Hopper's warpgroup
 // tensor-core products: K1 (flat layout) and K4 (per-head layout), one
 // kernel template for both dtypes, launched by flat_attention_fwd_sm90.cu
-// (bf16, where attention_fwd_hd128_resident.cuh's kernel does not take N:
-// N <= 64 and N > 304) and flat_attention_fwd_f32_sm90.cu (fp32, every N)
-// when hd = 128.
+// (bf16) and flat_attention_fwd_f32_sm90.cu (fp32) when hd = 128 where
+// attention_fwd_hd128_resident.cuh's kernel does not take the call: N <=
+// 64, N > 304, or scale <= 0. No path of the port launches it at hd 128
+// today (the 7B ViTs run N = 201 and 257).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1)
 // and ::_fwd_kernel (K4) at hd 128, the 7B ViTs' head dim (4096 / 32
@@ -18,13 +19,11 @@
 // enter the bf16 tensor cores as hi/lo planes (mma.cuh): q . k from three
 // chains (hi.hi, hi.lo, lo.hi), p . v from two (p.v_hi, p.v_lo).
 //
-// What bounds it on an H100: at the 7B/14 embed shape (B=64, N=257, H=32)
-// q/k/v in and o out are 539 MB in bf16, ~161 us at 3.35 TB/s, and the two
-// N^2 hd products a head 35 GFLOP (q . k runs twice here: 52 GFLOP), ~53
-// us at the bf16 tensor peak; at the 7B/16 teacher's fp32 shape (64, 201,
-// 32, 128) 843 MB, ~252 us, against 8 bf16 passes of N^2 hd a head, 85
-// GFLOP. Bytes bound both; the design keeps every row's bytes to one read
-// and two warpgroups' products on each SM:
+// What bounds it on an H100: at (16, 730, 32, 128) the products, 0.14 ms
+// at the bf16 tensor peak (0.28 ms at TF32's), against 0.07 ms of bytes
+// in bf16; at N <= 64 the bytes. Here q . k runs twice and fp32 runs 8
+// bf16 passes of N^2 hd a head. The design keeps every row's bytes to one
+// read and two warpgroups' products on each SM:
 //   - A tile (64 rows x 128 bf16, 16 KB a plane) is two 64-column sub-tiles
 //     in the 128-byte swizzle, 8 KB apart (sm90.cuh): Q and K are K-major
 //     operands whose k16 steps 4 to 7 start in the second sub-tile, V the
@@ -56,9 +55,10 @@
 //     passes.
 //   - The copies are branch-free and the warpgroup index is warp-uniform:
 //     ptxas serializes products in a path it cannot prove uniform.
-// A simple design first: each warpgroup alternates products and softmax
-// between block barriers and q . k runs twice; PERF.md has the
-// measurements. Later work: TMA loads from a warp-specialised producer.
+// A simple design: each warpgroup alternates products and softmax between
+// block barriers and q . k runs twice; PERF.md has the measurements. The
+// resident kernel (TMA loads from a producer warpgroup, S kept in
+// registers, q . k once) replaced it for 64 < N <= 304 in both dtypes.
 #pragma once
 
 #include "sm90.cuh"

@@ -1,7 +1,8 @@
 // Multi-head self-attention, forward, fp32: K1 (flat layout) and K4
 // (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
 // 64 (this file's kernel), 16 (attention_fwd_hd16.cuh's, in fp32) and 128
-// (attention_fwd_hd128.cuh's, in fp32).
+// (attention_fwd_hd128_resident.cuh's for 64 < N <= 304 and scale > 0,
+// else attention_fwd_hd128.cuh's, in fp32).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_fwd_kernel (K1,
 // q/k/v as (B, N, H * hd)) and ::_fwd_kernel (K4, q/k/v as (B, H, N, hd))
@@ -27,8 +28,14 @@
 // are sm90.cuh's at their default head dim, 64. At hd 16 the C entry
 // launches attention_fwd_hd16.cuh's kernel in fp32, which lands the rows
 // by cp.async and splits them in shared memory instead (one round trip for
-// a whole head); at hd 128 attention_fwd_hd128.cuh's, which lands them by
-// cp.async and splits them in shared memory too, through a ring.
+// a whole head); at hd 128, for 64 < N <= 304 and scale > 0 (the 7B
+// ViTs' N = 201 and 257), attention_fwd_hd128_resident.cuh's: persistent
+// blocks, TMA loads from a producer warpgroup whose warps split each tile
+// into its planes once a load, S of every key tile in registers so that
+// q . k runs once (bytes bound it, then shared memory's bandwidth: each
+// tile is also split in it); else attention_fwd_hd128.cuh's two-pass
+// kernel, which lands the rows by cp.async and splits them in shared
+// memory through a ring.
 //
 // What bounds it on an H100: at the ViT-B/14 global shape (B=64, N=257,
 // H=12) q/k/v in and o out are 202 MB, ~60 us at 3.35 TB/s; the products
@@ -65,6 +72,7 @@
 // serialize the products (C7511, C7519), as did register fences before
 // wgmma.fence. PERF.md has the measurements.
 #include "attention_fwd_hd128.cuh"
+#include "attention_fwd_hd128_resident.cuh"
 #include "attention_fwd_hd16.cuh"
 #include "sm90.cuh"
 
@@ -332,9 +340,13 @@ extern "C" int lt_attention_fwd_f32_sm90(const void* q, const void* k,
   if (hd == 16)
     return lt::sm90::hd16::launch<float>(q, k, v, o, lse, B, N, H, strides,
                                          scale, stream);
-  if (hd == 128)
+  if (hd == 128) {
+    if (N > kRows && N <= lt::sm90::hd128::kResidentMaxN && scale > 0.f)
+      return lt::sm90::hd128::launch_resident<float>(q, k, v, o, lse, B, N, H,
+                                                     strides, scale, stream);
     return lt::sm90::hd128::launch<float>(q, k, v, o, lse, B, N, H, strides,
                                           scale, stream);
+  }
   if (hd != 64) return cudaErrorInvalidValue;
   const int nt = (N + kRows - 1) / kRows;
   const bool one = nt == 1, resident = nt <= kMaxResident;

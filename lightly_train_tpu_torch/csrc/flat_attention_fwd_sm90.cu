@@ -310,8 +310,8 @@ extern "C" int lt_attention_fwd_sm90(const void* q, const void* k,
                                         scale, stream);
   if (hd == 128) {
     if (N > kRows && N <= lt::sm90::hd128::kResidentMaxN && scale > 0.f)
-      return lt::sm90::hd128::launch_resident(q, k, v, o, lse, B, N, H,
-                                              strides, scale, stream);
+      return lt::sm90::hd128::launch_resident<bf16>(q, k, v, o, lse, B, N, H,
+                                                    strides, scale, stream);
     return lt::sm90::hd128::launch<bf16>(q, k, v, o, lse, B, N, H, strides,
                                          scale, stream);
   }

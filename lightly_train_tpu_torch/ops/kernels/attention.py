@@ -9,9 +9,10 @@ and ``csrc/flat_attention_bwd_sm90.cu`` in bf16,
 ``csrc/flat_attention_bwd_f32_sm90.cu`` in fp32; at head dim 16 the
 forwards launch the kernel of ``csrc/attention_fwd_hd16.cuh`` and the
 backwards that of ``csrc/attention_bwd_hd16.cuh``, at head dim 128 the
-forwards that of ``csrc/attention_fwd_hd128.cuh`` (the bf16 forward for
-64 < N <= 304 that of ``csrc/attention_fwd_hd128_resident.cuh``, the C
-entry's choice) and the backwards those of ``csrc/attention_bwd_hd128.cuh``).
+forwards that of ``csrc/attention_fwd_hd128_resident.cuh`` for 64 < N <=
+304 and a positive scale, that of ``csrc/attention_fwd_hd128.cuh``
+otherwise (the C entries' choice, in both dtypes), and the backwards those
+of ``csrc/attention_bwd_hd128.cuh``).
 The four TPU kernels
 do the same arithmetic and differ only in how a head is addressed:
 

@@ -265,12 +265,41 @@ def test_kernel_support_range():
 def test_forward_route(dtype, head_dim, library):
     """At every head dim each dtype runs its own wgmma forward (hd 16
     through the kernel of csrc/attention_fwd_hd16.cuh, hd 128 through that
-    of csrc/attention_fwd_hd128.cuh, or in bf16 at 64 < N <= 304 that of
-    csrc/attention_fwd_hd128_resident.cuh); each route's library is one the
-    port builds."""
+    of csrc/attention_fwd_hd128_resident.cuh at 64 < N <= 304 and a
+    positive scale, in both dtypes, else that of
+    csrc/attention_fwd_hd128.cuh); each route's library is one the port
+    builds."""
     assert A.fwd_library(dtype, head_dim) == library
     assert library in A.fwd_launches
     assert library in _native.LIBRARIES
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("n_tokens,source", [
+    (37, "attention_fwd_hd128.cuh"), (64, "attention_fwd_hd128.cuh"),
+    (65, "attention_fwd_hd128_resident.cuh"),
+    (201, "attention_fwd_hd128_resident.cuh"),
+    (304, "attention_fwd_hd128_resident.cuh"),
+    (305, "attention_fwd_hd128.cuh"), (730, "attention_fwd_hd128.cuh"),
+])
+def test_chip_smoke_names_the_hd128_forward_source(dtype, n_tokens, source):
+    """chip_smoke.py's kernels line names, for the hd-128 forward, the
+    source whose kernel the C entries launch at that N (the resident one
+    for 64 < N <= 304 in both dtypes), and the two-pass header for the
+    backward."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_routes", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    assert smoke.kernel_source("fwd", dtype, 128, n_tokens,
+                               A.fwd_library(dt, 128)) == source
+    assert smoke.kernel_source("bwd", dtype, 128, n_tokens,
+                               A.bwd_library(dt, 128)) == (
+        "attention_bwd_hd128.cuh")
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

@@ -233,16 +233,21 @@ def test_vmem_attention_kernels_match_plain(cuda, dtype, layout, B, N, H, hd):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_attention_kernels_read_strided_qkv(cuda, dtype):
-    """q/k/v as column slices of one fused (B, N, 3D) projection output."""
-    B, N, D = 2, 257, 12 * HD
+@pytest.mark.parametrize("N,H,hd", [(257, 12, HD), (201, 4, 128),
+                                    (304, 3, 128)])
+def test_attention_kernels_read_strided_qkv(cuda, dtype, N, H, hd):
+    """q/k/v as column slices of one fused (B, N, 3D) projection output: the
+    same bits as on contiguous copies (at hd 128, the resident kernel's
+    tensor maps over the strided views)."""
+    B, D = 2, H * hd
     gen = torch.Generator(device=cuda).manual_seed(7)
     qkv = _randn((B, N, 3 * D), gen, DTYPES[dtype])
     q, k, v = qkv.split(D, dim=-1)
-    o, lse = A.flat_attention_fwd(q, k, v, 12, HD ** -0.5)
-    o_ref, _ = A.flat_attention_fwd(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), 12, HD ** -0.5)
+    o, lse = A.flat_attention_fwd(q, k, v, H, hd ** -0.5)
+    o_ref, lse_ref = A.flat_attention_fwd(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), H, hd ** -0.5)
     torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -538,20 +543,20 @@ def test_sm90_forward_hd16_matches_plain(cuda, monkeypatch, dtype, layout, N,
 
 
 # (N, B, H) for the Hopper forward at hd 128: N = 1 and the one-tile form
-# (37, 64) of csrc/attention_fwd_hd128.cuh; one past a tile (65), ragged
-# tails of every wgmma width after an odd and an even number of whole tiles
-# (129, 170, 182), a whole last tile (192, 256), the 7B/16 teacher's and
-# the 7B/14 embed's token counts (201, 257; last tiles of 9 and 1 keys), 257
-# again over 384 heads (about three a block of the persistent grid, so the
-# K and V rings wrap), 288 and 304 (the top of the form) in bf16 on
-# csrc/attention_fwd_hd128_resident.cuh, in fp32 on attention_fwd_hd128.cuh;
-# 305 (the first N past the resident form), 320, 321 and the top of the
-# range (730, 768) on attention_fwd_hd128.cuh in both.
+# (37, 64) of csrc/attention_fwd_hd128.cuh; one past a tile (65), two whole
+# tiles (128), ragged tails of every wgmma width after an odd and an even
+# number of whole tiles (129, 170, 182, 193), a whole last tile (192, 256),
+# the 7B/16 teacher's and the 7B/14 embed's token counts (201, 257; last
+# tiles of 9 and 1 keys), 257 again over 384 heads (about three a block of
+# the persistent grid, so the rings wrap), 288 and 304 (the top of the
+# form) on csrc/attention_fwd_hd128_resident.cuh in both dtypes; 305 (the
+# first N past the resident form), 320, 321 and the top of the range (730,
+# 768) on attention_fwd_hd128.cuh in both.
 HD128_SHAPES = [
-    (1, 1, 2), (37, 4, 2), (64, 2, 2), (65, 3, 2), (129, 2, 3), (170, 2, 5),
-    (182, 3, 2), (192, 2, 3), (201, 4, 8), (256, 2, 4), (257, 4, 8),
-    (257, 12, 32), (288, 2, 3), (304, 3, 2), (305, 2, 3), (320, 3, 2),
-    (321, 2, 2), (730, 2, 2), (768, 1, 2),
+    (1, 1, 2), (37, 4, 2), (64, 2, 2), (65, 3, 2), (128, 2, 3), (129, 2, 3),
+    (170, 2, 5), (182, 3, 2), (192, 2, 3), (193, 3, 2), (201, 4, 8),
+    (256, 2, 4), (257, 4, 8), (257, 12, 32), (288, 2, 3), (304, 3, 2),
+    (305, 2, 3), (320, 3, 2), (321, 2, 2), (730, 2, 2), (768, 1, 2),
 ]
 
 
@@ -620,34 +625,43 @@ def test_forward_hd128_addresses_past_2_31_bytes(cuda):
 @pytest.mark.parametrize("dtype,N,resident", [
     ("bf16", 37, False), ("bf16", 64, False), ("bf16", 65, True),
     ("bf16", 201, True), ("bf16", 257, True), ("bf16", 304, True),
-    ("bf16", 305, False), ("bf16", 730, False), ("fp32", 201, False),
-    ("fp32", 257, False)])
-def test_forward_hd128_route_by_tokens(cuda, dtype, N, resident):
-    """The kernel the card ran, by name (torch.profiler): the bf16 forward
-    at hd 128 takes attention_fwd_hd128_resident.cuh's kernel for 64 < N
-    <= 304 and attention_fwd_hd128.cuh's otherwise; fp32 always the
-    latter."""
+    ("bf16", 305, False), ("bf16", 730, False), ("fp32", 37, False),
+    ("fp32", 64, False), ("fp32", 65, True), ("fp32", 201, True),
+    ("fp32", 257, True), ("fp32", 304, True), ("fp32", 305, False),
+    ("fp32", 730, False)])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_forward_hd128_route_by_tokens(cuda, dtype, N, resident, sign):
+    """The kernel the card ran, by name (torch.profiler): the forward at hd
+    128 takes attention_fwd_hd128_resident.cuh's kernel for 64 < N <= 304
+    and scale > 0 in both dtypes, and attention_fwd_hd128.cuh's otherwise
+    (scale <= 0 too)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=cuda).manual_seed(N)
     q, k, v = (_randn((2, N, 2 * 128), gen, DTYPES[dtype]) for _ in range(3))
-    A.flat_attention_fwd(q, k, v, 2, 128 ** -0.5)
+    scale = sign * 128 ** -0.5
+    A.flat_attention_fwd(q, k, v, 2, scale)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        A.flat_attention_fwd(q, k, v, 2, 128 ** -0.5)
+        o, lse = A.flat_attention_fwd(q, k, v, 2, scale)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1, names
     assert "attention_fwd_hd128" in names[0]
-    assert ("attention_fwd_hd128_resident_kernel" in names[0]) == resident
+    assert ("attention_fwd_hd128_resident_kernel" in names[0]) == (
+        resident and sign > 0)
+    o_ref, lse_ref = A.flat_attention_fwd_plain(q, k, v, 2, scale)
+    assert _within(o, o_ref, DTYPES[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=5e-3)
 
 
-def test_forward_hd128_library_spills_nothing(cuda):
-    """ptxas reports no spill and no serialized wgmma (C751x) in the bf16
+@pytest.mark.parametrize("name", ["flat_attention_fwd_sm90",
+                                  "flat_attention_fwd_f32_sm90"])
+def test_forward_hd128_library_spills_nothing(cuda, name):
+    """ptxas reports no spill and no serialized wgmma (C751x) in either
     forward library, whose resident hd-128 kernels (one per key-tile count
-    and last-tile width, 15) hold S in registers."""
-    name = "flat_attention_fwd_sm90"
+    and last-tile width, 15 a dtype) hold S in registers."""
     _native.function(name)
     log = (_native.BUILD_DIR / f"{name}.log").read_text()
     assert log.count("attention_fwd_hd128_resident_kernel") >= 15
@@ -662,12 +676,14 @@ def _sass_functions(sass: str) -> dict:
     return dict(zip(parts[1::2], parts[2::2]))
 
 
-def test_forward_hd128_resident_runs_hgmma_and_tma(cuda):
-    """Every resident hd-128 kernel of the bf16 forward is built on wgmma
-    (HGMMA), loads its tiles by TMA (UTMALDG) and holds no warp-level
+@pytest.mark.parametrize("library", ["flat_attention_fwd_sm90",
+                                     "flat_attention_fwd_f32_sm90"])
+def test_forward_hd128_resident_runs_hgmma_and_tma(cuda, library):
+    """Every resident hd-128 kernel of each forward library is built on
+    wgmma (HGMMA), loads its tiles by TMA (UTMALDG) and holds no warp-level
     mma.sync (HMMA)."""
     kernels = {name: body for name, body in _sass_functions(
-        _native.sass("flat_attention_fwd_sm90")).items()
+        _native.sass(library)).items()
         if "attention_fwd_hd128_resident_kernel" in name}
     assert len(kernels) == 15
     for name, body in kernels.items():
