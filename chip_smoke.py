@@ -372,12 +372,12 @@ KERNELS = {
 # their SASS must hold (HGMMA: wgmma; LDGSTS: cp.async, where a design fills
 # its ring with it: the bf16 forward and backward, and the fp32 forward's
 # two-pass hd-128 and hd-16 kernels; UTMALDG: TMA loads, both forwards'
-# resident hd-128 kernel), the warp-level product that no library's SASS
-# may hold (HMMA: mma.sync), and ptxas's warnings that it serialized their
-# wgmma products (C7510-C7519).
+# resident hd-128 kernel and the bf16 backward's two hd-128 kernels), the
+# warp-level product that no library's SASS may hold (HMMA: mma.sync), and
+# ptxas's warnings that it serialized their wgmma products (C7510-C7519).
 SM90_LIBRARIES = {
     "flat_attention_fwd_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
-    "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS"),
+    "flat_attention_bwd_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
     "flat_attention_fwd_f32_sm90": ("HGMMA", "LDGSTS", "UTMALDG"),
     "flat_attention_bwd_f32_sm90": ("HGMMA",),
 }
@@ -393,10 +393,14 @@ RESIDENT_MAX_N = 304
 def kernel_source(direction: str, dtype: str, hd: int, n_tokens: int,
                   library: str) -> str:
     """The CUDA source whose kernel ``library`` launches for this dtype,
-    head dim and N: at hd 16 and 128 the header the library includes."""
+    head dim and N: at hd 16 and 128 the header the library includes (the
+    bf16 backward at hd 128 runs attention_bwd_hd128_tma.cuh's two kernels
+    at every N, fp32 the three role kernels of attention_bwd_hd128.cuh)."""
     if (direction, hd) == ("fwd", 128) and (
             64 < n_tokens <= RESIDENT_MAX_N):
         return "attention_fwd_hd128_resident.cuh"
+    if (direction, hd, dtype) == ("bwd", 128, "bf16"):
+        return "attention_bwd_hd128_tma.cuh"
     if hd in (16, 128):
         return f"attention_{direction}_hd{hd}.cuh"
     return library + ".cu"
@@ -1455,6 +1459,35 @@ def plain_attention(A):
     return attention
 
 
+def exact_attention_bwd(q, k, v, o, do, lse, num_heads: int, scale: float):
+    """K2's function without the TPU kernel's bf16 roundings (p and ds stay
+    fp32): from q, k, v, o and do upcast to fp32 and the forward's lse,
+    p = exp(q k^T scale - lse), dv = p^T do, dp = do v^T, delta =
+    rowsum(do o), ds = p (dp - delta) scale, dq = ds k, dk = ds^T q, one
+    head at a time to bound memory, in fp32 (IEEE on the card once
+    ``pin_ieee`` has run). Takes and returns K2's flat (B, N, H hd)
+    tensors, the gradients in q's dtype; phase 3l's "exact_backward"."""
+    import torch
+
+    hd = q.shape[-1] // num_heads
+    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    for h in range(num_heads):
+        cols = slice(h * hd, (h + 1) * hd)
+        qh, kh, vh, oh, doh = (x[..., cols].float()
+                               for x in (q, k, v, o, do))
+        p = torch.exp(qh @ kh.transpose(1, 2) * scale
+                      - lse[:, h, :, None].float())
+        dp = doh @ vh.transpose(1, 2)
+        delta = (doh * oh).sum(-1, keepdim=True)
+        ds = p * (dp - delta) * scale
+        for grad, x in zip(grads, (ds @ kh, ds.transpose(1, 2) @ qh,
+                                   p.transpose(1, 2) @ doh)):
+            grad[..., cols] = x.to(grad.dtype)
+        del p, dp, ds
+    return tuple(grads)
+
+
 def held_to_plain_attention(A, module, images, keys, tol: float,
                             pool=None) -> dict:
     """``module`` on ``images`` with its attention kernels, then with their
@@ -1816,9 +1849,11 @@ def student_7b_fixed_batch(A, method, state, images, steps: int) -> dict:
     then, from the state after it, the loss and the STUDENT_7B_LEAVES
     gradients, from the same images and generator, under IEEE fp32: with
     the attention kernels ("kernels"); with K2's plain version
-    (``flat_attention_bwd_plain``) in its place ("plain_backward"); and
-    with autograd through the plain forward (``plain_attention``,
-    "plain_attention"). Returns {"profile": {...}, tag: (loss, {leaf:
+    (``flat_attention_bwd_plain``) in its place ("plain_backward"); with
+    autograd through the plain forward (``plain_attention``,
+    "plain_attention"); and with K1's forward and an fp32 backward without
+    the TPU kernel's bf16 roundings (``exact_attention_bwd``,
+    "exact_backward"). Returns {"profile": {...}, tag: (loss, {leaf:
     gradient})}. Each pass frees its gradients before the next."""
     import torch
 
@@ -1833,12 +1868,17 @@ def student_7b_fixed_batch(A, method, state, images, steps: int) -> dict:
         "K1_ms": sum(ms for name, ms in kernels.items()
                      if "attention_fwd_hd128" in name),
         "K2_ms": sum(ms for name, ms in kernels.items()
-                     if "attention_bwd_hd128" in name)}}
+                     if "attention_bwd_hd128" in name),
+        "K2_kernels": {name.split("(")[0]: ms for name, ms in kernels.items()
+                       if "attention_bwd_hd128" in name}}}
     kernel_bwd = A.flat_attention_bwd
-    for tag in ("kernels", "plain_backward", "plain_attention"):
+    for tag in ("kernels", "plain_backward", "plain_attention",
+                "exact_backward"):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
         if tag == "plain_backward":
             A.flat_attention_bwd = A.flat_attention_bwd_plain
+        if tag == "exact_backward":
+            A.flat_attention_bwd = exact_attention_bwd
         if tag == "plain_attention":
             vit.attention = plain_attention(A)
         try:
@@ -1956,6 +1996,8 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
           f"({100 * prof['K1_ms'] / prof['busy_ms']:.2f}%), K2 at hd 128 "
           f"{prof['K2_ms']:.1f} ms "
           f"({100 * prof['K2_ms'] / prof['busy_ms']:.2f}%) [{card}]")
+    print("  K2's kernels in that step (ms): "
+          + ", ".join(f"{n} {ms:.2f}" for n, ms in prof["K2_kernels"].items()))
     # Held: the kernels against the same step with K2's plain version in
     # its place (the same forward), 5e-2 relative L2 a leaf. Written down,
     # not held: against autograd through the plain forward, which changes
@@ -1973,20 +2015,34 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
         if not (torch.isfinite(got[name]).all() and r <= 5e-2):
             fail(f"7B student's {name} gradient with the kernels against "
                  f"K2's plain version: relative L2 {r} (tol 5e-2)")
+    # Written down, not held: each pass against the gradients of K1's
+    # forward with an fp32 backward that rounds neither p nor ds to bf16,
+    # which parts the backward's formula (kernels, plain_backward) from
+    # the forward's bf16 noise (plain_attention).
+    exact = fixed["exact_backward"][1]
+    rel["exact_backward"] = {
+        tag: {n: ((fixed[tag][1][n] - exact[n]).norm()
+                  / exact[n].norm()).item() for n in STUDENT_7B_LEAVES}
+        for tag in ("kernels", "plain_backward", "plain_attention")}
     print(f"  fixed batch of {DISTILL_BATCH}: losses "
           + ", ".join(f"{t} {fixed[t][0]:.7f}" for t in (
-              "kernels", "plain_backward", "plain_attention")))
+              "kernels", "plain_backward", "plain_attention",
+              "exact_backward")))
     for ref, tol in (("plain_backward", "tol 5e-2 each"),
                      ("plain_attention", "written down, not held")):
         print(f"  gradients' relative L2 against {ref} ({tol}): "
               + ", ".join(f"{n} {v:.3e}" for n, v in rel[ref].items()))
+    for tag, by_leaf in rel["exact_backward"].items():
+        print(f"  {tag} gradients' relative L2 against exact_backward "
+              "(written down, not held): "
+              + ", ".join(f"{n} {v:.3e}" for n, v in by_leaf.items()))
     print(f"7B student: {n_params} parameters, method init (student drawn "
           f"leaf by leaf on the card, heads, teacher) {built[0]:.1f} s; step "
           f"ms {times}; peak {peak_gib:.2f} GiB; checkpoint "
           f"{ckpt_gib[0]:.2f} GiB saved in {saves[-1]:.1f} s, export "
           f"{export_gib:.2f} GiB; "
           f"wall {wall:.1f} s [{card}]", flush=True)
-    del state, student, fixed, got
+    del state, student, fixed, got, exact
     torch.cuda.empty_cache()
     return {"launches": launches, "by_shape": by_shape, "step_ms": times,
             "profile": prof,

@@ -1,8 +1,10 @@
 // Multi-head self-attention, backward, at head dim 128 on Hopper's
 // warpgroup tensor-core products: K2 (flat layout) and K5 (per-head
-// layout), one kernel template for both dtypes and three roles, launched by
-// flat_attention_bwd_sm90.cu (bf16) and flat_attention_bwd_f32_sm90.cu
-// (fp32) when hd = 128.
+// layout), one kernel template in three roles, launched by
+// flat_attention_bwd_f32_sm90.cu when hd = 128. It is written for both
+// dtypes, but bf16 runs attention_bwd_hd128_tma.cuh's two persistent
+// TMA-fed kernels instead (dk and dv in one kernel, S^T once), which build
+// on this file's arguments (BwdArgs) and numerics.
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
 // and ::_bwd_kernel (K5) at hd 128, the 7B ViTs' head dim (4096 / 32
@@ -88,10 +90,9 @@
 //   - The copies are branch-free in their count and the warpgroup index is
 //     warp-uniform; every register a batch of products reads is defined
 //     before its fence.
-// A simple design first: each warpgroup alternates products and arithmetic
-// with a wait between them, and S^T runs twice. PERF.md has the
-// measurements. Later work: TMA loads from a warp-specialised producer,
-// products of one tile overlapped with the arithmetic of the next.
+// A simple design: each warpgroup alternates products and arithmetic with a
+// wait between them, and S^T runs twice. PERF.md has the measurements; the
+// bf16 redesign (attention_bwd_hd128_tma.cuh) is the model for fp32's.
 #pragma once
 
 #include "attention_fwd_hd128.cuh"
@@ -103,12 +104,10 @@ namespace hd128 {
 
 enum Role : int { kDqRole = 0, kDvRole = 1, kDkRole = 2 };
 
-// Warpgroups a block and loads in flight, by dtype and role (see above).
+// Warpgroups a block and loads in flight, by dtype and role (see above;
+// fp32 alone launches these kernels).
 template <typename T, int R>
-struct BwdConfig {
-  static constexpr int kWg = 2;
-  static constexpr int kAhead = 3;  // a ring of 4 slots of 32 KB
-};
+struct BwdConfig;
 template <int R>
 struct BwdConfig<float, R> {
   static constexpr int kWg = R == kDvRole ? 2 : 1;
@@ -129,24 +128,6 @@ struct BwdArgs {
 };
 
 // do . o over 64 columns of one row, in fp32.
-__device__ __forceinline__ float half_row_dot(const bf16* a, const bf16* b) {
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < 64; c += 8) {
-    const uint4 av = *reinterpret_cast<const uint4*>(a + c);
-    const uint4 bv = *reinterpret_cast<const uint4*>(b + c);
-    const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&av);
-    const __nv_bfloat162* bp = reinterpret_cast<const __nv_bfloat162*>(&bv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 x = __bfloat1622float2(ap[e]);
-      const float2 y = __bfloat1622float2(bp[e]);
-      sum += x.x * y.x;
-      sum += x.y * y.y;
-    }
-  }
-  return sum;
-}
 __device__ __forceinline__ float half_row_dot(const float* a,
                                               const float* b) {
   float sum = 0.f;

@@ -1,7 +1,7 @@
 // Multi-head self-attention, backward, bf16: K2 (flat layout) and K5
 // (per-head layout) on Hopper's warpgroup tensor-core products, at head dim
 // 64 (this file's kernels), 16 (attention_bwd_hd16.cuh's, in bf16) and 128
-// (attention_bwd_hd128.cuh's, in bf16).
+// (attention_bwd_hd128_tma.cuh's two persistent TMA-fed kernels).
 //
 // Replaces lightly_train_tpu/ops/pallas/attention.py::_flat_bwd_kernel (K2)
 // and ::_bwd_kernel (K5) for bf16 q/k/v; fp32 is
@@ -67,7 +67,7 @@
 //     (p = 0) in the dk/dv kernel's last tile.
 //   - As in the forward: fixed-count copy loops and a warp-uniform
 //     warpgroup index, or ptxas serializes the products.
-#include "attention_bwd_hd128.cuh"
+#include "attention_bwd_hd128_tma.cuh"
 #include "attention_bwd_hd16.cuh"
 #include "sm90.cuh"
 
@@ -572,9 +572,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }  // namespace
 
 // strides: (batch, token, head) for q, k, v, o, do, dq, dk, dv. bf16
-// (fp32 = 0) at hd = 64, 16 or 128 (N <= 768). At hd 64 and N > 64 the dq kernel
-// writes delta (B, H, N) fp32 for the dk/dv kernel, at hd 128 the dq role
-// for the dk role; hd 16 does not use it.
+// (fp32 = 0) at hd = 64, 16 or 128 (N <= 768). At hd 64 and N > 64, and at
+// hd 128, the dq kernel writes delta (B, H, N) fp32 for the dk/dv kernel;
+// hd 16 does not use it.
 extern "C" int lt_attention_bwd_sm90(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* dout, const void* lse,
@@ -587,9 +587,9 @@ extern "C" int lt_attention_bwd_sm90(const void* q, const void* k,
     return lt::sm90::hd16::launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv,
                                             B, N, H, strides, scale, stream);
   if (hd == 128)
-    return lt::sm90::hd128::launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk,
-                                             dv, delta, B, N, H, strides,
-                                             scale, stream);
+    return lt::sm90::hd128::launch_bwd_tma(q, k, v, o, dout, lse, dq, dk, dv,
+                                           delta, B, N, H, strides, scale,
+                                           stream);
   if (hd != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* q_ = static_cast<const bf16*>(q);

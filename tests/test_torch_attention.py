@@ -276,17 +276,21 @@ def test_forward_route(dtype, head_dim, library):
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("n_tokens,source", [
-    (37, "attention_fwd_hd128.cuh"), (64, "attention_fwd_hd128.cuh"),
+    (1, "attention_fwd_hd128.cuh"), (37, "attention_fwd_hd128.cuh"),
+    (64, "attention_fwd_hd128.cuh"),
     (65, "attention_fwd_hd128_resident.cuh"),
     (201, "attention_fwd_hd128_resident.cuh"),
+    (257, "attention_fwd_hd128_resident.cuh"),
     (304, "attention_fwd_hd128_resident.cuh"),
     (305, "attention_fwd_hd128.cuh"), (730, "attention_fwd_hd128.cuh"),
+    (768, "attention_fwd_hd128.cuh"),
 ])
 def test_chip_smoke_names_the_hd128_forward_source(dtype, n_tokens, source):
     """chip_smoke.py's kernels line names, for the hd-128 forward, the
     source whose kernel the C entries launch at that N (the resident one
-    for 64 < N <= 304 in both dtypes), and the two-pass header for the
-    backward."""
+    for 64 < N <= 304 in both dtypes), and for the backward the header of
+    the bf16 library's two TMA-fed kernels (every N) or of the fp32
+    library's three role kernels."""
     import importlib.util
     from pathlib import Path
 
@@ -299,7 +303,40 @@ def test_chip_smoke_names_the_hd128_forward_source(dtype, n_tokens, source):
                                A.fwd_library(dt, 128)) == source
     assert smoke.kernel_source("bwd", dtype, 128, n_tokens,
                                A.bwd_library(dt, 128)) == (
-        "attention_bwd_hd128.cuh")
+        "attention_bwd_hd128_tma.cuh" if dtype == "bf16"
+        else "attention_bwd_hd128.cuh")
+
+
+def test_chip_smoke_exact_backward_matches_float64_autograd():
+    """chip_smoke.py's ``exact_attention_bwd`` (phase 3l's "exact_backward":
+    K2's function with p and ds left unrounded, in fp32, a head at a time)
+    against autograd through float64 softmax attention at (2, 65, 2, 128),
+    fed fp32 copies of the same inputs and of the float64 forward's o and
+    lse: within 1e-5 relative L2, a few fp32 roundings of sums over 65 keys
+    and 128 columns."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_exact", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    B, N, H, hd = 2, 65, 2, 128
+    scale = hd ** -0.5
+    rng = np.random.default_rng(65)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, N, H * hd)))
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    qh, kh, vh = (x.view(B, N, H, hd).transpose(1, 2) for x in leaves)
+    s = qh @ kh.transpose(-1, -2) * scale
+    o = (torch.softmax(s, -1) @ vh).transpose(1, 2).reshape(B, N, H * hd)
+    lse = torch.logsumexp(s, -1)
+    refs = torch.autograd.grad(o, leaves, do)
+    got = smoke.exact_attention_bwd(
+        *(x.detach().float() for x in (q, k, v, o, do, lse)), H, scale)
+    for g, r in zip(got, refs):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert ((g.double() - r).norm() / r.norm()).item() < 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

@@ -66,8 +66,9 @@ HD, H = 128, 2
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 # The 7B/16 teacher at 224^2 (196 patches, CLS, 4 registers), the 7B/14 at
-# 224^2 (256 patches, CLS) and a local view's count.
-TOKENS = (37, 201, 257)
+# 224^2 (256 patches, CLS), a local view's count, and the edges of the
+# bf16 backward's kernels: one token, one whole tile, one row past it.
+TOKENS = (1, 37, 64, 65, 201, 257)
 
 
 def _inputs(shape, seed):

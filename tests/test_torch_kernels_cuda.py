@@ -234,20 +234,26 @@ def test_vmem_attention_kernels_match_plain(cuda, dtype, layout, B, N, H, hd):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("N,H,hd", [(257, 12, HD), (201, 4, 128),
-                                    (304, 3, 128)])
+                                    (257, 4, 128), (304, 3, 128)])
 def test_attention_kernels_read_strided_qkv(cuda, dtype, N, H, hd):
     """q/k/v as column slices of one fused (B, N, 3D) projection output: the
-    same bits as on contiguous copies (at hd 128, the resident kernel's
-    tensor maps over the strided views)."""
+    same bits as on contiguous copies, forward and backward (at hd 128 the
+    tensor maps of the forward's resident kernel and of the bf16
+    backward's kernels over the strided views)."""
     B, D = 2, H * hd
     gen = torch.Generator(device=cuda).manual_seed(7)
     qkv = _randn((B, N, 3 * D), gen, DTYPES[dtype])
+    do = _randn((B, N, D), gen, DTYPES[dtype])
     q, k, v = qkv.split(D, dim=-1)
+    dense = [x.contiguous() for x in (q, k, v)]
     o, lse = A.flat_attention_fwd(q, k, v, H, hd ** -0.5)
-    o_ref, lse_ref = A.flat_attention_fwd(q.contiguous(), k.contiguous(),
-                                          v.contiguous(), H, hd ** -0.5)
+    o_ref, lse_ref = A.flat_attention_fwd(*dense, H, hd ** -0.5)
     torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=0)
+    got = A.flat_attention_bwd(q, k, v, o, do, lse, H, hd ** -0.5)
+    ref = A.flat_attention_bwd(*dense, o, do, lse, H, hd ** -0.5)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -691,10 +697,16 @@ def test_forward_hd128_resident_runs_hgmma_and_tma(cuda, library):
         assert not re.search(r"\bHMMA\b", body), name
 
 
-# N for the Hopper backward at hd 128 (csrc/attention_bwd_hd128.cuh): the
-# one-tile shapes (37, 64), one past a tile (65), the 7B/16 student's and
-# the 7B/14 embed's token counts (201, 257) and N = 730 (378^2 images).
-HD128_BWD_TOKENS = [37, 64, 65, 201, 257, 730]
+# N for the Hopper backward at hd 128 (bf16: the two kernels of
+# csrc/attention_bwd_hd128_tma.cuh; fp32: the three role kernels of
+# csrc/attention_bwd_hd128.cuh): N = 1, one tile at the last tile's widths
+# (16, 37, 63, 64), one past a tile (65), two whole tiles (128) and one row
+# past them (129), a ragged odd tile count (193), the 7B/16 student's and
+# the 7B/14 embed's token counts (201, 257: last tiles of 9 and 1 rows, the
+# second an odd tile count), 304 and 305, and N = 730 (378^2 images) and
+# the top of the range (768).
+HD128_BWD_TOKENS = [1, 16, 37, 63, 64, 65, 128, 129, 193, 201, 257, 304, 305,
+                    730, 768]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -702,8 +714,9 @@ HD128_BWD_TOKENS = [37, 64, 65, 201, 257, 730]
 @pytest.mark.parametrize("N", HD128_BWD_TOKENS)
 def test_sm90_backward_hd128_matches_plain(cuda, monkeypatch, dtype, layout,
                                            N):
-    """At hd 128 both dtypes run their wgmma backward (K2 and K5, the
-    kernels of csrc/attention_bwd_hd128.cuh): the one launch goes to
+    """At hd 128 both dtypes run their wgmma backward (K2 and K5; bf16 the
+    kernels of csrc/attention_bwd_hd128_tma.cuh, fp32 those of
+    csrc/attention_bwd_hd128.cuh): the one launch goes to
     flat_attention_bwd_sm90 (bf16) or flat_attention_bwd_f32_sm90 (fp32)
     and no other, within the dtype's tolerances of the plain backward (with
     the dq/dk floor); the gradients keep the inputs' layout. Autograd
@@ -742,10 +755,13 @@ def test_sm90_backward_hd128_matches_plain(cuda, monkeypatch, dtype, layout,
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (768, 1)])
+@pytest.mark.parametrize("N,B", [(37, 8), (201, 4), (257, 4), (201, 40),
+                                 (257, 40), (768, 1)])
 def test_backward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
-    """Every dq, dk and dv element is written by one warpgroup of one role,
-    with no atomics: two calls on the same inputs give the same bits."""
+    """Every dq, dk and dv element is written by one warpgroup, with no
+    atomics, whichever block of the bf16 kernels' persistent grid takes its
+    item (B = 40: 160 heads, 320 or 480 items, more than the card's SMs):
+    two calls on the same inputs give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(N + B + 128)
     (q, k, v, do), (fwd, bwd, _) = _bf16_backward("flat", B, N, 4, gen,
                                                   DTYPES[dtype], hd=128)
@@ -755,10 +771,37 @@ def test_backward_hd128_is_bitwise_repeatable(cuda, dtype, N, B):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("N", [193, 257])
+def test_backward_hd128_repeats_on_small_grids(cuda, N):
+    """bf16 at hd 128 on grids of a few blocks, each one item: 40 inputs,
+    three calls each, bitwise equal and within the bf16 tolerances of the
+    plain backward. The dq kernel reads each item's O tiles from a ring
+    slot that TMA refills; without a proxy fence before its release, a
+    refill could land before the reads and corrupt delta, hence dq and dk,
+    now and then."""
+    B, H, hd = 2, 3, 128
+    scale = hd ** -0.5
+    for trial in range(40):
+        gen = torch.Generator(device=cuda).manual_seed(N * 1000 + trial)
+        q, k, v, do = (_randn((B, N, H * hd), gen, torch.bfloat16)
+                       for _ in range(4))
+        o, lse = A.flat_attention_fwd(q, k, v, H, scale)
+        runs = [A.flat_attention_bwd(q, k, v, o, do, lse, H, scale)
+                for _ in range(3)]
+        refs = A.flat_attention_bwd_plain(q, k, v, o, do, lse, H, scale)
+        floors = (_floor(scale, hd, do, v, k), _floor(scale, hd, do, v, q),
+                  0.0)
+        for got in runs:
+            assert all(torch.equal(a, b) for a, b in zip(got, runs[0]))
+        for got, ref, floor in zip(runs[0], refs, floors):
+            assert _within(got, ref, torch.bfloat16, floor)
+
+
 def test_backward_hd128_addresses_past_2_31_bytes(cuda):
     """bf16 at (1024, 257, 32, 128): each of q, k, v, o, do, dq, dk and dv
-    is 2.16 GB, past 2^31 bytes, so every address the three role kernels
-    form must be 64-bit. The first and the last batch rows (the latter
+    is 2.16 GB, past 2^31 bytes, so the tensor maps' strides and every
+    address the bf16 kernels form must be 64-bit. The first and the last
+    batch rows (the latter
     wholly past 2^31 bytes) are held to the plain backward of those
     rows."""
     B, N, H, hd = 1024, 257, 32, 128
@@ -781,14 +824,41 @@ def test_backward_hd128_addresses_past_2_31_bytes(cuda):
 
 def test_backward_hd128_library_spills_nothing(cuda):
     """ptxas reports no spill and no serialized wgmma (C751x) in either
-    backward library, whose hd-128 role kernels are its largest."""
-    for name in ("flat_attention_bwd_sm90", "flat_attention_bwd_f32_sm90"):
+    backward library, whose hd-128 kernels are its largest (bf16: the two
+    TMA-fed kernels, fp32: the three role kernels)."""
+    for name, kernel in (("flat_attention_bwd_sm90",
+                          "attention_bwd_hd128_tma_kernel"),
+                         ("flat_attention_bwd_f32_sm90",
+                          "attention_bwd_hd128_kernel")):
         _native.function(name)
         log = (_native.BUILD_DIR / f"{name}.log").read_text()
-        assert "attention_bwd_hd128_kernel" in log
+        assert kernel in log
         assert not any(f"C751{i}" in log for i in range(10)), log
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
         assert spills and all(n == "0" for n in spills), log
+
+
+def test_backward_hd128_tma_runs_hgmma_and_tma(cuda):
+    """The bf16 backward's hd-128 kernels (a dq and a dk/dv kernel for each
+    last-tile width, 8 in all) are built on wgmma (HGMMA), load their tiles
+    by TMA (UTMALDG), hold no warp-level mma.sync (HMMA), and ptxas reports
+    no spill for any of them."""
+    name = "flat_attention_bwd_sm90"
+    kernels = {fn: body for fn, body in _sass_functions(
+        _native.sass(name)).items() if "attention_bwd_hd128_tma_kernel" in fn}
+    assert len(kernels) == 8
+    for fn, body in kernels.items():
+        assert "HGMMA" in body and "UTMALDG" in body, fn
+        assert not re.search(r"\bHMMA\b", body), fn
+    log = (_native.BUILD_DIR / f"{name}.log").read_text()
+    entries = re.split(r"Compiling entry function '", log)[1:]
+    reports = [e for e in entries if "attention_bwd_hd128_tma_kernel" in
+               e.split("'")[0]]
+    assert len(reports) == 8
+    for report in reports:
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          report)
+        assert spill and spill.groups() == ("0", "0"), report
 
 
 def test_unfused_update_holds_a_few_leaves_beyond_p_and_g(cuda):

@@ -15,11 +15,13 @@ hd-128 rows alone. Rows (B, N, H, hd):
 - hd 16: K1/K2 and K4/K5 (the (B, N, H, hd) views ``vmem_attention`` hands
   over) at (8, 257, 2, 16) and at vittest14's pretrain shapes at batch 32,
   global (64, 257, 2, 16) and local (256, 37, 2, 16);
-- hd 128, the forward alone (K1 and K4), beside SDPA on the same inputs
-  (``library_ms``): K1 and K4 (``vmem_attention``'s (B, N, H, hd) views) at
-  ``chip_smoke.HD128_SHAPES`` (the 7B/16's N = 201, the 7B/14's N = 257,
-  N = 37 and N = 730), and K4 on (B, H, N, hd) tensors at the 7B/14 embed
-  shape;
+- hd 128, forward and backward: K1/K2 and K4/K5 (``vmem_attention``'s
+  (B, N, H, hd) views) at ``chip_smoke.HD128_SHAPES`` (the 7B/16's N =
+  201, the 7B/14's N = 257, N = 37 and N = 730), and K4/K5 on (B, H, N,
+  hd) tensors at the 7B/14 embed shape, each beside one PyTorch call on
+  the same inputs (``library_ms``): SDPA for the forward, aten's flash
+  (bf16) or memory-efficient (fp32) attention backward for the backward
+  (``chip_smoke.library_backward_ms``);
 
 each in bf16 and fp32, as device time (``chip_smoke.device_ms``: ten calls
 captured in a CUDA graph, replayed). The inputs are random, from a seed; the
@@ -59,14 +61,15 @@ def inputs(layout: str, shape: tuple, dtype, gen):
 
 
 def rows_128(smoke) -> list:
-    """(layout, shape) of the hd-128 forward rows."""
+    """(layout, shape) of the hd-128 rows."""
     return ([(layout, s) for layout in ("flat", "bnhd")
              for s in smoke.HD128_SHAPES] + [("bhnd", smoke.EMBED_7B)])
 
 
 def measure_128(smoke, rows) -> list:
-    """The hd-128 forward rows (K1, K4) and SDPA's time on the same inputs,
-    for the ``lightly_train_tpu_torch`` on sys.path."""
+    """The hd-128 rows: the forward (K1, K4) beside SDPA and the backward
+    (K2, K5) beside aten's attention backward on the same inputs, for the
+    ``lightly_train_tpu_torch`` on sys.path."""
     import torch
 
     from lightly_train_tpu_torch.ops.kernels import attention as A
@@ -76,24 +79,36 @@ def measure_128(smoke, rows) -> list:
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
         for layout, shape in rows:
             gen = torch.Generator(device="cuda").manual_seed(sum(shape))
-            q, k, v, _ = inputs(layout, shape, dt, gen)
+            q, k, v, do = inputs(layout, shape, dt, gen)
             scale = shape[3] ** -0.5
             if layout == "flat":
-                name, heads, fwd_k = "K1", (shape[2],), A.flat_attention_fwd
-                views = [A._heads(x, shape[2]) for x in (q, k, v)]
+                names, heads = ("K1", "K2"), (shape[2],)
+                fwd_k, bwd_k = A.flat_attention_fwd, A.flat_attention_bwd
+                views = [A._heads(x, shape[2]) for x in (q, k, v, do)]
             else:
-                name, heads, fwd_k = "K4", (), A.vmem_attention_fwd
-                views = [q, k, v]
-            ms = smoke.device_ms(lambda: fwd_k(q, k, v, *heads, scale),
-                                 per_graph=10)
-            sdpa = smoke.device_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    *views, scale=scale), per_graph=10)
-            out.append({"kernel": name, "dtype": dtype, "layout": layout,
-                        "shape": list(shape), "ms": ms, "library_ms": sdpa})
-            print(f"  {name} {dtype} {layout} {shape}: {ms:.4f} ms, SDPA "
-                  f"{sdpa:.4f} ms", flush=True)
-            del q, k, v, views
+                names, heads = ("K4", "K5"), ()
+                fwd_k, bwd_k = A.vmem_attention_fwd, A.vmem_attention_bwd
+                views = [q, k, v, do]
+            o, lse = fwd_k(q, k, v, *heads, scale)
+            times = (
+                (smoke.device_ms(lambda: fwd_k(q, k, v, *heads, scale),
+                                 per_graph=10),
+                 smoke.device_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         *views[:3], scale=scale), per_graph=10)),
+                (smoke.device_ms(
+                    lambda: bwd_k(q, k, v, o, do, lse, *heads, scale),
+                    per_graph=10),
+                 smoke.library_backward_ms(*views, scale)),
+            )
+            for name, (ms, library) in zip(names, times):
+                out.append({"kernel": name, "dtype": dtype, "layout": layout,
+                            "shape": list(shape), "ms": ms,
+                            "library_ms": library})
+                lib = "n/a" if library is None else f"{library:.4f} ms"
+                print(f"  {name} {dtype} {layout} {shape}: {ms:.4f} ms, "
+                      f"library {lib}", flush=True)
+            del q, k, v, do, o, lse, views
     return out
 
 
@@ -158,10 +173,8 @@ def main() -> int:
         return 1
     from lightly_train_tpu_torch import _native
 
-    # The forward libraries (and, for the other rows, the backward ones),
-    # one nvcc each, in parallel.
-    _native.build([name for name in _native.LIBRARIES
-                   if "attention" in name and (not only_128 or "fwd" in name)])
+    # The attention libraries, one nvcc each, in parallel.
+    _native.build([name for name in _native.LIBRARIES if "attention" in name])
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
