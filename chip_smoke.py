@@ -117,8 +117,20 @@ Phases (any failure exits non-zero):
    with K2's plain version in its place (5e-2 relative L2 on each checked
    leaf), and those with autograd through the plain forward written down;
    and DINOv2 with the same student refused, with the card's own
-   capacity, before anything is allocated. 3j, 3k and 3l delete what
-   they wrote. Each phase's wall time is printed. ``pretrain`` applies
+   capacity, before anything is allocated. (3m, run after 3i) A user's
+   own files: the committed JPEG fixtures (``tests/torch_fixtures/
+   images``) decoded on the card's host by the port's decoder to the
+   digests of the JAX package's PIL decode in their ``manifest.json``;
+   five PNGs written here (RGB, RGBA, palette, 16-bit, Adam7) decoded to
+   their pixels; a folder of 64 files of both; the decoder's images per
+   second at 256^2 on 1 and 8 threads beside what phase 3's bf16 step
+   consumes, with the host's CPUs; ``pretrain`` DINOv2 ViT-B/14 bf16 from
+   the folder warm-started from a Meta-named ``.pth`` (the initial student
+   equal to its conversion; K1, K2 and K3 as phase 3's), distillation v3
+   from a DINOv3-named ``.pth`` teacher (``storage_tokens``,
+   ``bias_mask``; the teacher equal to its conversion), and ``embed`` of
+   the folder. 3j, 3k, 3l and 3m delete what they wrote. Each phase's
+   wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -234,6 +246,19 @@ PRECISION_STEPS = 2
 # first non-finite step, step NAN_STEP + 1 of metrics.jsonl.
 NAN_STEPS, NAN_STEP = 4, 2
 NAN_LEAF = "student.blocks.1.mlp.fc1.weight"
+# Phase 3m: a user's own files. The committed JPEG fixtures (with the
+# digests of the JAX package's PIL decode in their manifest) and PNGs
+# written here fill a folder of FILES_COUNT files; DINOv2 ViT-B/14 bf16
+# warm-started from a Meta-named .pth for FILES_STEPS steps, distillation
+# v3 from a Meta-named DINOv3 ViT-B/16 .pth teacher for
+# FILES_DISTILL_STEPS, then embed of the folder. FILES_DECODES decodes of
+# the large (draft-scale) fixtures time the decoder on the card's host.
+FIXTURES = ROOT / "tests" / "torch_fixtures" / "images"
+FILES_COUNT = 64
+FILES_STEPS = 3
+FILES_DISTILL_STEPS = 2
+FILES_DECODES = 48
+FILES_MODEL, FILES_TEACHER = "dinov2/vitb14", "dinov3/vitb16"
 
 
 # The phase running now and when it started (``phase``).
@@ -2496,6 +2521,338 @@ def profile_steps(card: str, precision: str, method_name: str = "dinov2",
     pin_ieee()
 
 
+def png_bytes(samples, ctype: int, depth: int, palette=None,
+              interlace: bool = False) -> bytes:
+    """A PNG (bit depth 8 or 16) of ``samples`` (h, w, channels), every
+    scanline filtered Up, in Adam7's seven passes where ``interlace``."""
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+    def scanlines(s) -> bytes:
+        rows = s.reshape(s.shape[0], -1)
+        rows = (rows.astype(">u2").view(np.uint8).reshape(len(rows), -1)
+                if depth == 16 else rows.astype(np.uint8))
+        up = rows - np.vstack([np.zeros_like(rows[:1]), rows[:-1]])
+        return np.hstack([np.full((len(rows), 1), 2, np.uint8), up]).tobytes()
+
+    h, w, _ = samples.shape
+    passes = (((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+               (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)) if interlace
+              else ((0, 0, 1, 1),))
+    raw = b"".join(scanlines(samples[y0::dy, x0::dx])
+                   for x0, y0, dx, dy in passes
+                   if samples[y0::dy, x0::dx].size)
+    head = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes(
+        [depth, ctype, 0, 0, int(interlace)])
+    plte = b"" if palette is None else chunk(b"PLTE", palette.tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head) + plte
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def png_cases(folder: Path) -> list:
+    """Phase 3m's PNGs (RGB, RGBA, palette, 16-bit RGB, Adam7) under
+    ``folder``, each with what it must decode to: (path, uint8 HWC)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    folder.mkdir(parents=True)
+    h, w = 300, 260
+    yy, xx = np.mgrid[0:h, 0:w] / w
+    field = np.stack([np.sin(2 * np.pi * (c + 1) * (yy + xx) + c)
+                      for c in range(4)], axis=-1) * 0.5 + 0.5
+    rgba = np.clip(field * 250 + rng.normal(0, 5, field.shape), 0, 255)
+    rgba = rgba.astype(np.uint8)
+    rgb16 = rgba[..., :3].astype(np.uint16) * 256 + rng.integers(
+        0, 256, (h, w, 3), dtype=np.uint16)
+    palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    index = rgba[..., :1]
+    cases = {
+        "rgb.png": (png_bytes(rgba[..., :3], 2, 8), rgba[..., :3]),
+        "rgba.png": (png_bytes(rgba, 6, 8), rgba[..., :3]),
+        "palette.png": (png_bytes(index, 3, 8, palette),
+                        palette[index[..., 0]]),
+        "rgb16.png": (png_bytes(rgb16, 2, 16), (rgb16 >> 8).astype(np.uint8)),
+        "adam7.png": (png_bytes(rgba[..., :3], 2, 8, interlace=True),
+                      rgba[..., :3]),
+    }
+    out = []
+    for name, (data, expected) in cases.items():
+        (folder / name).write_bytes(data)
+        out.append((folder / name, expected))
+    return out
+
+
+def meta_layout(state: dict) -> dict:
+    """A port ViT state dict in the naming of Meta's DINOv2 and DINOv3
+    checkpoints: fused qkv (where the key projection has no bias, DINOv3's
+    zero k bias and its ``bias_mask``), a zero CLS entry in front of
+    ``pos_embed``, register tokens as DINOv3's ``storage_tokens``,
+    ``patch_embed.proj``, ``mask_token`` (1, D)."""
+    import torch
+
+    out = {}
+    for k, v in state.items():
+        if ".attn.k." in k or ".attn.v." in k:
+            continue
+        if ".attn.q." in k:
+            parts = [state.get(k.replace(".q.", f".{n}.")) for n in "qkv"]
+            if parts[1] is None:
+                parts[1] = torch.zeros_like(v)
+                out[k.replace(".q.bias", ".qkv.bias_mask")] = torch.cat(
+                    [torch.ones_like(v), torch.zeros_like(v),
+                     torch.ones_like(v)])
+            out[k.replace(".q.", ".qkv.")] = torch.cat(parts)
+        elif k == "pos_embed":
+            out[k] = torch.cat([torch.zeros_like(v[:, :1]), v], dim=1)
+        elif k == "mask_token":
+            out[k] = v[None]
+        elif k == "register_tokens":
+            out["storage_tokens"] = v
+        else:
+            out[k.replace("patch_embed.", "patch_embed.proj.")] = v
+    return out
+
+
+def write_meta_pth(path: Path, model: str, seed: int) -> dict:
+    """Seeded weights of ``model`` (LayerScale 0.5, as ``write_teacher``)
+    saved as ``{"model": ...}`` in Meta's naming; returns the port's state
+    dict they were written from."""
+    import torch
+
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    module = get_wrapped_model(model).module
+    module.reset_parameters(torch.Generator().manual_seed(seed))
+    for name, p in module.named_parameters():
+        if name.endswith("gamma"):
+            p.data.fill_(0.5)
+    state = module.state_dict()
+    torch.save({"model": meta_layout(state)}, path)
+    return state
+
+
+def same_tensors(tag: str, got: dict, ref: dict) -> None:
+    """Fails unless ``got`` holds ``ref``'s keys with equal values (each
+    compared in ``got``'s dtype)."""
+    import torch
+
+    if set(got) != set(ref):
+        fail(f"{tag}: keys differ: {sorted(set(got) ^ set(ref))[:5]}")
+    for k, v in ref.items():
+        g = got[k].detach().cpu()
+        if not torch.equal(g, v.to(g.dtype)):
+            fail(f"{tag}: {k} differs")
+
+
+def host_cpu() -> str:
+    """The host's usable CPUs and its first CPU's description in
+    ``/proc/cpuinfo``: model name, vendor, family, model and clock (a
+    sandboxed host may give its model name as "unknown")."""
+    import os
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().lower(), value.strip())
+    model = ", ".join(f"{k} {fields[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model", "cpu mhz")
+        if k in fields)
+    return (f"nproc {len(os.sched_getaffinity(0))} (of {os.cpu_count()}), "
+            f"{platform.machine()}, {model or 'no /proc/cpuinfo fields'}")
+
+
+def decode_rate(files: list, threads: int) -> float:
+    """Images per second of ``ImageDataset`` at 256^2 over ``files`` on
+    ``threads`` threads, as the loader decodes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lightly_train_tpu_torch._data.image_dataset import ImageDataset
+
+    dataset = ImageDataset(files, (256, 256))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        for image in pool.map(dataset.__getitem__, range(len(dataset))):
+            if image.shape != (256, 256, 3):
+                fail(f"decode gave {image.shape}")
+    return len(dataset) / (time.perf_counter() - t0)
+
+
+def print_steps(tag: str, steps: list, card: str) -> None:
+    """Each logged step's time, images per second and the time it waited
+    for the loader."""
+    for r in steps:
+        print(f"  {tag} step {r['step']}: {r['profiling/step_time'] * 1e3:.1f}"
+              f" ms, {r['profiling/images_per_sec']:.1f} img/s, waited "
+              f"{r['profiling/data_time'] * 1e3:.1f} ms for data [{card}]")
+
+
+def run_files_path(lt, A, F, card: str, work: Path, main: dict) -> dict:
+    """Phase 3m: ``pretrain`` and ``embed`` from a folder of JPEG and PNG
+    files, decoded by the port's own host decoder, warm-started from Meta
+    checkpoints. Every launch counter is set to 0 just before each run and
+    read just after."""
+    import hashlib
+    import importlib.metadata
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._commands import train as T
+    from lightly_train_tpu_torch._data.image_dataset import decode_image
+    from lightly_train_tpu_torch._data.png import decode_png
+    from lightly_train_tpu_torch.models.convert import (
+        load_torch_checkpoint_for_model,
+    )
+
+    try:
+        pil = f"Pillow {importlib.metadata.version('pillow')} installed"
+    except importlib.metadata.PackageNotFoundError:
+        pil = "no Pillow installed"
+    print(f"  {pil}; the port's decoder reads PNG, JPEG and PPM with or "
+          f"without it")
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    hw = tuple(manifest["canonical_hw"])
+    for name, entry in sorted(manifest["files"].items()):
+        got = decode_image(str(FIXTURES / name), hw)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if not digest == entry["sha256_port"] == entry["sha256_jax"]:
+            fail(f"{name}: decode digest {digest} is not the manifest's "
+                 f"{entry['sha256_jax']} (the JAX package's PIL decode)")
+    print(f"  {len(manifest['files'])} JPEG fixtures decode at {hw} to the "
+          f"manifest's digests (the JAX package's PIL decode), draft scales "
+          f"{sorted({e['draft_scale'] for e in manifest['files'].values()})}")
+    pngs = png_cases(work / "png")
+    for path, expected in pngs:
+        got = decode_png(path.read_bytes(), str(path))
+        if got.shape != expected.shape or not np.array_equal(got, expected):
+            fail(f"{path.name} decodes to other pixels than were written")
+    print(f"  {len(pngs)} PNGs ({', '.join(p.name for p, _ in pngs)}) "
+          f"decode to the pixels written")
+    folder = work / "files"
+    folder.mkdir()
+    sources = [FIXTURES / n for n in sorted(manifest["files"])] + [
+        p for p, _ in pngs]
+    for i in range(FILES_COUNT):
+        src = sources[i % len(sources)]
+        shutil.copyfile(src, folder / f"{i:03d}_{src.name}")
+
+    large = [str(FIXTURES / n) for n, e in sorted(manifest["files"].items())
+             if e["draft_scale"] > 1]
+    batches = large * (FILES_DECODES // len(large))
+    folder_files = sorted(str(p) for p in folder.iterdir())
+    rates = {(kind, threads): decode_rate(files, threads)
+             for kind, files in (("large", batches), ("folder", folder_files))
+             for threads in (1, 8)}
+    consumed = statistics.median(main["images_per_sec"][1:])
+    print(f"  decode to 256^2 on the card's host ({host_cpu()}): large "
+          f"fixtures (draft 1/2, 1/4, 1/8; {len(batches)} decodes) "
+          f"{rates['large', 1]:.1f} img/s on 1 thread, "
+          f"{rates['large', 8]:.1f} on 8; the 64-file folder "
+          f"{rates['folder', 1]:.1f} and {rates['folder', 8]:.1f}; phase 3's "
+          f"DINOv2 ViT-B/14 bf16 step consumes {consumed:.1f} img/s "
+          f"[{card}]", flush=True)
+
+    pth = work / "dinov2_vitb14.pth"
+    weights = write_meta_pth(pth, FILES_MODEL, SEED + 2)
+    converted = load_torch_checkpoint_for_model(pth, FILES_MODEL)
+    same_tensors(f"{pth.name} conversion", converted, weights)
+    initial = {}
+    real = T._load_pretrained
+
+    def spy(params, method_state, pretrained, config):
+        real(params, method_state, pretrained, config)
+        initial.update((k, v.detach().clone()) for k, v in
+                       params["student"].state_dict().items())
+
+    out = work / "files_dinov2"
+    T._load_pretrained = spy
+    try:
+        counters = reset_counters(A, F)
+        pretrain_main_path(lt, out, folder, "bf16", steps=FILES_STEPS,
+                           checkpoint=str(pth), checkpoint_every=FILES_STEPS)
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in counters]
+    finally:
+        T._load_pretrained = real
+    same_tensors("the warm-started student", initial, converted)
+    print_steps("3m DINOv2", logged_steps(out), card)
+    losses = [r["train_loss"] for r in logged_steps(out)]
+    expected = dinov2_expected(FILES_STEPS)
+    print(f"  DINOv2 ViT-B/14 bf16 from the folder, checkpoint= a Meta-named "
+          f".pth: initial student = the conversion (every leaf); losses "
+          f"{[round(x, 4) for x in losses]}; launches K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]} (expected {expected[:3]})")
+    if len(losses) != FILES_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"phase 3m losses {losses}")
+    if launches != expected:
+        fail(f"phase 3m launch counts {launches} != {expected}")
+
+    teacher_pth = work / "dinov3_vitb16.pth"
+    teacher = write_meta_pth(teacher_pth, FILES_TEACHER, SEED + 3)
+    converted = load_torch_checkpoint_for_model(teacher_pth, FILES_TEACHER)
+    same_tensors(f"{teacher_pth.name} conversion", converted, teacher)
+    counters = reset_counters(A, F)
+    state = distill_pretrain(
+        lt, work / "files_distill", folder, "bf16", FILES_DISTILL_STEPS,
+        method_args={"teacher_weights": str(teacher_pth)},
+        checkpoint_every=FILES_DISTILL_STEPS)
+    torch.cuda.synchronize()
+    distill_launches = [fn.launches for fn in counters]
+    same_tensors("the .pth teacher", state.method_state["teacher"]
+                 .state_dict(), converted)
+    print_steps("3m distillation", logged_steps(work / "files_distill"),
+                card)
+    losses = [r["train_loss"] for r in logged_steps(work / "files_distill")]
+    expected = distill_expected(A, "bf16", FILES_DISTILL_STEPS)[0]
+    print(f"  distillation v3 bf16 from the folder, teacher_weights= a "
+          f"DINOv3-named ViT-B/16 .pth (storage_tokens, bias_mask): teacher "
+          f"= the conversion; losses {[round(x, 4) for x in losses]}; "
+          f"launches K1 {distill_launches[0]}, K2 {distill_launches[1]}, K3 "
+          f"{distill_launches[2]} (expected {expected[:3]})")
+    if len(losses) != FILES_DISTILL_STEPS or not all(map(math.isfinite,
+                                                         losses)):
+        fail(f"phase 3m distillation losses {losses}")
+    if distill_launches != expected:
+        fail(f"phase 3m distillation launches {distill_launches}")
+
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    path = lt.embed(out=str(work / "files_embeddings.npz"), data=str(folder),
+                    checkpoint=str(out / "exported_models" / "exported_last"),
+                    image_size=224, batch_size=FILES_COUNT, precision="bf16",
+                    format="npz")
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    embed_launches = [fn.launches for fn in counters]
+    emb = np.load(path)["embeddings"]
+    print(f"  embed of the folder (bf16, 224^2): {emb.shape}, finite "
+          f"{bool(np.isfinite(emb).all())}, {embed_s:.2f} s; launches K1 "
+          f"{embed_launches[0]}, K2 {embed_launches[1]} (expected 12, 0)")
+    width = weights["cls_token"].shape[-1]
+    if emb.shape != (FILES_COUNT, width) or not np.isfinite(emb).all():
+        fail(f"phase 3m embeddings {emb.shape}")
+    if embed_launches[:2] != [12, 0]:
+        fail(f"phase 3m embed launches {embed_launches}")
+    for name in ("files_dinov2", "files_distill"):
+        shutil.rmtree(work / name)
+    pth.unlink()
+    teacher_pth.unlink()
+    return {"launches": launches, "distill_launches": distill_launches,
+            "embed_launches": embed_launches,
+            "decode_img_per_s": {f"{k}_{t}": r for (k, t), r in rates.items()},
+            "consumed_img_per_s": consumed}
+
+
 def main() -> int:
     import torch
 
@@ -2531,6 +2888,11 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _native.build()
     print(f"phase 1: built {sorted(built)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    _native.build_host("image_decode")
+    print(f"  csrc/image_decode.c (the image decoder) built with "
+          f"{_native.host_compiler()} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name in _native.LIBRARIES:
         log = (_native.BUILD_DIR / f"{name}.log").read_text()
@@ -2636,6 +2998,12 @@ def main() -> int:
     phase(f"phase 3i: the NaN capture and its replay (vittest14 bf16, "
           f"{NAN_LEAF} set to NaN after state step {NAN_STEP})", flush=True)
     run_nan_path(lt, A, F, card, work)
+    pin_ieee()
+    phase(f"phase 3m: pretrain and embed from JPEG and PNG files with .pth "
+          f"warm starts (DINOv2 ViT-B/14 bf16, {FILES_STEPS} steps; "
+          f"distillation from a DINOv3 ViT-B/16 .pth teacher, "
+          f"{FILES_DISTILL_STEPS} steps)", flush=True)
+    run_files_path(lt, A, F, card, work, paths["bf16"])
     pin_ieee()
     phase(f"phase 3j: pretrain distillation v3 of ViT-B/14 from a frozen "
           f"random DINOv3 7B/16 teacher (hd 128, fp32), bf16, batch "

@@ -163,23 +163,29 @@ def load_exported_model(path: Path) -> Dict[str, Any]:
 
 
 def resolve_pretrained_source(
-    checkpoint: str,
+    checkpoint: str, model_name: str,
 ) -> Tuple[Dict[str, torch.Tensor], str, Optional[Dict[str, torch.Tensor]]]:
     """A user ``checkpoint`` argument as (backbone state dict, the model
-    name it was exported under, embed head state dict or None).
+    name its weights are for, embed head state dict or None).
 
-    Takes an exported-artifact folder. A raw torch ``.pt``/``.pth`` file
-    (which the JAX package converts with ``models/convert.py``) and
-    ``"auto"`` (a download of public weights) are not ported yet.
+    A file is a raw torch checkpoint (Meta DINOv2/DINOv3 or timm ViT
+    naming), converted for ``model_name``; a folder is an exported artifact,
+    with the name it was exported under and its embed head. ``"auto"`` (a
+    download of public weights) is not ported yet.
     """
-    path = Path(checkpoint)
-    if checkpoint == "auto" or path.is_file() or path.suffix in (".pt",
-                                                                 ".pth"):
+    if checkpoint == "auto":
         raise NotImplementedError(
-            f"checkpoint={checkpoint!r}: only an exported artifact folder "
-            "(exported_models/exported_last) loads in the port; raw torch "
-            "checkpoints and checkpoint='auto' wait for ROADMAP item 20."
+            "checkpoint='auto' (public weights) waits for ROADMAP item 20: "
+            "pass a torch checkpoint file or an exported artifact folder."
         )
+    path = Path(checkpoint)
+    if path.is_file():
+        from lightly_train_tpu_torch.models.convert import (
+            load_torch_checkpoint_for_model,
+        )
+
+        return load_torch_checkpoint_for_model(path, model_name), \
+            model_name, None
     artifact = load_exported_model(path)
     return (artifact["state_dict"], artifact["model_name"],
             artifact.get("embed_head"))

@@ -231,7 +231,8 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     device = resolve_device(config.accelerator)
     pretrained = None
     if config.checkpoint is not None:
-        pretrained = resolve_pretrained_source(config.checkpoint)
+        pretrained = resolve_pretrained_source(config.checkpoint,
+                                               config.model)
         if pretrained[1] != config.model:
             # Disjoint parameter names would merge as a silent no-op.
             raise ConfigError(

@@ -2,10 +2,16 @@
 
 Port of ``lightly_train_tpu/_data/image_dataset.py``: the dataset lists and
 decodes images to a fixed canonical (H0, W0) uint8 array; all augmentation
-runs on the device. PIL decodes when it is installed, exactly as in the JAX
-package. Where it is not (the GPU machines), binary PPM (P6) files decode
-with numpy and resize with a numpy copy of PIL's bilinear resampling, which
-gives PIL's bytes; other formats raise (PNG and JPEG: ROADMAP item 19).
+runs on the device. PNG, JPEG and binary PPM/PGM (P6, P5) always decode
+with the port's own decoders (``png.py``, ``jpeg.py``:
+``csrc/image_decode.c`` built with the host compiler), chosen by the file's
+magic bytes, whether or not PIL is installed, so the machines with the card,
+which have no PIL, decode what the CPU tests check. They give the bytes the
+JAX package's PIL path gives: ``convert("RGB")``'s rules, JPEG draft scales
+chosen as PIL chooses them, then PIL's bilinear resize (its taps computed
+here, its passes in the same C library, which releases the interpreter lock
+so the loader's threads decode in parallel). Other formats decode through
+PIL where it is installed and raise otherwise (ROADMAP item 19).
 """
 
 from __future__ import annotations
@@ -18,6 +24,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from lightly_train_tpu_torch import _native
+from lightly_train_tpu_torch._data.jpeg import check, decode_jpeg, \
+    draft_scale, jpeg_header
+from lightly_train_tpu_torch._data.png import SIGNATURE as PNG_SIGNATURE
+from lightly_train_tpu_torch._data.png import decode_png
 from lightly_train_tpu_torch.errors import DatasetError
 
 logger = logging.getLogger("lightly_train_tpu_torch.data")
@@ -74,19 +85,31 @@ def _ppm_tokens(data: bytes, count: int) -> Tuple[List[bytes], int]:
     return tokens, i + 1
 
 
-def read_ppm(path: str) -> np.ndarray:
-    """Decode a binary PPM (P6, maxval <= 255) to uint8 (H, W, 3)."""
-    data = Path(path).read_bytes()
+# The extensions the port's own decoders take (by the file's magic bytes).
+PORT_EXTENSIONS = {".ppm", ".pnm", ".png", ".jpg", ".jpeg", ".jpe", ".jfif"}
+
+
+def read_ppm(path: str, data: Optional[bytes] = None) -> np.ndarray:
+    """Decode a binary PPM (P6) to uint8 (H, W, 3) or PGM (P5) to uint8
+    (H, W), maxval <= 255."""
+    if data is None:
+        data = Path(path).read_bytes()
     tokens, offset = _ppm_tokens(data, 4)
-    if tokens[0] != b"P6":
-        raise DatasetError(f"{path}: only binary PPM (P6) decodes without "
-                           f"PIL, got {tokens[0]!r}")
+    if tokens[0] not in (b"P5", b"P6"):
+        raise DatasetError(f"{path}: only binary PPM (P6) and PGM (P5) "
+                           f"decode in the port, got {tokens[0]!r}")
     width, height, maxval = (int(t) for t in tokens[1:])
     if maxval > 255:
-        raise DatasetError(f"{path}: 16-bit PPM needs PIL")
-    n = width * height * 3
+        raise DatasetError(f"{path}: 16-bit PPM does not decode in the "
+                           "port (ROADMAP item 19)")
+    channels = 3 if tokens[0] == b"P6" else 1
+    n = width * height * channels
+    if offset + n > len(data):
+        raise DatasetError(f"{path}: truncated PPM")
     pixels = np.frombuffer(data, dtype=np.uint8, count=n, offset=offset)
-    image = pixels.reshape(height, width, 3)
+    image = pixels.reshape(height, width, channels)[..., :channels]
+    if channels == 1:
+        image = image[..., 0]
     if maxval != 255:
         image = (image.astype(np.float32) * (255.0 / maxval)).round()
         image = image.astype(np.uint8)
@@ -138,17 +161,19 @@ def _resample_axis(image: np.ndarray, in_size: int, out_size: int,
                    axis: int) -> np.ndarray:
     """One pass of PIL's 8-bit resampling along ``axis`` of uint8 (H, W, C):
     a half unit plus the fixed-point sum of the taps, shifted back and
-    clipped to uint8."""
+    clipped to uint8 (``lt_resample_axis`` of ``csrc/image_decode.c``,
+    which releases the interpreter lock while it runs)."""
     index, coeff = _bilinear_taps(in_size, out_size)
-    acc = np.full(tuple(out_size if a == axis else n
-                        for a, n in enumerate(image.shape)),
-                  1 << (_PRECISION_BITS - 1), dtype=np.int64)
-    shape = [1] * image.ndim
+    image = np.ascontiguousarray(image)
+    shape = list(image.shape)
     shape[axis] = out_size
-    for j in range(index.shape[1]):
-        taps = np.take(image, index[:, j], axis=axis).astype(np.int64)
-        acc += taps * coeff[:, j].reshape(shape)
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    out = np.empty(shape, dtype=np.uint8)
+    outer = int(np.prod(image.shape[:axis]))
+    inner = int(np.prod(image.shape[axis + 1:]))
+    check(_native.host_function("image_decode", "lt_resample_axis")(
+        image.ctypes.data, out.ctypes.data, outer, in_size, inner, out_size,
+        index.ctypes.data, coeff.ctypes.data, index.shape[1]), "resize")
+    return out
 
 
 def resize_bilinear(image: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
@@ -163,20 +188,39 @@ def resize_bilinear(image: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     return image
 
 
+def decode_port(path: str, canonical_hw: Tuple[int, int]) -> np.ndarray:
+    """Decode a PNG, JPEG or PPM file with the port's decoders (chosen by
+    its magic bytes) to uint8 (H0, W0, 3)."""
+    data = Path(path).read_bytes()
+    if data.startswith(PNG_SIGNATURE):
+        image = decode_png(data, path)
+    elif data.startswith(b"\xff\xd8"):
+        width, height, _ = jpeg_header(data, path)
+        image = decode_jpeg(data, path,
+                            draft_scale((width, height), canonical_hw))
+    elif data.startswith(b"P"):
+        image = read_ppm(path, data)
+    else:
+        raise DatasetError(f"{path}: neither PNG, JPEG nor PPM data")
+    image = resize_bilinear(image[..., None] if image.ndim == 2 else image,
+                            canonical_hw)
+    if image.shape[2] == 1:
+        image = np.repeat(image, 3, axis=2)
+    return image
+
+
 def decode_image(path: str, canonical_hw: Tuple[int, int],
                  mode: str = "RGB") -> np.ndarray:
     """Decode one image to uint8 (H0, W0, 3)."""
+    if Path(path).suffix.lower() in PORT_EXTENSIONS:
+        return decode_port(path, canonical_hw)
     try:
         from PIL import Image
     except ImportError:
-        Image = None
-    if Image is None:
-        if Path(path).suffix.lower() not in (".ppm", ".pnm"):
-            raise DatasetError(
-                f"{path}: PIL is not installed; without it only binary PPM "
-                "(P6) images decode."
-            )
-        return resize_bilinear(read_ppm(path), canonical_hw)
+        raise DatasetError(
+            f"{path}: PIL is not installed; without it only PNG, JPEG and "
+            "binary PPM images decode (other formats: ROADMAP item 19)."
+        ) from None
     with Image.open(path) as im:
         # JPEG draft mode: decode directly at a reduced DCT scale when the
         # image is at least twice the canonical size.

@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host libraries.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, loaded with ``ctypes``. The
@@ -6,6 +6,11 @@ build runs at first use into ``_build/`` beside this file (listed in
 ``.gitignore``), from the repository's sources only; a library's file name
 carries a hash of its sources and flags, so an edited source rebuilds. Several
 libraries build in parallel, one ``nvcc`` process each.
+
+Host libraries (``csrc/<name>.c``, the image decoders) build the same way
+with the host C compiler (``$CC``, else ``cc``). ``ctypes`` releases the
+interpreter lock during their calls, so the loader's threads decode in
+parallel.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc`` or a card.
@@ -61,6 +66,18 @@ LIBRARIES: Dict[str, tuple] = {
         [_P, _I, _P, _P, _P] + [_F] * 6 + [_P],
     ),
 }
+
+# host library name -> {C function: argtypes}; every one returns an int.
+HOST_LIBRARIES: Dict[str, Dict[str, list]] = {
+    "image_decode": {
+        "lt_png_unfilter": [_P, _P, _L, _L, _I],
+        "lt_jpeg_header": [_P, _L, _P],
+        "lt_jpeg_decode": [_P, _L, _I, _P, _I, _I, _I],
+        "lt_resample_axis": [_P, _P, _L, _L, _L, _L, _P, _P, _I],
+    },
+}
+
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c11"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
@@ -141,6 +158,55 @@ def function(name: str):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
+        return fn
+
+
+def host_compiler() -> str:
+    """The host C compiler: ``$CC``, else ``cc`` on PATH."""
+    found = shutil.which(os.environ.get("CC") or "cc")
+    if found is None:
+        raise RuntimeError(
+            "No C compiler found (set CC, or put cc on PATH): the port's "
+            "image decoders build from csrc/*.c at first use."
+        )
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.c").read_bytes())
+    digest.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile host library ``name`` unless it is built; its path."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+         str(CSRC / f"{name}.c")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"cc failed on {name}.c:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return out
+
+
+def host_function(name: str, symbol: str):
+    """C function ``symbol`` of host library ``name``, building it on first
+    use."""
+    key = f"{name}:{symbol}"
+    with _lock:
+        fn = _loaded.get(key)
+        if fn is None:
+            fn = getattr(ctypes.CDLL(str(build_host(name))), symbol)
+            fn.argtypes = HOST_LIBRARIES[name][symbol]
+            fn.restype = ctypes.c_int
+            _loaded[key] = fn
         return fn
 
 

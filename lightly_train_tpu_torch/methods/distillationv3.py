@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -53,8 +52,8 @@ from lightly_train_tpu_torch.ops.losses import similarity_queue_ce
 @dataclasses.dataclass
 class DistillationV3Args(MethodArgs):
     teacher: str = "dinov3/vitb16"
-    # An exported_models artifact folder (a torch .pth waits for ROADMAP
-    # item 20); None: a random teacher.
+    # A torch checkpoint file (Meta/timm naming) or an exported_models
+    # artifact folder; None: a random teacher.
     teacher_weights: Optional[str] = None
     queue_size: Union[int, Auto] = AUTO
     temperature: float = 0.07
@@ -74,16 +73,10 @@ class DistillationV3Args(MethodArgs):
 
 
 def load_teacher_weights(path: str, teacher: str) -> Dict[str, torch.Tensor]:
-    """The backbone state dict of an exported artifact folder, which must
-    have been exported for ``teacher``."""
-    p = Path(path)
-    if p.is_file() or p.suffix in (".pt", ".pth"):
-        raise NotImplementedError(
-            f"teacher_weights={path!r}: only an exported artifact folder "
-            "(exported_models/exported_last) loads in the port; raw torch "
-            "checkpoints wait for ROADMAP item 20."
-        )
-    state, model_name, _ = resolve_pretrained_source(path)
+    """The teacher's state dict: a torch checkpoint file converted for
+    ``teacher``, or an exported artifact folder, which must have been
+    exported for ``teacher``."""
+    state, model_name, _ = resolve_pretrained_source(path, teacher)
     if model_name != teacher:
         raise ConfigError(
             f"teacher_weights was exported for model '{model_name}' but the "

@@ -237,11 +237,46 @@ def test_a_non_empty_out_dir_is_taken_under_resume_interrupted(tmp_path,
     assert _pretrain(out, data, steps=1, resume_interrupted=True).step == 1
 
 
+def _meta_layout(state):
+    """A DINOv2 ViT state dict of the port in Meta's naming: fused qkv, a
+    zero CLS entry in front of ``pos_embed``, ``patch_embed.proj``."""
+    out = {}
+    for k, v in state.items():
+        if ".attn.q." in k:
+            parts = [state[k.replace(".q.", f".{n}.")] for n in "qkv"]
+            out[k.replace(".q.", ".qkv.")] = torch.cat(parts)
+        elif ".attn.k." in k or ".attn.v." in k:
+            continue
+        elif k == "pos_embed":
+            out[k] = torch.cat([torch.zeros_like(v[:, :1]), v], dim=1)
+        elif k == "mask_token":
+            out[k] = v[None]
+        else:
+            out[k.replace("patch_embed.", "patch_embed.proj.")] = v
+    return out
+
+
 @pytest.mark.parametrize("checkpoint", ["auto", "weights.pth"])
 def test_raw_and_auto_checkpoints_name_their_roadmap_item(tmp_path, data,
                                                           checkpoint):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        _pretrain(tmp_path / "out", data, checkpoint=checkpoint)
+    """``"auto"`` (public weights) still names item 20; a torch checkpoint
+    in Meta's layout now loads: at learning rate 0 the run exports the
+    weights it was written from, bitwise."""
+    if checkpoint == "auto":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
+            _pretrain(tmp_path / "out", data, checkpoint=checkpoint)
+        return
+    module = get_wrapped_model("dinov2/vittest14").module
+    module.reset_parameters(torch.Generator().manual_seed(11))
+    weights = module.state_dict()
+    torch.save({"model": _meta_layout(weights)}, tmp_path / checkpoint)
+    _pretrain(tmp_path / "out", data, steps=1, learning_rate=0.0,
+              checkpoint=str(tmp_path / checkpoint))
+    after = torch.load(tmp_path / "out" / "exported_models" / "exported_last"
+                       / "model.pt", weights_only=True)
+    assert after.keys() == weights.keys()
+    for k in weights:
+        assert torch.equal(after[k], weights[k]), k
 
 
 def test_merge_pretrained_shape_rules(monkeypatch, caplog):

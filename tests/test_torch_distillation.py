@@ -378,9 +378,40 @@ def test_teacher_weights_from_an_exported_folder(tmp_path):
 
 
 def test_a_pth_teacher_names_its_roadmap_item(tmp_path):
-    path = tmp_path / "dinov3_vitb16.pth"
-    path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 20\b"):
+    """A torch checkpoint file as ``teacher_weights`` now converts (Meta's
+    DINOv3 naming: ``storage_tokens``, fused qkv with its k bias masked);
+    one of a backbone the port lacks (a ResNet's) names item 10."""
+    teacher = get_wrapped_model(TEACHER).module
+    teacher.reset_parameters(torch.Generator().manual_seed(7))
+    state = teacher.state_dict()
+    meta = {"storage_tokens": state["register_tokens"],
+            "mask_token": state["mask_token"][None]}
+    for k, v in state.items():
+        if ".attn.q." in k:
+            d = v.shape[0]
+            meta[k.replace(".q.", ".qkv.")] = torch.cat(
+                [state[k.replace(".q.", f".{n}.")] if n != "k"
+                 or k.endswith("weight") else torch.zeros(d)
+                 for n in "qkv"])
+            if k.endswith("bias"):
+                meta[k.replace(".q.bias", ".qkv.bias_mask")] = torch.cat(
+                    [torch.ones(d), torch.zeros(d), torch.ones(d)])
+        elif not (".attn.k." in k or ".attn.v." in k
+                  or k in ("register_tokens", "mask_token")):
+            meta[k.replace("patch_embed.", "patch_embed.proj.")] = v
+    path = tmp_path / "dinov3_vittest16.pth"
+    torch.save(meta, path)
+    method = V3.DistillationV3(get_wrapped_model(STUDENT),
+                               V3.DistillationV3Args(
+                                   **ARGS, teacher_weights=str(path)))
+    _, method_state = method.init(torch.Generator().manual_seed(0),
+                                  torch.device("cpu"))
+    loaded = method_state["teacher"].state_dict()
+    assert loaded.keys() == state.keys()
+    for k, v in state.items():
+        assert torch.equal(loaded[k], v), k
+    torch.save({"conv1.weight": torch.zeros(8, 3, 7, 7)}, path)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
         V3.DistillationV3(get_wrapped_model(STUDENT), V3.DistillationV3Args(
             **ARGS, teacher_weights=str(path)))
 

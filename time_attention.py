@@ -21,7 +21,8 @@ hd-128 rows alone. Rows (B, N, H, hd):
   hd) tensors at the 7B/14 embed shape, each beside one PyTorch call on
   the same inputs (``library_ms``): SDPA for the forward, aten's flash
   (bf16) or memory-efficient (fp32) attention backward for the backward
-  (``chip_smoke.library_backward_ms``);
+  (``chip_smoke.library_backward_ms``), and the kernel's plain PyTorch
+  version (``plain_ms``);
 
 each in bf16 and fp32, as device time (``chip_smoke.device_ms``: ten calls
 captured in a CUDA graph, replayed). The inputs are random, from a seed; the
@@ -84,10 +85,14 @@ def measure_128(smoke, rows) -> list:
             if layout == "flat":
                 names, heads = ("K1", "K2"), (shape[2],)
                 fwd_k, bwd_k = A.flat_attention_fwd, A.flat_attention_bwd
+                fwd_p = A.flat_attention_fwd_plain
+                bwd_p = A.flat_attention_bwd_plain
                 views = [A._heads(x, shape[2]) for x in (q, k, v, do)]
             else:
                 names, heads = ("K4", "K5"), ()
                 fwd_k, bwd_k = A.vmem_attention_fwd, A.vmem_attention_bwd
+                fwd_p = A.vmem_attention_fwd_plain
+                bwd_p = A.vmem_attention_bwd_plain
                 views = [q, k, v, do]
             o, lse = fwd_k(q, k, v, *heads, scale)
             times = (
@@ -101,13 +106,16 @@ def measure_128(smoke, rows) -> list:
                     per_graph=10),
                  smoke.library_backward_ms(*views, scale)),
             )
-            for name, (ms, library) in zip(names, times):
+            plain = (smoke.device_ms(lambda: fwd_p(q, k, v, *heads, scale)),
+                     smoke.device_ms(
+                         lambda: bwd_p(q, k, v, o, do, lse, *heads, scale)))
+            for name, (ms, library), plain_ms in zip(names, times, plain):
                 out.append({"kernel": name, "dtype": dtype, "layout": layout,
                             "shape": list(shape), "ms": ms,
-                            "library_ms": library})
+                            "library_ms": library, "plain_ms": plain_ms})
                 lib = "n/a" if library is None else f"{library:.4f} ms"
                 print(f"  {name} {dtype} {layout} {shape}: {ms:.4f} ms, "
-                      f"library {lib}", flush=True)
+                      f"library {lib}, plain {plain_ms:.4f} ms", flush=True)
             del q, k, v, do, o, lse, views
     return out
 
