@@ -129,7 +129,21 @@ Phases (any failure exits non-zero):
    equal to its conversion; K1, K2 and K3 as phase 3's), distillation v3
    from a DINOv3-named ``.pth`` teacher (``storage_tokens``,
    ``bias_mask``; the teacher equal to its conversion), and ``embed`` of
-   the folder. 3j, 3k, 3l and 3m delete what they wrote. Each phase's
+   the folder. (3n, run after 3m) The other methods: ``pretrain`` with
+   DINO (batch 32), SimCLR, DenseCL, DetCon-B, DetCon-S (batch 64) and
+   DINOv31 (batch 32) on ViT-B/14 at full width, bf16, 4 steps each on
+   phase 3's images, and DetCon-B with ``use_dataset_masks`` and a
+   ``mask_dir`` of PNGs written here with ``zlib`` (palette, 8- and 16-bit
+   gray; the card's machine has no PIL), counters set to 0 just before
+   each run and read just after: K1, K2 and K3 a step as each method's
+   forwards and backwards give them (K3 only for DINO and DINOv31, AdamW
+   with an EMA teacher), every launch on the bf16 hd-64 libraries, no call
+   of PyTorch's SDPA or of the plain attention, finite losses; one JSON
+   line a run (steps 2-4 in ms, peak GiB, launches a step, the losses);
+   then one fp32 step of each method on a fixed batch with the kernels
+   against the same step with their plain versions (loss and gradients,
+   held to the fp32 attention tolerances at LayerScale 0.5, printed at
+   the seeded init). 3j, 3k, 3l and 3m delete what they wrote. Each phase's
    wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
@@ -259,6 +273,46 @@ FILES_STEPS = 3
 FILES_DISTILL_STEPS = 2
 FILES_DECODES = 48
 FILES_MODEL, FILES_TEACHER = "dinov2/vitb14", "dinov3/vitb16"
+# Phase 3n: the other methods. ``pretrain`` with each on ViT-B/14 at full
+# width, 224^2, bf16, METHODS_STEPS steps on phase 3's images: run ->
+# (method, batch, method_args, K1, K2 a step in blocks of ViT-B/14, K3 a
+# step). K1 runs once a block in every forward (teacher and student, each
+# view group), K2 once a block in every student backward; K3 once a step
+# for AdamW with an EMA teacher (DINO, DINOv31), the unfused chain
+# otherwise (SimCLR and DetCon: LARS; DenseCL: SGD).
+METHODS_STEPS = 4
+METHOD_RUNS = {
+    # 2 global views: teacher (1 forward), student (globals, locals).
+    "dino": ("dino", 32, {}, 3, 2, 1),
+    # One student forward over both views.
+    "simclr": ("simclr", 64, {}, 1, 1, 0),
+    # Student on view 0, EMA teacher on view 1.
+    "densecl": ("densecl", 64, {}, 2, 1, 0),
+    "detconb": ("detconb", 64, {}, 2, 1, 0),
+    # Two student forwards, no teacher.
+    "detcons": ("detcons", 64, {}, 2, 2, 0),
+    # DINOv2's 3 and 2, and PaKA's teacher (clean view) and student (g1).
+    "dinov31": ("dinov31", 32, {}, 5, 3, 1),
+    # Region masks from a mask_dir of PNGs written here (palette, 8-bit and
+    # 16-bit gray; every fourth image without one).
+    "detconb_mask_dir": ("detconb", 64, {"use_dataset_masks": True}, 2, 1,
+                         0),
+}
+# Phase 3n's fp32 step with the kernels against the same step with their
+# plain versions: the fp32 attention tolerances of phase 2 (PERF.md, the
+# kernel table), each gradient leaf's max-abs error within 2^-7 of its
+# largest magnitude and the relative L2 of the whole gradient (every leaf
+# as one vector, as phase 2 holds each output tensor) and of the loss
+# within 1e-3; or, where larger, the plain versions' own distance from the
+# exact attention (``exact_attention``: p not rounded to bf16). Both round
+# p and ds to bf16 from products 2^-16 apart, so some roundings go the
+# other way; a step whose gradient cancels (a contrastive loss near
+# uniform, KoLeo's vanishing distances at the init) magnifies that beyond
+# 1e-3 in both (SimCLR 2.6e-3, DenseCL 1.2e-3 at LayerScale 0.5 on an
+# NVIDIA H100 80GB HBM3 at 700 W), and the kernels stay no further from
+# the exact attention than the plain versions are. Each leaf's relative L2
+# is printed, not held.
+METHODS_FP32_TOL = (2.0 ** -7, 1e-3)
 
 
 # The phase running now and when it started (``phase``).
@@ -2853,6 +2907,347 @@ def run_files_path(lt, A, F, card: str, work: Path, main: dict) -> dict:
             "consumed_img_per_s": consumed}
 
 
+def write_masks(folder: Path, n: int, size: int) -> dict:
+    """Region-id PNGs for phase 3n's mask_dir, stems of ``write_images``'
+    files: image i gets a palette mask (i % 4 == 0), an 8-bit gray one (1),
+    a 16-bit gray one (2) or none (3). Ids 0-19 in 32-pixel blocks (ids
+    past DetCon's 16 regions clip to the last). Returns {stem: ids}."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    folder.mkdir(parents=True)
+    palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    written = {}
+    for i in range(n):
+        if i % 4 == 3:
+            continue
+        blocks = rng.integers(0, 20, (size // 32, size // 32))
+        ids = np.repeat(np.repeat(blocks, 32, 0), 32, 1)[..., None]
+        if i % 4 == 0:
+            data = png_bytes(ids, 3, 8, palette)
+        elif i % 4 == 1:
+            data = png_bytes(ids, 0, 8)
+        else:
+            data = png_bytes(ids.astype(np.uint16), 0, 16)
+        (folder / f"img_{i:03d}.png").write_bytes(data)
+        written[f"img_{i:03d}"] = ids[..., 0]
+    return written
+
+
+class CallCount:
+    """Wraps ``owner.name`` to count its calls until :meth:`restore`."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.calls = 0
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(owner, name, counted)
+
+    def restore(self) -> None:
+        setattr(self.owner, self.name, self.fn)
+
+
+def first_images(folder: Path, n: int):
+    """The first ``n`` images of ``folder`` as a uint8 batch on the card,
+    decoded as ``pretrain`` decodes them."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._data.image_dataset import ImageDataset
+
+    files = sorted(str(p) for p in folder.iterdir())[:n]
+    dataset = ImageDataset(files, (256, 256))
+    return torch.from_numpy(np.stack([dataset[i] for i in range(n)])).cuda()
+
+
+def exact_attention(A):
+    """The ViT's attention as plain PyTorch attention without the TPU
+    kernel's bf16 rounding of p (``dot_product_attention``: fp32 softmax,
+    p in the input dtype), the reference phase 3n measures both the kernels
+    and their plain versions against."""
+
+    def attention(q, k, v, num_heads, mask=None):
+        return A.dot_product_attention(q, k, v, num_heads, mask)
+
+    return attention
+
+
+def gradient_errors(got: tuple, ref: tuple) -> dict:
+    """(loss, {leaf: gradient}) against a reference pair: the loss's
+    relative error, the whole gradient's relative L2 (every leaf as one
+    vector) and per leaf the max-abs error as a share of the reference
+    leaf's largest magnitude and the relative L2. The key projection's bias
+    is left out: its gradient is exactly zero, its value rounding
+    residue."""
+    loss, grads = got
+    ref_loss, ref_grads = ref
+    out = {"loss": abs(loss - ref_loss) / abs(ref_loss), "max_abs": {},
+           "rel_l2": {}}
+    diff_sq = ref_sq = 0.0
+    for name, r in ref_grads.items():
+        if name.endswith("attn.k.bias"):
+            continue
+        d = grads[name] - r
+        diff_sq += (d * d).sum().item()
+        ref_sq += (r * r).sum().item()
+        out["max_abs"][name] = (d.abs().max()
+                                / r.abs().max().clamp_min(1e-300)).item()
+        out["rel_l2"][name] = (d.norm() / r.norm().clamp_min(1e-300)).item()
+    out["whole"] = math.sqrt(diff_sq / max(ref_sq, 1e-300))
+    return out
+
+
+def method_fp32_step(A, tag: str, images, layerscale: Optional[float],
+                     hold: bool) -> dict:
+    """One fp32 step of run ``tag``'s method (ViT-B/14, full width, IEEE
+    fp32, weights from the seed; with ``layerscale``, every LayerScale of
+    the student and its teacher set to it) on fixed views of ``images``:
+    the loss and every gradient with the attention kernels, with their
+    plain versions (``flat_attention_fwd_plain``,
+    ``flat_attention_bwd_plain``) in their place, and with the exact
+    attention (``exact_attention``), from the same views and generator;
+    DenseCL's match pinned to the kernels' pass. Fails on a non-finite
+    loss or gradient and, with ``hold``, unless the kernels are within
+    METHODS_FP32_TOL of the plain versions (or, where larger, the plain
+    versions' own distance from the exact attention); returns the
+    errors."""
+    import torch
+
+    from lightly_train_tpu_torch._commands.train_loop import (
+        make_train_step,
+        make_views,
+    )
+    from lightly_train_tpu_torch._configs.validate import config_validate
+    from lightly_train_tpu_torch._scaling import ScalingInfo
+    from lightly_train_tpu_torch.methods.base import TrainState
+    from lightly_train_tpu_torch.methods.densecl import dense_match
+    from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
+    from lightly_train_tpu_torch.models import vit
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    pin_ieee()
+    method_name, batch, args, *_ = METHOD_RUNS[tag]
+    cls, args_cls = get_method_cls(method_name)
+    method_args = config_validate(args_cls, args)
+    method_args.resolve_auto(ScalingInfo(dataset_size=2 * BATCH, epochs=1))
+    method = cls(get_wrapped_model("dinov2/vitb14", dtype=torch.float32),
+                 method_args)
+    params, method_state = method.init(
+        torch.Generator().manual_seed(SEED + 11), torch.device("cuda"))
+    if layerscale is not None:
+        for tree in (params, method_state.get("teacher")):
+            for name, p in (tree.named_parameters() if tree is not None
+                            else ()):
+                if name.endswith("gamma"):
+                    p.data.fill_(layerscale)
+    state = TrainState(0, params, method_state)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    views = make_views(method.view_specs(), images[:batch], gen,
+                       torch.float32,
+                       needs_geometry=getattr(method, "needs_geometry", False))
+    pinned = None
+    if method_name == "densecl":
+        with torch.no_grad():
+            f_s = method.encode(params, views[0], True)[2]
+            f_t = method.encode(method_state["teacher"], views[1], False)[2]
+            pinned = [dense_match(f_s, f_t)]
+    step = make_train_step(method, 10, aug_dtype=torch.float32)
+    kernels = (A.flat_attention_fwd, A.flat_attention_bwd)
+    passes = {}
+    for variant in ("kernels", "plain", "exact"):
+        if variant == "plain":
+            A.flat_attention_fwd = A.flat_attention_fwd_plain
+            A.flat_attention_bwd = A.flat_attention_bwd_plain
+        if variant == "exact":
+            vit.attention = exact_attention(A)
+        try:
+            loss, grads, _, _ = step.loss_and_grads(
+                state, None, torch.Generator(device="cuda").manual_seed(
+                    SEED + 13), views=[views], masks=pinned)
+        finally:
+            A.flat_attention_fwd, A.flat_attention_bwd = kernels
+            vit.attention = A.attention
+        passes[variant] = (loss.item(), {
+            n: g.detach().double().clone() for n, g in grads.items()
+            if g is not None})
+        del grads
+        for p in params.parameters():
+            p.grad = None
+    del state, params, method_state
+    if not (math.isfinite(passes["kernels"][0]) and all(
+            torch.isfinite(g).all() for g in passes["kernels"][1].values())):
+        fail(f"phase 3n {tag} fp32: a loss or gradient is not finite")
+    if set(passes["kernels"][1]) != set(passes["plain"][1]):
+        fail(f"phase 3n {tag} fp32: gradient leaves differ")
+    errors = {"kernels_plain": gradient_errors(passes["kernels"],
+                                               passes["plain"]),
+              "plain_exact": gradient_errors(passes["plain"],
+                                             passes["exact"]),
+              "kernels_exact": gradient_errors(passes["kernels"],
+                                               passes["exact"])}
+    del passes
+    torch.cuda.empty_cache()
+    kp, pe = errors["kernels_plain"], errors["plain_exact"]
+    tol_abs, tol_l2 = METHODS_FP32_TOL
+    if not hold:
+        return errors
+    for what, got, bound in (("loss", kp["loss"], max(tol_l2, pe["loss"])),
+                             ("gradient", kp["whole"],
+                              max(tol_l2, pe["whole"]))):
+        if not got <= bound:
+            fail(f"phase 3n {tag} fp32: the {what} with the kernels against "
+                 f"the plain attention: relative {got} (bound {bound})")
+    for name, got in kp["max_abs"].items():
+        bound = max(tol_abs, pe["max_abs"][name])
+        if not got <= bound:
+            fail(f"phase 3n {tag} fp32: gradient {name} with the kernels "
+                 f"against the plain attention: max-abs {got} of its "
+                 f"largest (bound {bound})")
+    return errors
+
+
+def run_methods_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3n: ``pretrain`` with each run of METHOD_RUNS on ViT-B/14 at
+    full width, bf16, METHODS_STEPS steps on phase 3's images, every launch
+    counter set to 0 just before and read just after: K1, K2 and K3 a step
+    as METHOD_RUNS gives them, every forward and backward on the bf16 hd-64
+    wgmma libraries, no call of PyTorch's SDPA and none of the plain
+    attention (``dot_product_attention``), finite losses; the mask run
+    reads its masks through the port's PNG decoder (held to the ids
+    written). Prints one JSON line a run (steps 2-4 in ms, peak GiB,
+    launches a step, the losses) and then holds one fp32 step of each
+    method with the kernels to the same step with their plain versions
+    (``method_fp32_step``)."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._data import image_dataset as D
+
+    masks = work / "masks"
+    written = write_masks(masks, 2 * BATCH, 256)
+    for stem, ids in written.items():
+        got = D.decode_mask(str(masks / f"{stem}.png"), (256, 256))
+        if not np.array_equal(got, ids):
+            fail(f"phase 3n: mask {stem}.png decodes to other ids")
+    print(f"  {len(written)} region-mask PNGs (palette, 8- and 16-bit "
+          f"gray) decode on the card's host to the ids written")
+    results = {}
+    for tag, (method, batch, args, k1, k2, k3) in METHOD_RUNS.items():
+        out = work / f"method_{tag}"
+        extra = ({"mask_dir": str(masks)} if tag.endswith("mask_dir")
+                 else {})
+        spies = [CallCount(torch.nn.functional,
+                           "scaled_dot_product_attention"),
+                 CallCount(A, "dot_product_attention"),
+                 CallCount(D, "decode_mask")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters(A, F)
+        t0 = time.perf_counter()
+        try:
+            lt.pretrain(out=str(out), data=str(work / "images"),
+                        model="dinov2/vitb14", method=method,
+                        method_args=args, batch_size=batch,
+                        steps=METHODS_STEPS, precision="bf16", log_every=1,
+                        checkpoint_every=METHODS_STEPS, seed=SEED, **extra)
+            torch.cuda.synchronize()
+        finally:
+            for spy in spies:
+                spy.restore()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        by_library = {"fwd": dict(A.fwd_launches),
+                      "bwd": dict(A.bwd_launches)}
+        steps = logged_steps(out)
+        loss_keys = sorted(k for k in steps[0] if "loss" in k)
+        row = {
+            "phase": "3n", "run": tag, "method": method, "batch": batch,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps[1:]],
+            "data_wait_ms": [r["profiling/data_time"] * 1e3
+                             for r in steps[1:]],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_step": {
+                "K1": launches[0] / METHODS_STEPS,
+                "K2": launches[1] / METHODS_STEPS,
+                "K3": launches[2] / METHODS_STEPS},
+            "library_attention_launches": spies[0].calls,
+            "plain_attention_calls": spies[1].calls,
+            "losses": {k: [r[k] for r in steps] for k in loss_keys},
+            "wall_s": wall, "card": card,
+        }
+        if extra:
+            row["masks_decoded"] = spies[2].calls
+        print(json.dumps(row), flush=True)
+        results[tag] = row
+        if [r["step"] for r in steps] != list(range(1, METHODS_STEPS + 1)):
+            fail(f"phase 3n {tag}: logged steps {[r['step'] for r in steps]}")
+        if not all(math.isfinite(x) for k in loss_keys for x in
+                   row["losses"][k] + [r["grad_norm"] for r in steps]):
+            fail(f"phase 3n {tag}: a loss is not finite: {row['losses']}")
+        expected = [k1 * DEPTH * METHODS_STEPS, k2 * DEPTH * METHODS_STEPS,
+                    k3 * METHODS_STEPS, 0, 0]
+        if launches[0] == 0 or launches[1] == 0 or launches != expected:
+            fail(f"phase 3n {tag}: launches {launches} != {expected}")
+        if spies[0].calls or spies[1].calls:
+            fail(f"phase 3n {tag}: the step reached a stock attention op "
+                 f"(SDPA {spies[0].calls}, plain {spies[1].calls})")
+        if extra and not spies[2].calls:
+            fail("phase 3n: the mask run read no mask")
+        check_routes(A, f"3n {tag}", by_library, torch.bfloat16, HEAD_DIM,
+                     {"fwd": expected[0], "bwd": expected[1]})
+        shutil.rmtree(out)
+    pin_ieee()
+    images = first_images(work / "images", 2 * BATCH)
+    for tag in METHOD_RUNS:
+        if tag.endswith("mask_dir"):
+            continue
+        # Held at LayerScale 0.5, where every block's attention weighs in
+        # the output. At the seeded init (LayerScale 1e-5) every CLS lies
+        # within about 1e-5 of the learned token: SimCLR's loss is
+        # log(2B - 1), DenseCL's global term alike, DINOv31's KoLeo
+        # distances vanish, and such a gradient is the residue of
+        # cancelling terms, as much the roundings' as the signal's in both
+        # (DINOv31 on an NVIDIA H100 80GB HBM3 at 700 W: kernels against
+        # plain 0.19 of the gradient, plain against exact 0.33); printed,
+        # not held.
+        for layerscale in (None, 0.5):
+            t0 = time.perf_counter()
+            hold = layerscale is not None
+            e = method_fp32_step(A, tag, images, layerscale, hold)
+            kp, pe, ke = (e[k] for k in ("kernels_plain", "plain_exact",
+                                         "kernels_exact"))
+
+            def worst(d):
+                name = max(d, key=d.get)
+                return f"{d[name]:.2e} ({name})"
+
+            print(f"  {tag} fp32 step, LayerScale "
+                  f"{'1e-5 (init)' if layerscale is None else layerscale}: "
+                  f"kernels against plain: loss {kp['loss']:.2e}, gradient "
+                  f"{kp['whole']:.2e}, worst leaf max-abs "
+                  f"{worst(kp['max_abs'])} rel L2 {worst(kp['rel_l2'])}; "
+                  f"plain against exact: loss {pe['loss']:.2e}, gradient "
+                  f"{pe['whole']:.2e}, leaf max-abs {worst(pe['max_abs'])}; "
+                  f"kernels against exact: gradient {ke['whole']:.2e}; "
+                  f"tolerances {METHODS_FP32_TOL} or plain-exact, "
+                  f"{'held' if hold else 'not held'}; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            results[tag][f"fp32_layerscale_{layerscale}"] = {
+                k: {"loss": v["loss"], "whole": v["whole"],
+                    "max_abs": max(v["max_abs"].values()),
+                    "rel_l2": max(v["rel_l2"].values())}
+                for k, v in e.items()}
+    shutil.rmtree(masks)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3004,6 +3399,12 @@ def main() -> int:
           f"distillation from a DINOv3 ViT-B/16 .pth teacher, "
           f"{FILES_DISTILL_STEPS} steps)", flush=True)
     run_files_path(lt, A, F, card, work, paths["bf16"])
+    pin_ieee()
+    phase(f"phase 3n: pretrain with the other methods (DINO, SimCLR, "
+          f"DenseCL, DetCon-B/S, DINOv31; DetCon-B with mask_dir), "
+          f"ViT-B/14 bf16, {METHODS_STEPS} steps each, and one fp32 step "
+          f"of each against the plain attention", flush=True)
+    run_methods_path(lt, A, F, card, work)
     pin_ieee()
     phase(f"phase 3j: pretrain distillation v3 of ViT-B/14 from a frozen "
           f"random DINOv3 7B/16 teacher (hd 128, fp32), bf16, batch "

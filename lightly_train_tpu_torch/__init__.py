@@ -10,5 +10,7 @@ from lightly_train_tpu_torch._commands.train import (
     pretrain,
     pretrain_from_config,
 )
+from lightly_train_tpu_torch.methods.method_helpers import list_methods
 
-__all__ = ["embed", "embed_from_config", "pretrain", "pretrain_from_config"]
+__all__ = ["embed", "embed_from_config", "list_methods", "pretrain",
+           "pretrain_from_config"]

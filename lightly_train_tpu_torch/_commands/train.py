@@ -16,8 +16,12 @@ at step 0, checkpoints every ``checkpoint_every`` steps and at the end
 (``_system.py``); a non-finite step writes ``debug/nan_capture_step<N>.npz``
 and stops the run (``_debug/``), which ``replay_nan_capture`` re-runs.
 
+``mask_dir`` pairs each image with a region mask by file stem (DetCon's
+``use_dataset_masks``); the loader then yields ``{"images", "masks"}``
+batches.
+
 Not ported yet, and refused when set to anything but their defaults:
-``fsdp`` > 1 (ROADMAP item 7.6), ``mask_dir``, ``profile``,
+``fsdp`` > 1 (ROADMAP item 7.6), ``profile``,
 ``profile_start``, ``profile_steps``, and the tensorboard, wandb and mlflow
 loggers where their package is installed (item 7.5; where it is absent the
 run warns and goes on, as the JAX package does). The fields keep the JAX
@@ -127,7 +131,7 @@ class TrainConfig(Config):
 # Options not ported yet, with their defaults and the ROADMAP item that
 # ports them: each is refused when set to anything else.
 _NOT_PORTED = {
-    "fsdp": (1, "7.6"), "mask_dir": (None, "7.5"), "profile": (False, "7.5"),
+    "fsdp": (1, "7.6"), "profile": (False, "7.5"),
     "profile_start": (10, "7.5"), "profile_steps": (5, "7.5"),
 }
 
@@ -166,11 +170,17 @@ def _check_config(config: TrainConfig) -> list:
     """Raises for an option that is not ported and for options that
     contradict each other, and for a model whose training state does not
     fit the card; returns the resolved loggers."""
-    method_cls, _ = get_method_cls(config.method)
+    method_cls, method_args_cls = get_method_cls(config.method)
+    # Distillation's frozen teacher, by name (its args' ``teacher``).
+    teacher = (config.method_args.get("teacher", method_args_cls.teacher)
+               if "teacher" in {f.name for f in
+                                dataclasses.fields(method_args_cls)}
+               else None)
     refuse_pretraining(
         config.model,
         _resolve_optim_args(config, method_cls.default_optimizer_args()),
-        method_cls.ema_teacher, _device_capacity(config.accelerator))
+        method_cls.ema_teacher, _device_capacity(config.accelerator),
+        teacher)
     for key, (default, item) in _NOT_PORTED.items():
         if getattr(config, key) != default:
             raise NotImplementedError(
@@ -267,7 +277,9 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     if config.data is not None:
         dirs = [config.data] if isinstance(config.data, str) else config.data
         files = [f for d in dirs for f in list_image_files(Path(d))]
-        dataset = ImageDataset(files, canonical_hw)
+        dataset = ImageDataset(
+            files, canonical_hw,
+            mask_dir=Path(config.mask_dir) if config.mask_dir else None)
         dataset_size = len(dataset)
 
     # ---- model + method ---------------------------------------------------

@@ -8,6 +8,12 @@ update, eagerly on the device: the fused AdamW+EMA update where the
 ``post_update``, as the JAX step branches. Gradient accumulation is a Python
 loop over microbatches (the JAX package's ``lax.scan``).
 
+A method that reads crop geometry (``needs_geometry``: DINOv31's PaKA) or
+dataset region masks (``needs_masks``: DetCon with ``use_dataset_masks``)
+gets them appended to its views, in the JAX order: the views, then one mask
+crop per view (following the view's crop and flip), then one (B, 5)
+geometry array per view.
+
 Each step's randomness (augmentation, iBOT masks, drop path) comes from one
 generator that :func:`fit` seeds from (seed, step) before the step, as the
 JAX loop folds the step into its base key: a resumed run replays the steps
@@ -27,8 +33,10 @@ from lightly_train_tpu_torch._logging import get_logger
 from lightly_train_tpu_torch._optim.fused_update import FusedAdamWEMA
 from lightly_train_tpu_torch.methods.base import Method, TrainState, ViewSpec
 from lightly_train_tpu_torch.ops.augment import (
-    augment_view_with_geometry,
+    augment_view_with_params,
+    crop_resize_nearest,
     override_view_specs,
+    sample_view_params,
 )
 
 logger = get_logger("train_loop")
@@ -43,16 +51,35 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def make_views(view_specs: List[ViewSpec], images_u8: torch.Tensor,
-               generator: torch.Generator,
-               dtype: torch.dtype) -> List[torch.Tensor]:
-    """All views of ``view_specs`` of one uint8 (B, H, W, 3) batch."""
-    views = []
+               generator: Optional[torch.Generator], dtype: torch.dtype,
+               masks: Optional[torch.Tensor] = None,
+               needs_masks: bool = False, needs_geometry: bool = False,
+               view_params: Optional[List[Dict[str, torch.Tensor]]] = None,
+               ) -> List[torch.Tensor]:
+    """All views of ``view_specs`` of one uint8 (B, H, W, 3) batch; with
+    ``needs_masks`` and region ``masks`` (int (B, H, W)) each view's mask
+    crop after them, with ``needs_geometry`` each view's (B, 5) geometry
+    after those. ``view_params`` (one :func:`sample_view_params` dict per
+    view) replaces the draws from ``generator``."""
+    views, mask_views, geoms = [], [], []
+    i = 0
     for spec in view_specs:
         for _ in range(spec.count):
-            view, _ = augment_view_with_geometry(generator, images_u8,
-                                                 spec.config, dtype)
+            p = (view_params[i] if view_params is not None else
+                 sample_view_params(generator, images_u8.shape[0],
+                                    tuple(images_u8.shape[1:3]), spec.config))
+            view, geom = augment_view_with_params(images_u8, spec.config, p,
+                                                  dtype)
             views.append(view)
-    return views
+            geoms.append(geom)
+            if needs_masks and masks is not None:
+                mv = crop_resize_nearest(masks, geom[:, 0], geom[:, 1],
+                                         geom[:, 2], geom[:, 3],
+                                         spec.config.out_size)
+                mask_views.append(torch.where(
+                    geom[:, 4][:, None, None] > 0.5, mv.flip(2), mv))
+            i += 1
+    return views + mask_views + (geoms if needs_geometry else [])
 
 
 def make_train_step(
@@ -64,6 +91,8 @@ def make_train_step(
 ) -> Callable[..., Dict[str, Any]]:
     """Build ``train_step(state, images_u8, generator, views=None,
     masks=None) -> metrics``, which updates ``state`` in place.
+    ``images_u8`` is a uint8 (B, H, W, 3) batch or a loader's ``{"images",
+    "masks"}`` dict.
 
     ``transform_args`` overrides the method's views
     (:func:`override_view_specs`). ``views`` (one list per microbatch) and
@@ -74,19 +103,35 @@ def make_train_step(
     replay runs it.
     """
     view_specs = override_view_specs(method.view_specs(), transform_args)
+    needs_geometry = getattr(method, "needs_geometry", False)
+    needs_masks = getattr(method, "needs_masks", False)
+    if (needs_geometry or needs_masks) and any(
+            s.config.vflip_prob > 0 or s.config.rotation_prob > 0
+            for s in view_specs):
+        raise ValueError(
+            "vertical_prob/rotation > 0 is not supported with geometry/"
+            "mask-consuming methods (DetCon, DINOv31): the recorded crop "
+            "geometry carries hflip only, so vflipped/rotated views would "
+            "pair with unflipped masks/teacher features.")
 
-    def loss_and_grads(state: TrainState, images_u8: Optional[torch.Tensor],
+    def loss_and_grads(state: TrainState, images_u8,
                        generator: Optional[torch.Generator],
                        views: Optional[List[List[torch.Tensor]]] = None,
                        masks: Optional[List[torch.Tensor]] = None):
         k = grad_accum_steps
         if views is None:
+            region = None
+            if isinstance(images_u8, dict):
+                images_u8, region = images_u8["images"], images_u8.get("masks")
             b = images_u8.shape[0]
             if b % k != 0:
                 raise ValueError(
                     f"batch size {b} not divisible by grad_accum_steps {k}")
-            views = [make_views(view_specs, mb, generator, aug_dtype)
-                     for mb in images_u8.chunk(k)]
+            region_mb = (region.chunk(k) if region is not None
+                         else [None] * k)
+            views = [make_views(view_specs, mb, generator, aug_dtype, rm,
+                                needs_masks, needs_geometry)
+                     for mb, rm in zip(images_u8.chunk(k), region_mb)]
         named = dict(state.params.named_parameters())
         for p in named.values():
             p.grad = None
@@ -201,8 +246,9 @@ def fit(
         t_data = time.perf_counter()
         batch = next(batch_iter)
         data_wait += time.perf_counter() - t_data
+        images = batch["images"] if isinstance(batch, dict) else batch
         if on_first_batch is not None:
-            on_first_batch(batch)
+            on_first_batch(images)
             on_first_batch = None
         generator.manual_seed(step_seed(seed, current))
         start = generator.get_state() if checking else None
@@ -218,7 +264,7 @@ def fit(
             values = {k: float(v) for k, v in metrics.items()}  # device sync
             dt = time.perf_counter() - t_window
             values["profiling/images_per_sec"] = (
-                batch.shape[0] * window_steps / max(dt, 1e-9))
+                images.shape[0] * window_steps / max(dt, 1e-9))
             values["profiling/step_time"] = dt / max(window_steps, 1)
             values["profiling/data_time"] = data_wait / max(window_steps, 1)
             # The share of the window not spent waiting on host data (the

@@ -12,6 +12,12 @@ chosen as PIL chooses them, then PIL's bilinear resize (its taps computed
 here, its passes in the same C library, which releases the interpreter lock
 so the loader's threads decode in parallel). Other formats decode through
 PIL where it is installed and raise otherwise (ROADMAP item 19).
+
+With ``mask_dir`` each image is paired by file stem with a region mask
+(DetCon's dataset masks) and items become ``{"images", "masks"}``:
+:func:`decode_mask` reads the samples the JAX package reads with PIL (a
+palette index, a gray value, a 16-bit gray value; other kinds through
+``convert("L")``'s luminance) and resizes them with PIL's NEAREST rule.
 """
 
 from __future__ import annotations
@@ -209,6 +215,63 @@ def decode_port(path: str, canonical_hw: Tuple[int, int]) -> np.ndarray:
     return image
 
 
+def luminance(rgb: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) -> (H, W) as PIL's ``convert("L")``:
+    (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
+    rgb = rgb.astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output pixel of PIL's NEAREST resize along one
+    axis: its coordinate starts at half a step and adds the step
+    ``in / out`` once a pixel in double precision (Geometry.c's
+    ``ImagingScaleAffine``), then truncates."""
+    steps = np.full(out_size, in_size / out_size)
+    steps[0] *= 0.5
+    return np.minimum(np.cumsum(steps).astype(np.int64), in_size - 1)
+
+
+def resize_nearest(mask: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W) -> ``hw`` as PIL's ``Image.resize(..., NEAREST)``."""
+    return mask[nearest_index(mask.shape[0], hw[0])][
+        :, nearest_index(mask.shape[1], hw[1])]
+
+
+def decode_mask(path: str, canonical_hw: Tuple[int, int]) -> np.ndarray:
+    """A region mask as int32 (H0, W0), as the JAX package reads it with
+    PIL: a palette image's indices, a gray image's values (16-bit ones
+    too), any other image's ``convert("L")`` luminance; then PIL's NEAREST
+    resize to the canonical size. PNG, JPEG and PPM decode with the port's
+    decoders; other formats through PIL where it is installed."""
+    if Path(path).suffix.lower() in PORT_EXTENSIONS:
+        data = Path(path).read_bytes()
+        if data.startswith(PNG_SIGNATURE):
+            mask = decode_png(data, path, raw_samples=True)
+        elif data.startswith(b"\xff\xd8"):
+            mask = decode_jpeg(data, path)
+        elif data.startswith(b"P"):
+            mask = read_ppm(path, data)
+        else:
+            raise DatasetError(f"{path}: neither PNG, JPEG nor PPM data")
+        if mask.ndim == 3:
+            mask = luminance(mask)
+        return resize_nearest(mask, canonical_hw).astype(np.int32)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise DatasetError(
+            f"{path}: PIL is not installed; without it only PNG, JPEG and "
+            "binary PPM masks decode (other formats: ROADMAP item 19)."
+        ) from None
+    with Image.open(path) as m:
+        if m.mode not in ("P", "L", "I", "I;16"):
+            m = m.convert("L")
+        m = m.resize((canonical_hw[1], canonical_hw[0]), Image.NEAREST)
+        return np.asarray(m, dtype=np.int32)
+
+
 def decode_image(path: str, canonical_hw: Tuple[int, int],
                  mode: str = "RGB") -> np.ndarray:
     """Decode one image to uint8 (H0, W0, 3)."""
@@ -239,11 +302,15 @@ def decode_image(path: str, canonical_hw: Tuple[int, int],
 
 
 class ImageDataset:
-    """Filename-backed dataset producing canonical uint8 images."""
+    """Filename-backed dataset producing canonical uint8 images; with
+    ``mask_dir``, ``{"images": uint8 (H0, W0, 3), "masks": int32 (H0,
+    W0)}`` items, each image's mask found by its file stem (all zeros where
+    none has it)."""
 
     def __init__(self, filenames: Sequence[str],
                  canonical_hw: Tuple[int, int] = (256, 256),
-                 mode: Optional[str] = None):
+                 mode: Optional[str] = None,
+                 mask_dir: Optional[Path] = None):
         if len(filenames) == 0:
             raise DatasetError("Empty dataset.")
         self.filenames = filenames
@@ -256,10 +323,27 @@ class ImageDataset:
             raise NotImplementedError(
                 f"image mode {mode!r} is not ported yet (RGB only).")
         self.mode = mode
+        self.mask_by_stem = None
+        if mask_dir is not None:
+            mask_dir = Path(mask_dir)
+            self.mask_by_stem = {
+                p.stem: p for p in sorted(mask_dir.rglob("*"))
+                if p.suffix.lower() in IMAGE_EXTENSIONS
+            }
+            if not self.mask_by_stem:
+                raise DatasetError(f"No masks under {mask_dir}")
 
     def __len__(self) -> int:
         return len(self.filenames)
 
-    def __getitem__(self, index: int) -> np.ndarray:
-        return decode_image(self.filenames[index], self.canonical_hw,
-                            self.mode)
+    def __getitem__(self, index: int):
+        image = decode_image(self.filenames[index], self.canonical_hw,
+                             self.mode)
+        if self.mask_by_stem is None:
+            return image
+        mask_path = self.mask_by_stem.get(Path(self.filenames[index]).stem)
+        if mask_path is None:
+            mask = np.zeros(self.canonical_hw, np.int32)
+        else:
+            mask = decode_mask(str(mask_path), self.canonical_hw)
+        return {"images": image, "masks": mask}

@@ -3,7 +3,8 @@
 Port of ``lightly_train_tpu/_data/loader.py`` for one process: a thread pool
 decodes images to canonical uint8 batches, a background producer keeps
 ``prefetch`` batches in flight, and each batch is collated into pinned host
-memory and copied to the device without blocking the host.
+memory and copied to the device without blocking the host. A dataset with
+``mask_dir`` yields ``{"images", "masks"}`` items, collated key by key.
 """
 
 from __future__ import annotations
@@ -29,8 +30,19 @@ def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _collate(items: list, device: torch.device):
+    """Stack decoded items into one device batch: a tensor, or a dict of
+    tensors for dict items."""
+    if isinstance(items[0], dict):
+        return {k: _to_device(np.stack([it[k] for it in items]), device)
+                for k in items[0]}
+    return _to_device(np.stack(items), device)
+
+
 class PretrainLoader:
-    """Infinite shuffled loader of uint8 (B, H0, W0, 3) device batches."""
+    """Infinite shuffled loader of uint8 (B, H0, W0, 3) device batches
+    (``{"images", "masks"}`` with the int32 (B, H0, W0) masks where the
+    dataset has ``mask_dir``)."""
 
     def __init__(
         self,
@@ -98,8 +110,9 @@ class PretrainLoader:
                 ]
                 while not stop.is_set():
                     futures = window.pop(0)
-                    batch = np.stack([f.result() for f in futures])
-                    if not offer(_to_device(batch, self.device)):
+                    batch = _collate([f.result() for f in futures],
+                                     self.device)
+                    if not offer(batch):
                         return
                     window.append([pool.submit(self.dataset.__getitem__,
                                                int(i)) for i in next(stream)])

@@ -13,6 +13,10 @@ Every chunk's CRC is checked. Bit depths 1, 2, 4, 8 and 16, colour types 0,
 - alpha is dropped without compositing, and tRNS is ignored;
 - a palette goes through PLTE; an index past its end reads black, as in
   PIL.
+
+With ``raw_samples=True`` (region masks) a palette image gives its indices
+and a 16-bit gray image its 16-bit values, the samples PIL's ``P`` and
+``I;16`` images hold; every other kind decodes as above.
 """
 
 from __future__ import annotations
@@ -89,9 +93,11 @@ def _unfilter(raw: bytes, offset: int, width: int, height: int,
     return _samples(rows, width, channels, depth), offset + size
 
 
-def decode_png(data: bytes, path: str) -> np.ndarray:
+def decode_png(data: bytes, path: str,
+               raw_samples: bool = False) -> np.ndarray:
     """Decode to uint8 (H, W) for gray and gray+alpha, (H, W, 3) for the
-    rest."""
+    rest; with ``raw_samples``, a palette image to its uint8 (H, W)
+    indices and a 16-bit gray one to its uint16 (H, W) values."""
     chunks = _chunks(data, path)
     if chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
         raise DatasetError(f"{path}: PNG without IHDR")
@@ -124,6 +130,8 @@ def decode_png(data: bytes, path: str) -> np.ndarray:
                 raw, offset, pw, ph, channels, depth, path)
     else:
         image, _ = _unfilter(raw, 0, width, height, channels, depth, path)
+    if raw_samples and (ctype == 3 or (ctype == 0 and depth == 16)):
+        return image[..., 0]
     if ctype == 3:
         table = np.zeros((256, 3), dtype=np.uint8)
         entries = np.frombuffer(palette, dtype=np.uint8)

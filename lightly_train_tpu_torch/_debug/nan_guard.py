@@ -7,7 +7,8 @@ when a flag is false, :meth:`NaNGuard.check` writes
 ``state.step`` while it ran, as the JAX capture numbers it), its uint8
 batch and the state of the step's generator at the step's start (the
 port's counterpart of the JAX capture's key), then raises
-``NaNDetectedError`` naming up to 20 non-finite parameter leaves.
+``NaNDetectedError`` naming up to 20 non-finite parameter leaves. A batch
+with region masks (``mask_dir``) also saves them, as ``masks``.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class NaNGuard:
         self.out_dir = Path(out_dir) / "debug"
         self.enabled = enabled
 
-    def check(self, finite: bool, step: int, batch: torch.Tensor,
+    def check(self, finite: bool, step: int, batch,
               generator_state: torch.Tensor,
               params: Optional[Mapping[str, torch.Tensor]] = None) -> None:
         """Nothing if ``finite``; else the capture of the step that ran with
@@ -58,11 +59,13 @@ class NaNGuard:
             return
         self.out_dir.mkdir(parents=True, exist_ok=True)
         path = self.out_dir / f"nan_capture_step{step}.npz"
+        arrays = ({"batch": batch["images"], "masks": batch["masks"]}
+                  if isinstance(batch, dict) else {"batch": batch})
         np.savez_compressed(
             path, step=np.asarray(step),
-            batch=batch.detach().cpu().numpy(),
             generator=generator_state.cpu().numpy(),
-            generator_device=np.asarray(str(batch.device.type)))
+            generator_device=np.asarray(str(arrays["batch"].device.type)),
+            **{k: v.detach().cpu().numpy() for k, v in arrays.items()})
         offenders = []
         if params is not None:
             offenders = [

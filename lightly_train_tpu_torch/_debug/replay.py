@@ -3,8 +3,9 @@
 Port of ``lightly_train_tpu/_debug/replay.py``. Everything it reads is in
 the run's out directory:
 
-- ``debug/nan_capture_step<N>.npz``: the step's number, its uint8 batch and
-  the state of its generator at its start (``NaNGuard.check``);
+- ``debug/nan_capture_step<N>.npz``: the step's number, its uint8 batch
+  (and region masks, for a run with ``mask_dir``) and the state of its
+  generator at its start (``NaNGuard.check``);
 - ``metrics.jsonl``: the hyperparameters record (model and its
   ``model_args``, ``embed_dim``, method, the resolved method and optimizer
   arguments, steps, learning rate);
@@ -122,6 +123,9 @@ def replay_nan_capture(out: Any, capture: Optional[Any] = None
     generator = torch.Generator(device=device)
     generator.set_state(torch.from_numpy(data["generator"]))
     images = torch.from_numpy(data["batch"]).to(device)
+    if "masks" in data:
+        images = {"images": images,
+                  "masks": torch.from_numpy(data["masks"]).to(device)}
     loss, grads, _, metrics = train_step.loss_and_grads(state, images,
                                                         generator)
     grad_stats = tree_abs_stats(grads)

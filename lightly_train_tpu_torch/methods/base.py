@@ -154,3 +154,17 @@ class Method(abc.ABC):
                       ) -> Optional[Dict[str, float]]:
         """Per-parameter multipliers on the final update (freezing)."""
         return None
+
+
+def enqueue_rows(queue: torch.Tensor, ptr: int, rows: torch.Tensor
+                 ) -> torch.Tensor:
+    """A ring queue with ``rows`` written from slot ``ptr`` on: slot
+    ``(ptr + j) % Q`` takes row j. Where B > Q several rows map to one
+    slot and the last one written stays, as on the JAX package's CPU path,
+    so only the last ``min(B, Q)`` rows are written, each to its own slot
+    (a scatter with repeated indices has no defined order on the card).
+    Returns a new tensor."""
+    Q, B = queue.shape[0], rows.shape[0]
+    n = min(B, Q)
+    idx = torch.arange(B - n, B, device=queue.device).add_(ptr).remainder_(Q)
+    return queue.index_copy(0, idx, rows[B - n:].float())

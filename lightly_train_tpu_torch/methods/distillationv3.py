@@ -41,7 +41,12 @@ from lightly_train_tpu_torch._configs.config import AUTO, Auto
 from lightly_train_tpu_torch._optim import LARSArgs
 from lightly_train_tpu_torch._scaling import ScalingInfo, get_bucket_value
 from lightly_train_tpu_torch.errors import ConfigError
-from lightly_train_tpu_torch.methods.base import Method, MethodArgs, ViewSpec
+from lightly_train_tpu_torch.methods.base import (
+    Method,
+    MethodArgs,
+    ViewSpec,
+    enqueue_rows,
+)
 from lightly_train_tpu_torch.models.heads import ProjectionHead
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
@@ -137,19 +142,14 @@ def resample_grid(z: torch.Tensor, grid_hw: Tuple[int, int]) -> torch.Tensor:
 
 def enqueue(method_state: Dict[str, Any],
             t_global: torch.Tensor) -> Dict[str, Any]:
-    """Ring-buffer enqueue of the batch's teacher embeddings. Slot
-    ``(ptr + j) % Q`` takes row j; where B > Q several rows map to one
-    slot and the last one written stays, as on the JAX package's CPU
-    path, so only the last ``min(B, Q)`` rows are written, each to its
-    own slot (a scatter with repeated indices has no defined order on
-    the card)."""
+    """Ring-buffer enqueue of the batch's teacher embeddings
+    (:func:`enqueue_rows`)."""
     queue = method_state["queue"]
     Q, B = queue.shape[0], t_global.shape[0]
-    ptr, n = method_state["queue_ptr"], min(B, Q)
-    idx = torch.arange(B - n, B, device=queue.device).add_(ptr).remainder_(Q)
+    ptr = method_state["queue_ptr"]
     return {
         **method_state,
-        "queue": queue.index_copy(0, idx, t_global[B - n:].float()),
+        "queue": enqueue_rows(queue, ptr, t_global),
         "queue_ptr": (ptr + B) % Q,
         "queue_filled": min(method_state["queue_filled"] + B, Q),
     }

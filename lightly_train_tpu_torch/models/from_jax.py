@@ -11,9 +11,11 @@ numpy arrays, into a PyTorch state dict for the port's modules:
 - ``block{i}`` -> ``blocks.{i}``, head ``mlp{i}`` -> ``mlp.{i}``;
 - scope names stay, so an ``embed_dim`` model's ``backbone/...`` and
   ``embed/kernel|bias`` become ``backbone.*`` and ``embed.weight|bias``,
-  a SwiGLU FFN's ``mlp/w1|w2|w3`` become ``mlp.w1|w2|w3``, and
+  a SwiGLU FFN's ``mlp/w1|w2|w3`` become ``mlp.w1|w2|w3``,
   distillation's ``global_head/proj`` and ``local_head/proj`` become
-  ``global_head.proj`` and ``local_head.proj``;
+  ``global_head.proj`` and ``local_head.proj``, and the two-layer heads of
+  SimCLR, DenseCL and DetCon (``fc1``, ``fc2`` without bias) and the PaKA
+  head of DINOv31 (``fc1``-``fc3``) keep their names;
 - a DINOv3 ViT's leaves carry over as they are: its ``register_tokens``,
   and the ``k`` projection without ``bias`` and the model without
   ``pos_embed`` have nothing to carry.
@@ -64,9 +66,10 @@ def _convert_leaf(name: str, value: np.ndarray):
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict (float32 tensors) for a Flax parameter tree of numpy
-    arrays: a ViT's params, or a method's tree (DINOv2's ``{"student",
-    "dino_head", "ibot_head"}``, distillation's ``{"student",
-    "global_head", "local_head"}``)."""
+    arrays: a ViT's params, or a method's tree (``student`` and the
+    method's heads: DINOv2's ``dino_head`` and ``ibot_head``,
+    distillation's ``global_head`` and ``local_head``, DINO's and SimCLR's
+    ``head``, and so on)."""
     state = {}
     for name, value in _flatten(tree).items():
         path, value = _convert_leaf(name, value)
@@ -75,16 +78,23 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def method_state_from_jax(method_state: Mapping[str, Any]) -> Dict[str, Any]:
-    """A method's state: the teacher tree becomes a state dict (DINOv2's EMA
-    teacher params, or distillation's frozen teacher variables, whose
-    ``params`` collection is unwrapped); DINOv2's ``dino_center`` and
-    ``ibot_center`` and distillation's ``queue`` become float32 tensors,
-    and distillation's ``queue_ptr`` and ``queue_filled`` host integers."""
-    teacher = method_state["teacher"]
-    if set(teacher) == {"params"}:
-        teacher = teacher["params"]
-    out: Dict[str, Any] = {"teacher": params_from_jax(teacher)}
-    for key in ("dino_center", "ibot_center", "queue"):
+    """A method's state: the teacher tree, where there is one, becomes a
+    state dict (an EMA teacher's params: DINOv2's, DINO's, DINOv31's with
+    its PaKA head, DenseCL's, DetCon-B's backbone and projector; or
+    distillation's frozen teacher variables, whose ``params`` collection
+    is unwrapped); the centers (DINOv2's ``dino_center`` and
+    ``ibot_center``, DINO's ``center``) and the queues (distillation's
+    ``queue``, DenseCL's ``queue_global`` and ``queue_dense``) become
+    float32 tensors, and ``queue_ptr`` and ``queue_filled`` host
+    integers."""
+    out: Dict[str, Any] = {}
+    if "teacher" in method_state:
+        teacher = method_state["teacher"]
+        if set(teacher) == {"params"}:
+            teacher = teacher["params"]
+        out["teacher"] = params_from_jax(teacher)
+    for key in ("dino_center", "ibot_center", "center", "queue",
+                "queue_global", "queue_dense"):
         if key in method_state:
             out[key] = torch.from_numpy(
                 np.array(method_state[key], dtype=np.float32))

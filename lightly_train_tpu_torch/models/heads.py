@@ -1,8 +1,9 @@
 """Projection heads: the DINO head with a weight-normalized prototype layer,
-and the single linear projection of distillation.
+the single linear projection of distillation and the two-layer MLP of
+SimCLR, DenseCL and DetCon.
 
 Port of ``lightly_train_tpu/models/heads.py`` (``WeightNormDense``,
-``DINOHead``, ``ProjectionHead``). Like the ViT, heads keep float32
+``DINOHead``, ``ProjectionHead``, ``SimCLRProjectionHead``). Like the ViT, heads keep float32
 parameters and compute in ``dtype``; the l2 normalization and the weight
 norm run in fp32.
 """
@@ -97,3 +98,22 @@ class ProjectionHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
+
+
+class SimCLRProjectionHead(nn.Module):
+    """fc1, ReLU, then fc2 without bias; fp32 by default, as the JAX head
+    (its Dense layers at ``dtype=float32`` whatever the run's
+    precision)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int = 2048,
+                 out_dim: int = 128, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(in_dim, hidden_dim, dtype=dtype)
+        self.fc2 = Linear(hidden_dim, out_dim, bias=False, dtype=dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.fc1.reset_parameters(generator)
+        self.fc2.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(x)))

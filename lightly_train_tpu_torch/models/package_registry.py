@@ -69,39 +69,47 @@ def get_wrapped_model(
 
 
 def refuse_pretraining(name: str, optim_args: Any, ema_teacher: bool,
-                       capacity: Optional[int]) -> None:
+                       capacity: Optional[int],
+                       teacher: Optional[str] = None) -> None:
     """Raises NotImplementedError, before anything is allocated, where the
     fp32 state a run of ``name`` must hold exceeds ``capacity`` bytes (the
-    card's total memory; None: no limit). That state is the parameters, the
-    gradients, the optimizer's moments (AdamW 2, SGD and LARS 1 with
-    momentum, else 0) and, with ``ema_teacher``, a teacher the student's
-    size; the parameters are counted on the meta device. On one 80 GB card
-    a 7B ViT trains with LARS or SGD at momentum 0 in a method without an
-    EMA teacher (distillation); DINOv2 or AdamW waits for FSDP or the 8-bit
-    AdamW."""
+    card's total memory; None: no limit). That state is the student's
+    parameters, its gradients, the optimizer's moments (AdamW 2, SGD and
+    LARS 1 with momentum, else 0) and, with ``ema_teacher``, a teacher the
+    student's size; and a frozen ``teacher`` model (distillation's) once,
+    at its own size. Parameters are counted on the meta device. Nothing
+    else (activations, workspaces) is counted."""
     if capacity is None:
         return
-    with torch.device("meta"):
-        n = sum(p.numel() for p in get_wrapped_model(name).module.parameters())
+
+    def n_params(model: str) -> int:
+        with torch.device("meta"):
+            return sum(p.numel()
+                       for p in get_wrapped_model(model).module.parameters())
+
+    n = n_params(name)
     moments = (2 if isinstance(optim_args, AdamWArgs)
                else int(optim_args.momentum > 0))
     copies = 2 + moments + int(ema_teacher)
-    need = 4 * n * copies
+    n_teacher = 0 if teacher is None else n_params(teacher)
+    need = 4 * (n * copies + n_teacher)
     if need <= capacity:
         return
     held = ["parameters", "gradients"]
     held += {2: ["AdamW's mu and nu"], 1: ["the momentum trace"],
              0: []}[moments]
     held += ["an EMA teacher"] if ema_teacher else []
+    counted = (f"its {n / 1e9:.2f} B parameters as {copies} fp32 copies "
+               f"({', '.join(held)})")
+    if teacher is not None:
+        counted += (f" and the frozen teacher '{teacher}' of "
+                    f"{n_teacher / 1e9:.2f} B parameters as one")
     raise NotImplementedError(
-        f"model='{name}' does not fit the card: its {n / 1e9:.2f} B "
-        f"parameters as {copies} fp32 copies ({', '.join(held)}) are "
-        f"{need} bytes ({need / 2 ** 30:.1f} GiB), more than the card's "
-        f"{capacity / 2 ** 30:.1f} GiB. Training it with this method and "
-        "optimizer waits for FSDP over several cards (ROADMAP item 7.6) or "
-        "for optim='adamw8bit' (ROADMAP item 10). On one card it trains "
-        "with a method without an EMA teacher (distillation) and LARS or "
-        "SGD at momentum 0 (optim_args={'momentum': 0.0})."
+        f"model='{name}' does not fit the card: {counted} are {need} bytes "
+        f"({need / 2 ** 30:.1f} GiB), more than the card's "
+        f"{capacity / 2 ** 30:.1f} GiB. Such a run waits for FSDP over "
+        "several cards (ROADMAP item 7.6) or for less state per parameter, "
+        "such as optim='adamw8bit' (ROADMAP item 10)."
     )
 
 

@@ -11,8 +11,12 @@ Every random op comes in two parts: a sampler that takes an explicit
 parameters, and a deterministic function of the images and those parameters
 (the ``*_with`` functions, :func:`crop_resize_matmul`). The tests feed both
 packages the same sampled parameters; the samplers are checked by bounds.
-:func:`override_view_specs` applies the user's ``transform_args``. Channel
-drop and rotation (other methods' view options) wait for ROADMAP item 9.
+:func:`override_view_specs` applies the user's ``transform_args``; random
+rotation (reflect-101 border, bilinear) runs after the flips.
+:func:`crop_resize_nearest` crops integer region masks with a view's crop
+geometry (DetCon's dataset masks). Channel drop only acts on images of more
+than 3 channels, which wait for ``LIGHTLY_TRAIN_IMAGE_MODE=UNCHANGED``
+(ROADMAP item 19), and is refused until then.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ class ViewAugmentConfig:
     # solarize
     solarize_prob: float = 0.0
     solarize_threshold: float = 0.5
+    # random rotation: an angle in [-degrees, degrees] with probability
+    # prob, reflect-101 border, after the flips at the view resolution.
+    rotation_prob: float = 0.0
+    rotation_degrees: float = 0.0
     # crop interpolation: "area" = cv2 INTER_AREA, "bilinear" = hat kernel.
     interpolation: str = "area"
     # normalize
@@ -188,8 +196,42 @@ def crop_resize_matmul(
     return torch.einsum("bowc,bxw->boxc", rows, Rx)
 
 
+def _nearest_weight_matrix(src: torch.Tensor, in_size: int) -> torch.Tensor:
+    """(..., out) source coords -> (..., out, in) one-hot nearest matrix."""
+    idx = torch.arange(in_size, dtype=torch.float32, device=src.device)
+    nearest = torch.round(torch.clamp(src, 0, in_size - 1))
+    return (torch.abs(nearest[..., None] - idx) < 0.5).float()
+
+
+def crop_resize_nearest(
+    masks: torch.Tensor,
+    y0: torch.Tensor,
+    x0: torch.Tensor,
+    h: torch.Tensor,
+    w: torch.Tensor,
+    out_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """Nearest-neighbour crop+resize of integer (B, H, W) masks with the
+    crop geometry of an image view: two products with one-hot resampling
+    matrices, so the ids come out exact (below 2^24)."""
+    B, H, W = masks.shape
+    oh, ow = out_hw
+    dev = masks.device
+    t_y = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) / oh
+    t_x = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) / ow
+    sy = torch.clamp(y0[:, None] + t_y[None, :] * h[:, None] - 0.5,
+                     0.0, H - 1.0)
+    sx = torch.clamp(x0[:, None] + t_x[None, :] * w[:, None] - 0.5,
+                     0.0, W - 1.0)
+    Ry = _nearest_weight_matrix(sy, H)
+    Rx = _nearest_weight_matrix(sx, W)
+    rows = torch.einsum("boh,bhw->bow", Ry, masks.float())
+    out = torch.einsum("bow,bxw->box", rows, Rx)
+    return torch.round(out).to(masks.dtype)
+
+
 # ---------------------------------------------------------------------------
-# flips
+# flips and rotation
 # ---------------------------------------------------------------------------
 
 
@@ -211,6 +253,75 @@ def random_flip(generator: torch.Generator, images: torch.Tensor,
     do_h = _uniform(generator, (B,)) < hflip_prob if hflip_prob > 0 else None
     do_v = _uniform(generator, (B,)) < vflip_prob if vflip_prob > 0 else None
     return flip_with(images, do_h, do_v)
+
+
+def sample_rotation(generator: torch.Generator, batch: int, prob: float,
+                    degrees: float) -> Params:
+    """apply (B,) bool and angle (B,) in radians, uniform in [-degrees,
+    degrees] where applied and 0 elsewhere."""
+    apply = _uniform(generator, (batch,)) < prob
+    angle = _uniform(generator, (batch,), -degrees, degrees) * (
+        math.pi / 180.0)
+    return {"rotate": apply,
+            "rotate_angle": torch.where(apply, angle, torch.zeros_like(angle))}
+
+
+def random_rotate_with(images: torch.Tensor, apply: torch.Tensor,
+                       angle: torch.Tensor) -> torch.Tensor:
+    """Rotate each (H, W, C) image about its centre by ``angle`` where
+    ``apply``: bilinear sampling of the inversely rotated grid, borders
+    reflected as OpenCV's BORDER_REFLECT_101 (albumentations' ``Rotate``)."""
+    return rotate_with_cos_sin(images, apply, torch.cos(angle),
+                               torch.sin(angle))
+
+
+def rotate_with_cos_sin(images: torch.Tensor, apply: torch.Tensor,
+                        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """:func:`random_rotate_with` from each angle's (B,) cosine and sine."""
+    B, H, W, C = images.shape
+    dev = images.device
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    ys = torch.arange(H, dtype=torch.float32, device=dev) - cy
+    xs = torch.arange(W, dtype=torch.float32, device=dev) - cx
+    yy = ys[:, None].expand(H, W)
+    xx = xs[None, :].expand(H, W)
+    sy = cos[:, None, None] * yy[None] - sin[:, None, None] * xx[None] + cy
+    sx = sin[:, None, None] * yy[None] + cos[:, None, None] * xx[None] + cx
+
+    def reflect101(v, n):
+        period = 2.0 * (n - 1)
+        v = torch.remainder(torch.abs(v), period)
+        return torch.minimum(v, period - v)
+
+    sy = reflect101(sy, H)
+    sx = reflect101(sx, W)
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    fy = (sy - y0)[..., None]
+    fx = (sx - x0)[..., None]
+    y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
+    y1i = torch.clamp(y0i + 1, 0, H - 1)
+    x0i = torch.clamp(x0.to(torch.int64), 0, W - 1)
+    x1i = torch.clamp(x0i + 1, 0, W - 1)
+    flat = images.reshape(B, H * W, C)
+
+    def gather(yi, xi):
+        lin = (yi * W + xi).reshape(B, H * W, 1).expand(B, H * W, C)
+        return torch.gather(flat, 1, lin).reshape(B, H, W, C)
+
+    out = (gather(y0i, x0i) * (1 - fy) * (1 - fx)
+           + gather(y0i, x1i) * (1 - fy) * fx
+           + gather(y1i, x0i) * fy * (1 - fx)
+           + gather(y1i, x1i) * fy * fx)
+    return torch.where(apply[:, None, None, None], out, images)
+
+
+def random_rotate(generator: torch.Generator, images: torch.Tensor,
+                  prob: float, degrees: float) -> torch.Tensor:
+    if prob <= 0.0 or degrees == 0.0:
+        return images
+    p = sample_rotation(generator, images.shape[0], prob, degrees)
+    return random_rotate_with(images, p["rotate"], p["rotate_angle"])
 
 
 # ---------------------------------------------------------------------------
@@ -357,15 +468,16 @@ def view_config_with_overrides(cfg: ViewAugmentConfig,
 
     The keys of ``MethodTransformArgs``: image_size, random_resize,
     random_flip, color_jitter, random_gray_scale, gaussian_blur, solarize,
-    normalize, and channel_drop and random_rotation set to None. A key set
-    to None turns its op off. Channel drop and rotation (other methods'
-    views) wait for ROADMAP item 9.
+    random_rotation, normalize, and channel_drop set to None. A key set to
+    None turns its op off. Channel drop acts only on images of more than 3
+    channels, which need ``LIGHTLY_TRAIN_IMAGE_MODE=UNCHANGED``: both wait
+    for ROADMAP item 19.
     """
-    for key in ("channel_drop", "random_rotation"):
-        if args.get(key) is not None:
-            raise NotImplementedError(
-                f"transform_args {key}={args[key]!r} is not ported yet "
-                "(ROADMAP item 9).")
+    if args.get("channel_drop") is not None:
+        raise NotImplementedError(
+            f"transform_args channel_drop={args['channel_drop']!r} is not "
+            "ported yet: it acts on images of more than 3 channels, which "
+            "need LIGHTLY_TRAIN_IMAGE_MODE=UNCHANGED (ROADMAP item 19).")
     u: dict = {}
     if "image_size" in args:
         s = args["image_size"]
@@ -409,6 +521,16 @@ def view_config_with_overrides(cfg: ViewAugmentConfig,
             u["solarize_prob"] = so.get("prob", cfg.solarize_prob)
             u["solarize_threshold"] = so.get("threshold",
                                              cfg.solarize_threshold)
+    if "random_rotation" in args:
+        rot = args["random_rotation"]
+        if rot is None:
+            u["rotation_prob"] = 0.0
+        else:
+            u["rotation_prob"] = rot.get("prob", 1.0)
+            deg = rot.get("degrees", 0.0)
+            u["rotation_degrees"] = float(
+                deg if not isinstance(deg, (tuple, list))
+                else max(abs(deg[0]), abs(deg[1])))
     if args.get("normalize") is not None:
         u["mean"] = tuple(args["normalize"]["mean"])
         u["std"] = tuple(args["normalize"]["std"])
@@ -472,6 +594,9 @@ def sample_view_params(generator: torch.Generator, batch: int,
         out["blur"] = _uniform(generator, (batch,)) < cfg.blur_prob
     if cfg.solarize_prob > 0:
         out["solarize"] = _uniform(generator, (batch,)) < cfg.solarize_prob
+    if cfg.rotation_prob > 0 and cfg.rotation_degrees != 0.0:
+        out.update(sample_rotation(generator, batch, cfg.rotation_prob,
+                                   cfg.rotation_degrees))
     return out
 
 
@@ -490,6 +615,10 @@ def augment_view_with_params(
         out = flip_with(out, None, p["vflip"])
     geometry = torch.stack(
         [p["y0"], p["x0"], p["h"], p["w"], p["hflip"].float()], dim=1)
+    if "rotate" in p:
+        # After the flips, before the photometric ops; the geometry does
+        # not record it (methods that read geometry refuse rotation).
+        out = random_rotate_with(out, p["rotate"], p["rotate_angle"])
     if "cj_apply" in p:
         out = color_jitter_with(
             out, {k[3:]: v for k, v in p.items() if k.startswith("cj_")})

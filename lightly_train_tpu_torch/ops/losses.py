@@ -1,9 +1,8 @@
-"""SSL loss ops of DINOv2 (DINO CE, iBOT patch CE, KoLeo, softmax and
-Sinkhorn-Knopp centering) and of distillation (queue similarity CE, feature
-MSE).
+"""SSL loss ops of DINOv2 and DINO (DINO CE, iBOT patch CE, KoLeo, softmax
+and Sinkhorn-Knopp centering), of SimCLR (NT-Xent) and of distillation
+(queue similarity CE, feature MSE).
 
-Port of the DINOv2 and distillation losses in
-``lightly_train_tpu/ops/losses.py``. Loss math runs in float32 whatever the
+Port of ``lightly_train_tpu/ops/losses.py``. Loss math runs in float32 whatever the
 compute dtype.
 """
 
@@ -116,6 +115,22 @@ def koleo_loss(embeddings: torch.Tensor, eps: float = 1e-8,
     nn = torch.gather(xg, 1, nn_idx[..., None].expand_as(xg))
     dist = torch.sqrt(torch.clamp(((xg - nn) ** 2).sum(dim=-1), min=eps))
     return -torch.log(dist + eps).mean()
+
+
+def ntxent_loss(z0: torch.Tensor, z1: torch.Tensor, temperature: float = 0.5,
+                eps: float = 1e-8) -> torch.Tensor:
+    """NT-Xent over the (2B, 2B) similarity of two views' (B, D)
+    projections in fp32; each row's own entry is pushed out of the softmax
+    by subtracting 1e9, as the JAX package does."""
+    z0 = l2_normalize(z0, eps)
+    z1 = l2_normalize(z1, eps)
+    B = z0.shape[0]
+    z = torch.cat([z0, z1], dim=0).float()
+    sim = (z @ z.T) / temperature
+    sim = sim - 1e9 * torch.eye(2 * B, dtype=sim.dtype, device=sim.device)
+    targets = torch.cat([torch.arange(B) + B, torch.arange(B)]).to(sim.device)
+    logp = torch.log_softmax(sim, dim=-1)
+    return -logp[torch.arange(2 * B, device=sim.device), targets].mean()
 
 
 def similarity_queue_ce(student_emb: torch.Tensor, teacher_emb: torch.Tensor,

@@ -456,9 +456,24 @@ def test_override_view_specs_matches_jax():
 
 @pytest.mark.parametrize("key", ["channel_drop", "random_rotation"])
 def test_unported_transform_args_are_refused(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        TA.override_view_specs(_port_dinov2(None).view_specs(),
-                               {key: {"prob": 1.0}})
+    """Channel drop waits for images of more than 3 channels (ROADMAP item
+    19); rotation is ported and sets the views' rotation as in the JAX
+    package."""
+    args = {key: {"prob": 1.0, "degrees": 20}}
+    if key == "channel_drop":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item 19\b"):
+            TA.override_view_specs(_port_dinov2(None).view_specs(), args)
+        return
+    from lightly_train_tpu.ops.augment import (
+        override_view_specs as jax_override,
+    )
+
+    specs = TA.override_view_specs(_port_dinov2(None).view_specs(), args)
+    j_specs = jax_override(_jax_dinov2(None).view_specs(), args)
+    assert [(s.config.rotation_prob, s.config.rotation_degrees)
+            for s in specs] == [(s.config.rotation_prob,
+                                 s.config.rotation_degrees) for s in j_specs]
+    assert specs[0].config.rotation_degrees == 20.0
 
 
 def _png_size(path):

@@ -163,51 +163,99 @@ def test_hd128_routes_both_directions(dtype):
         A.bwd_library(dtype, 96)
 
 
-# (model, method, optimizer args, refused at 80 GiB): the fp32 state is the
-# parameters, the gradients, the optimizer's moments and an EMA teacher.
+# (model, method, optimizer args, refused at 80 GiB, frozen teacher): the
+# fp32 state is the parameters, the gradients, the optimizer's moments, an
+# EMA teacher, and a distillation teacher once at its own size.
 GIB80 = 80 * 2 ** 30
 REFUSALS = {
     # 5 copies of 6.72 B parameters: 134.3 GB (125.1 GiB).
-    "dinov2_7b": ("dinov3/vit7b16", "dinov2", AdamWArgs(), True),
-    # 4 copies: 107.5 GB (100.1 GiB).
+    "dinov2_7b": ("dinov3/vit7b16", "dinov2", AdamWArgs(), True, None),
+    # DINO's EMA teacher with AdamW: 5 copies, as DINOv2.
+    "dino_adamw_7b": ("dinov3/vit7b16", "dino", AdamWArgs(), True, None),
+    # SimCLR (no teacher) with LARS at momentum 0: p and g, 53.7 GB.
+    "simclr_lars_momentum0_7b": ("dinov3/vit7b16", "simclr",
+                                 LARSArgs(momentum=0.0), False, None),
+    # 4 copies and the ViT-B/16 teacher: 107.8 GB (100.4 GiB).
     "distillation_adamw_7b": ("dinov3/vit7b16", "distillationv3",
-                              AdamWArgs(), True),
-    # p, g and the trace: 80.6 GB (75.1 GiB), under 80 GiB.
+                              AdamWArgs(), True, "dinov3/vitb16"),
+    # p, g, the trace and the ViT-B/16 teacher: 81.0 GB (75.4 GiB), under
+    # 80 GiB.
     "distillation_lars_7b": ("dinov3/vit7b16", "distillationv3",
-                             LARSArgs(), False),
-    # p and g: 53.7 GB, the path chip_smoke.py's phase 3l runs.
+                             LARSArgs(), False, "dinov3/vitb16"),
+    # The same from a 7B teacher: 4 copies, 107.5 GB (100.1 GiB).
+    "distillation_lars_7b_teacher_7b": ("dinov3/vit7b16", "distillationv3",
+                                        LARSArgs(), True, "dinov3/vit7b16"),
+    # p, g and the ViT-B/16 teacher: 54.1 GB, the path chip_smoke.py's
+    # phase 3l runs.
     "distillation_lars_momentum0_7b": ("dinov3/vit7b16", "distillationv3",
-                                       LARSArgs(momentum=0.0), False),
-    "dinov2_vitb": ("dinov2/vitb14", "dinov2", AdamWArgs(), False),
+                                       LARSArgs(momentum=0.0), False,
+                                       "dinov3/vitb16"),
+    "dinov2_vitb": ("dinov2/vitb14", "dinov2", AdamWArgs(), False, None),
 }
+
+
+def _meta_params(model):
+    with torch.device("meta"):
+        return sum(p.numel()
+                   for p in get_wrapped_model(model).module.parameters())
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_refuse_pretraining_counts_the_training_state(case):
-    """``refuse_pretraining`` on the meta device at 80 GiB: DINOv2 (AdamW and
-    an EMA teacher) and AdamW with a 7B student are refused, naming the
-    byte count, FSDP (item 7.6) and adamw8bit (item 10); distillation with
-    LARS is not, with or without momentum; ViT-B never is. Without a
-    capacity (the CPU) nothing is refused."""
-    model, method, optim_args, refused = REFUSALS[case]
+    """``refuse_pretraining`` on the meta device at 80 GiB: DINOv2 and DINO
+    (AdamW and an EMA teacher), AdamW with a 7B student and a 7B student
+    from a 7B teacher are refused, naming the byte count, FSDP (item 7.6)
+    and adamw8bit (item 10); distillation with LARS from a ViT-B teacher
+    is not, with or without momentum, nor SimCLR at momentum 0; ViT-B
+    never is. Without a capacity (the CPU) nothing is refused. The message
+    says what it counted and nothing more."""
+    model, method, optim_args, refused, teacher = REFUSALS[case]
     ema = get_method_cls(method)[0].ema_teacher
-    with torch.device("meta"):
-        n = sum(p.numel()
-                for p in get_wrapped_model(model).module.parameters())
+    n = _meta_params(model)
     moments = 2 if isinstance(optim_args, AdamWArgs) else int(
         optim_args.momentum > 0)
-    need = 4 * n * (2 + moments + int(ema))
+    need = 4 * (n * (2 + moments + int(ema))
+                + (0 if teacher is None else _meta_params(teacher)))
     assert (need > GIB80) == refused
-    refuse_pretraining(model, optim_args, ema, None)
+    refuse_pretraining(model, optim_args, ema, None, teacher)
     if not refused:
-        refuse_pretraining(model, optim_args, ema, GIB80)
+        refuse_pretraining(model, optim_args, ema, GIB80, teacher)
         return
     with pytest.raises(NotImplementedError) as err:
-        refuse_pretraining(model, optim_args, ema, GIB80)
+        refuse_pretraining(model, optim_args, ema, GIB80, teacher)
     said = str(err.value)
     for part in (str(need), "ROADMAP item 7.6", "adamw8bit",
                  "ROADMAP item 10", f"{n / 1e9:.2f} B"):
         assert part in said
+    if teacher is not None:
+        assert f"frozen teacher '{teacher}'" in said
+    assert "momentum 0" not in said
+
+
+@pytest.mark.parametrize("method,teacher", [
+    ("distillationv3", "dinov3/vitb16"), ("distillationv1", "dinov3/vits16"),
+    ("dinov2", None), ("dino", None), ("simclr", None)])
+def test_pretrain_counts_the_distillation_teacher(monkeypatch, tmp_path,
+                                                  method, teacher):
+    """``pretrain`` hands ``refuse_pretraining`` the frozen teacher of a
+    distillation method (its ``teacher`` argument, else the default) and
+    each method's EMA-teacher flag."""
+    from lightly_train_tpu_torch._commands import train as T
+
+    seen = []
+
+    def refuse(*args):
+        seen.append(args)
+        raise RuntimeError("counted")
+
+    monkeypatch.setattr(T, "refuse_pretraining", refuse)
+    args = {} if teacher in (None, "dinov3/vitb16") else {"teacher": teacher}
+    with pytest.raises(RuntimeError, match="counted"):
+        T.pretrain(out=str(tmp_path), model="dinov2/vittest14",
+                   method=method, method_args=args, accelerator="cpu")
+    (_, _, ema, capacity, got_teacher), = seen
+    assert got_teacher == teacher and capacity is None
+    assert ema == (method in ("dinov2", "dino"))
 
 
 def test_cpu_attention_at_hd128_keeps_its_plain_backward():
