@@ -143,7 +143,23 @@ Phases (any failure exits non-zero):
    then one fp32 step of each method on a fixed batch with the kernels
    against the same step with their plain versions (loss and gradients,
    held to the fp32 attention tolerances at LayerScale 0.5, printed at
-   the seeded init). 3j, 3k, 3l and 3m delete what they wrote. Each phase's
+   the seeded init). (3o, run after 3n) CNN students and adamw8bit:
+   ``pretrain(model="torchvision/resnet50")`` at its defaults
+   (distillation v3 from the frozen DINOv3 ViT-B/16, batch 64, LARS), DINO
+   on ResNet-50 (batch 32), ``dinov3/convnext-tiny`` and
+   ``rtdetr/rtdetr_r50vd`` by distillation and ``dinov2/vitb14`` by
+   distillation with ``optim="adamw8bit"`` (batch 64), bf16, 3 steps each,
+   counters set to 0 just before each run and read just after: K1 12 fp32
+   a step (the teacher) in the distillation runs, 24 and K2 12 in the
+   ViT-B/14 one, K3 1 a step in DINO, no SDPA or plain attention; finite
+   losses, the BatchNorm running statistics finite and moved, and DINO's
+   EMA teacher reading the student's statistics; ``embed`` of the
+   ResNet-50 export against an eval-mode forward of the exported weights;
+   ResNet-50 distillation for 2 fp32 steps on the card against the same
+   steps on the CPU (1e-2); and the ``dinov3/vit7b16`` student of 3l with
+   ``adamw8bit`` for 2 steps (K1 92, K2 40 a step), its peak printed
+   beside ``refuse_pretraining``'s count of its state (no checkpoint or
+   export written). 3j, 3k, 3l and 3m delete what they wrote. Each phase's
    wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
@@ -313,6 +329,37 @@ METHOD_RUNS = {
 # the exact attention than the plain versions are. Each leaf's relative L2
 # is printed, not held.
 METHODS_FP32_TOL = (2.0 ** -7, 1e-3)
+# Phase 3o: CNN students and adamw8bit, on phase 3's images at 224^2,
+# bf16, CNN_STEPS steps each: run -> (model, method, batch, other pretrain
+# options, K1 fp32, K1 bf16, K2, K3 a step). Distillation's frozen DINOv3
+# ViT-B/16 teacher launches 12 fp32 K1 a step at TEACHER, whatever the
+# student; a CNN student launches no attention; DINO's AdamW with an EMA
+# teacher takes K3 once a step. (a) is ``pretrain`` at its defaults
+# (distillation v3, LARS, batch min(1536, 64)) with a ResNet-50.
+CNN_STEPS = 3
+CNN_RUNS = {
+    "a_resnet50": ("torchvision/resnet50", None, None, {}, DEPTH, 0, 0, 0),
+    "b_dino_resnet50": ("torchvision/resnet50", "dino", BATCH, {}, 0, 0, 0,
+                        1),
+    "c_convnext_tiny": ("dinov3/convnext-tiny", "distillation",
+                        DISTILL_BATCH, {}, DEPTH, 0, 0, 0),
+    "d_rtdetr_r50vd": ("rtdetr/rtdetr_r50vd", "distillation", DISTILL_BATCH,
+                       {}, DEPTH, 0, 0, 0),
+    "e_vitb14_adamw8bit": ("dinov2/vitb14", "distillation", DISTILL_BATCH,
+                           {"optim": "adamw8bit"}, DEPTH, DEPTH, DEPTH, 0),
+}
+# (g): the DINOv3 7B/16 student of phase 3l with adamw8bit in place of
+# LARS at momentum 0 (int8 moments: about 10 bytes a parameter), every
+# block recomputed, for CNN_7B_STEPS steps.
+CNN_7B_STEPS = 2
+CNN_7B_ARGS = {"method": "distillationv3", "optim": "adamw8bit",
+               "model_args": {"remat_every": 1}}
+# (a)'s check: ResNet-50 distillation, fp32, CNN_FP32_STEPS steps on one
+# fixed batch of CNN_FP32_BATCH images at CNN_FP32_SIZE^2 (small, for the
+# CPU's side), on the card against the CPU: the parameters' change, the
+# running statistics and the losses within 1e-2 relative L2, as
+# ``check_backbone`` holds the ViTs.
+CNN_FP32_STEPS, CNN_FP32_BATCH, CNN_FP32_SIZE = 2, 4, 112
 
 
 # The phase running now and when it started (``phase``).
@@ -1871,25 +1918,33 @@ def run_embed_7b_path(lt, A, F, card: str, work: Path) -> dict:
 
 def refuse_dinov2_7b(lt, work: Path) -> str:
     """Phase 3l: ``pretrain`` DINOv2 with the 7B/16 student must raise
-    NotImplementedError naming FSDP (item 7.6) and ``adamw8bit`` (item 10)
-    with the card's own capacity, before anything is allocated on the card
-    or written."""
+    NotImplementedError naming FSDP (item 7.6) with the card's own
+    capacity, before anything is allocated on the card or written, and
+    offer no ``adamw8bit``, with which it would not fit either; the same
+    student by distillation with AdamW is refused with the offer
+    (``adamw8bit`` brings it to 63 GiB)."""
     import torch
 
-    out = work / "dinov2_7b"
-    before = torch.cuda.memory_allocated()
-    try:
-        lt.pretrain(out=str(out), data=str(work / "images"),
-                    model=STUDENT_7B, method="dinov2",
-                    batch_size=DISTILL_BATCH, steps=1, precision="bf16")
-    except NotImplementedError as err:
-        said = str(err)
-    else:
-        fail("pretrain DINOv2 with a 7B/16 student was not refused")
-    if (torch.cuda.memory_allocated() != before or out.exists()
-            or "ROADMAP item 7.6" not in said or "adamw8bit" not in said):
-        fail(f"the DINOv2 7B refusal allocated, wrote or said: {said}")
-    return said
+    said = []
+    for method, optim in (("dinov2", "auto"), ("distillationv3", "adamw")):
+        out = work / f"{method}_7b"
+        before = torch.cuda.memory_allocated()
+        try:
+            lt.pretrain(out=str(out), data=str(work / "images"),
+                        model=STUDENT_7B, method=method, optim=optim,
+                        batch_size=DISTILL_BATCH, steps=1, precision="bf16")
+        except NotImplementedError as err:
+            said.append(str(err))
+        else:
+            fail(f"pretrain {method} with a 7B/16 student and {optim} was "
+                 "not refused")
+        offered = "optim='adamw8bit'" in said[-1]
+        if (torch.cuda.memory_allocated() != before or out.exists()
+                or "ROADMAP item 7.6" not in said[-1]
+                or offered != (method == "distillationv3")):
+            fail(f"the {method} 7B refusal allocated, wrote or said: "
+                 f"{said[-1]}")
+    return " / ".join(said)
 
 
 def profiled_step(step, state, images) -> tuple:
@@ -1993,8 +2048,8 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
     from lightly_train_tpu_torch.methods import distillationv3 as V3
 
     refused = refuse_dinov2_7b(lt, work)
-    print(f"  DINOv2 with the 7B/16 student: refused before any allocation: "
-          f"{refused}")
+    print(f"  DINOv2, and distillation with AdamW, with the 7B/16 student: "
+          f"refused before any allocation: {refused}")
     steps = STUDENT_7B_STEPS
     out = work / "student_7b"
     init = V3.DistillationV3.init
@@ -3248,6 +3303,402 @@ def run_methods_path(lt, A, F, card: str, work: Path) -> dict:
     return results
 
 
+def student_buffers(state) -> dict:
+    """The student's running statistics (its BatchNorm buffers), on the
+    CPU."""
+    return {k: v.detach().float().cpu()
+            for k, v in state.params["student"].named_buffers()}
+
+
+def cnn_fp32_steps(device: str, teacher: Path, jitter: float = 0.0
+                   ) -> dict:
+    """CNN_FP32_STEPS fp32 steps of ResNet-50 distillation v3 (LARS, the
+    DINOv3 ViT-B/16 teacher exported at ``teacher``) on one fixed batch on
+    ``device``, from the seeded init, with the mixup draw pinned: the
+    student's parameters and buffers before and after, and the losses.
+    ``jitter`` multiplies every convolution's output by 1 + ``jitter``
+    times a seeded normal draw (the steps' sensitivity to rounding)."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch.models import conv
+
+    from lightly_train_tpu_torch._commands.train_loop import make_train_step
+    from lightly_train_tpu_torch._optim import cosine_warmup
+    from lightly_train_tpu_torch._optim.update import build_update
+    from lightly_train_tpu_torch.methods import distillationv3 as V3
+    from lightly_train_tpu_torch.methods.base import TrainState
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    method = V3.DistillationV3(get_wrapped_model("torchvision/resnet50"),
+                               V3.DistillationV3Args(
+                                   queue_size=16, image_size=CNN_FP32_SIZE,
+                                   teacher_weights=str(teacher)))
+    params, method_state = method.init(
+        torch.Generator().manual_seed(SEED), torch.device(device))
+    args = method.default_optimizer_args()
+    named = dict(params.named_parameters())
+    updater = build_update(method, args, cosine_warmup(
+        float(args.lr), CNN_FP32_STEPS, 0), named, CNN_FP32_STEPS)
+    state = TrainState(0, params, method_state, updater)
+    step = make_train_step(method, CNN_FP32_STEPS)
+    rng = np.random.default_rng(SEED + 9)
+    shape = (CNN_FP32_BATCH, 1, 1, 1)
+    before = {k: v.detach().cpu().clone()
+              for k, v in params["student"].state_dict().items()}
+    losses = []
+    forward = conv.Conv.forward
+    noise = torch.Generator(device=device).manual_seed(SEED)
+    if jitter:
+        conv.Conv.forward = lambda self, x: (lambda y: y * (1 + jitter * (
+            torch.randn(y.shape, generator=noise, device=y.device))))(
+            forward(self, x))
+    try:
+        for _ in range(CNN_FP32_STEPS):
+            view = torch.from_numpy(rng.standard_normal(
+                (CNN_FP32_BATCH, CNN_FP32_SIZE, CNN_FP32_SIZE, 3)).astype(
+                    np.float32)).to(device)
+            lam = torch.from_numpy(rng.uniform(0.5, 1.0, shape).astype(
+                np.float32)).to(device)
+            apply = torch.from_numpy(rng.uniform(0, 1, shape) < 0.5).to(
+                device)
+            metrics = step(state, None, None, views=[[view]],
+                           masks=[(lam, apply)])
+            losses.append(float(metrics["train_loss"]))
+    finally:
+        conv.Conv.forward = forward
+    after = {k: v.detach().cpu().clone()
+             for k, v in params["student"].state_dict().items()}
+    return {"before": before, "after": after, "losses": losses}
+
+
+def check_cnn_fp32(card: str, work: Path) -> dict:
+    """(a)'s ResNet-50 after CNN_FP32_STEPS fp32 steps on the card against
+    the same steps on the CPU, within 1e-2 relative L2: the parameters
+    after the steps (every leaf as one vector), the running statistics and
+    the losses. The change of the parameters is printed, not held: in
+    train mode, batch 4 and a 4 x 4 last stage, the backward through the
+    batch statistics makes the gradient move by about 2% when every
+    convolution's output moves by one fp32 rounding (printed: the CPU's
+    own steps with every convolution's output moved by 1e-7 relative), and
+    the two devices round differently. The teacher is phase 3f's
+    exported one with LayerScale 0.5 (``write_teacher``): a random one
+    makes the loss log Q and its gradient rounding noise, which LARS's
+    trust ratio scales to full steps."""
+    import torch
+
+    pin_ieee()
+    t0 = time.perf_counter()
+    teacher = work / "teacher_3o"
+    write_teacher(teacher)
+    card_run = cnn_fp32_steps("cuda", teacher)
+    torch.cuda.synchronize()
+    cpu_run = cnn_fp32_steps("cpu", teacher)
+    jittered = cnn_fp32_steps("cpu", teacher, jitter=1e-7)
+    shutil.rmtree(teacher)
+    keys = [k for k in cpu_run["after"]
+            if not (k.endswith(".mean") or k.endswith(".var"))]
+    stats = [k for k in cpu_run["after"] if k not in keys]
+
+    def flat(run, names, change=False):
+        return torch.cat([(run["after"][k] - (run["before"][k] if change
+                                               else 0)).reshape(-1)
+                          for k in names])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    if any(not torch.equal(card_run["before"][k], cpu_run["before"][k])
+           for k in keys):
+        fail("phase 3o: the card's and the CPU's inits differ")
+    errors = {
+        "parameters": rel(flat(card_run, keys), flat(cpu_run, keys)),
+        "running_stats": rel(flat(card_run, stats), flat(cpu_run, stats)),
+        "losses": rel(torch.tensor(card_run["losses"]),
+                      torch.tensor(cpu_run["losses"])),
+    }
+    change = rel(flat(card_run, keys, True), flat(cpu_run, keys, True))
+    cpu_change = rel(flat(jittered, keys, True), flat(cpu_run, keys, True))
+    moved = rel(flat(cpu_run, keys),
+                flat(cpu_run, keys) - flat(cpu_run, keys, True))
+    print(f"  (a) ResNet-50 distillation, {CNN_FP32_STEPS} fp32 steps on a "
+          f"fixed batch of {CNN_FP32_BATCH} at {CNN_FP32_SIZE}^2, card "
+          f"against CPU: " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in errors.items())
+          + f" (tol 1e-2); the parameters moved {moved:.3e} of their norm, "
+          f"the change {change:.3e} apart (printed, not held; the CPU's "
+          f"own change with every convolution's output moved by 1e-7 "
+          f"relative: {cpu_change:.3e} apart); losses card "
+          f"{card_run['losses']}, CPU {cpu_run['losses']}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if not all(v <= 1e-2 for v in errors.values()) or not moved > 0:
+        fail(f"phase 3o: ResNet-50 fp32 steps on the card against the CPU "
+             f"{errors}")
+    return {**errors, "parameter_change": change, "moved": moved,
+            "cpu_jitter_1e-7_change": cpu_change}
+
+
+def run_cnn_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3o: CNN students and adamw8bit. ``pretrain`` of each run of
+    CNN_RUNS (bf16, CNN_STEPS steps on phase 3's images), every launch
+    counter set to 0 just before and read just after: K1 by library and
+    shape, K2 and K3 exactly as CNN_RUNS gives them a step, no SDPA and no
+    plain attention, finite losses, the running statistics finite and
+    moved; in (b) the EMA teacher's copy of the backbone takes the
+    student's statistics before each step's forwards (its copy ends at the
+    statistics of the last step's start, not at the init). Then (a)'s
+    fp32 steps against the CPU (``check_cnn_fp32``), ``embed`` of (a)'s
+    export (f) against an eval-mode forward of the exported weights, and
+    (g) the 7B/16 student with adamw8bit (``run_cnn_7b``). One JSON line a
+    run."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        load_exported_model,
+    )
+    from lightly_train_tpu_torch._data.image_dataset import (
+        ImageDataset,
+        list_image_files,
+    )
+    from lightly_train_tpu_torch.methods.base import Method
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    results = {"by_shape": {}}
+    for tag, (model, method, batch, extra, k1f, k1b, k2, k3) in \
+            CNN_RUNS.items():
+        out = work / f"cnn_{tag}"
+        spies = [CallCount(torch.nn.functional,
+                           "scaled_dot_product_attention"),
+                 CallCount(A, "dot_product_attention")]
+        synced = []
+        sync = Method.sync_teacher_state
+
+        def spy(self, params, method_state, sync=sync, synced=synced):
+            sync(self, params, method_state)
+            teacher = method_state.get("teacher")
+            if self.ema_teacher and teacher is not None:
+                synced.append(all(
+                    torch.equal(a, b) for a, b in zip(
+                        teacher["student"].buffers(),
+                        params["student"].buffers())))
+
+        Method.sync_teacher_state = spy
+        kwargs = {**extra, **({"method": method} if method else {}),
+                  **({"batch_size": batch} if batch else {})}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters(A, F)
+        t0 = time.perf_counter()
+        try:
+            state = lt.pretrain(
+                out=str(out), data=str(work / "images"), model=model,
+                steps=CNN_STEPS, precision="bf16", log_every=1,
+                checkpoint_every=CNN_STEPS, seed=SEED, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            Method.sync_teacher_state = sync
+            for s in spies:
+                s.restore()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        by_shape = launches_by_shape(A)
+        steps = logged_steps(out)
+        loss_keys = sorted(k for k in steps[0] if "loss" in k)
+        stats = student_buffers(state)
+        row = {
+            "phase": "3o", "run": tag, "model": model,
+            "method": method or "distillation (the default)",
+            "batch": batch or DISTILL_BATCH,
+            "optimizer": type(state.updater.args).__name__,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps[1:]],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_step": {
+                "K1": launches[0] / CNN_STEPS, "K2": launches[1] / CNN_STEPS,
+                "K3": launches[2] / CNN_STEPS},
+            "launches_by_shape": {f"{lib} {shape}": n for (lib, shape), n
+                                  in by_shape.items()},
+            "losses": {k: [r[k] for r in steps] for k in loss_keys},
+            "running_stats": len(stats),
+            "wall_s": wall, "card": card,
+        }
+        print(json.dumps(row), flush=True)
+        results[tag] = row
+        for key, n in by_shape.items():
+            results["by_shape"][key] = results["by_shape"].get(key, 0) + n
+        if [r["step"] for r in steps] != list(range(1, CNN_STEPS + 1)):
+            fail(f"phase 3o {tag}: logged steps {[r['step'] for r in steps]}")
+        if not all(math.isfinite(x) for k in loss_keys for x in
+                   row["losses"][k] + [r["grad_norm"] for r in steps]):
+            fail(f"phase 3o {tag}: a loss is not finite: {row['losses']}")
+        expected = [(k1f + k1b) * CNN_STEPS, k2 * CNN_STEPS, k3 * CNN_STEPS,
+                    0, 0]
+        want_shape = {}
+        if k1f:
+            want_shape[(A.fwd_library(torch.float32, HEAD_DIM), TEACHER)] = \
+                k1f * CNN_STEPS
+        if k1b:
+            want_shape[(A.fwd_library(torch.bfloat16, HEAD_DIM),
+                        (DISTILL_BATCH, 257, HEADS, HEAD_DIM))] = \
+                k1b * CNN_STEPS
+            want_shape[(A.bwd_library(torch.bfloat16, HEAD_DIM),
+                        (DISTILL_BATCH, 257, HEADS, HEAD_DIM))] = \
+                k2 * CNN_STEPS
+        if launches != expected or by_shape != want_shape:
+            fail(f"phase 3o {tag}: launches {launches} != {expected}, by "
+                 f"shape {by_shape} != {want_shape}")
+        if spies[0].calls or spies[1].calls:
+            fail(f"phase 3o {tag}: the step reached a stock attention op "
+                 f"(SDPA {spies[0].calls}, plain {spies[1].calls})")
+        if model.startswith("dinov3/convnext") or model.startswith("dinov2"):
+            if stats:
+                fail(f"phase 3o {tag}: {model} holds running statistics")
+        else:
+            if not stats or not all(torch.isfinite(v).all()
+                                    for v in stats.values()):
+                fail(f"phase 3o {tag}: running statistics not finite")
+            means = [v for k, v in stats.items() if k.endswith(".mean")]
+            if not all(v.abs().sum() > 0 for v in means):
+                fail(f"phase 3o {tag}: a running mean did not move")
+        if tag == "b_dino_resnet50":
+            teacher = {k: v.float().cpu() for k, v in state.method_state[
+                "teacher"]["student"].named_buffers()}
+            moved = sum(not torch.equal(teacher[k], stats[k])
+                        for k in stats)
+            init = sum(torch.equal(teacher[k], torch.zeros_like(teacher[k]))
+                       for k in teacher if k.endswith(".mean"))
+            print(f"  (b) the EMA teacher took the student's statistics "
+                  f"before each of {len(synced)} losses "
+                  f"(equal after each: {all(synced)}); at the end "
+                  f"{moved} of {len(stats)} of the student's buffers have "
+                  f"moved past the teacher's copy, {init} of the copy's "
+                  f"means are still at the init", flush=True)
+            if (len(synced) != CNN_STEPS or not all(synced) or not moved
+                    or init):
+                fail("phase 3o (b): the teacher does not read the "
+                     "student's running statistics")
+        if tag == "a_resnet50":
+            exported = out / "exported_models" / "exported_last"
+            art = load_exported_model(exported)
+            if art["model_name"] != model or not any(
+                    k.endswith(".var") for k in art["state_dict"]):
+                fail(f"phase 3o (a): export {art['model_name']} without "
+                     "running statistics")
+            counters = reset_counters(A, F)
+            t0 = time.perf_counter()
+            emb_path = lt.embed(out=str(work / "cnn_embed.npz"),
+                                data=str(work / "images"),
+                                checkpoint=str(exported), batch_size=64)
+            embed_wall = time.perf_counter() - t0
+            emb = np.load(emb_path)["embeddings"]
+            wrapped = get_wrapped_model(model)
+            wrapped.module.load_state_dict(art["state_dict"])
+            wrapped.module.cuda().eval()
+            dataset = ImageDataset(list_image_files(work / "images"),
+                                   (224, 224))
+            x = torch.from_numpy(np.stack(
+                [dataset[i] for i in range(len(dataset))])).cuda()
+            with torch.no_grad():
+                want = wrapped.forward_pool(wrapped.forward_features(
+                    x.float() / 255.0)).cpu().numpy()
+            err = float(np.linalg.norm(emb - want) / np.linalg.norm(want))
+            print(f"  (f) embed of (a)'s export: {emb.shape} in "
+                  f"{embed_wall:.1f} s, against an eval-mode forward of the "
+                  f"exported weights: relative L2 {err:.3e} (tol 1e-5); "
+                  f"launches {[fn.launches for fn in counters]}", flush=True)
+            results["f_embed"] = {"shape": list(emb.shape), "rel_l2": err,
+                                  "wall_s": embed_wall}
+            if emb.shape != (2 * BATCH, 2048) or not err <= 1e-5:
+                fail(f"phase 3o (f): embeddings {emb.shape}, {err}")
+            del wrapped
+        del state
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    results["g_7b_adamw8bit"] = g = run_cnn_7b(lt, A, F, card, work)
+    for key, n in g.pop("by_shape").items():
+        results["by_shape"][key] = results["by_shape"].get(key, 0) + n
+    results["a_fp32"] = check_cnn_fp32(card, work)
+    return results
+
+
+def run_cnn_7b(lt, A, F, card: str, work: Path) -> dict:
+    """(g) ``pretrain`` of the DINOv3 7B/16 student (CNN_7B_ARGS: adamw8bit,
+    every block recomputed), bf16, batch 64, CNN_7B_STEPS steps; launches
+    as phase 3l's (K1 80 bf16 and 12 fp32, K2 40 a step, no K3). Its peak
+    is printed beside ``refuse_pretraining``'s count of its state. It
+    writes no checkpoint and no export: each would be a 25 GiB-plus file
+    (phase 3l writes and times them; adamw8bit's checkpoint and resume
+    are held bitwise on the CPU)."""
+    import torch
+
+    from lightly_train_tpu_torch._commands import train as T
+    from lightly_train_tpu_torch._optim import AdamW8bitArgs
+    from lightly_train_tpu_torch.models.package_registry import (
+        _state_need,
+        get_wrapped_model,
+    )
+
+    with torch.device("meta"):
+        leaves = [p.numel() for p in
+                  get_wrapped_model(STUDENT_7B).module.parameters()]
+        teacher = sum(p.numel() for p in
+                      get_wrapped_model("dinov3/vitb16").module.parameters())
+    need = _state_need(leaves, AdamW8bitArgs(), False, teacher)
+    out = work / "cnn_7b"
+    save, export = T.CheckpointManager.save, T.export_model
+    T.CheckpointManager.save = lambda *args, **kwargs: None
+    T.export_model = lambda *args, **kwargs: None
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        state = lt.pretrain(
+            out=str(out), data=str(work / "images"), model=STUDENT_7B,
+            batch_size=DISTILL_BATCH, steps=CNN_7B_STEPS, precision="bf16",
+            log_every=1, seed=SEED, checkpoint_every=CNN_7B_STEPS,
+            **CNN_7B_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        T.CheckpointManager.save, T.export_model = save, export
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    steps = logged_steps(out)
+    steps_ms = [r["profiling/step_time"] * 1e3 for r in steps]
+    updater = state.updater
+    held = sum(t.numel() * t.element_size()
+               for key in ("mu_q", "mu_scale", "nu_q", "nu_scale")
+               for t in updater.moments[key].values())
+    expected = [(2 * DEPTH_7B + DEPTH) * CNN_7B_STEPS,
+                DEPTH_7B * CNN_7B_STEPS, 0, 0, 0]
+    row = {"phase": "3o", "run": "g_7b_adamw8bit", "model": STUDENT_7B,
+           "step_ms": steps_ms, "peak_gib": peak,
+           "refusal_count_gib": need / 2 ** 30,
+           "int8_state_gib": held / 2 ** 30,
+           "launches": launches, "losses": [r["train_loss"] for r in steps],
+           "wall_s": wall, "card": card}
+    print(json.dumps(row), flush=True)
+    print(f"  (g) 7B/16 student with adamw8bit: peak {peak:.2f} GiB beside "
+          f"the refusal's count of its state {need / 2 ** 30:.2f} GiB "
+          f"(int8 moments and scales {held / 2 ** 30:.2f} GiB); step ms "
+          f"{steps_ms}; wall {wall:.1f} s [{card}]", flush=True)
+    if (launches != expected or type(updater.args) is not AdamW8bitArgs
+            or not all(math.isfinite(x) for x in row["losses"])
+            or [r["step"] for r in steps] != list(
+                range(1, CNN_7B_STEPS + 1))):
+        fail(f"phase 3o (g): launches {launches} != {expected}, losses "
+             f"{row['losses']}")
+    del state, updater
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {**row, "by_shape": by_shape}
+
+
 def main() -> int:
     import torch
 
@@ -3406,6 +3857,12 @@ def main() -> int:
           f"of each against the plain attention", flush=True)
     run_methods_path(lt, A, F, card, work)
     pin_ieee()
+    phase(f"phase 3o: CNN students and adamw8bit (ResNet-50 by "
+          f"distillation and by DINO, ConvNeXt-tiny, RT-DETR R50vd, ViT-B/14 "
+          f"with adamw8bit, embed, the 7B/16 student with adamw8bit), bf16, "
+          f"{CNN_STEPS} steps each", flush=True)
+    cnn = run_cnn_path(lt, A, F, card, work)
+    pin_ieee()
     phase(f"phase 3j: pretrain distillation v3 of ViT-B/14 from a frozen "
           f"random DINOv3 7B/16 teacher (hd 128, fp32), bf16, batch "
           f"{DISTILL_BATCH}, {TEACHER_7B_STEPS} steps", flush=True)
@@ -3485,6 +3942,13 @@ def main() -> int:
                 / per_step_7b[tuple(row["shape"])][1]}
                if kernel in ("K1", "K2")
                and tuple(row["shape"]) in per_step_7b else {}),
+            # Phase 3o's launches at the row's shape: the distillation
+            # teacher's K1 in (a), (c), (d) and (e), (e)'s ViT-B/14 student,
+            # (g)'s 7B/16 student.
+            **({"launches_3o": cnn["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
             **({"launches_remat": remat["by_shape"].get(
                 (lib, tuple(row["shape"])), 0),
                 "launches_remat_per_step": remat["by_shape"].get(
@@ -3502,7 +3966,9 @@ def main() -> int:
         "launches_per_step": paths["bf16"]["launches"][2] / STEPS,
         "launches_distillation": {p: distill[p]["launches"][2]
                                   for p in DTYPES},
-        "launches_remat": remat["launches"][2], **upd,
+        "launches_remat": remat["launches"][2],
+        "launches_3o_dino_resnet50": cnn["b_dino_resnet50"][
+            "launches_per_step"]["K3"] * CNN_STEPS, **upd,
     })
     if "--profile" in sys.argv[1:]:
         for method in ("dinov2", "distillation"):

@@ -61,11 +61,7 @@ from lightly_train_tpu_torch._logging import (
     set_up_console_logging,
     set_up_file_logging,
 )
-from lightly_train_tpu_torch._optim import (
-    JAX_OPTIMIZERS,
-    OPTIMIZER_ARGS_TYPES,
-    cosine_warmup,
-)
+from lightly_train_tpu_torch._optim import OPTIMIZER_ARGS_TYPES, cosine_warmup
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
 from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch._scaling import ScalingInfo
@@ -142,15 +138,10 @@ def _resolve_optim_args(config: TrainConfig, defaults):
     if config.optim == "auto" and not config.optim_args:
         return defaults
     optim_type = config.optim if config.optim != "auto" else defaults.type
-    if optim_type not in JAX_OPTIMIZERS:
+    if optim_type not in OPTIMIZER_ARGS_TYPES:
         raise ConfigError(
             f"Unknown optimizer '{optim_type}'. "
-            f"Options: {sorted(JAX_OPTIMIZERS)}"
-        )
-    if optim_type not in OPTIMIZER_ARGS_TYPES:
-        raise NotImplementedError(
-            f"Optimizer '{optim_type}' is not ported yet (ported: "
-            f"{sorted(OPTIMIZER_ARGS_TYPES)}; ROADMAP item 10)."
+            f"Options: {sorted(OPTIMIZER_ARGS_TYPES)}"
         )
     merged = {**({"lr": defaults.lr} if defaults.type == optim_type
                  else {}), **config.optim_args}
@@ -210,14 +201,14 @@ def resolve_device(accelerator: str) -> torch.device:
 
 
 def build_updater(method, optim_args, lr_schedule, named: Dict[str, Any],
-                  total_steps: int):
+                  total_steps: int, seed: int = 0):
     """The fused AdamW+EMA updater where the (optimizer, method) pair has
-    one, else the unfused chain."""
+    one, else the unfused chain (AdamW8bit's noise seeded from ``seed``)."""
     updater = build_fused_updater(method, optim_args, lr_schedule, named,
                                   total_steps)
     if updater is None:
         updater = build_update(method, optim_args, lr_schedule, named,
-                               total_steps)
+                               total_steps, seed)
     return updater
 
 
@@ -331,7 +322,7 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
         _load_pretrained(params, method_state, pretrained, config)
     named = dict(params.named_parameters())
     updater = build_updater(method, optim_args, lr_schedule, named,
-                            total_steps)
+                            total_steps, config.seed)
     state = TrainState(step=0, params=params, method_state=method_state,
                        updater=updater)
     ckpt_mgr = CheckpointManager(out_dir / "checkpoints")

@@ -139,6 +139,7 @@ def make_train_step(
         metric_sums: Dict[str, Any] = {}
         method_state = state.method_state
         for i, mb_views in enumerate(views):
+            method.sync_teacher_state(state.params, method_state)
             loss, (method_state, metrics) = method.loss_fn(
                 state.params, method_state, mb_views, state.step,
                 total_steps, generator=generator,

@@ -233,10 +233,21 @@ def nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(np.cumsum(steps).astype(np.int64), in_size - 1)
 
 
+def affine_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output pixel of PIL's NEAREST resize of an
+    ``I;16`` image, which goes through its generic affine transform:
+    ``int(in / out * (x + 0.5))`` in double precision, clamped to the
+    last pixel."""
+    x = (in_size / out_size) * (np.arange(out_size) + 0.5)
+    return np.minimum(x.astype(np.int64), in_size - 1)
+
+
 def resize_nearest(mask: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """(H, W) -> ``hw`` as PIL's ``Image.resize(..., NEAREST)``."""
-    return mask[nearest_index(mask.shape[0], hw[0])][
-        :, nearest_index(mask.shape[1], hw[1])]
+    """(H, W) -> ``hw`` as PIL's ``Image.resize(..., NEAREST)``: a uint16
+    mask (PIL's ``I;16``) by :func:`affine_index`, any other by
+    :func:`nearest_index`."""
+    index = affine_index if mask.dtype == np.uint16 else nearest_index
+    return mask[index(mask.shape[0], hw[0])][:, index(mask.shape[1], hw[1])]
 
 
 def decode_mask(path: str, canonical_hw: Tuple[int, int]) -> np.ndarray:

@@ -107,7 +107,8 @@ def replay_nan_capture(out: Any, capture: Optional[Any] = None
     params, method_state = method.init(
         torch.Generator().manual_seed(int(hp.get("seed", 0))), device)
     updater = build_updater(method, optim_args, lr_schedule,
-                            dict(params.named_parameters()), total_steps)
+                            dict(params.named_parameters()), total_steps,
+                            int(hp.get("seed", 0)))
     state = TrainState(step=0, params=params, method_state=method_state,
                        updater=updater)
     mgr = CheckpointManager(out_dir / "checkpoints")

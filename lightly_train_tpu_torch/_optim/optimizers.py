@@ -6,8 +6,8 @@ masks and layerwise LR decay); the update chain itself is in ``update.py``
 (and, for AdamW with an EMA teacher, ``fused_update.py``). Parameters are
 named by their PyTorch state names (``student.blocks.3.attn.q.weight``);
 each rule gives the same answer for a parameter as the JAX rule gives for
-its Flax path (``student/block3/attn/q/kernel``). AdamW8bit waits (ROADMAP
-item 10).
+its Flax path (``student/block3/attn/q/kernel``). AdamW8bit's arguments are in
+``adamw8bit.py``, registered here as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ class LARSArgs(OptimizerArgs):
 
 OPTIMIZER_ARGS_TYPES = {"adamw": AdamWArgs, "sgd": SGDArgs, "lars": LARSArgs}
 # Every optimizer name the JAX package takes (its OPTIMIZER_ARGS_TYPES): a
-# name here but not above is not ported yet, any other is unknown.
+# name here but not in OPTIMIZER_ARGS_TYPES is not ported yet, any other is
+# unknown.
 JAX_OPTIMIZERS = ("adamw", "adamw8bit", "lars", "sgd")
 
 # Names exempt from weight decay in the generic task rule.
@@ -115,3 +116,11 @@ def layerwise_lr_scales(
                     scale *= patch_embed_multiplier
         out[name] = scale
     return out
+
+
+# Registered here (bottom) to avoid a circular import with adamw8bit.py.
+from lightly_train_tpu_torch._optim.adamw8bit import (  # noqa: E402
+    AdamW8bitArgs,
+)
+
+OPTIMIZER_ARGS_TYPES["adamw8bit"] = AdamW8bitArgs

@@ -16,6 +16,9 @@ order:
    - LARS (``optax.scale_by_trust_ratio`` then ``optax.trace``): the trust
      ratio ``c ||p|| / ||g||`` (1 where either norm is 0) is taken on the
      clipped gradient, before momentum and weight decay;
+   - AdamW8bit (``adamw8bit.scale_by_adam8bit``): Adam on moments read back
+     from int8 blocks, mu requantized with stochastic rounding on noise
+     drawn from the update's generator (``adamw8bit.py``);
 3. ``u <- u + wd p`` on the leaves the weight-decay mask decays, with wd
    from the method's schedule where it gives one;
 4. ``u <- u s`` with the method's per-leaf lr scales;
@@ -38,6 +41,8 @@ from typing import Callable, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from lightly_train_tpu_torch._optim import adamw8bit as Q8
+from lightly_train_tpu_torch._optim.adamw8bit import AdamW8bitArgs
 from lightly_train_tpu_torch._optim.fused_update import global_norm
 from lightly_train_tpu_torch._optim.optimizers import (
     AdamWArgs,
@@ -48,12 +53,16 @@ from lightly_train_tpu_torch._optim.optimizers import (
 )
 
 Schedule = Callable[[int], float]
+# (leaf name, noise shape) -> uniform noise in [0, 1) for AdamW8bit's mu.
+Noise = Callable[[str, torch.Size], torch.Tensor]
 
 
 class UnfusedUpdate:
     """The update chain of one optimizer over named parameters; its state
-    (the step count and the Adam moments or the momentum trace) is what
-    :meth:`state_dict` carries into a checkpoint."""
+    (the step count and the Adam moments, AdamW8bit's int8 moments with
+    their scales and its noise generator's state, or the momentum trace)
+    is what :meth:`state_dict` carries into a checkpoint. ``seed`` seeds
+    AdamW8bit's noise generator, on the parameters' device."""
 
     def __init__(
         self,
@@ -64,8 +73,9 @@ class UnfusedUpdate:
         lr_scales: Optional[Mapping[str, float]] = None,
         weight_decay_schedule: Optional[Schedule] = None,
         wd_mask: Optional[Mapping[str, bool]] = None,
+        seed: int = 0,
     ):
-        if type(args) not in (AdamWArgs, SGDArgs, LARSArgs):
+        if type(args) not in (AdamWArgs, AdamW8bitArgs, SGDArgs, LARSArgs):
             raise ValueError(f"Unknown optimizer args type: {type(args)}")
         self.args = args
         self.learning_rate = learning_rate
@@ -79,6 +89,16 @@ class UnfusedUpdate:
         self.count = 0
         # Adam's moments, or the momentum trace of SGD and LARS.
         self.moments: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.generator = None
+        if type(args) is AdamW8bitArgs:
+            for key in ("mu", "nu"):
+                zeros = {n: Q8.zero_state(p) for n, p in params.items()}
+                self.moments[f"{key}_q"] = {n: z[0] for n, z in zeros.items()}
+                self.moments[f"{key}_scale"] = {n: z[1]
+                                                for n, z in zeros.items()}
+            device = next(iter(params.values())).device
+            self.generator = torch.Generator(device=device).manual_seed(seed)
+            return
         if type(args) is AdamWArgs:
             keys = ("mu", "nu")
         else:
@@ -88,7 +108,10 @@ class UnfusedUpdate:
                                  for n, p in params.items()}
 
     def state_dict(self) -> dict:
-        return {"count": self.count, **self.moments}
+        state = {"count": self.count, **self.moments}
+        if self.generator is not None:
+            state["generator"] = self.generator.get_state()
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Copy a :meth:`state_dict` into this state in place."""
@@ -96,6 +119,12 @@ class UnfusedUpdate:
         for key, tensors in self.moments.items():
             for name, value in tensors.items():
                 value.copy_(state[key][name])
+        if self.generator is not None:
+            self.generator.set_state(state["generator"])
+
+    def _noise(self, name: str, shape: torch.Size) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device)
 
     def _weight_decay(self) -> float:
         if self.weight_decay_schedule is not None:
@@ -108,13 +137,16 @@ class UnfusedUpdate:
         grads: Dict[str, Optional[torch.Tensor]],
         params: Mapping[str, torch.Tensor],
         mask: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+        noise: Optional[Noise] = None,
     ) -> torch.Tensor:
         """Updates ``params`` in place, leaf by leaf; returns the global grad
         norm before clipping. A ``None`` gradient counts as zeros. Each
         gradient is taken out of ``grads`` as its leaf is updated, so that
         it is freed there when the caller holds no other reference. ``mask``
         (the method's ``mask_updates`` of one leaf) gets each update by
-        name before it is added. Advances the step count.
+        name before it is added. ``noise`` replaces AdamW8bit's draws from
+        its generator (a test hands in the JAX package's). Advances the
+        step count.
 
         The global norm comes first. Then each leaf goes through the whole
         chain (clip, the trust ratio and its two norms, trace or moments,
@@ -134,7 +166,7 @@ class UnfusedUpdate:
                             for n in self.names])
         clip = self.grad_clip_norm
         keep = None if clip is None else norm < clip
-        if type(a) is AdamWArgs:
+        if type(a) in (AdamWArgs, AdamW8bitArgs):
             b1, b2 = a.betas
             n_inc = f32(self.count + 1)
             bc1 = float(f32(1) - f32(b1) ** n_inc)
@@ -155,6 +187,9 @@ class UnfusedUpdate:
                 m.copy_((1 - b1) * g + b1 * m)
                 v.copy_((1 - b2) * (g * g) + b2 * v)
                 u = (m / bc1) / (torch.sqrt(v / bc2) + a.eps)
+            elif type(a) is AdamW8bitArgs:
+                u = self._adam8bit(name, g, b1, b2, bc1, bc2,
+                                   noise or self._noise)
             else:
                 if type(a) is LARSArgs:
                     pn, gn = torch._foreach_norm([p, g])
@@ -180,6 +215,24 @@ class UnfusedUpdate:
         self.count += 1
         return norm
 
+    def _adam8bit(self, name: str, g: torch.Tensor, b1: float, b2: float,
+                  bc1: float, bc2: float, noise: Noise) -> torch.Tensor:
+        """One leaf of ``scale_by_adam8bit``: its update, with its int8
+        moments replaced by the requantized new ones."""
+        mo = self.moments
+        m = Q8.dequantize(mo["mu_q"][name], mo["mu_scale"][name], g.shape)
+        nu_sqrt = Q8.dequantize(mo["nu_q"][name], mo["nu_scale"][name],
+                                g.shape)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * (nu_sqrt * nu_sqrt) + (1 - b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + self.args.eps)
+        q_m, s_m = Q8.quantize(m, noise(name, mo["mu_q"][name].shape))
+        q_v, s_v = Q8.quantize(torch.sqrt(v))
+        for key, value in (("mu_q", q_m), ("mu_scale", s_m), ("nu_q", q_v),
+                           ("nu_scale", s_v)):
+            mo[key][name].copy_(value)
+        return u
+
 
 def build_update(
     method,
@@ -187,9 +240,11 @@ def build_update(
     learning_rate: Union[float, Schedule],
     params: Mapping[str, torch.Tensor],
     total_steps: int,
+    seed: int = 0,
 ) -> UnfusedUpdate:
     """The unfused chain with the method's clip norm, lr scales, weight-decay
-    schedule and mask (the JAX ``build_optimizer`` call of ``pretrain``)."""
+    schedule and mask (the JAX ``build_optimizer`` call of ``pretrain``);
+    ``seed`` is the run's, for AdamW8bit's noise."""
     return UnfusedUpdate(
         optim_args,
         learning_rate,
@@ -198,4 +253,5 @@ def build_update(
         lr_scales=method.lr_scales(params),
         weight_decay_schedule=method.weight_decay_schedule(total_steps),
         wd_mask=method.wd_mask(params),
+        seed=seed,
     )

@@ -46,3 +46,11 @@ class NaNDetectedError(LightlyTrainError):
 
 class DatasetError(LightlyTrainError):
     """Dataset is empty, malformed, or has unsupported layout."""
+
+
+class ModifyScopeVariableError(LightlyTrainError):
+    """A train-mode forward would update a model's running statistics where
+    the method gives none to update: the JAX package's DINOv2 and DINOv31
+    apply a BatchNorm student without ``mutable``, and Flax raises its
+    error of this name there; the port raises this one at the same
+    point."""

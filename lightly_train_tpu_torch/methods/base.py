@@ -5,7 +5,11 @@ configs, parameter and state initialization and a ``loss_fn`` that the
 runtime differentiates. The JAX package threads immutable trees through a
 jitted step; here the state is mutable and owned by :class:`TrainState`:
 
-- ``params``: trainable ``nn.ModuleDict`` (student backbone + heads);
+- ``params``: trainable ``nn.ModuleDict`` (student backbone + heads); a
+  CNN student's BatchNorm running statistics are its buffers, the JAX
+  package's ``model_state``, updated in place by each train-mode forward
+  of the student (once a microbatch, in the JAX order) and by nothing
+  else;
 - ``method_state``: method-owned buffers and host numbers (DINOv2's EMA
   teacher and centers, distillation's frozen teacher and queue), never
   differentiated;
@@ -29,6 +33,7 @@ from torch import nn
 
 from lightly_train_tpu_torch._configs.config import Config
 from lightly_train_tpu_torch._scaling import ScalingInfo
+from lightly_train_tpu_torch.models.conv import copy_running_stats
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
 from lightly_train_tpu_torch.ops.augment import ViewAugmentConfig
 
@@ -100,6 +105,19 @@ class Method(abc.ABC):
         """Returns (loss, (new_method_state, metrics)). ``generator`` drives
         the method's own randomness; ``masks`` pins that draw instead (the
         iBOT masks of DINOv2, mixup's ``(lam, apply)`` of distillation)."""
+
+    def sync_teacher_state(self, params: nn.ModuleDict,
+                           method_state: Dict[str, Any]) -> None:
+        """Before each loss: the JAX EMA teacher runs in eval mode on the
+        student's ``model_state`` as the step (or microbatch) found it, and
+        the EMA moves parameters only. So the teacher's copy of the
+        backbone takes the student's running statistics (BatchNorm
+        buffers; a ViT has none) here, before the student's forward
+        updates them."""
+        teacher = method_state.get("teacher")
+        if (self.ema_teacher and isinstance(teacher, nn.ModuleDict)
+                and "student" in teacher):
+            copy_running_stats(teacher["student"], params["student"])
 
     def post_update(self, params: nn.ModuleDict, method_state: Dict[str, Any],
                     step: int, total_steps: int) -> Dict[str, Any]:

@@ -23,6 +23,7 @@ from torch import nn
 from lightly_train_tpu_torch._optim import AdamWArgs, layerwise_lr_scales
 from lightly_train_tpu_torch._optim.optimizers import dinov2_wd_mask
 from lightly_train_tpu_torch.methods.base import Method, MethodArgs, ViewSpec
+from lightly_train_tpu_torch.models.conv import refuse_running_stats
 from lightly_train_tpu_torch.models.heads import DINOHead
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
 from lightly_train_tpu_torch.ops import losses as L
@@ -64,10 +65,19 @@ class DINOv2Args(MethodArgs):
     lr_scale_method: str = "sqrt"
 
 
-def _gather_tokens(tokens: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, D) tokens at (B, M) indices -> (B, M, D)."""
-    return torch.gather(tokens, 1,
-                        idx[:, :, None].expand(-1, -1, tokens.shape[-1]))
+def _gather_tokens(tokens: torch.Tensor, idx: torch.Tensor,
+                   n_index: int) -> torch.Tensor:
+    """(B, N, D) tokens at (B, M) indices below ``n_index`` -> (B, M, D).
+    Where the model has fewer tokens than the mask grid (a CNN's feature
+    map, at ``patch_size or 16``), an index past them gives NaN, as
+    ``jnp.take_along_axis`` fills it."""
+    n = tokens.shape[1]
+    if n_index <= n:
+        return torch.gather(tokens, 1,
+                            idx[:, :, None].expand(-1, -1, tokens.shape[-1]))
+    out = torch.gather(tokens, 1, torch.clamp(idx, max=n - 1)[:, :, None]
+                       .expand(-1, -1, tokens.shape[-1]))
+    return torch.where((idx < n)[:, :, None], out, float("nan"))
 
 
 class DINOv2(Method):
@@ -163,7 +173,7 @@ class DINOv2(Method):
                 globals_cat, None, train=False, module=teacher["student"])
             t_dino_logits = teacher["dino_head"](t_out["cls_token"])
             t_ibot_logits = teacher[ibot_key](
-                _gather_tokens(t_out["patch_tokens"], sel_idx))
+                _gather_tokens(t_out["patch_tokens"], sel_idx, n_tokens))
             t_ibot_flat = t_ibot_logits.reshape(-1, a.output_dim)
             if a.center_method == "softmax":
                 t_dino_probs = L.softmax_center_teacher(
@@ -189,13 +199,14 @@ class DINOv2(Method):
             t_ibot_probs = t_ibot_probs.reshape(2 * B, budget, a.output_dim)
 
         # ---- student forward ----
+        refuse_running_stats(params["student"])
         s_out_g = self.wrapped.forward_features(
             globals_cat, mask, train=True, generator=generator,
             module=params["student"])
         s_cls_g = s_out_g["cls_token"]
         s_dino_g = params["dino_head"](s_cls_g)
         s_ibot = params[ibot_key](
-            _gather_tokens(s_out_g["patch_tokens"], sel_idx))
+            _gather_tokens(s_out_g["patch_tokens"], sel_idx, n_tokens))
         s_out_l = self.wrapped.forward_features(
             torch.cat(locals_list, dim=0), None, train=True,
             generator=generator, module=params["student"])

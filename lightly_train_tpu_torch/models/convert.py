@@ -1,6 +1,8 @@
-"""Meta DINOv2/DINOv3 and timm ViT torch checkpoints -> the port's state dict.
+"""Torch checkpoints (Meta DINOv2/DINOv3 and timm ViTs, DINOv3 ConvNeXts,
+torchvision/timm ResNets) -> the port's state dict.
 
-Port of the ViT part of ``lightly_train_tpu/models/convert.py``.
+Port of the ViT, ConvNeXt and ResNet parts of
+``lightly_train_tpu/models/convert.py``.
 :func:`convert_torch_vit_state_dict` is the JAX package's converter, copied
 as it is (numpy only): it maps a Meta-named state dict onto the JAX ViT's
 parameter tree:
@@ -20,26 +22,33 @@ parameter tree:
 :func:`load_torch_checkpoint_for_model` reads a ``.pth``/``.pt`` file for a
 ``dinov2/*`` or ``dinov3/*`` ViT and composes the converter with
 ``from_jax.params_from_jax``, so its state dict is the one the JAX package's
-conversion carries into the port. The ConvNeXt, ResNet, ultralytics and
-ECViT converters wait for their backbones (ROADMAP item 10).
+conversion carries into the port.
+
+:func:`convert_torch_convnext_state_dict` (DINOv3 ConvNeXt naming) and
+:func:`convert_torch_resnet_state_dict` (torchvision and timm ResNets, with
+their BatchNorm running statistics) are the JAX package's too; the loader
+picks among the three as the JAX one does (``convnext`` in the model name,
+then ``resnet`` in it or a ``conv1.weight`` in the file, else the ViT). The
+ultralytics and ECViT converters wait for their backbones (ROADMAP item
+10).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from lightly_train_tpu_torch._logging import get_logger
-from lightly_train_tpu_torch.models.from_jax import params_from_jax
+from lightly_train_tpu_torch.models.from_jax import variables_from_jax
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 
 logger = get_logger("convert")
 
 # Name parts of the checkpoints whose backbones are not ported.
-_UNPORTED = ("ultralytics/", "ecvit/", "convnext", "resnet")
+_UNPORTED = ("ultralytics/", "ecvit/")
 
 
 def _t(x: Any) -> np.ndarray:
@@ -157,20 +166,115 @@ def convert_torch_vit_state_dict(
     return params
 
 
+def convert_torch_convnext_state_dict(
+    state_dict: Mapping[str, Any], depths: Sequence[int]
+) -> Dict[str, Any]:
+    """DINOv3 ConvNeXt torch state dict -> Flax params for the ConvNeXt.
+
+    Torch naming: ``downsample_layers.0.{0,1}`` stem conv+LN,
+    ``downsample_layers.i.{0,1}`` LN+conv, ``stages.i.j.{dwconv,norm,
+    pwconv1,pwconv2,gamma}``, final ``norm``. Conv kernels transpose
+    (O,I,kh,kw) -> (kh,kw,I,O); the depthwise kernel (C,1,7,7) ->
+    (7,7,1,C).
+    """
+    sd = {k: _t(v) for k, v in state_dict.items()}
+    params: Dict[str, Any] = {
+        "stem_conv": {
+            "kernel": sd["downsample_layers.0.0.weight"].transpose(2, 3, 1, 0),
+            "bias": sd["downsample_layers.0.0.bias"],
+        },
+        "stem_norm": {"scale": sd["downsample_layers.0.1.weight"],
+                      "bias": sd["downsample_layers.0.1.bias"]},
+        "norm": {"scale": sd["norm.weight"], "bias": sd["norm.bias"]},
+    }
+    for i in range(1, 4):
+        params[f"down{i}_norm"] = {
+            "scale": sd[f"downsample_layers.{i}.0.weight"],
+            "bias": sd[f"downsample_layers.{i}.0.bias"],
+        }
+        params[f"down{i}_conv"] = {
+            "kernel": sd[f"downsample_layers.{i}.1.weight"].transpose(
+                2, 3, 1, 0),
+            "bias": sd[f"downsample_layers.{i}.1.bias"],
+        }
+    for stage, depth in enumerate(depths):
+        for b in range(depth):
+            p = f"stages.{stage}.{b}."
+            params[f"stage{stage}_block{b}"] = {
+                "dwconv": {
+                    "kernel": sd[f"{p}dwconv.weight"].transpose(2, 3, 1, 0),
+                    "bias": sd[f"{p}dwconv.bias"],
+                },
+                "norm": {"scale": sd[f"{p}norm.weight"],
+                         "bias": sd[f"{p}norm.bias"]},
+                "pwconv1": {"kernel": sd[f"{p}pwconv1.weight"].T,
+                            "bias": sd[f"{p}pwconv1.bias"]},
+                "pwconv2": {"kernel": sd[f"{p}pwconv2.weight"].T,
+                            "bias": sd[f"{p}pwconv2.bias"]},
+                "gamma": sd[f"{p}gamma"],
+            }
+    return params
+
+
+def convert_torch_resnet_state_dict(
+    state_dict: Mapping[str, Any], stage_sizes: Sequence[int]
+) -> Dict[str, Any]:
+    """torchvision/timm ResNet state dict -> Flax variables.
+
+    Naming (shared by torchvision and timm resnets): ``conv1``/``bn1``
+    stem, ``layer{s+1}.{b}.conv{k}``/``bn{k}`` blocks,
+    ``layer{s+1}.{b}.downsample.0/1`` projection shortcuts. The ``fc``
+    classifier head is dropped. Returns ``{"params": ..., "batch_stats":
+    ...}``.
+    """
+    sd = {k: _t(v) for k, v in state_dict.items()}
+
+    def conv(prefix: str) -> Dict[str, Any]:
+        return {"kernel": sd[f"{prefix}.weight"].transpose(2, 3, 1, 0)}
+
+    def bn(prefix: str):
+        p = {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+        s = {"mean": sd[f"{prefix}.running_mean"],
+             "var": sd[f"{prefix}.running_var"]}
+        return p, s
+
+    params: Dict[str, Any] = {"stem_conv": conv("conv1")}
+    stats: Dict[str, Any] = {}
+    params["stem_bn"], stats["stem_bn"] = bn("bn1")
+    for s, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            tp = f"layer{s + 1}.{b}"
+            name = f"stage{s}_block{b}"
+            bp: Dict[str, Any] = {}
+            bs: Dict[str, Any] = {}
+            for k in (1, 2, 3):
+                if f"{tp}.conv{k}.weight" not in sd:
+                    break
+                bp[f"conv{k}"] = conv(f"{tp}.conv{k}")
+                bp[f"bn{k}"], bs[f"bn{k}"] = bn(f"{tp}.bn{k}")
+            if f"{tp}.downsample.0.weight" in sd:
+                bp["down_conv"] = conv(f"{tp}.downsample.0")
+                bp["down_bn"], bs["down_bn"] = bn(f"{tp}.downsample.1")
+            params[name] = bp
+            stats[name] = bs
+    return {"params": params, "batch_stats": stats}
+
+
 def load_torch_checkpoint_for_model(
     checkpoint_path: Path, model_name: str
 ) -> Dict[str, torch.Tensor]:
-    """The port's state dict for ``model_name`` from a torch checkpoint: a
-    Meta DINOv2/DINOv3 or timm ViT state dict, bare or as ``{"model": sd}``,
-    its names optionally prefixed ``module.`` or ``backbone.``."""
+    """The port's state dict for ``model_name`` from a torch checkpoint,
+    bare or as ``{"model": sd}``, its names optionally prefixed ``module.``
+    or ``backbone.``: a DINOv3 ConvNeXt's, a torchvision/timm ResNet's
+    (its running statistics become the BatchNorm buffers) or a Meta
+    DINOv2/DINOv3 or timm ViT's."""
     if any(part in model_name for part in _UNPORTED):
         raise NotImplementedError(
             f"Converting a torch checkpoint for '{model_name}' waits for its "
-            "backbone (ROADMAP item 10); the port converts dinov2/* and "
-            "dinov3/* ViT checkpoints."
+            "backbone (ROADMAP item 10)."
         )
     with torch.device("meta"):
-        depth = get_wrapped_model(model_name).module.cfg.depth
+        cfg = get_wrapped_model(model_name).module.cfg
     ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt and not hasattr(
         ckpt["model"], "numpy"
@@ -181,11 +285,14 @@ def load_torch_checkpoint_for_model(
             v.float().numpy()
         for k, v in ckpt.items()
     }
-    if "conv1.weight" in sd:
-        raise NotImplementedError(
-            f"{checkpoint_path} holds a ResNet state dict: its conversion "
-            "waits for the backbone (ROADMAP item 10)."
-        )
-    state = params_from_jax(convert_torch_vit_state_dict(sd, depth))
+    if "convnext" in model_name:
+        variables = {"params": convert_torch_convnext_state_dict(
+            sd, cfg.depths)}
+    elif "resnet" in model_name or "conv1.weight" in sd:
+        # The torchvision/timm ResNet layout (both name it so).
+        variables = convert_torch_resnet_state_dict(sd, cfg.stage_sizes)
+    else:
+        variables = {"params": convert_torch_vit_state_dict(sd, cfg.depth)}
+    state = variables_from_jax(variables)
     logger.info("Converted %d torch tensors for %s", len(sd), model_name)
     return state

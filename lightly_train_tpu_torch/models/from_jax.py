@@ -18,7 +18,11 @@ numpy arrays, into a PyTorch state dict for the port's modules:
   head of DINOv31 (``fc1``-``fc3``) keep their names;
 - a DINOv3 ViT's leaves carry over as they are: its ``register_tokens``,
   and the ``k`` projection without ``bias`` and the model without
-  ``pos_embed`` have nothing to carry.
+  ``pos_embed`` have nothing to carry;
+- a CNN's conv kernels (kh, kw, I, O) -> (O, I, kh, kw), depthwise ones
+  (kh, kw, 1, C) -> (C, 1, kh, kw); BatchNorm ``scale`` -> ``weight``;
+  its ``batch_stats`` ``mean`` and ``var`` become the layer's buffers
+  (:func:`variables_from_jax`).
 
 It takes numpy only and imports nothing of JAX.
 """
@@ -74,6 +78,20 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for name, value in _flatten(tree).items():
         path, value = _convert_leaf(name, value)
         state[path] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return state
+
+
+def variables_from_jax(variables: Mapping[str, Any],
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict for a Flax variables tree: its ``params`` as
+    :func:`params_from_jax` carries them, and every other collection (a
+    CNN's ``batch_stats``: BatchNorm ``mean`` and ``var``) as the buffers
+    of the same layers. A method's ``model_state`` (collections without
+    ``params``) belongs to its student: pass ``prefix="student."``."""
+    state = {}
+    for collection, tree in variables.items():
+        for name, value in params_from_jax(tree).items():
+            state[prefix + name] = value
     return state
 
 

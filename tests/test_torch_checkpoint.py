@@ -397,6 +397,48 @@ def test_dinov2_with_embed_dim_has_no_layer_decay():
     assert "student.embed.weight" in named and j_mask["student.embed.weight"]
 
 
+def test_dinov31_with_embed_dim_has_no_layer_decay():
+    """DINOv31 inherits DINOv2's lr scales and weight-decay mask: with
+    ``embed_dim`` the JAX method's attribute access raises before its
+    uniform default, the port takes the uniform scales, and the mask is
+    the JAX one leaf for leaf (PaKA head included)."""
+    import jax.numpy as jnp
+
+    from lightly_train_tpu.methods.dinov31 import DINOv31 as JaxDINOv31
+    from lightly_train_tpu.methods.dinov31 import DINOv31Args as JaxArgs
+    from lightly_train_tpu.models.embedding import (
+        project_wrapped as jax_project,
+    )
+    from lightly_train_tpu.models.package_registry import (
+        get_wrapped_model as jax_model,
+    )
+    from lightly_train_tpu_torch.methods.dinov31 import DINOv31, DINOv31Args
+
+    small = dict(SMALL, paka_hidden_dim=32, paka_bottleneck_dim=16)
+    j_method = JaxDINOv31(jax_project(jax_model("dinov2/vittest14"), 24,
+                                      jnp.float32), JaxArgs(**small))
+    j_params, _, _ = j_method.init(jax.random.key(0),
+                                   jnp.zeros((2, 36, 36, 3), jnp.uint8))
+    with pytest.raises(AttributeError, match="cfg"):
+        j_method.lr_scales(j_params)
+    method = DINOv31(project_wrapped(get_wrapped_model("dinov2/vittest14"),
+                                     24, torch.float32), DINOv31Args(**small))
+    params, _ = method.init(torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    named = dict(params.named_parameters())
+    assert method.lr_scales(named) is None
+    j_mask = {}
+    for path, v in jax.tree_util.tree_flatten_with_path(
+            j_method.wd_mask(j_params))[0]:
+        keys = [str(k.key) for k in path]
+        nested = {keys[-1]: np.zeros((2, 2) if keys[-1] == "kernel" else 2)}
+        for k in reversed(keys[:-1]):
+            nested = {k: nested}
+        j_mask[next(iter(params_from_jax(nested)))] = bool(v)
+    assert j_mask == method.wd_mask(named)
+    assert "paka_head.fc1.weight" in " ".join(named)
+
+
 def _dataset_stub(n):
     class Stub:
         def __len__(self):

@@ -166,9 +166,9 @@ def test_conversion_equals_the_jax_conversion(tmp_path, variant, form):
         assert set(module.state_dict()) == set(got)
 
 
-@pytest.mark.parametrize("model", ["dinov3/convnext-tiny",
+@pytest.mark.parametrize("model", ["ecvit/ecvits",
                                    "ultralytics/yolov8s", "ecvit/ecvit_t",
-                                   "timm/resnet50"])
+                                   "ultralytics/yolo11n"])
 def test_unported_converters_name_item_10(tmp_path, model):
     path = tmp_path / "weights.pth"
     torch.save({"w": torch.zeros(1)}, path)
@@ -177,9 +177,15 @@ def test_unported_converters_name_item_10(tmp_path, model):
 
 
 def test_a_resnet_state_dict_names_item_10(tmp_path):
+    """A ResNet state dict (``conv1.weight``) given for a ViT goes to the
+    ResNet converter in both packages, which the ViT's config cannot
+    size: both raise AttributeError (ResNet conversion is ported, item
+    10)."""
     path = tmp_path / "resnet.pth"
     torch.save({"conv1.weight": torch.zeros(4, 3, 7, 7)}, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(AttributeError, match="stage_sizes"):
+        JC.load_torch_checkpoint_for_model(path, DINOV2)
+    with pytest.raises(AttributeError, match="stage_sizes"):
         load_torch_checkpoint_for_model(path, DINOV2)
 
 

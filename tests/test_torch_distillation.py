@@ -380,7 +380,9 @@ def test_teacher_weights_from_an_exported_folder(tmp_path):
 def test_a_pth_teacher_names_its_roadmap_item(tmp_path):
     """A torch checkpoint file as ``teacher_weights`` now converts (Meta's
     DINOv3 naming: ``storage_tokens``, fused qkv with its k bias masked);
-    one of a backbone the port lacks (a ResNet's) names item 10."""
+    a ResNet's, for this ViT teacher, goes to the ResNet converter (ported
+    with the ResNets, item 10), which the ViT's config cannot size: an
+    AttributeError, as in the JAX package."""
     teacher = get_wrapped_model(TEACHER).module
     teacher.reset_parameters(torch.Generator().manual_seed(7))
     state = teacher.state_dict()
@@ -411,7 +413,11 @@ def test_a_pth_teacher_names_its_roadmap_item(tmp_path):
     for k, v in state.items():
         assert torch.equal(loaded[k], v), k
     torch.save({"conv1.weight": torch.zeros(8, 3, 7, 7)}, path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
+    with pytest.raises(AttributeError, match="stage_sizes"):
+        JV3.DistillationV3(jax_get_wrapped_model(STUDENT),
+                           JV3.DistillationV3Args(
+                               **ARGS, teacher_weights=str(path)))
+    with pytest.raises(AttributeError, match="stage_sizes"):
         V3.DistillationV3(get_wrapped_model(STUDENT), V3.DistillationV3Args(
             **ARGS, teacher_weights=str(path)))
 

@@ -137,10 +137,11 @@ def test_config_errors():
 
 @pytest.mark.parametrize("method", ["dino", "simclr"])
 def test_unported_methods_name_their_roadmap_item(tmp_path, method):
-    """Every method of the JAX package is ported; what such a run still
-    lacks names its item: here the 8-bit AdamW (ROADMAP item 10)."""
+    """Every method of the JAX package is ported, and so is its 8-bit
+    AdamW; what such a run still lacks names its item: here an ECViT
+    backbone (ROADMAP item 10)."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
-        lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
+        lt.pretrain(out=str(tmp_path / "o"), model="ecvit/ecvits",
                     method=method, accelerator="cpu", steps=1,
                     optim="adamw8bit")
 

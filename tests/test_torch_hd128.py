@@ -204,19 +204,26 @@ def _meta_params(model):
 def test_refuse_pretraining_counts_the_training_state(case):
     """``refuse_pretraining`` on the meta device at 80 GiB: DINOv2 and DINO
     (AdamW and an EMA teacher), AdamW with a 7B student and a 7B student
-    from a 7B teacher are refused, naming the byte count, FSDP (item 7.6)
-    and adamw8bit (item 10); distillation with LARS from a ViT-B teacher
-    is not, with or without momentum, nor SimCLR at momentum 0; ViT-B
-    never is. Without a capacity (the CPU) nothing is refused. The message
-    says what it counted and nothing more."""
+    from a 7B teacher are refused, naming the byte count and FSDP (item
+    7.6), and offering adamw8bit (two int8 bytes a parameter and two fp32
+    scales a block of 256) only where the run would fit with it: the 7B
+    student from a ViT-B teacher; distillation with LARS from a ViT-B
+    teacher is not refused, with or without momentum, nor SimCLR at
+    momentum 0; ViT-B never is. Without a capacity (the CPU) nothing is
+    refused. The message says what it counted and nothing more."""
     model, method, optim_args, refused, teacher = REFUSALS[case]
     ema = get_method_cls(method)[0].ema_teacher
     n = _meta_params(model)
     moments = 2 if isinstance(optim_args, AdamWArgs) else int(
         optim_args.momentum > 0)
-    need = 4 * (n * (2 + moments + int(ema))
-                + (0 if teacher is None else _meta_params(teacher)))
+    n_teacher = 0 if teacher is None else _meta_params(teacher)
+    need = 4 * (n * (2 + moments + int(ema)) + n_teacher)
     assert (need > GIB80) == refused
+    with torch.device("meta"):
+        leaves = [p.numel() for p in
+                  get_wrapped_model(model).module.parameters()]
+    need8 = (4 * (n * (2 + int(ema)) + n_teacher)
+             + sum(2 * 260 * -(-k // 256) for k in leaves))
     refuse_pretraining(model, optim_args, ema, None, teacher)
     if not refused:
         refuse_pretraining(model, optim_args, ema, GIB80, teacher)
@@ -224,9 +231,10 @@ def test_refuse_pretraining_counts_the_training_state(case):
     with pytest.raises(NotImplementedError) as err:
         refuse_pretraining(model, optim_args, ema, GIB80, teacher)
     said = str(err.value)
-    for part in (str(need), "ROADMAP item 7.6", "adamw8bit",
-                 "ROADMAP item 10", f"{n / 1e9:.2f} B"):
+    for part in (str(need), "ROADMAP item 7.6", f"{n / 1e9:.2f} B"):
         assert part in said
+    assert ("adamw8bit" in said) == (need8 <= GIB80)
+    assert "ROADMAP item 10" not in said
     if teacher is not None:
         assert f"frozen teacher '{teacher}'" in said
     assert "momentum 0" not in said

@@ -160,3 +160,30 @@ def test_loader_yields_image_and_mask_batches(tmp_path):
         i = next(j for j in range(5) if np.array_equal(
             img.numpy(), dataset[j]["images"]))
         assert (mask == i).all()
+
+
+@pytest.mark.parametrize("src_hw, hw", [((480, 640), (224, 224)),
+                                        ((512, 640), (224, 224)),
+                                        ((149, 54), (382, 261))])
+def test_16bit_gray_masks_match_the_jax_dataset(tmp_path, monkeypatch,
+                                                src_hw, hw):
+    """A 16-bit gray PNG is PIL mode ``I;16``, which PIL resizes through its
+    affine transform (source index ``int(in / out * (x + 0.5))``), not the
+    accumulated NEAREST rule of the other modes. At these sizes the two
+    rules pick different source rows or columns."""
+    rng = np.random.default_rng(src_hw[0] + hw[1])
+    (tmp_path / "masks").mkdir()
+    ids = rng.integers(0, 60000, src_hw).astype(np.uint16)
+    Image.fromarray(ids).save(tmp_path / "masks" / "m.png")
+    with Image.open(tmp_path / "masks" / "m.png") as im:
+        assert im.mode == "I;16"
+    img = rng.integers(0, 256, (30, 30, 3), dtype=np.uint8)
+    path = tmp_path / "m.ppm"
+    path.write_bytes(b"P6\n30 30\n255\n" + img.tobytes())
+    want = JaxDataset([str(path)], hw, mask_dir=tmp_path / "masks")[0]
+    accumulated = ids[D.nearest_index(src_hw[0], hw[0])][
+        :, D.nearest_index(src_hw[1], hw[1])]
+    assert (accumulated != want["masks"]).any()  # the rules part here
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = D.ImageDataset([str(path)], hw, mask_dir=tmp_path / "masks")[0]
+    np.testing.assert_array_equal(got["masks"], want["masks"])
