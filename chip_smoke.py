@@ -15,7 +15,12 @@ Phases (any failure exits non-zero):
    fp32 at the ViT-B/14 global and local shapes, at N = 730 (ViT-B/14 on
    378^2 images), at head dim 16 (a small grid and the vittest14 shapes
    of phase 3e) and, in fp32, at the frozen DINOv3 ViT-B/16 teacher's
-   shape of phase 3f (N = 201); K1/K2 at head dim 128 in both dtypes at
+   shape of phase 3f (N = 201), at ECViT-S's global shape of phase 3p
+   (64, 197, 6, 64) in both dtypes, at its local shape (192, 37, 6, 64) in
+   bf16, and in fp32 at the shapes of the fp32 checks of 3o and 3p (the
+   teacher's (4, 54, 12, 64), ECViT-S+'s (4, 50, 6, 64)); phase 3p fails
+   if 3o or 3p launched K1 or K2 at a shape phase 2 did not hold; K1/K2
+   at head dim 128 in both dtypes at
    the 7B teacher's and 7B student's shape of phases 3j and 3l, the 7B
    embed shape of phase 3k, at N = 37 and at N = 730; K4/K5
    (``vmem_attention``) in both layouts and dtypes at the ViT-B/14
@@ -117,7 +122,9 @@ Phases (any failure exits non-zero):
    with K2's plain version in its place (5e-2 relative L2 on each checked
    leaf), and those with autograd through the plain forward written down;
    and DINOv2 with the same student refused, with the card's own
-   capacity, before anything is allocated. (3m, run after 3i) A user's
+   capacity, before anything is allocated (so are the distillation
+   student with AdamW and with LARS at momentum 0.9, offered
+   ``adamw8bit``). (3m, run after 3i) A user's
    own files: the committed JPEG fixtures (``tests/torch_fixtures/
    images``) decoded on the card's host by the port's decoder to the
    digests of the JAX package's PIL decode in their ``manifest.json``;
@@ -159,7 +166,23 @@ Phases (any failure exits non-zero):
    steps on the CPU (1e-2); and the ``dinov3/vit7b16`` student of 3l with
    ``adamw8bit`` for 2 steps (K1 92, K2 40 a step), its peak printed
    beside ``refuse_pretraining``'s count of its state (no checkpoint or
-   export written). 3j, 3k, 3l and 3m delete what they wrote. Each phase's
+   export written). (3p, run after 3o) The last backbones of item 10:
+   ``pretrain(model="ecvit/ecvitsplus")`` at its defaults (distillation v3
+   from the frozen DINOv3 ViT-B/16, batch 64, LARS), DINO on
+   ``ecvit/ecvits`` (batch 32), ``ultralytics/yolov8x``, ``yolov5x`` and
+   ``yolo11x`` by distillation (batch 64), DINO on
+   ``super_gradients/yolo_nas_l`` (batch 32) and ``pretrain(model=...)``
+   of a torch CNN with ``nn.BatchNorm2d`` defined here, bf16, 3 steps
+   each, counters set to 0 just before each run and read just after: the
+   ECViT students' K1 and K2 at (64, 197, 6, 64) (and DINO's locals at
+   (192, 37, 6, 64)), the teacher's 12 fp32 K1 a step in every
+   distillation run, K3 1 a step in DINO, no SDPA or plain attention;
+   finite losses, the running statistics finite and moved, each EMA
+   teacher reading the student's; ``embed`` of the ECViT-S+ export
+   against an eval-mode forward; ECViT-S+ distillation for 2 fp32 steps
+   on the card against the CPU (1e-2, the parameters' change too), its
+   launches counted. 3j, 3k, 3l and 3m delete what they
+   wrote. Each phase's
    wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
@@ -173,6 +196,12 @@ then this check fails.
 training steps in each precision (fp32 under the variable, as ``pretrain``
 runs it), printing the device's busy share and the kernels that take the
 most device time.
+
+``--7b-lars`` runs phase 1 and then only the DINOv3 7B/16 distillation
+student with LARS at momentum 0.9 (``run_7b_lars``): its peak memory, or
+where it does not fit the point at which it ran out, beside
+``refuse_pretraining``'s count, which must refuse it with the card's
+capacity exactly when it does not fit.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 results, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -356,10 +385,48 @@ CNN_7B_ARGS = {"method": "distillationv3", "optim": "adamw8bit",
                "model_args": {"remat_every": 1}}
 # (a)'s check: ResNet-50 distillation, fp32, CNN_FP32_STEPS steps on one
 # fixed batch of CNN_FP32_BATCH images at CNN_FP32_SIZE^2 (small, for the
-# CPU's side), on the card against the CPU: the parameters' change, the
-# running statistics and the losses within 1e-2 relative L2, as
-# ``check_backbone`` holds the ViTs.
+# CPU's side), on the card against the CPU: the parameters after the
+# steps, the running statistics and the losses within 1e-2 relative L2
+# (and the parameters' change for 3p (g)'s ECViT-S+; ``check_cnn_fp32``).
 CNN_FP32_STEPS, CNN_FP32_BATCH, CNN_FP32_SIZE = 2, 4, 112
+# Phase 3p: the last backbones of item 10, on phase 3's images at 224^2,
+# bf16, ITEM10_STEPS steps each: run -> (model, method, batch, K1 fp32 by
+# shape, K1 bf16 by shape, K2 by shape, K3, all a step). ECViT-S and S+
+# (width 384, 6 heads: hd 64) take 14 x 14 patch tokens and a register
+# token at 224^2 and 6 x 6 and the register at DINO's 96^2 locals; their
+# 12 blocks launch K1 once each a forward and K2 once each a backward.
+# The ultralytics and YOLO-NAS CNNs launch no attention kernel (YOLO11's
+# C2PSA attends in plain products, as the JAX package does). (a) is
+# ``pretrain`` at its defaults with ECViT-S+; "module" is a user's own
+# torch CNN (``user_cnn``) at ``pretrain``'s defaults.
+ECVIT_HEADS = 6
+ECVIT_GLOBAL = (DISTILL_BATCH, 197, ECVIT_HEADS, HEAD_DIM)
+ECVIT_LOCAL = (6 * BATCH, 37, ECVIT_HEADS, HEAD_DIM)
+# The fp32 checks on one batch of CNN_FP32_BATCH at CNN_FP32_SIZE^2 (3o (a)'s
+# and 3p (g)'s ``check_cnn_fp32``): ECViT-S+'s 7 x 7 patch tokens and its
+# register; the DINOv3 ViT-B/16 teacher's 7 x 7, its CLS and 4 registers.
+ECVIT_FP32 = (CNN_FP32_BATCH, (CNN_FP32_SIZE // 16) ** 2 + 1, ECVIT_HEADS,
+              HEAD_DIM)
+TEACHER_FP32_CHECK = (CNN_FP32_BATCH, (CNN_FP32_SIZE // 16) ** 2 + 5, HEADS,
+                      HEAD_DIM)
+ITEM10_STEPS = 3
+_TEACHER_K1 = {TEACHER: DEPTH}
+ITEM10_RUNS = {
+    "a_ecvitsplus": ("ecvit/ecvitsplus", None, None, _TEACHER_K1,
+                     {ECVIT_GLOBAL: DEPTH}, {ECVIT_GLOBAL: DEPTH}, 0),
+    "b_dino_ecvits": ("ecvit/ecvits", "dino", BATCH, {},
+                      {ECVIT_GLOBAL: 2 * DEPTH, ECVIT_LOCAL: DEPTH},
+                      {ECVIT_GLOBAL: DEPTH, ECVIT_LOCAL: DEPTH}, 1),
+    "c_yolov8x": ("ultralytics/yolov8x", "distillation", DISTILL_BATCH,
+                  _TEACHER_K1, {}, {}, 0),
+    "c_yolov5x": ("ultralytics/yolov5x", "distillation", DISTILL_BATCH,
+                  _TEACHER_K1, {}, {}, 0),
+    "c_yolo11x": ("ultralytics/yolo11x", "distillation", DISTILL_BATCH,
+                  _TEACHER_K1, {}, {}, 0),
+    "d_dino_yolo_nas_l": ("super_gradients/yolo_nas_l", "dino", BATCH, {},
+                          {}, {}, 1),
+    "e_torch_module": ("module", None, None, _TEACHER_K1, {}, {}, 0),
+}
 
 
 # The phase running now and when it started (``phase``).
@@ -707,6 +774,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # the vittest14 shapes of phase 3e, and in fp32 at the teacher's shape of
 # phase 3f; K1/K2 at hd 128 (the 7B teacher's and student's shape of
 # phases 3j and 3l, the embed shape of phase 3k, N = 37 and N = 730);
+# K1/K2 at ECViT's shapes of phase 3p (bf16 global and local, fp32 in (g))
+# and fp32 at the teacher's shape of the fp32 checks of 3o (a) and 3p (g);
 # K4/K5 at the ViT-B/14 shapes and the 7B embed shape in both layouts and
 # dtypes, and at the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
@@ -720,6 +789,10 @@ ATTENTION_CASES = [
     for shape in (GLOBAL, LOCAL, GLOBAL_378_B8, GLOBAL_378, *HD16_SHAPES,
                   *HD128_SHAPES)
 ] + [("flat", "fp32", TEACHER, "flat")] + [
+    ("flat", dtype, ECVIT_GLOBAL, "flat") for dtype in DTYPES] + [
+    ("flat", "bf16", ECVIT_LOCAL, "flat"),
+    ("flat", "fp32", ECVIT_FP32, "flat"),
+    ("flat", "fp32", TEACHER_FP32_CHECK, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -1921,13 +1994,16 @@ def refuse_dinov2_7b(lt, work: Path) -> str:
     NotImplementedError naming FSDP (item 7.6) with the card's own
     capacity, before anything is allocated on the card or written, and
     offer no ``adamw8bit``, with which it would not fit either; the same
-    student by distillation with AdamW is refused with the offer
-    (``adamw8bit`` brings it to 63 GiB)."""
+    student by distillation with AdamW, or with LARS at its default
+    momentum 0.9 (75.4 GiB counted, with the refusal's headroom more than
+    the card: ``--7b-lars`` runs out of memory there), is refused with the
+    offer (``adamw8bit`` brings it to 63 GiB)."""
     import torch
 
     said = []
-    for method, optim in (("dinov2", "auto"), ("distillationv3", "adamw")):
-        out = work / f"{method}_7b"
+    for method, optim in (("dinov2", "auto"), ("distillationv3", "adamw"),
+                          ("distillationv3", "lars")):
+        out = work / f"{method}_{optim}_7b"
         before = torch.cuda.memory_allocated()
         try:
             lt.pretrain(out=str(out), data=str(work / "images"),
@@ -2048,7 +2124,8 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
     from lightly_train_tpu_torch.methods import distillationv3 as V3
 
     refused = refuse_dinov2_7b(lt, work)
-    print(f"  DINOv2, and distillation with AdamW, with the 7B/16 student: "
+    print(f"  DINOv2, and distillation with AdamW and with LARS at "
+          f"momentum 0.9, with the 7B/16 student: "
           f"refused before any allocation: {refused}")
     steps = STUDENT_7B_STEPS
     out = work / "student_7b"
@@ -3310,9 +3387,9 @@ def student_buffers(state) -> dict:
             for k, v in state.params["student"].named_buffers()}
 
 
-def cnn_fp32_steps(device: str, teacher: Path, jitter: float = 0.0
-                   ) -> dict:
-    """CNN_FP32_STEPS fp32 steps of ResNet-50 distillation v3 (LARS, the
+def cnn_fp32_steps(device: str, teacher: Path, jitter: float = 0.0,
+                   model: str = "torchvision/resnet50") -> dict:
+    """CNN_FP32_STEPS fp32 steps of ``model``'s distillation v3 (LARS, the
     DINOv3 ViT-B/16 teacher exported at ``teacher``) on one fixed batch on
     ``device``, from the seeded init, with the mixup draw pinned: the
     student's parameters and buffers before and after, and the losses.
@@ -3332,7 +3409,7 @@ def cnn_fp32_steps(device: str, teacher: Path, jitter: float = 0.0
         get_wrapped_model,
     )
 
-    method = V3.DistillationV3(get_wrapped_model("torchvision/resnet50"),
+    method = V3.DistillationV3(get_wrapped_model(model),
                                V3.DistillationV3Args(
                                    queue_size=16, image_size=CNN_FP32_SIZE,
                                    teacher_weights=str(teacher)))
@@ -3374,29 +3451,53 @@ def cnn_fp32_steps(device: str, teacher: Path, jitter: float = 0.0
     return {"before": before, "after": after, "losses": losses}
 
 
-def check_cnn_fp32(card: str, work: Path) -> dict:
-    """(a)'s ResNet-50 after CNN_FP32_STEPS fp32 steps on the card against
-    the same steps on the CPU, within 1e-2 relative L2: the parameters
-    after the steps (every leaf as one vector), the running statistics and
-    the losses. The change of the parameters is printed, not held: in
-    train mode, batch 4 and a 4 x 4 last stage, the backward through the
-    batch statistics makes the gradient move by about 2% when every
-    convolution's output moves by one fp32 rounding (printed: the CPU's
-    own steps with every convolution's output moved by 1e-7 relative), and
-    the two devices round differently. The teacher is phase 3f's
-    exported one with LayerScale 0.5 (``write_teacher``): a random one
-    makes the loss log Q and its gradient rounding noise, which LARS's
-    trust ratio scales to full steps."""
+def check_cnn_fp32(A, F, card: str, work: Path,
+                   model: str = "torchvision/resnet50", label: str = "3o (a)",
+                   student_shapes: tuple = ()) -> dict:
+    """(a)'s ResNet-50 (phase 3o; or ``model``, phase 3p's ECViT-S+) after
+    CNN_FP32_STEPS fp32 steps on the card against the same steps on the
+    CPU, within 1e-2 relative L2: the parameters after the steps (every
+    leaf as one vector), the running statistics and the losses. Where the
+    student attends (``student_shapes``: ECViT-S+), the change of the
+    parameters is held within 1e-2 as well: its BatchNorm sits in the patch
+    embed alone, and the CPU's own steps with every convolution's output
+    moved by 1e-7 relative (printed) move the change far less than that.
+    For ResNet-50 the change is printed, not held: in train mode, batch 4
+    and a 4 x 4 last stage, the backward through the batch statistics makes
+    the gradient move by about 2% when every convolution's output moves by
+    one fp32 rounding, and the two devices round differently. The card's
+    steps launch K1 fp32 once a block a step at TEACHER_FP32_CHECK (the
+    teacher) and K1 and K2 fp32 once a block a step at each of
+    ``student_shapes``, counted from 0 just before them. The teacher is
+    phase 3f's exported one with LayerScale 0.5 (``write_teacher``): a
+    random one makes the loss log Q and its gradient rounding noise, which
+    LARS's trust ratio scales to full steps."""
     import torch
 
     pin_ieee()
     t0 = time.perf_counter()
-    teacher = work / "teacher_3o"
+    teacher = work / "teacher_fp32_check"
     write_teacher(teacher)
-    card_run = cnn_fp32_steps("cuda", teacher)
+    counters = reset_counters(A, F)
+    card_run = cnn_fp32_steps("cuda", teacher, model=model)
     torch.cuda.synchronize()
-    cpu_run = cnn_fp32_steps("cpu", teacher)
-    jittered = cnn_fp32_steps("cpu", teacher, jitter=1e-7)
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    fwd = A.fwd_library(torch.float32, HEAD_DIM)
+    bwd = A.bwd_library(torch.float32, HEAD_DIM)
+    steps = CNN_FP32_STEPS
+    want_shape = {(fwd, TEACHER_FP32_CHECK): DEPTH * steps,
+                  **{(lib, shape): DEPTH * steps
+                     for shape in student_shapes for lib in (fwd, bwd)}}
+    want = [DEPTH * steps * (1 + len(student_shapes)),
+            DEPTH * steps * len(student_shapes), 0, 0, 0]
+    print(f"  {label} the card's fp32 steps: launches {launches} (expected "
+          f"{want}), by shape {by_shape}", flush=True)
+    if launches != want or by_shape != want_shape:
+        fail(f"phase {label}: launches {launches} != {want}, by shape "
+             f"{by_shape} != {want_shape}")
+    cpu_run = cnn_fp32_steps("cpu", teacher, model=model)
+    jittered = cnn_fp32_steps("cpu", teacher, jitter=1e-7, model=model)
     shutil.rmtree(teacher)
     keys = [k for k in cpu_run["after"]
             if not (k.endswith(".mean") or k.endswith(".var"))]
@@ -3412,7 +3513,7 @@ def check_cnn_fp32(card: str, work: Path) -> dict:
 
     if any(not torch.equal(card_run["before"][k], cpu_run["before"][k])
            for k in keys):
-        fail("phase 3o: the card's and the CPU's inits differ")
+        fail(f"phase {label}: the card's and the CPU's inits differ")
     errors = {
         "parameters": rel(flat(card_run, keys), flat(cpu_run, keys)),
         "running_stats": rel(flat(card_run, stats), flat(cpu_run, stats)),
@@ -3423,21 +3524,24 @@ def check_cnn_fp32(card: str, work: Path) -> dict:
     cpu_change = rel(flat(jittered, keys, True), flat(cpu_run, keys, True))
     moved = rel(flat(cpu_run, keys),
                 flat(cpu_run, keys) - flat(cpu_run, keys, True))
-    print(f"  (a) ResNet-50 distillation, {CNN_FP32_STEPS} fp32 steps on a "
-          f"fixed batch of {CNN_FP32_BATCH} at {CNN_FP32_SIZE}^2, card "
+    print(f"  {label} {model} distillation, {CNN_FP32_STEPS} fp32 steps "
+          f"on a fixed batch of {CNN_FP32_BATCH} at {CNN_FP32_SIZE}^2, card "
           f"against CPU: " + ", ".join(f"{k} {v:.3e}"
                                        for k, v in errors.items())
           + f" (tol 1e-2); the parameters moved {moved:.3e} of their norm, "
-          f"the change {change:.3e} apart (printed, not held; the CPU's "
-          f"own change with every convolution's output moved by 1e-7 "
-          f"relative: {cpu_change:.3e} apart); losses card "
+          f"the change {change:.3e} apart ("
+          + ("held, tol 1e-2" if student_shapes else "printed, not held")
+          + f"; the CPU's own change with every convolution's output moved "
+          f"by 1e-7 relative: {cpu_change:.3e} apart); losses card "
           f"{card_run['losses']}, CPU {cpu_run['losses']}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-    if not all(v <= 1e-2 for v in errors.values()) or not moved > 0:
-        fail(f"phase 3o: ResNet-50 fp32 steps on the card against the CPU "
-             f"{errors}")
+    held_errors = {**errors, **({"parameter_change": change}
+                                if student_shapes else {})}
+    if not all(v <= 1e-2 for v in held_errors.values()) or not moved > 0:
+        fail(f"phase {label}: {model} fp32 steps on the card against the "
+             f"CPU {held_errors}")
     return {**errors, "parameter_change": change, "moved": moved,
-            "cpu_jitter_1e-7_change": cpu_change}
+            "cpu_jitter_1e-7_change": cpu_change, "by_shape": by_shape}
 
 
 def run_cnn_path(lt, A, F, card: str, work: Path) -> dict:
@@ -3621,7 +3725,9 @@ def run_cnn_path(lt, A, F, card: str, work: Path) -> dict:
     results["g_7b_adamw8bit"] = g = run_cnn_7b(lt, A, F, card, work)
     for key, n in g.pop("by_shape").items():
         results["by_shape"][key] = results["by_shape"].get(key, 0) + n
-    results["a_fp32"] = check_cnn_fp32(card, work)
+    results["a_fp32"] = a = check_cnn_fp32(A, F, card, work)
+    for key, n in a.pop("by_shape").items():
+        results["by_shape"][key] = results["by_shape"].get(key, 0) + n
     return results
 
 
@@ -3699,6 +3805,304 @@ def run_cnn_7b(lt, A, F, card: str, work: Path) -> dict:
     return {**row, "by_shape": by_shape}
 
 
+def run_7b_lars(lt, A, F, card: str, work: Path) -> dict:
+    """``--7b-lars``: the DINOv3 7B/16 student by distillation v3 with LARS
+    at its default momentum 0.9 (p, g and the momentum trace: 3 fp32
+    copies), every block recomputed, bf16, batch 64, for CNN_7B_STEPS
+    steps, with ``refuse_pretraining`` bypassed; no checkpoint or export
+    written. Prints its peak (or, where it runs out of memory, the peak
+    when it did) beside the refusal's count of its state and the card's
+    capacity; then ``pretrain`` with the card's own capacity must refuse
+    the run, before it allocates anything, if and only if it did not
+    fit."""
+    import torch
+
+    from lightly_train_tpu_torch._commands import train as T
+    from lightly_train_tpu_torch._optim import LARSArgs
+    from lightly_train_tpu_torch.models.package_registry import (
+        _state_need,
+        get_wrapped_model,
+    )
+
+    with torch.device("meta"):
+        leaves = [p.numel() for p in
+                  get_wrapped_model(STUDENT_7B).module.parameters()]
+        teacher = sum(p.numel() for p in
+                      get_wrapped_model("dinov3/vitb16").module.parameters())
+    need = _state_need(leaves, LARSArgs(), False, teacher)
+    capacity = T._device_capacity("cuda")
+    args = dict(data=str(work / "images"), model=STUDENT_7B,
+                method="distillationv3", batch_size=DISTILL_BATCH,
+                steps=CNN_7B_STEPS, precision="bf16", log_every=1, seed=SEED,
+                checkpoint_every=CNN_7B_STEPS,
+                model_args={"remat_every": 1})
+    save, export, cap = (T.CheckpointManager.save, T.export_model,
+                         T._device_capacity)
+    T.CheckpointManager.save = lambda *a, **kw: None
+    T.export_model = lambda *a, **kw: None
+    T._device_capacity = lambda accelerator: None
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    state, oom = None, None
+    try:
+        state = lt.pretrain(out=str(work / "lars_7b"), **args)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as err:
+        oom = str(err).splitlines()[0]
+    finally:
+        T.CheckpointManager.save, T.export_model = save, export
+        T._device_capacity = cap
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = logged_steps(work / "lars_7b") if state is not None else []
+    row = {"phase": "7b-lars", "model": STUDENT_7B, "fits": oom is None,
+           "peak_gib": peak, "refusal_count_gib": need / 2 ** 30,
+           "capacity_gib": capacity / 2 ** 30,
+           "step_ms": [r["profiling/step_time"] * 1e3 for r in steps],
+           "losses": [r["train_loss"] for r in steps],
+           "launches": [fn.launches for fn in counters], "oom": oom,
+           "wall_s": wall, "card": card}
+    print(json.dumps(row), flush=True)
+    del state
+    shutil.rmtree(work / "lars_7b", ignore_errors=True)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    try:
+        lt.pretrain(out=str(work / "lars_7b_refused"), **args)
+        refused = None
+    except NotImplementedError as err:
+        refused = str(err)
+    print(f"  the 7B/16 student with LARS at momentum 0.9: "
+          f"{'fits' if oom is None else 'out of memory'}, peak "
+          f"{peak:.2f} GiB, the refusal's count {need / 2 ** 30:.2f} GiB of "
+          f"the card's {capacity / 2 ** 30:.2f}; with the card's capacity "
+          f"pretrain {'refuses: ' + refused if refused else 'runs'} "
+          f"[{card}]", flush=True)
+    if (refused is None) != (oom is None) or (
+            refused and (torch.cuda.memory_allocated() != before
+                         or (work / "lars_7b_refused").exists())):
+        fail(f"the 7B LARS refusal ({refused}) disagrees with the run "
+             f"({oom or 'fits'})")
+    if oom is None and not all(math.isfinite(x) for x in row["losses"]):
+        fail(f"the 7B LARS run's losses {row['losses']}")
+    shutil.rmtree(work / "lars_7b_refused", ignore_errors=True)
+    return row
+
+
+def user_cnn():
+    """Phase 3p (e): a user's own torch CNN (four stride-2 3x3
+    convolutions, ``nn.BatchNorm2d`` and ReLU, 64 to 512 channels),
+    seeded, returning its feature map in a dict."""
+    import torch
+    from torch import nn
+
+    class UserCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            chans = (3, 64, 128, 256, 512)
+            self.body = nn.Sequential(*[
+                layer for i in range(4) for layer in (
+                    nn.Conv2d(chans[i], chans[i + 1], 3, 2, 1, bias=False),
+                    nn.BatchNorm2d(chans[i + 1]), nn.ReLU())])
+
+        def forward(self, x):
+            return {"features": self.body(x)}
+
+    torch.manual_seed(SEED)
+    return UserCNN()
+
+
+def run_item10_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3p: ``pretrain`` of each run of ITEM10_RUNS (bf16,
+    ITEM10_STEPS steps on phase 3's images), every launch counter set to 0
+    just before and read just after: K1 and K2 by library and shape and K3
+    exactly as ITEM10_RUNS gives them a step, no SDPA and no plain
+    attention, finite losses, the running statistics (the user module's
+    ``nn.BatchNorm2d`` buffers too) finite and moved, and each EMA
+    teacher's copy of the backbone holding the student's statistics before
+    each step's forwards. Then ``embed`` of (a)'s export (f) against an
+    eval-mode forward of the exported weights and (g) ECViT-S+'s fp32
+    steps on the card against the CPU (``check_cnn_fp32``). One JSON line
+    a run."""
+    import torch
+
+    from lightly_train_tpu_torch.methods.base import Method
+
+    fwd = {"fp32": A.fwd_library(torch.float32, HEAD_DIM),
+           "bf16": A.fwd_library(torch.bfloat16, HEAD_DIM)}
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    results = {"by_shape": {}}
+    for tag, (model, method, batch, k1f, k1b, k2, k3) in \
+            ITEM10_RUNS.items():
+        out = work / f"item10_{tag}"
+        model_arg = user_cnn() if model == "module" else model
+        spies = [CallCount(torch.nn.functional,
+                           "scaled_dot_product_attention"),
+                 CallCount(A, "dot_product_attention")]
+        synced = []
+        sync = Method.sync_teacher_state
+
+        def spy(self, params, method_state, sync=sync, synced=synced):
+            sync(self, params, method_state)
+            teacher = method_state.get("teacher")
+            if self.ema_teacher and teacher is not None:
+                synced.append(all(
+                    torch.equal(a, b) for a, b in zip(
+                        teacher["student"].buffers(),
+                        params["student"].buffers())))
+
+        Method.sync_teacher_state = spy
+        kwargs = {**({"method": method} if method else {}),
+                  **({"batch_size": batch} if batch else {})}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters(A, F)
+        t0 = time.perf_counter()
+        try:
+            state = lt.pretrain(
+                out=str(out), data=str(work / "images"), model=model_arg,
+                steps=ITEM10_STEPS, precision="bf16", log_every=1,
+                checkpoint_every=ITEM10_STEPS, seed=SEED, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            Method.sync_teacher_state = sync
+            for spied in spies:
+                spied.restore()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        by_shape = launches_by_shape(A)
+        steps = logged_steps(out)
+        loss_keys = sorted(k for k in steps[0] if "loss" in k)
+        stats = student_buffers(state)
+        n = ITEM10_STEPS
+        row = {
+            "phase": "3p", "run": tag,
+            "model": "torch/usercnn" if model == "module" else model,
+            "method": method or "distillation (the default)",
+            "batch": batch or DISTILL_BATCH,
+            "optimizer": type(state.updater.args).__name__,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps[1:]],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_step": {"K1": launches[0] / n,
+                                  "K2": launches[1] / n,
+                                  "K3": launches[2] / n},
+            "launches_by_shape": {f"{lib} {shape}": c for (lib, shape), c
+                                  in by_shape.items()},
+            "losses": {k: [r[k] for r in steps] for k in loss_keys},
+            "running_stats": len(stats), "wall_s": wall, "card": card,
+        }
+        print(json.dumps(row), flush=True)
+        results[tag] = row
+        for key, c in by_shape.items():
+            results["by_shape"][key] = results["by_shape"].get(key, 0) + c
+        if [r["step"] for r in steps] != list(range(1, n + 1)):
+            fail(f"phase 3p {tag}: logged steps {[r['step'] for r in steps]}")
+        if not all(math.isfinite(x) for k in loss_keys for x in
+                   row["losses"][k] + [r["grad_norm"] for r in steps]):
+            fail(f"phase 3p {tag}: a loss is not finite: {row['losses']}")
+        expected = [(sum(k1f.values()) + sum(k1b.values())) * n,
+                    sum(k2.values()) * n, k3 * n, 0, 0]
+        want_shape = {
+            **{(fwd["fp32"], shape): c * n for shape, c in k1f.items()},
+            **{(fwd["bf16"], shape): c * n for shape, c in k1b.items()},
+            **{(bwd, shape): c * n for shape, c in k2.items()}}
+        if launches != expected or by_shape != want_shape:
+            fail(f"phase 3p {tag}: launches {launches} != {expected}, by "
+                 f"shape {by_shape} != {want_shape}")
+        if spies[0].calls or spies[1].calls:
+            fail(f"phase 3p {tag}: the step reached a stock attention op "
+                 f"(SDPA {spies[0].calls}, plain {spies[1].calls})")
+        if not stats or not all(torch.isfinite(v).all()
+                                for v in stats.values()):
+            fail(f"phase 3p {tag}: running statistics missing or not "
+                 "finite")
+        means = [v for k, v in stats.items() if k.endswith("mean")]
+        if not means or not all(v.abs().sum() > 0 for v in means):
+            fail(f"phase 3p {tag}: a running mean did not move")
+        if k3 and (len(synced) != n or not all(synced)):
+            fail(f"phase 3p {tag}: the EMA teacher does not read the "
+                 f"student's running statistics ({synced})")
+        if model == "module":
+            inner = state.params["student"].inner
+            tracked = [int(m.num_batches_tracked) for m in inner.modules()
+                       if isinstance(m, torch.nn.BatchNorm2d)]
+            print(f"  (e) the user's module: its BatchNorm2d layers' "
+                  f"num_batches_tracked {tracked} after {n} steps",
+                  flush=True)
+            if tracked != [n] * 4:
+                fail(f"phase 3p (e): num_batches_tracked {tracked}")
+        if tag == "a_ecvitsplus":
+            results["f_embed"] = check_item10_embed(
+                lt, A, F, out / "exported_models" / "exported_last", model,
+                work)
+        del state
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    results["g_fp32"] = g = check_cnn_fp32(A, F, card, work,
+                                           "ecvit/ecvitsplus", "3p (g)",
+                                           (ECVIT_FP32,))
+    for key, c in g.pop("by_shape").items():
+        results["by_shape"][key] = results["by_shape"].get(key, 0) + c
+    return results
+
+
+def check_item10_embed(lt, A, F, exported: Path, model: str,
+                       work: Path) -> dict:
+    """Phase 3p (f): ``embed`` of (a)'s ECViT-S+ export against an
+    eval-mode forward of the exported weights, within 1e-5 relative L2;
+    the fp32 ``embed`` launches K1 at ECVIT_GLOBAL once a block a batch."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        load_exported_model,
+    )
+    from lightly_train_tpu_torch._data.image_dataset import (
+        ImageDataset,
+        list_image_files,
+    )
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    art = load_exported_model(exported)
+    if art["model_name"] != model or not any(
+            k.endswith(".var") for k in art["state_dict"]):
+        fail(f"phase 3p (a): export {art['model_name']} without running "
+             "statistics")
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    emb_path = lt.embed(out=str(work / "item10_embed.npz"),
+                        data=str(work / "images"), checkpoint=str(exported),
+                        batch_size=DISTILL_BATCH)
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    emb = np.load(emb_path)["embeddings"]
+    wrapped = get_wrapped_model(model)
+    wrapped.module.load_state_dict(art["state_dict"])
+    wrapped.module.cuda().eval()
+    dataset = ImageDataset(list_image_files(work / "images"), (224, 224))
+    x = torch.from_numpy(np.stack(
+        [dataset[i] for i in range(len(dataset))])).cuda()
+    with torch.no_grad():
+        want = wrapped.forward_pool(wrapped.forward_features(
+            x.float() / 255.0)).cpu().numpy()
+    err = float(np.linalg.norm(emb - want) / np.linalg.norm(want))
+    print(f"  (f) embed of (a)'s export: {emb.shape} in {wall:.1f} s, "
+          f"against an eval-mode forward of the exported weights: relative "
+          f"L2 {err:.3e} (tol 1e-5); launches {launches}", flush=True)
+    if (emb.shape != (2 * BATCH, wrapped.feature_dim) or not err <= 1e-5
+            or launches != [DEPTH, 0, 0, 0, 0] or by_shape != {
+                (A.fwd_library(torch.float32, HEAD_DIM), ECVIT_GLOBAL):
+                DEPTH}):
+        fail(f"phase 3p (f): embeddings {emb.shape}, {err}, launches "
+             f"{launches} {by_shape}")
+    return {"shape": list(emb.shape), "rel_l2": err, "wall_s": wall,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3762,6 +4166,18 @@ def main() -> int:
             fail(f"{name}'s SASS lacks {missing}")
         if WARP_MMA in sass:
             fail(f"{name}'s SASS holds {WARP_MMA} (mma.sync)")
+
+    if "--7b-lars" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_images(Path(tmp) / "images", 2 * BATCH, 256)
+            phase("the 7B/16 student with LARS at momentum 0.9", flush=True)
+            run_7b_lars(lt, A, F, card, Path(tmp))
+            end_phase()
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("phase 2: kernels against their plain versions", flush=True)
     attn = check_attention(A, card)
@@ -3863,6 +4279,22 @@ def main() -> int:
           f"{CNN_STEPS} steps each", flush=True)
     cnn = run_cnn_path(lt, A, F, card, work)
     pin_ieee()
+    phase(f"phase 3p: ECViT-S+ at pretrain's defaults, DINO on ECViT-S, "
+          f"YOLOv8x, YOLOv5x and YOLO11x by distillation, DINO on "
+          f"YOLO-NAS-L, a user's torch module, embed, ECViT-S+ fp32 against "
+          f"the CPU; bf16, {ITEM10_STEPS} steps each", flush=True)
+    item10 = run_item10_path(lt, A, F, card, work)
+    # Each (library, shape) that phases 3o and 3p launched K1 or K2 at was
+    # held against the plain version in phase 2.
+    covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
+               for kernels, dtype, shape, _ in ATTENTION_CASES
+               if kernels == "flat"
+               for route in (A.fwd_library, A.bwd_library)}
+    for label, ran in (("3o", cnn), ("3p", item10)):
+        if set(ran["by_shape"]) - covered:
+            fail(f"phase {label} launched at shapes phase 2 does not hold: "
+                 f"{sorted(set(ran['by_shape']) - covered)}")
+    pin_ieee()
     phase(f"phase 3j: pretrain distillation v3 of ViT-B/14 from a frozen "
           f"random DINOv3 7B/16 teacher (hd 128, fp32), bf16, batch "
           f"{DISTILL_BATCH}, {TEACHER_7B_STEPS} steps", flush=True)
@@ -3903,6 +4335,13 @@ def main() -> int:
                 TEACHER_7B: sum(r["by_shape"].get((lib7, TEACHER_7B), 0)
                                 for r in (teacher_7b, student_7b)),
                 EMBED_7B: embed_7b["by_shape"].get((lib7, EMBED_7B), 0),
+                # Phase 3p's ECViT students (bf16; fp32 in (g)) and the
+                # teacher of the fp32 checks of 3o (a) and 3p (g).
+                **{shape: sum(r["by_shape"].get(
+                    (route(torch_dtype(dtype), HEAD_DIM), shape), 0)
+                    for r in (cnn, item10))
+                   for shape in (ECVIT_GLOBAL, ECVIT_LOCAL, ECVIT_FP32,
+                                 TEACHER_FP32_CHECK)},
             })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
@@ -3926,10 +4365,14 @@ def main() -> int:
                 route(torch_dtype(dtype), row["shape"][3])),
             "replaces": f"lightly_train_tpu/ops/pallas/attention.py:{line}",
             "launches": by_shape.get(tuple(row["shape"]), 0),
-            # embed's fp32 forwards (phase 3d) run at the global shape.
+            # embed's fp32 forwards (phase 3d) run at the global shape,
+            # those of 3p (f)'s ECViT-S+ at ECVIT_GLOBAL.
             **({"launches_embed": embed_k1}
                if (kernel, dtype) == ("K1", "fp32")
                and row["shape"] == list(GLOBAL) else {}),
+            **({"launches_embed": item10["f_embed"]["launches"][0]}
+               if (kernel, dtype) == ("K1", "fp32")
+               and row["shape"] == list(ECVIT_GLOBAL) else {}),
             **({"launches_distillation": distill_runs[tuple(row["shape"])],
                 "launches_distillation_per_step": {
                     p: n / DISTILL_STEPS[p] for p, n in
@@ -3946,6 +4389,12 @@ def main() -> int:
             # teacher's K1 in (a), (c), (d) and (e), (e)'s ViT-B/14 student,
             # (g)'s 7B/16 student.
             **({"launches_3o": cnn["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
+            # Phase 3p's at the row's shape: the distillation teacher's K1
+            # in (a), (c) and (e); the ECViT students' K1 and K2.
+            **({"launches_3p": item10["by_shape"].get(
                 (route(torch_dtype(dtype), row["shape"][3]),
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),
@@ -3968,7 +4417,10 @@ def main() -> int:
                                   for p in DTYPES},
         "launches_remat": remat["launches"][2],
         "launches_3o_dino_resnet50": cnn["b_dino_resnet50"][
-            "launches_per_step"]["K3"] * CNN_STEPS, **upd,
+            "launches_per_step"]["K3"] * CNN_STEPS,
+        **{f"launches_3p_{tag}": item10[tag]["launches_per_step"]["K3"]
+           * ITEM10_STEPS for tag in ("b_dino_ecvits", "d_dino_yolo_nas_l")},
+        **upd,
     })
     if "--profile" in sys.argv[1:]:
         for method in ("dinov2", "distillation"):

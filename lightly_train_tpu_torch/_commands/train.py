@@ -74,6 +74,7 @@ from lightly_train_tpu_torch.models.embedding import project_wrapped
 from lightly_train_tpu_torch.models.package_registry import (
     get_wrapped_model,
     refuse_pretraining,
+    resolve_model_name,
 )
 from lightly_train_tpu_torch.ops.augment import (
     augment_view_with_geometry,
@@ -215,14 +216,19 @@ def build_updater(method, optim_args, lr_schedule, named: Dict[str, Any],
 def pretrain(
     out: str,
     data: Union[str, List[str], None] = None,
-    model: str = "dinov2/vitb14",
+    model: Any = "dinov2/vitb14",
     method: str = "distillation",
     **kwargs: Any,
 ) -> TrainState:
-    """Pretrain ``model`` with ``method`` on images under ``data``."""
+    """Pretrain ``model`` with ``method`` on images under ``data``.
+    ``model`` is a registered name, a ``WrappedModel`` or a
+    ``torch.nn.Module``; an object is registered under its wrapper's name
+    (``package_registry.resolve_model_name``), which the config, the
+    checkpoints and the export carry."""
     config = config_validate(
         TrainConfig,
-        {"out": out, "data": data, "model": model, "method": method, **kwargs},
+        {"out": out, "data": data, "model": resolve_model_name(model),
+         "method": method, **kwargs},
     )
     return pretrain_from_config(config)
 

@@ -23,7 +23,10 @@ from torch import nn
 from lightly_train_tpu_torch._optim import AdamWArgs, layerwise_lr_scales
 from lightly_train_tpu_torch._optim.optimizers import dinov2_wd_mask
 from lightly_train_tpu_torch.methods.base import Method, MethodArgs, ViewSpec
-from lightly_train_tpu_torch.models.conv import refuse_running_stats
+from lightly_train_tpu_torch.models.conv import (
+    frozen_buffers,
+    refuse_running_stats,
+)
 from lightly_train_tpu_torch.models.heads import DINOHead
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
 from lightly_train_tpu_torch.ops import losses as L
@@ -200,16 +203,17 @@ class DINOv2(Method):
 
         # ---- student forward ----
         refuse_running_stats(params["student"])
-        s_out_g = self.wrapped.forward_features(
-            globals_cat, mask, train=True, generator=generator,
-            module=params["student"])
+        with frozen_buffers(params["student"]):
+            s_out_g = self.wrapped.forward_features(
+                globals_cat, mask, train=True, generator=generator,
+                module=params["student"])
+            s_out_l = self.wrapped.forward_features(
+                torch.cat(locals_list, dim=0), None, train=True,
+                generator=generator, module=params["student"])
         s_cls_g = s_out_g["cls_token"]
         s_dino_g = params["dino_head"](s_cls_g)
         s_ibot = params[ibot_key](
             _gather_tokens(s_out_g["patch_tokens"], sel_idx, n_tokens))
-        s_out_l = self.wrapped.forward_features(
-            torch.cat(locals_list, dim=0), None, train=True,
-            generator=generator, module=params["student"])
         s_dino_l = params["dino_head"](s_out_l["cls_token"])
 
         # ---- DINO CE over view pairs ----

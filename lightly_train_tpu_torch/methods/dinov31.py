@@ -33,6 +33,7 @@ from torch import nn
 
 from lightly_train_tpu_torch.methods.base import ViewSpec
 from lightly_train_tpu_torch.methods.dinov2 import DINOv2, DINOv2Args
+from lightly_train_tpu_torch.models.conv import frozen_buffers
 from lightly_train_tpu_torch.models.vit import Linear
 from lightly_train_tpu_torch.ops.augment import (
     ViewAugmentConfig,
@@ -144,9 +145,10 @@ class DINOv31(DINOv2):
             ft = self.wrapped.forward_features(
                 clean, None, train=False, module=teacher["student"]
             )["features"]
-        fs = self.wrapped.forward_features(
-            g1, None, train=True, generator=generator,
-            module=params["student"])["features"]
+        with frozen_buffers(params["student"]):
+            fs = self.wrapped.forward_features(
+                g1, None, train=True, generator=generator,
+                module=params["student"])["features"]
         B, gs_h, gs_w, D = fs.shape
         gt_h, gt_w = ft.shape[1], ft.shape[2]
         ys, xs, hs, ws, flip = (geom_g1[:, i] for i in range(5))

@@ -26,8 +26,9 @@ NCHW here is a view of the JAX package's (B, H, W, C) layout.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -180,6 +181,26 @@ def copy_running_stats(dst: nn.Module, src: nn.Module) -> None:
     dst_buffers = list(dst.buffers())
     if dst_buffers:
         torch._foreach_copy_(dst_buffers, list(src.buffers()))
+
+
+@contextlib.contextmanager
+def frozen_buffers(module: nn.Module) -> Iterator[None]:
+    """Puts ``module``'s buffers back as they were when the block ends. The
+    JAX package's DINOv2 and DINOv31 apply their student without
+    ``mutable``: a bridged torch module's running statistics then stay as
+    they were (its bridge drops the mutations), which this gives the
+    port's train-mode forwards of such a module; the port's own BatchNorm
+    is refused before (:func:`refuse_running_stats`). A model without
+    buffers (the ViTs) costs nothing."""
+    held = [b.detach().clone() for b in module.buffers()]
+    try:
+        yield
+    finally:
+        if held:
+            # Through ``.data``: a train-mode batch norm's backward holds
+            # its running statistics (unread in train mode) under autograd's
+            # version check.
+            torch._foreach_copy_([b.data for b in module.buffers()], held)
 
 
 def refuse_running_stats(module: nn.Module) -> None:

@@ -1,8 +1,8 @@
 """Torch checkpoints (Meta DINOv2/DINOv3 and timm ViTs, DINOv3 ConvNeXts,
-torchvision/timm ResNets) -> the port's state dict.
+torchvision/timm ResNets, ultralytics YOLOs, EdgeCrafter ECViTs) -> the
+port's state dict.
 
-Port of the ViT, ConvNeXt and ResNet parts of
-``lightly_train_tpu/models/convert.py``.
+Port of ``lightly_train_tpu/models/convert.py``.
 :func:`convert_torch_vit_state_dict` is the JAX package's converter, copied
 as it is (numpy only): it maps a Meta-named state dict onto the JAX ViT's
 parameter tree:
@@ -28,15 +28,24 @@ conversion carries into the port.
 :func:`convert_torch_resnet_state_dict` (torchvision and timm ResNets, with
 their BatchNorm running statistics) are the JAX package's too; the loader
 picks among the three as the JAX one does (``convnext`` in the model name,
-then ``resnet`` in it or a ``conv1.weight`` in the file, else the ViT). The
-ultralytics and ECViT converters wait for their backbones (ROADMAP item
-10).
+then ``resnet`` in it or a ``conv1.weight`` in the file, else the ViT).
+
+:func:`convert_ultralytics_state_dict` (YOLOv8), :func:`convert_yolov5_state_dict`
+and :func:`convert_yolo11_state_dict` rename ultralytics' ``model.model.{i}.*``
+(or ``model.{i}.*``) keys onto ``layer{i}``, with the running statistics;
+:func:`convert_yolov8_to_ultralytics_state_dict` is the inverse for the
+port's YOLOv8 state dict; :func:`convert_ecvit_state_dict` takes an
+EdgeCrafter ``ECViTModelWrapper`` state dict (``backbone.*``,
+``projector.*``), its fused qkv split into q, k and v. The loader routes
+``ultralytics/*`` and ``ecvit/*`` names to them, as the JAX one does. A
+pickled ultralytics module cannot be read with ``weights_only=True``, in
+either package; its state dict can.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +55,6 @@ from lightly_train_tpu_torch.models.from_jax import variables_from_jax
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 
 logger = get_logger("convert")
-
-# Name parts of the checkpoints whose backbones are not ported.
-_UNPORTED = ("ultralytics/", "ecvit/")
 
 
 def _t(x: Any) -> np.ndarray:
@@ -267,12 +273,9 @@ def load_torch_checkpoint_for_model(
     bare or as ``{"model": sd}``, its names optionally prefixed ``module.``
     or ``backbone.``: a DINOv3 ConvNeXt's, a torchvision/timm ResNet's
     (its running statistics become the BatchNorm buffers) or a Meta
-    DINOv2/DINOv3 or timm ViT's."""
-    if any(part in model_name for part in _UNPORTED):
-        raise NotImplementedError(
-            f"Converting a torch checkpoint for '{model_name}' waits for its "
-            "backbone (ROADMAP item 10)."
-        )
+    DINOv2/DINOv3 or timm ViT's; for an ``ultralytics/*`` name an
+    ultralytics YOLOv8, YOLOv5 or YOLO11 state dict, for an ``ecvit/*`` one
+    an EdgeCrafter one (names kept whole)."""
     with torch.device("meta"):
         cfg = get_wrapped_model(model_name).module.cfg
     ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
@@ -280,19 +283,237 @@ def load_torch_checkpoint_for_model(
         ckpt["model"], "numpy"
     ):
         ckpt = ckpt["model"]
-    sd = {
-        k.removeprefix("module.").removeprefix("backbone."):
-            v.float().numpy()
-        for k, v in ckpt.items()
-    }
-    if "convnext" in model_name:
-        variables = {"params": convert_torch_convnext_state_dict(
-            sd, cfg.depths)}
-    elif "resnet" in model_name or "conv1.weight" in sd:
-        # The torchvision/timm ResNet layout (both name it so).
-        variables = convert_torch_resnet_state_dict(sd, cfg.stage_sizes)
+    if model_name.startswith("ultralytics/"):
+        sd = {k: v.float().numpy() for k, v in ckpt.items()}
+        short = model_name.split("/", 1)[1]
+        if short.startswith("yolov5"):
+            variables = convert_yolov5_state_dict(sd, {
+                i: cfg.n({2: 3, 4: 6, 6: 9, 8: 3}[i]) for i in (2, 4, 6, 8)})
+        elif short.startswith("yolo11"):
+            variables = convert_yolo11_state_dict(
+                sd, {i: cfg.n(2) for i in (2, 4, 6, 8, 10)})
+        else:
+            variables = convert_ultralytics_state_dict(sd, {
+                i: cfg.n(3 if i in (2, 8) else 6) for i in (2, 4, 6, 8)})
+    elif model_name.startswith("ecvit/"):
+        # ECViTModelWrapper checkpoints keep the backbone. prefix.
+        sd = {k: v.float().numpy() for k, v in ckpt.items()}
+        variables = convert_ecvit_state_dict(
+            sd, cfg.depth, 1 if cfg.proj_dim is None else 3)
     else:
-        variables = {"params": convert_torch_vit_state_dict(sd, cfg.depth)}
+        sd = {
+            k.removeprefix("module.").removeprefix("backbone."):
+                v.float().numpy()
+            for k, v in ckpt.items()
+        }
+        if "convnext" in model_name:
+            variables = {"params": convert_torch_convnext_state_dict(
+                sd, cfg.depths)}
+        elif "resnet" in model_name or "conv1.weight" in sd:
+            # The torchvision/timm ResNet layout (both name it so).
+            variables = convert_torch_resnet_state_dict(sd, cfg.stage_sizes)
+        else:
+            variables = {"params": convert_torch_vit_state_dict(
+                sd, cfg.depth)}
     state = variables_from_jax(variables)
     logger.info("Converted %d torch tensors for %s", len(sd), model_name)
     return state
+
+
+# ---------------------------------------------------------------------------
+# ultralytics YOLOv8, YOLOv5 and YOLO11 (models/yolo.py)
+# ---------------------------------------------------------------------------
+
+
+class _ConvUnits:
+    """Flax variables of ultralytics ``Conv`` units (conv + bn), filled by
+    :meth:`put` from a state dict with ``model.model.`` / ``model.``
+    stripped from its keys."""
+
+    def __init__(self, state_dict: Mapping[str, Any]):
+        self.sd = {k.removeprefix("model.model.").removeprefix("model."):
+                   _t(v) for k, v in state_dict.items()}
+        self.params: Dict[str, Any] = {}
+        self.stats: Dict[str, Any] = {}
+
+    def put(self, layer: str, sub: Tuple[str, ...], prefix: str) -> None:
+        """The unit ``prefix.{conv,bn}`` at ``layer/sub...``."""
+        sd = self.sd
+        p = {"conv": {"kernel": sd[f"{prefix}.conv.weight"].transpose(
+                 2, 3, 1, 0)},
+             "bn": {"scale": sd[f"{prefix}.bn.weight"],
+                    "bias": sd[f"{prefix}.bn.bias"]}}
+        s = {"bn": {"mean": sd[f"{prefix}.bn.running_mean"],
+                    "var": sd[f"{prefix}.bn.running_var"]}}
+        dp = self.params.setdefault(layer, {})
+        ds = self.stats.setdefault(layer, {})
+        for part in sub:
+            dp, ds = dp.setdefault(part, {}), ds.setdefault(part, {})
+        dp.update(p)
+        ds.update(s)
+
+    def variables(self) -> Dict[str, Any]:
+        return {"params": self.params, "batch_stats": self.stats}
+
+
+def convert_ultralytics_state_dict(
+    state_dict: Mapping[str, Any], n_per_c2f: Mapping[int, int]
+) -> Dict[str, Any]:
+    """ultralytics YOLOv8 checkpoint -> Flax variables of the YOLOv8
+    backbone (layers 0-9). ``n_per_c2f`` maps each C2f layer's index to its
+    bottleneck count. Returns ``{"params": ..., "batch_stats": ...}``."""
+    u = _ConvUnits(state_dict)
+    for i in (0, 1, 3, 5, 7):  # plain Conv layers
+        u.put(f"layer{i}", (), str(i))
+    for i in (2, 4, 6, 8):  # C2f layers
+        u.put(f"layer{i}", ("cv1",), f"{i}.cv1")
+        u.put(f"layer{i}", ("cv2",), f"{i}.cv2")
+        for j in range(n_per_c2f[i]):
+            u.put(f"layer{i}", (f"m{j}", "cv1"), f"{i}.m.{j}.cv1")
+            u.put(f"layer{i}", (f"m{j}", "cv2"), f"{i}.m.{j}.cv2")
+    u.put("layer9", ("cv1",), "9.cv1")
+    u.put("layer9", ("cv2",), "9.cv2")
+    return u.variables()
+
+
+def convert_yolov5_state_dict(
+    state_dict: Mapping[str, Any], n_per_c3: Mapping[int, int]
+) -> Dict[str, Any]:
+    """ultralytics YOLOv5 checkpoint -> Flax variables of the YOLOv5
+    backbone (layers 0-8; the SPPF at index 9 is dropped)."""
+    u = _ConvUnits(state_dict)
+    for i in (0, 1, 3, 5, 7):
+        u.put(f"layer{i}", (), str(i))
+    for i in (2, 4, 6, 8):  # C3 layers
+        for cv in ("cv1", "cv2", "cv3"):
+            u.put(f"layer{i}", (cv,), f"{i}.{cv}")
+        for j in range(n_per_c3[i]):
+            u.put(f"layer{i}", (f"m{j}", "cv1"), f"{i}.m.{j}.cv1")
+            u.put(f"layer{i}", (f"m{j}", "cv2"), f"{i}.m.{j}.cv2")
+    return u.variables()
+
+
+def convert_yolo11_state_dict(
+    state_dict: Mapping[str, Any], n_per_block: Mapping[int, int],
+    c3k_layers: tuple = (6, 8),
+) -> Dict[str, Any]:
+    """ultralytics YOLO11 checkpoint -> Flax variables of the YOLO11
+    backbone (layers 0-10, SPPF and C2PSA included)."""
+    u = _ConvUnits(state_dict)
+    for i in (0, 1, 3, 5, 7):
+        u.put(f"layer{i}", (), str(i))
+    for i in (2, 4, 6, 8):  # C3k2 layers
+        u.put(f"layer{i}", ("cv1",), f"{i}.cv1")
+        u.put(f"layer{i}", ("cv2",), f"{i}.cv2")
+        for j in range(n_per_block[i]):
+            if i in c3k_layers:  # m{j} is a C3k: cv1-cv3 + 2 bottlenecks
+                for cv in ("cv1", "cv2", "cv3"):
+                    u.put(f"layer{i}", (f"m{j}", cv), f"{i}.m.{j}.{cv}")
+                for b in range(2):
+                    for cv in ("cv1", "cv2"):
+                        u.put(f"layer{i}", (f"m{j}", f"m{b}", cv),
+                              f"{i}.m.{j}.m.{b}.{cv}")
+            else:
+                u.put(f"layer{i}", (f"m{j}", "cv1"), f"{i}.m.{j}.cv1")
+                u.put(f"layer{i}", (f"m{j}", "cv2"), f"{i}.m.{j}.cv2")
+    u.put("layer9", ("cv1",), "9.cv1")
+    u.put("layer9", ("cv2",), "9.cv2")
+    u.put("layer10", ("cv1",), "10.cv1")  # C2PSA
+    u.put("layer10", ("cv2",), "10.cv2")
+    for j in range(n_per_block[10]):
+        for name, torch_name in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                                 ("pe", "attn.pe")):
+            u.put("layer10", (f"m{j}", "attn", name), f"10.m.{j}.{torch_name}")
+        for name, torch_name in (("ffn0", "ffn.0"), ("ffn1", "ffn.1")):
+            u.put("layer10", (f"m{j}", name), f"10.m.{j}.{torch_name}")
+    return u.variables()
+
+
+def convert_yolov8_to_ultralytics_state_dict(
+    state_dict: Mapping[str, torch.Tensor]
+) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`convert_ultralytics_state_dict` on the port's
+    YOLOv8 state dict: ``model.{i}.*`` keys (``m{j}`` as ``m.{j}``, the
+    BatchNorm buffers as ``running_mean`` / ``running_var``), loadable into
+    an ultralytics ``DetectionModel`` with ``strict=False``."""
+    out = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        parts[0] = f"model.{parts[0].removeprefix('layer')}"
+        parts = [f"m.{p[1:]}" if p[:1] == "m" and p[1:].isdigit() else p
+                 for p in parts]
+        parts[-1] = {"mean": "running_mean", "var": "running_var"}.get(
+            parts[-1], parts[-1])
+        out[".".join(parts)] = value.float()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ECViT / EdgeCrafter (models/ecvit.py)
+# ---------------------------------------------------------------------------
+
+
+def convert_ecvit_state_dict(
+    state_dict: Mapping[str, Any], depth: int, n_projector: int
+) -> Dict[str, Any]:
+    """EdgeCrafter ``ECViTModelWrapper`` state dict -> Flax variables of the
+    ECViT: ``backbone.patch_embed.convs.{i}.{conv,norm}``,
+    ``backbone.patch_embed.proj``, ``backbone.register_token``,
+    ``backbone.blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
+    mlp.fc2}`` (the fused qkv rows split into q, k and v) and
+    ``projector.{i}.{conv,norm}``. Returns ``{"params": ...,
+    "batch_stats": ...}``."""
+    sd = {k: _t(v) for k, v in state_dict.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def conv_norm(dst: str, prefix: str) -> None:
+        params[dst] = {
+            "conv": {"kernel": sd[f"{prefix}.conv.weight"].transpose(
+                2, 3, 1, 0)},
+            "norm": {"scale": sd[f"{prefix}.norm.weight"],
+                     "bias": sd[f"{prefix}.norm.bias"]},
+        }
+        stats[dst] = {"norm": {"mean": sd[f"{prefix}.norm.running_mean"],
+                               "var": sd[f"{prefix}.norm.running_var"]}}
+
+    for i in range(3):
+        conv_norm(f"pe_conv{i}", f"backbone.patch_embed.convs.{i}")
+    params["pe_proj"] = {
+        "kernel": sd["backbone.patch_embed.proj.weight"].transpose(
+            2, 3, 1, 0),
+        "bias": sd["backbone.patch_embed.proj.bias"],
+    }
+    params["register_token"] = sd["backbone.register_token"]
+    for i in range(depth):
+        p = f"backbone.blocks.{i}."
+        qkv_w = sd[f"{p}attn.qkv.weight"]  # (3D, D), rows [q; k; v]
+        D = qkv_w.shape[1]
+        attn = {
+            "q": {"kernel": qkv_w[:D].T},
+            "k": {"kernel": qkv_w[D:2 * D].T},
+            "v": {"kernel": qkv_w[2 * D:].T},
+            "proj": {"kernel": sd[f"{p}attn.proj.weight"].T,
+                     "bias": sd[f"{p}attn.proj.bias"]},
+        }
+        if f"{p}attn.qkv.bias" in sd:
+            b = sd[f"{p}attn.qkv.bias"]
+            attn["q"]["bias"] = b[:D]
+            attn["k"]["bias"] = b[D:2 * D]
+            attn["v"]["bias"] = b[2 * D:]
+        params[f"block{i}"] = {
+            "norm1": {"scale": sd[f"{p}norm1.weight"],
+                      "bias": sd[f"{p}norm1.bias"]},
+            "norm2": {"scale": sd[f"{p}norm2.weight"],
+                      "bias": sd[f"{p}norm2.bias"]},
+            "attn": attn,
+            "mlp": {
+                "fc1": {"kernel": sd[f"{p}mlp.fc1.weight"].T,
+                        "bias": sd[f"{p}mlp.fc1.bias"]},
+                "fc2": {"kernel": sd[f"{p}mlp.fc2.weight"].T,
+                        "bias": sd[f"{p}mlp.fc2.bias"]},
+            },
+        }
+    for i in range(n_projector):
+        conv_norm(f"projector{i}", f"projector.{i}")
+    return {"params": params, "batch_stats": stats}

@@ -22,7 +22,10 @@ numpy arrays, into a PyTorch state dict for the port's modules:
 - a CNN's conv kernels (kh, kw, I, O) -> (O, I, kh, kw), depthwise ones
   (kh, kw, 1, C) -> (C, 1, kh, kw); BatchNorm ``scale`` -> ``weight``;
   its ``batch_stats`` ``mean`` and ``var`` become the layer's buffers
-  (:func:`variables_from_jax`).
+  (:func:`variables_from_jax`);
+- ECViT's ``register_token``, the ultralytics backbones' ``layer{i}`` and
+  ``m{j}`` scopes and YOLO-NAS's 0-d ``alpha`` carry over under their Flax
+  names (a 0-d leaf as a 0-d tensor).
 
 It takes numpy only and imports nothing of JAX.
 """

@@ -9,8 +9,16 @@ aliases of the DINOv2 ViTs. An alias builds its target, under the target's
 name. Test-size models are registered but hidden from ``list_models``. The
 7B ViTs (``dinov2/vit7b14``, ``dinov3/vit7b16``: head dim 128) build
 everywhere; ``pretrain`` refuses a run whose state does not fit the card
-(:func:`refuse_pretraining`). The JAX package's ECViT, ultralytics and
-super_gradients names wait for ROADMAP item 10 and are refused by name.
+(:func:`refuse_pretraining`). The ECViTs (``ecvit/*``), the ultralytics
+YOLOv8, YOLOv5 and YOLO11 backbones (``ultralytics/*``, with the hidden
+``.pt``, ``u``, ``-cls.pt`` and ``-seg.pt`` names of the same backbone)
+and YOLO-NAS (``super_gradients/*``) complete the JAX package's list.
+
+``get_wrapped_model`` also takes a model object: a ``WrappedModel`` as it
+is, or any ``torch.nn.Module`` (``models/torch_module.py``); an unknown
+``timm/*`` or ``ultralytics/*`` name wraps the live timm or ultralytics
+model where that package is installed. :func:`resolve_model_name` registers
+an object's wrapper under its name, hidden, so a run's config stays a name.
 """
 
 from __future__ import annotations
@@ -18,17 +26,24 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import re
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Set
 
 import torch
 
 from lightly_train_tpu_torch._optim.adamw8bit import AdamW8bitArgs, state_bytes
 from lightly_train_tpu_torch._optim.optimizers import AdamWArgs
 from lightly_train_tpu_torch.errors import UnknownModelError
+from lightly_train_tpu_torch.models import torch_module
 from lightly_train_tpu_torch.models.convnext import (
     _CONVNEXT_SIZES,
     ConvNeXt,
     convnext_config,
+)
+from lightly_train_tpu_torch.models.ecvit import (
+    _ECVIT_SIZES,
+    ECViT,
+    ecvit_config,
+    ecvit_feature_dim,
 )
 from lightly_train_tpu_torch.models.resnet import (
     _RESNET_SIZES,
@@ -48,6 +63,18 @@ from lightly_train_tpu_torch.models.vit import (
     vit_config,
 )
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
+from lightly_train_tpu_torch.models.yolo import (
+    _YOLO11_SIZES,
+    _YOLOV5_SIZES,
+    _YOLOV8_SIZES,
+    yolo_backbone,
+    yolo_config,
+)
+from lightly_train_tpu_torch.models.yolo_nas import (
+    _YOLO_NAS_SIZES,
+    YoloNASBackbone,
+    yolo_nas_config,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,22 +98,65 @@ def list_models() -> List[str]:
     return sorted(n for n, e in _REGISTRY.items() if not e.hidden)
 
 
+# Names that :func:`resolve_model_name` registered for a model object.
+_OBJECT_NAMES: Set[str] = set()
+
+
+def resolve_model_name(model: Any) -> str:
+    """A run's model name: a string as it is; a model object (see
+    :func:`get_wrapped_model`) is wrapped and registered, hidden, under
+    its wrapper's name (``torch/<class>`` for a torch module), and that
+    name returned. An object replaces an earlier object of its name; a
+    name registered otherwise (a built-in one) is left as it is, as in the
+    JAX package, so the run builds that model afresh."""
+    if isinstance(model, str):
+        return model
+    wrapped = get_wrapped_model(model)
+    if wrapped.name not in _REGISTRY or wrapped.name in _OBJECT_NAMES:
+        register_model(wrapped.name, lambda dtype=None, **kw: wrapped,
+                       hidden=True)
+        _OBJECT_NAMES.add(wrapped.name)
+    return wrapped.name
+
+
+def _is_flax_module(model: Any) -> bool:
+    return any(c.__module__.split(".")[0] == "flax"
+               for c in type(model).__mro__)
+
+
 def get_wrapped_model(
-    name: str, dtype: torch.dtype = torch.float32, **kwargs: Any
+    name: Any, dtype: torch.dtype = torch.float32, **kwargs: Any
 ) -> WrappedModel:
-    """Build a backbone (parameters not yet initialized) by ``pkg/model``.
-    A ``timm/*`` name that is not registered resolves by the JAX package's
-    patterns; the port never wraps a live timm model, so any other raises
-    as the JAX package does where timm is absent."""
+    """Build a backbone (parameters not yet initialized) by ``pkg/model``,
+    or wrap a model object: a ``WrappedModel`` as it is, any
+    ``torch.nn.Module`` as :func:`torch_module.wrap_torch_module` does.
+    A ``timm/*`` name that is not registered resolves by the JAX
+    package's patterns, else to the live timm model where timm is
+    installed; an unregistered ``ultralytics/*`` name to the live
+    ultralytics model where that package is; any other name raises as the
+    JAX package does."""
+    if isinstance(name, WrappedModel):
+        return name
+    if isinstance(name, torch.nn.Module):
+        return torch_module.wrap_torch_module(name)
+    if not isinstance(name, str):
+        took = ("a Flax module, which the PyTorch port cannot run; "
+                if _is_flax_module(name) else "")
+        raise UnknownModelError(
+            f"Model must be a name string, WrappedModel or torch module; "
+            f"got {took}{type(name)!r}.")
     entry = _REGISTRY.get(name)
     if entry is None and name.startswith("timm/"):
         resolved = _resolve_timm(name, dtype)
         if resolved is not None:
             return resolved
-    if entry is None and name in _UNPORTED_NAMES:
-        raise NotImplementedError(
-            f"Model '{name}' is not ported yet (ROADMAP item 10: ECViT, "
-            "YOLO and YOLO-NAS).")
+        if torch_module.timm_available():
+            return torch_module.wrap_timm_model(name[len("timm/"):],
+                                                **kwargs)
+    if (entry is None and name.startswith("ultralytics/")
+            and torch_module.ultralytics_available()):
+        return torch_module.wrap_ultralytics_model(
+            name[len("ultralytics/"):], **kwargs)
     if entry is None:
         match = difflib.get_close_matches(name, list(_REGISTRY), n=3)
         hint = f" Did you mean: {match}?" if match else ""
@@ -94,6 +164,17 @@ def get_wrapped_model(
             f"Unknown model '{name}'.{hint} See list_models() for options."
         )
     return entry.build(dtype=dtype, **kwargs)
+
+
+# Device memory a run holds beyond the state :func:`refuse_pretraining`
+# counts: the activations of a step (every block recomputed in the 7B
+# runs), the update's leaf-sized temporaries and the caching allocator's
+# slack. On an H100 80GB the 7B/16 students peaked 3.4 GiB above their
+# counted state (LARS at momentum 0; AdamW8bit), and the one with LARS at
+# momentum 0.9, 75.4 GiB counted, ran out of the card's 79.2 GiB with
+# 74.8 GiB allocated and 3.5 GiB reserved unused (``chip_smoke.py
+# --7b-lars``).
+HEADROOM = 4 * 2 ** 30
 
 
 def _state_need(numels: List[int], optim_args: Any, ema_teacher: bool,
@@ -121,9 +202,10 @@ def refuse_pretraining(name: str, optim_args: Any, ema_teacher: bool,
     parameter and 2 fp32 scales a block of 256, per leaf) and, with
     ``ema_teacher``, a teacher the student's size; and a frozen
     ``teacher`` model (distillation's) once, at its own size. Parameters
-    are counted on the meta device. Nothing else (activations,
-    workspaces) is counted. The message offers ``optim='adamw8bit'`` only
-    where the same run with it would fit."""
+    are counted on the meta device. Activations and workspaces are not
+    counted one by one: the state must leave :data:`HEADROOM` of the card
+    free for them. The message offers ``optim='adamw8bit'`` only where
+    the same run with it would fit."""
     if capacity is None:
         return
 
@@ -136,7 +218,7 @@ def refuse_pretraining(name: str, optim_args: Any, ema_teacher: bool,
     n = sum(leaves)
     n_teacher = 0 if teacher is None else sum(numels(teacher))
     need = _state_need(leaves, optim_args, ema_teacher, n_teacher)
-    if need <= capacity:
+    if need + HEADROOM <= capacity:
         return
     int8 = isinstance(optim_args, AdamW8bitArgs)
     moments = 0 if int8 else (2 if isinstance(optim_args, AdamWArgs)
@@ -157,14 +239,16 @@ def refuse_pretraining(name: str, optim_args: Any, ema_teacher: bool,
     offer = ""
     if not int8:
         need8 = _state_need(leaves, AdamW8bitArgs(), ema_teacher, n_teacher)
-        if need8 <= capacity:
+        if need8 + HEADROOM <= capacity:
             offer = (f" With optim='adamw8bit' (int8 moments) it would hold "
                      f"{need8} bytes ({need8 / 2 ** 30:.1f} GiB), which "
                      "fits.")
     raise NotImplementedError(
         f"model='{name}' does not fit the card: {counted} are {need} bytes "
-        f"({need / 2 ** 30:.1f} GiB), more than the card's "
-        f"{capacity / 2 ** 30:.1f} GiB. Such a run waits for FSDP over "
+        f"({need / 2 ** 30:.1f} GiB), which with "
+        f"{HEADROOM / 2 ** 30:.1f} GiB for activations and workspaces is "
+        f"more than the card's {capacity / 2 ** 30:.1f} GiB. Such a run "
+        f"waits for FSDP over "
         f"several cards (ROADMAP item 7.6).{offer}"
     )
 
@@ -351,14 +435,78 @@ for _alias, _target in {
     )
 
 
-# The JAX package's ECViT, ultralytics and super_gradients names (ROADMAP
-# item 10), refused by name.
-_UNPORTED_NAMES = frozenset(
-    [f"ecvit/{n}" for n in ("ecvitt", "ecvittplus", "ecvits", "ecvitsplus",
-                            "ecvittest")]
-    + [f"ultralytics/yolov8{s}{x}" for s in ("n", "s", "m", "l", "x", "test")
-       for x in ("", ".pt", "-cls.pt", "-seg.pt")]
-    + [f"ultralytics/{f}{s}{x}" for f in ("yolov5", "yolo11")
-       for s in ("n", "s", "m", "l", "x", "test")
-       for x in ("", ".pt", "u", "u.pt", "-cls.pt", "-seg.pt")]
-    + [f"super_gradients/yolo_nas_{s}" for s in ("s", "m", "l", "test")])
+# ---------------------------------------------------------------------------
+# ECViT (EdgeCrafter), the ultralytics YOLOv8/v5/11 backbones and YOLO-NAS
+# (super_gradients), as the JAX package registers them.
+# ---------------------------------------------------------------------------
+
+
+def _build_ecvit(name: str, dtype: torch.dtype, **kwargs: Any
+                 ) -> WrappedModel:
+    _refuse_kwargs(kwargs)
+    cfg = ecvit_config(name, dtype=dtype)
+    return WrappedModel(
+        name=f"ecvit/{name}",
+        module=ECViT(cfg),
+        feature_dim=ecvit_feature_dim(cfg),
+        patch_size=16,
+        architecture="hybrid",
+        supports_mask=False,
+    )
+
+
+def _build_yolo(name: str, dtype: torch.dtype, **kwargs: Any
+                ) -> WrappedModel:
+    _refuse_kwargs(kwargs)
+    cfg = yolo_config(name, dtype=dtype)
+    return WrappedModel(
+        name=f"ultralytics/{name}",
+        module=yolo_backbone(name, cfg),
+        feature_dim=cfg.ch(1024),
+        patch_size=None,
+        architecture="conv",
+        supports_mask=False,
+    )
+
+
+def _build_yolo_nas(name: str, dtype: torch.dtype, **kwargs: Any
+                    ) -> WrappedModel:
+    _refuse_kwargs(kwargs)
+    cfg = yolo_nas_config(name, dtype=dtype)
+    return WrappedModel(
+        name=f"super_gradients/{name}",
+        module=YoloNASBackbone(cfg),
+        feature_dim=cfg.stage_channels[-1],
+        patch_size=None,
+        architecture="conv",
+        supports_mask=False,
+    )
+
+
+for _name in _ECVIT_SIZES:
+    register_model(
+        f"ecvit/{_name}",
+        (lambda n: lambda dtype=torch.float32, **kw: _build_ecvit(
+            n, dtype, **kw))(_name),
+        hidden=_name == "ecvittest",
+    )
+
+for _names, _suffixes in ((_YOLOV8_SIZES, ("", ".pt", "-cls.pt", "-seg.pt")),
+                          ({**_YOLOV5_SIZES, **_YOLO11_SIZES},
+                           ("", ".pt", "u", "u.pt", "-cls.pt", "-seg.pt"))):
+    for _name in _names:
+        for _suffix in _suffixes:
+            register_model(
+                f"ultralytics/{_name}{_suffix}",
+                (lambda n: lambda dtype=torch.float32, **kw: _build_yolo(
+                    n, dtype, **kw))(_name),
+                hidden="test" in _name or _suffix != "",
+            )
+
+for _name in _YOLO_NAS_SIZES:
+    register_model(
+        f"super_gradients/{_name}",
+        (lambda n: lambda dtype=torch.float32, **kw: _build_yolo_nas(
+            n, dtype, **kw))(_name),
+        hidden=_name == "yolo_nas_test",
+    )

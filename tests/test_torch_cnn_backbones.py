@@ -14,8 +14,8 @@ JAX package.
 - *Names*: every one of the JAX package's 66 public names resolves in the
   port to the same wrapped name, feature width, patch size and parameter
   and statistics shapes (built on the meta device against ``eval_shape``
-  of the JAX init), or is refused naming ROADMAP item 10; so are the
-  hidden ones the slice ports and the timm patterns.
+  of the JAX init); so do the hidden test sizes and suffixed names and
+  the timm patterns.
 - *Converters*: torchvision-named ResNet and DINOv3-named ConvNeXt state
   dicts, bitwise as the JAX conversion; ``checkpoint=`` and a ResNet
   ``teacher_weights`` take them.
@@ -26,7 +26,6 @@ JAX package.
 """
 
 import json
-import re
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +57,7 @@ from lightly_train_tpu_torch.models.package_registry import (
     get_wrapped_model,
     list_models,
 )
+from test_torch_parity import rel_l2
 
 
 @pytest.fixture(autouse=True)
@@ -66,11 +66,6 @@ def _ieee_fp32():
     torch.backends.cuda.matmul.allow_tf32 = False
     yield
     torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
-def rel_l2(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
 
 
 def checkpoint_scale(tree, seed):
@@ -180,27 +175,26 @@ def _shapes_of_jax(model):
 JAX_NAMES = jax_list_models()
 PORTED_HIDDEN = ["torchvision/resnettest", "torchvision/resnettestvd",
                  "torchvision/resnet50vd", "rtdetr/rtdetr_rtestvd",
-                 "torchvision/shufflenettest", "dinov3/convnext-test"]
+                 "torchvision/shufflenettest", "dinov3/convnext-test",
+                 "ecvit/ecvittest", "ultralytics/yolov8test",
+                 "ultralytics/yolov8n-seg.pt", "ultralytics/yolov5test",
+                 "ultralytics/yolov5su.pt", "ultralytics/yolo11test",
+                 "ultralytics/yolo11n-cls.pt",
+                 "super_gradients/yolo_nas_test"]
 TIMM_PATTERNS = ["timm/resnet101", "timm/resnet34", "timm/resnettestvd",
                  "timm/convnext_large", "timm/shufflenet_v2_x0_5",
                  "timm/vit_base_patch16_384", "timm/vit_small_patch14"]
-UNPORTED = re.compile(r"^(ecvit|ultralytics|super_gradients)/")
 
 
 def test_the_port_lists_44_of_the_66_names():
+    """The port lists all 66 of the JAX package's public names (44 until
+    the ECViT, ultralytics and super_gradients families were ported)."""
     assert len(JAX_NAMES) == 66
-    ours = list_models()
-    assert len(ours) == 44
-    assert set(ours) == {n for n in JAX_NAMES if not UNPORTED.match(n)}
+    assert list_models() == JAX_NAMES
 
 
 @pytest.mark.parametrize("name", JAX_NAMES + PORTED_HIDDEN + TIMM_PATTERNS)
 def test_a_name_resolves_as_in_jax(name):
-    if UNPORTED.match(name):
-        jax_get_wrapped_model(name)  # the JAX package has it
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
-            get_wrapped_model(name)
-        return
     want, wrapped_j = _shapes_of_jax(name)
     with torch.device("meta"):
         wrapped = get_wrapped_model(name)

@@ -44,32 +44,34 @@ from lightly_train_tpu.models.package_registry import (
 )
 from lightly_train_tpu.ops import losses as JL
 from lightly_train_tpu_torch._commands import train as T
-from lightly_train_tpu_torch._commands.train_loop import make_train_step
 from lightly_train_tpu_torch._data.loader import PretrainLoader
-from lightly_train_tpu_torch._optim import cosine_warmup
-from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
-from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch.errors import ModifyScopeVariableError
 from lightly_train_tpu_torch.methods import densecl as DC
 from lightly_train_tpu_torch.methods import detcon as DT
 from lightly_train_tpu_torch.methods import dino as DINO
 from lightly_train_tpu_torch.methods import distillationv3 as V3
 from lightly_train_tpu_torch.methods import simclr as SC
-from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.models.from_jax import (
-    method_state_from_jax,
     params_from_jax,
     variables_from_jax,
 )
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from test_torch_parity import (
+    B,
+    DISTILL,
+    LOCAL,
+    MULTI_CROP,
+    SIZE,
+    TOTAL,
+    assert_close,
+    jax_init,
+    jax_mixup_draw,
+    port_init,
+    student_buffers,
+)
 
 RESNET = "torchvision/resnettest"
-SIZE, LOCAL, B, TOTAL = 64, 32, 4, 10
-MULTI_CROP = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
-                  local_view_count=2, global_image_size=SIZE,
-                  local_image_size=LOCAL, freeze_last_layer_steps=1)
 TWO_VIEWS = dict(image_size=SIZE, hidden_dim=32, output_dim=16)
-DISTILL = dict(teacher="dinov3/vittest16", image_size=SIZE, queue_size=16)
 # name -> (student, JAX method, JAX args, port method, port args,
 # method_args, base learning rate).
 CASES = {
@@ -118,71 +120,18 @@ def _ieee_fp32():
     torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def checkpoint_scale(tree, seed):
-    """Checkpoint-scale values for a Flax tree: kernels at 1/sqrt(fan-in),
-    scales near 1, running means near 0 and variances near 1 (positive)."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, x):
-        name = str(path[-1].key)
-        if name == "kernel":
-            return rng.standard_normal(x.shape) / np.sqrt(np.prod(x.shape[:-1]))
-        if name in ("scale", "g", "var"):
-            return 1.0 + 0.2 * np.abs(rng.standard_normal(x.shape))
-        if name == "gamma":
-            return 0.5 + 0.2 * rng.standard_normal(x.shape)
-        if name == "v":
-            return 0.3 * rng.standard_normal(x.shape)
-        return 0.5 * rng.standard_normal(x.shape)
-
-    return jax.tree_util.tree_map_with_path(
-        lambda p, x: jnp.asarray(leaf(p, x), jnp.float32), tree)
-
-
-def rel_l2(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
-
-
 def _jax_setup(name):
     student, j_cls, j_args_cls, _, _, args, _ = CASES[name]
     method = j_cls(jax_get_wrapped_model(student), j_args_cls(**args))
-    params, model_state, method_state = method.init(
-        jax.random.key(0), jnp.zeros((2, SIZE, SIZE, 3), jnp.float32))
-    params = checkpoint_scale(params, 0)
-    model_state = checkpoint_scale(model_state, 2)
-    if "teacher" in method_state:
-        teacher = method_state["teacher"]
-        if set(teacher) == {"params"}:  # distillation's frozen teacher
-            teacher = {"params": checkpoint_scale(teacher["params"], 1)}
-        else:  # an EMA teacher, drawn apart from its student
-            teacher = checkpoint_scale(teacher, 1)
-        method_state = {**method_state, "teacher": teacher}
-    return method, params, model_state, method_state
+    return (method, *jax_init(method, weight_norm=True))
 
 
 def _port_setup(name, j_params, j_model_state, j_method_state, fused,
                 grad_accum_steps=1):
     student, _, _, cls, args_cls, args, lr = CASES[name]
     method = cls(get_wrapped_model(student), args_cls(**args))
-    params, method_state = method.init(torch.Generator().manual_seed(0),
-                                       torch.device("cpu"))
-    params.load_state_dict({
-        **params_from_jax(jax.device_get(j_params)),
-        **variables_from_jax(jax.device_get(j_model_state), "student.")})
-    carried = method_state_from_jax(jax.device_get(j_method_state))
-    if "teacher" in carried:
-        method_state["teacher"].load_state_dict(carried["teacher"],
-                                                strict=False)
-    method_state.update({k: v for k, v in carried.items() if k != "teacher"})
-    named = dict(params.named_parameters())
-    build = build_fused_updater if fused else build_update
-    updater = build(method, method.default_optimizer_args(),
-                    cosine_warmup(lr, TOTAL, 2), named, TOTAL)
-    assert updater is not None
-    step_fn = make_train_step(method, TOTAL,
-                              grad_accum_steps=grad_accum_steps)
-    return method, TrainState(0, params, method_state, updater), step_fn
+    return (method, *port_init(method, j_params, j_model_state,
+                               j_method_state, lr, fused, grad_accum_steps))
 
 
 def _views(name, step):
@@ -214,20 +163,6 @@ def _jax_match(j_method, params, model_state, method_state, views):
     return corr.argmax(-1)
 
 
-def _assert_close(got, ref, what, tol=1e-4):
-    assert set(ref) == set(got), what
-    for name, r in ref.items():
-        if name.endswith(DEGENERATE):
-            continue
-        err = rel_l2(got[name].detach().numpy(), r.numpy())
-        assert err <= tol, f"{what} {name}: {err}"
-
-
-def _student_buffers(params):
-    return {f"student.{k}": v
-            for k, v in params["student"].named_buffers()}
-
-
 def _jax_optimizer(j_method, j_params, lr, fused):
     j_args = j_method.default_optimizer_args()
     j_lr = jax_cw(lr, TOTAL, 2)
@@ -253,14 +188,6 @@ def _jax_update(j_method, j_opt, j_fused, opt_state, params, ms, grads,
     return params, j_method.post_update(params, ms, step, TOTAL), opt_state
 
 
-def jax_mixup_draw(rng, mixup_prob):
-    """The (lam, apply) the JAX distillation loss draws from ``rng``."""
-    k_apply, k_lam = jax.random.split(jax.random.split(rng)[0])
-    lam = jax.random.uniform(k_lam, (B, 1, 1, 1), minval=0.5, maxval=1.0)
-    apply = jax.random.uniform(k_apply, (B, 1, 1, 1)) < mixup_prob
-    return (torch.tensor(np.asarray(lam)), torch.tensor(np.asarray(apply)))
-
-
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_three_steps_match_jax(name):
     j_method, j_params, j_mstate, j_ms = _jax_setup(name)
@@ -272,7 +199,7 @@ def test_three_steps_match_jax(name):
     assert type(j_method.default_optimizer_args()).__name__ == type(
         method.default_optimizer_args()).__name__
     j_opt, j_fused = _jax_optimizer(j_method, j_params, CASES[name][6], fused)
-    j_opt_state = j_opt.init(j_params)
+    j_opt_state = jax.jit(j_opt.init)(j_params)
 
     @jax.jit
     def j_grad(p, model_state, method_state, views, rng, step):
@@ -280,6 +207,10 @@ def test_three_steps_match_jax(name):
             lambda p: j_method.loss_fn(p, model_state, method_state, views,
                                        rng, step, TOTAL),
             has_aux=True)(p)
+
+    # One compiled update (an eager one compiles each of its ops).
+    j_update = jax.jit(lambda *args: _jax_update(j_method, j_opt, j_fused,
+                                                 *args))
 
     for step in range(3):
         views = _views(name, step)
@@ -291,31 +222,30 @@ def test_three_steps_match_jax(name):
         if name.startswith("distillation"):
             pinned = jax_mixup_draw(rng, method.args.mixup_prob)
         before = {k: v.clone() for k, v in
-                  _student_buffers(state.params).items()}
+                  student_buffers(state.params).items()}
         (j_loss, (j_mstate, j_ms, _)), grads = j_grad(
             j_params, j_mstate, j_ms, [jnp.asarray(v) for v in views], rng,
             jnp.asarray(step))
-        j_params, j_ms, j_opt_state = _jax_update(
-            j_method, j_opt, j_fused, j_opt_state, j_params, j_ms, grads,
-            step)
+        j_params, j_ms, j_opt_state = j_update(
+            j_opt_state, j_params, j_ms, grads, jnp.asarray(step))
 
         metrics = step_fn(state, None, None,
                           views=[[torch.tensor(v) for v in views]],
                           masks=None if pinned is None else [pinned])
         np.testing.assert_allclose(float(metrics["train_loss"]),
                                    float(j_loss), rtol=1e-5)
-        _assert_close(dict(state.params.named_parameters()),
-                      params_from_jax(jax.device_get(j_params)),
-                      f"step {step} params")
-        _assert_close(_student_buffers(state.params),
-                      variables_from_jax(jax.device_get(j_mstate),
-                                         "student."),
-                      f"step {step} running statistics")
+        assert_close(dict(state.params.named_parameters()),
+                     params_from_jax(jax.device_get(j_params)),
+                     f"step {step} params", skip=DEGENERATE)
+        assert_close(student_buffers(state.params),
+                     variables_from_jax(jax.device_get(j_mstate),
+                                        "student."),
+                     f"step {step} running statistics", skip=DEGENERATE)
         teacher = state.method_state.get("teacher")
         if method.ema_teacher:
-            _assert_close(dict(teacher.named_parameters()),
-                          params_from_jax(jax.device_get(j_ms["teacher"])),
-                          f"step {step} teacher")
+            assert_close(dict(teacher.named_parameters()),
+                         params_from_jax(jax.device_get(j_ms["teacher"])),
+                         f"step {step} teacher", skip=DEGENERATE)
             # The teacher ran on the statistics the step found.
             for k, v in teacher["student"].named_buffers():
                 assert torch.equal(v, before[f"student.{k}"]), k
@@ -326,7 +256,7 @@ def test_three_steps_match_jax(name):
     if CASES[name][0] != "dinov3/convnext-test":
         # The running statistics moved too.
         assert any(not torch.equal(v, start[k]) for k, v in
-                   _student_buffers(state.params).items())
+                   student_buffers(state.params).items())
 
 
 def test_grad_accum_moves_the_statistics_once_a_microbatch():
@@ -360,13 +290,13 @@ def test_grad_accum_moves_the_statistics_once_a_microbatch():
                                  for views in micro])
         np.testing.assert_allclose(float(metrics["train_loss"]),
                                    np.mean(losses), rtol=1e-5)
-        _assert_close(dict(state.params.named_parameters()),
-                      params_from_jax(jax.device_get(j_params)),
-                      f"step {step} params")
-        _assert_close(_student_buffers(state.params),
-                      variables_from_jax(jax.device_get(j_mstate),
-                                         "student."),
-                      f"step {step} running statistics")
+        assert_close(dict(state.params.named_parameters()),
+                     params_from_jax(jax.device_get(j_params)),
+                     f"step {step} params", skip=DEGENERATE)
+        assert_close(student_buffers(state.params),
+                     variables_from_jax(jax.device_get(j_mstate),
+                                        "student."),
+                     f"step {step} running statistics", skip=DEGENERATE)
 
 
 @pytest.fixture
@@ -390,7 +320,10 @@ def test_dinov2_refuses_batchnorm_as_the_jax_package(tmp_path, data, model,
     ModifyScopeVariableError, having written the same files; so does the
     port's, with its error of that name."""
     args = dict(data=str(data), model=model, method=method, batch_size=4,
-                steps=2, precision="fp32", canonical_size=48, num_workers=0)
+                steps=2, precision="fp32", canonical_size=48, num_workers=0,
+                method_args=dict(output_dim=64, hidden_dim=32,
+                                 bottleneck_dim=16, local_view_count=2,
+                                 global_image_size=64, local_image_size=32))
     with pytest.raises(Exception) as j_err:
         jlt.pretrain(out=str(tmp_path / "jax"), **args)
     assert type(j_err.value).__name__ == "ModifyScopeVariableError"

@@ -41,7 +41,10 @@ from lightly_train_tpu_torch.methods import distillationv3 as V3
 from lightly_train_tpu_torch.models.convert import (
     load_torch_checkpoint_for_model,
 )
-from lightly_train_tpu_torch.models.from_jax import params_from_jax
+from lightly_train_tpu_torch.models.from_jax import (
+    params_from_jax,
+    variables_from_jax,
+)
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "images"
@@ -170,10 +173,31 @@ def test_conversion_equals_the_jax_conversion(tmp_path, variant, form):
                                    "ultralytics/yolov8s", "ecvit/ecvit_t",
                                    "ultralytics/yolo11n"])
 def test_unported_converters_name_item_10(tmp_path, model):
+    """The ECViT and ultralytics converters (once refused naming ROADMAP
+    item 10) convert full-size EdgeCrafter- and ultralytics-named state
+    dicts bitwise as the JAX conversion; a name neither package knows
+    (``ecvit/ecvit_t``) is an unknown model in both."""
+    from lightly_train_tpu.errors import UnknownModelError as JaxUnknown
+    from lightly_train_tpu_torch.errors import UnknownModelError
+    from test_torch_parity import ecvit_state_dict, ultralytics_state_dict
+
     path = tmp_path / "weights.pth"
-    torch.save({"w": torch.zeros(1)}, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        load_torch_checkpoint_for_model(path, model)
+    if model == "ecvit/ecvit_t":
+        torch.save({"w": torch.zeros(1)}, path)
+        with pytest.raises(JaxUnknown):
+            JC.load_torch_checkpoint_for_model(path, model)
+        with pytest.raises(UnknownModelError):
+            load_torch_checkpoint_for_model(path, model)
+        return
+    make = ecvit_state_dict if model.startswith("ecvit") else \
+        ultralytics_state_dict
+    torch.save({"model": make(model, 0)}, path)
+    got = load_torch_checkpoint_for_model(path, model)
+    assert_same(got, variables_from_jax(JC.load_torch_checkpoint_for_model(
+        path, model)))
+    with torch.device("meta"):
+        module = get_wrapped_model(model).module
+    assert set(module.state_dict()) == set(got)
 
 
 def test_a_resnet_state_dict_names_item_10(tmp_path):

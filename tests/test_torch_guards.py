@@ -137,13 +137,16 @@ def test_config_errors():
 
 @pytest.mark.parametrize("method", ["dino", "simclr"])
 def test_unported_methods_name_their_roadmap_item(tmp_path, method):
-    """Every method of the JAX package is ported, and so is its 8-bit
-    AdamW; what such a run still lacks names its item: here an ECViT
-    backbone (ROADMAP item 10)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 10\b"):
+    """Every method of the JAX package is ported, and so are its 8-bit
+    AdamW and every backbone (ROADMAP item 10, ECViT last); what such a
+    run still lacks names its item: FSDP (item 7.6) for DINO, the profile
+    trace (item 7.5) for SimCLR."""
+    option, item = {"dino": ({"fsdp": 2}, "7.6"),
+                    "simclr": ({"profile": True}, "7.5")}[method]
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         lt.pretrain(out=str(tmp_path / "o"), model="ecvit/ecvits",
                     method=method, accelerator="cpu", steps=1,
-                    optim="adamw8bit")
+                    optim="adamw8bit", **option)
 
 
 @pytest.mark.parametrize("option", [

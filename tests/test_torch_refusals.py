@@ -73,7 +73,9 @@ def test_optimizer_names_follow_the_jax_package(tmp_path, name):
 def test_unported_model_options_name_their_roadmap_item(tmp_path, monkeypatch,
                                                         model, model_args,
                                                         item):
-    """The ECViTs (item 10) are refused naming their item. A 7B ViT trains
+    """The ECViTs, once refused naming item 10, are ported: ECViT-S takes
+    a DINO step, and DINOv2 stops at its patch embed's BatchNorm with the
+    JAX package's ModifyScopeVariableError. A 7B ViT trains
     where its state fits the card: as a DINOv2 student (AdamW's two
     moments and an EMA teacher, five copies of its parameters) it is
     refused on an 80 GiB card before anything is built, naming FSDP (item
@@ -83,6 +85,15 @@ def test_unported_model_options_name_their_roadmap_item(tmp_path, monkeypatch,
     activation checkpointing (item 22) is ported: a run with it takes its step, with the options in the ViT's
     config (a policy without ``remat_every`` checkpoints nothing, as in the
     JAX ViT)."""
+    if model.startswith("ecvit/"):
+        from lightly_train_tpu_torch.errors import ModifyScopeVariableError
+
+        with pytest.raises(ModifyScopeVariableError, match="/pe_conv0/norm"):
+            _pretrain(tmp_path / "dinov2", model=model)
+        state = _pretrain(tmp_path / "dino", model=model, method="dino")
+        assert state.step == 1
+        assert state.params["student"].cfg.embed_dim == 384
+        return
     if item == "22":
         state = _pretrain(tmp_path, model=model, model_args=model_args)
         assert state.step == 1
