@@ -18,8 +18,10 @@ Phases (any failure exits non-zero):
    shape of phase 3f (N = 201), at ECViT-S's global shape of phase 3p
    (64, 197, 6, 64) in both dtypes, at its local shape (192, 37, 6, 64) in
    bf16, and in fp32 at the shapes of the fp32 checks of 3o and 3p (the
-   teacher's (4, 54, 12, 64), ECViT-S+'s (4, 50, 6, 64)); phase 3p fails
-   if 3o or 3p launched K1 or K2 at a shape phase 2 did not hold; K1/K2
+   teacher's (4, 54, 12, 64), ECViT-S+'s (4, 50, 6, 64)), and in both
+   dtypes at ``evaluate_knn``'s batch of phase 3q (256, 257, 12, 64); the
+   script fails if 3o, 3p or 3q launched K1 or K2 at a shape phase 2 did
+   not hold; K1/K2
    at head dim 128 in both dtypes at
    the 7B teacher's and 7B student's shape of phases 3j and 3l, the 7B
    embed shape of phase 3k, at N = 37 and at N = 730; K4/K5
@@ -181,9 +183,24 @@ Phases (any failure exits non-zero):
    teacher reading the student's; ``embed`` of the ECViT-S+ export
    against an eval-mode forward; ECViT-S+ distillation for 2 fp32 steps
    on the card against the CPU (1e-2, the parameters' change too), its
-   launches counted. 3j, 3k, 3l and 3m delete what they
-   wrote. Each phase's
-   wall time is printed. ``pretrain`` applies
+   launches counted. (3q, run after 3p) The rest of pretraining's
+   surface: phase 3's bf16 DINOv2 run with ``embed_dim`` 256,
+   ``profile=True`` over steps 2-3 and the tensorboard, wandb and mlflow
+   loggers (launches as phase 3's; the trace under ``out/profile`` naming
+   K1, K2 and K3 and no flash or memory-efficient kernel; each absent
+   logger package warned; the memory-mapped file list present with one
+   reference during the run and gone after); ``export`` of its export in
+   the three formats and two parts (``embed`` of the re-export against the
+   original; the Meta-named ``torch_state_dict`` given back as
+   ``checkpoint=``); ``evaluate_knn`` of it on a class folder of 512 train
+   and 128 val images at its defaults (batch 256: 12 K1 a batch at (256,
+   257, 12, 64)) in fp32 under ``LIGHTLY_TRAIN_MATMUL_PRECISION=highest``
+   and at the default and in bf16, the embeddings of 16 images against
+   the port's CPU run and the accuracy against the CPU's ``knn_accuracy``
+   of the same embeddings; and the CLI in a subprocess (``list_models``,
+   and ``pretrain`` of DINOv2 ViT-B/14 for 2 steps at phase 3's batch, its
+   launches counted in the subprocess and held to phase 3's). 3j, 3k, 3l
+   and 3m delete what they wrote. Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -428,6 +445,51 @@ ITEM10_RUNS = {
     "e_torch_module": ("module", None, None, _TEACHER_K1, {}, {}, 0),
 }
 
+
+# Phase 3q: the rest of pretraining's surface on one card. (a) The bf16
+# main path of phase 3 with the trace window over steps 2-3
+# (SURFACE_PROFILE), the three logger backends (each writes where its
+# package imports and warns where it does not) and ``embed_dim`` (so that
+# both parts export); (b) ``export`` of its
+# export in every format and part; (c) ``evaluate_knn`` of that export on a
+# class folder of KNN_CLASSES classes (KNN_TRAIN train and KNN_VAL val
+# images at 256^2) at its defaults: batch 256 at 224^2, KNN_SHAPE, 12 K1 a
+# batch; its fp32 embeddings against the port's CPU run on KNN_CPU_IMAGES
+# of them; (d) the CLI in a subprocess: ``list_models``, and the main path
+# of phase 3 for CLI_STEPS steps with the launches counted in the subprocess
+# (CLI_CHILD: ``python -m lightly_train_tpu_torch`` through ``runpy``, as
+# ``-m`` runs it, then the counts printed as one line).
+SURFACE_PROFILE = {"profile": True, "profile_start": 1, "profile_steps": 2}
+SURFACE_LOGGERS = {"tensorboard": {}, "wandb": {}, "mlflow": {}}
+SURFACE_EMBED_DIM = 256
+KNN_CLASSES, KNN_TRAIN, KNN_VAL = 4, 512, 128
+KNN_BATCH = 256
+KNN_SHAPE = (KNN_BATCH, 257, HEADS, HEAD_DIM)
+KNN_BATCHES = -(-KNN_TRAIN // KNN_BATCH) + -(-KNN_VAL // KNN_BATCH)
+KNN_CPU_IMAGES = 16
+# The fp32 embeddings' relative L2 from the CPU's: IEEE fp32 GEMMs
+# (``highest``) leave the kernels' bf16 p as the only difference; TF32
+# GEMMs round each GEMM input to 2^-11 relative. On an H100 the two read
+# 3.9e-5 and 9.6e-5, and the same path in bf16 8.0e-3: 1e-3 under TF32 is
+# ten times the sound reading and fails an fp32 run that went bf16.
+KNN_TOL = {"highest": 1e-4, "default": 1e-3}
+CLI_STEPS = 2
+CLI_CHILD = """
+import json, runpy, sys
+from lightly_train_tpu_torch._optim import fused_update as F
+from lightly_train_tpu_torch.ops.kernels import attention as A
+sys.argv[0] = "lightly_train_tpu_torch"
+try:
+    runpy.run_module("lightly_train_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    print("launches " + json.dumps({
+        "launches": [fn.launches for fn in (
+            A.flat_attention_fwd, A.flat_attention_bwd, F.fused_adamw_ema,
+            A.vmem_attention_fwd, A.vmem_attention_bwd)],
+        "by_shape": [[lib, [b, n, h, hd], c] for (lib, (b, h, n, hd)), c
+                     in A.shape_launches.items()]}), flush=True)
+"""
 
 # The phase running now and when it started (``phase``).
 _CLOCK = {"name": None, "t0": 0.0}
@@ -776,6 +838,7 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # phases 3j and 3l, the embed shape of phase 3k, N = 37 and N = 730);
 # K1/K2 at ECViT's shapes of phase 3p (bf16 global and local, fp32 in (g))
 # and fp32 at the teacher's shape of the fp32 checks of 3o (a) and 3p (g);
+# K1/K2 at evaluate_knn's batch of phase 3q (c) in both dtypes;
 # K4/K5 at the ViT-B/14 shapes and the 7B embed shape in both layouts and
 # dtypes, and at the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
@@ -793,6 +856,7 @@ ATTENTION_CASES = [
     ("flat", "bf16", ECVIT_LOCAL, "flat"),
     ("flat", "fp32", ECVIT_FP32, "flat"),
     ("flat", "fp32", TEACHER_FP32_CHECK, "flat")] + [
+    ("flat", dtype, KNN_SHAPE, "flat") for dtype in DTYPES] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -1058,12 +1122,14 @@ def two_steps_new_grads(F, shapes) -> float:
     return err
 
 
-def write_images(folder: Path, n: int, size: int) -> None:
+def write_images(folder: Path, n: int, size: int, seed: int = SEED,
+                 offset: float = 0.0) -> None:
     """Binary PPM images from a numpy seed: smooth colour fields plus noise,
-    so crops, blur and jitter see structure."""
+    so crops, blur and jitter see structure; ``offset`` shifts their
+    brightness."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     folder.mkdir(parents=True)
     yy, xx = np.mgrid[0:size, 0:size] / size
     for i in range(n):
@@ -1072,7 +1138,7 @@ def write_images(folder: Path, n: int, size: int) -> None:
         img = np.stack([
             0.5 + 0.5 * np.sin(2 * np.pi * (f[c, 0] * yy + f[c, 1] * xx)
                                + ph[c]) for c in range(3)
-        ], axis=-1) * 200 + rng.normal(0, 20, (size, size, 3))
+        ], axis=-1) * 200 + rng.normal(0, 20, (size, size, 3)) + offset
         img = np.clip(img, 0, 255).astype(np.uint8)
         header = f"P6\n{size} {size}\n255\n".encode()
         (folder / f"img_{i:03d}.ppm").write_bytes(header + img.tobytes())
@@ -4103,6 +4169,423 @@ def check_item10_embed(lt, A, F, exported: Path, model: str,
             "launches": launches}
 
 
+def trace_kernels(out: Path) -> dict:
+    """{kernel name: launches} of the one trace ``pretrain`` wrote under
+    ``out/profile``."""
+    traces = list((out / "profile").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"phase 3q (a): traces under {out / 'profile'}: {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return kernels
+
+
+def surface_pretrain(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3q (a): phase 3's bf16 DINOv2 run with ``embed_dim``, the
+    trace window over steps 2-3 and the three logger backends, counters
+    set to 0 just before and read just after: launches as phase 3's, on the
+    bf16 libraries at GLOBAL and LOCAL; the trace naming K1, K2 and K3 and
+    no library attention kernel; each absent logger package warned, each
+    present one silent (tensorboard writing ``out/tensorboard``, wandb
+    with ``WANDB_MODE=disabled``); ``metrics.jsonl`` as before; the file list
+    present with one reference while the run reads it and gone after."""
+    import logging
+    import os
+
+    import torch
+
+    from lightly_train_tpu_torch._commands import train as T
+
+    out = work / "surface"
+    seen = []
+    real = T.MemoryMappedSequence
+
+    def spy(path):
+        seen.append((path, path.exists(),
+                     path.with_suffix(".ref_count").read_text()))
+        return real(path)
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("lightly_train_tpu_torch")
+    spies = [CallCount(torch.nn.functional, "scaled_dot_product_attention"),
+             CallCount(A, "dot_product_attention")]
+    T.MemoryMappedSequence = spy
+    log.addHandler(handler)
+    # wandb, where it imports, runs disabled: its calls go to a run object
+    # that sends nothing anywhere.
+    prior = os.environ.get("WANDB_MODE")
+    os.environ["WANDB_MODE"] = "disabled"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        pretrain_main_path(lt, out, work / "images", "bf16",
+                           embed_dim=SURFACE_EMBED_DIM,
+                           checkpoint_every=STEPS, loggers=SURFACE_LOGGERS,
+                           **SURFACE_PROFILE)
+        torch.cuda.synchronize()
+    finally:
+        if prior is None:
+            os.environ.pop("WANDB_MODE", None)
+        else:
+            os.environ["WANDB_MODE"] = prior
+        T.MemoryMappedSequence = real
+        log.removeHandler(handler)
+        for spied in spies:
+            spied.restore()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = logged_steps(out)
+    fwd, bwd = (A.fwd_library(torch.bfloat16, HEAD_DIM),
+                A.bwd_library(torch.bfloat16, HEAD_DIM))
+    # Per step: K1 at GLOBAL in the teacher's and the student's global
+    # forwards, at LOCAL in the student's local one; K2 once in each of
+    # the student's backwards.
+    want = {(fwd, GLOBAL): 2 * DEPTH * STEPS, (fwd, LOCAL): DEPTH * STEPS,
+            (bwd, GLOBAL): DEPTH * STEPS, (bwd, LOCAL): DEPTH * STEPS}
+    expected = dinov2_expected(STEPS)
+    print(f"  (a) pretrain DINOv2 ViT-B/14 bf16, embed_dim "
+          f"{SURFACE_EMBED_DIM}, {SURFACE_PROFILE}, loggers "
+          f"{sorted(SURFACE_LOGGERS)}: steps "
+          f"{[round(r['profiling/step_time'] * 1e3, 1) for r in steps]} ms, "
+          f"peak {peak:.2f} GiB, wall {wall:.1f} s; launches {launches} "
+          f"(expected {expected}) [{card}]", flush=True)
+    if launches != expected or by_shape != want:
+        fail(f"phase 3q (a): launches {launches}, by shape {by_shape}")
+    if spies[0].calls or spies[1].calls:
+        fail(f"phase 3q (a): SDPA {spies[0].calls}, plain attention "
+             f"{spies[1].calls}")
+    if [r["step"] for r in steps] != list(range(1, STEPS + 1)) or not all(
+            math.isfinite(r["train_loss"]) for r in steps):
+        fail(f"phase 3q (a): metrics.jsonl {steps}")
+
+    kernels = trace_kernels(out)
+    named = {k: {n: c for n, c in kernels.items() if pattern in n}
+             for k, pattern in (("K1", "attention_fwd_sm90_kernel"),
+                                ("K2", "attention_bwd_"),
+                                ("K3", "fused_adamw_ema_kernel"))}
+    library = sorted(n for n in kernels if any(
+        w in n.lower() for w in ("flash", "fmha", "efficient_attention",
+                                 "mem_eff", "sdpa")))
+    window = SURFACE_PROFILE["profile_steps"]
+    busy = {k: sum(v.values()) for k, v in named.items()}
+    print(f"  (a) trace: {len(kernels)} kernel names, "
+          f"{sum(kernels.values())} launches over {window} steps; K1 "
+          f"{busy['K1']}, K2 {busy['K2']} ({sorted(named['K2'])}), K3 "
+          f"{busy['K3']}; library attention kernels {library}", flush=True)
+    if (busy["K1"] != 3 * DEPTH * window or not busy["K2"]
+            or busy["K3"] != window or library):
+        fail(f"phase 3q (a): the trace's kernels {busy}, {library}")
+
+    for name, package in (("tensorboard", "torch.utils.tensorboard"),
+                          ("wandb", "wandb"), ("mlflow", "mlflow")):
+        warned = any(r.getMessage().startswith(f"{name} logging unavailable")
+                     for r in records)
+        try:
+            __import__(package)
+            present = True
+        except ImportError:
+            present = False
+        print(f"  (a) logger {name}: package "
+              f"{'imports' if present else 'absent'}, "
+              f"{'warned' if warned else 'no warning'}", flush=True)
+        if present == warned or (name == "tensorboard" and present
+                                 and not (out / "tensorboard").exists()):
+            fail(f"phase 3q (a): logger {name}")
+    if (len(seen) != 1 or seen[0][1:] != (True, "1") or seen[0][0].exists()
+            or seen[0][0].with_suffix(".ref_count").exists()):
+        fail(f"phase 3q (a): the file list {seen}")
+    print(f"  (a) file list {seen[0][0].name}: present with reference count "
+          f"{seen[0][2]} while read, gone after the run", flush=True)
+    return {"launches": launches, "by_shape": by_shape, "wall_s": wall,
+            "peak_gib": peak, "trace": busy,
+            "step_ms": [r["profiling/step_time"] * 1e3 for r in steps],
+            "out": out}
+
+
+def surface_export(lt, A, F, work: Path, exported: Path) -> None:
+    """Phase 3q (b): ``export`` of (a)'s export in the three formats and the
+    two parts; ``embed`` of the ``package_default`` re-export (with its
+    head) against ``embed`` of the original; the ViT's ``torch_state_dict``
+    (Meta's names) given back as ``checkpoint=`` carrying the exported
+    weights bitwise, its model's eval forward equal to the original's."""
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        load_exported_model,
+        resolve_pretrained_source,
+    )
+    from lightly_train_tpu_torch.models.package_registry import (
+        get_wrapped_model,
+    )
+
+    t0 = time.perf_counter()
+    paths = {}
+    for fmt, suffix in (("package_default", ""), ("numpy_state_dict",
+                                                  ".npz"),
+                        ("torch_state_dict", ".pt")):
+        for part in ("model", "embedding_model"):
+            paths[fmt, part] = lt.export(
+                out=str(work / f"export_{fmt}_{part}{suffix}"),
+                checkpoint=str(exported), format=fmt, part=part)
+    npz = np.load(paths["numpy_state_dict", "embedding_model"])
+    meta = torch.load(paths["torch_state_dict", "model"])
+    head = torch.load(paths["torch_state_dict", "embedding_model"])
+    print(f"  (b) export: {len(npz.files)} arrays in the npz (with "
+          f"embed_head/kernel {npz['embed_head/kernel'].shape}), "
+          f"{len(meta)} Meta-named tensors, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if ("blocks.11.attn.qkv.weight" not in meta or "embed_head.weight"
+            not in head or npz["embed_head/kernel"].shape
+            != (768, SURFACE_EMBED_DIM)):
+        fail("phase 3q (b): the exported state dicts")
+    kwargs = dict(data=str(work / "images"), image_size=224,
+                  batch_size=2 * BATCH)
+    embs = [np.load(lt.embed(out=str(work / f"surface_{tag}.npz"),
+                             checkpoint=str(ckpt), **kwargs))["embeddings"]
+            for tag, ckpt in (("orig", exported), ("again", paths[
+                "package_default", "embedding_model"]))]
+    rel = float(np.linalg.norm(embs[1] - embs[0]) / np.linalg.norm(embs[0]))
+    print(f"  (b) embed of the package_default re-export against the "
+          f"original: {embs[0].shape}, relative L2 {rel:.3e}, bitwise "
+          f"{np.array_equal(*embs)} (tol 1e-6)", flush=True)
+    if embs[0].shape != (2 * BATCH, SURFACE_EMBED_DIM) or not rel <= 1e-6:
+        fail(f"phase 3q (b): embed of the re-export {rel}")
+
+    state, name, _ = resolve_pretrained_source(
+        str(paths["torch_state_dict", "model"]), "dinov2/vitb14")
+    orig = load_exported_model(exported)["state_dict"]
+    same = set(state) == set(orig) and all(torch.equal(state[k], v)
+                                           for k, v in orig.items())
+    images = torch.rand((2, 224, 224, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    outs = []
+    for weights in (orig, state):
+        model = get_wrapped_model("dinov2/vitb14").module
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            outs.append(model.cuda().eval()(images)["cls_token"])
+    print(f"  (b) the Meta-named file as checkpoint=: {name}, the exported "
+          f"weights bitwise {same}, eval forward equal "
+          f"{torch.equal(*outs)}", flush=True)
+    if not (same and torch.equal(*outs)):
+        fail("phase 3q (b): the torch_state_dict as checkpoint=")
+    for path in paths.values():
+        if path.is_dir():
+            shutil.rmtree(path)
+        else:
+            path.unlink()
+
+
+def surface_knn(lt, A, F, card: str, work: Path, exported: Path) -> dict:
+    """Phase 3q (c): ``evaluate_knn`` of (a)'s export on a class folder
+    (class c: phase 3's generator, its brightness shifted by 40 c - 60) in
+    fp32 under
+    ``LIGHTLY_TRAIN_MATMUL_PRECISION=highest`` and at the default (TF32),
+    and in bf16, counters set to 0 just before each and read just after:
+    12 K1 a batch at KNN_SHAPE, no K2 or K3, no SDPA or plain attention;
+    the embeddings of KNN_CPU_IMAGES images against the port's CPU run
+    (KNN_TOL; bf16 5e-2, as ``check_backbone``); the accuracy equal to
+    the CPU's ``knn_accuracy`` of the card's embeddings."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        load_exported_model,
+    )
+    from lightly_train_tpu_torch._commands import eval_knn as K
+    from lightly_train_tpu_torch._data.classification_dataset import (
+        ImageClassificationDataset,
+    )
+    from lightly_train_tpu_torch.ops.augment import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from lightly_train_tpu_torch.utils.knn import knn_accuracy
+
+    root = work / "knn"
+    for split, n, seed in (("train", KNN_TRAIN, SEED + 1),
+                           ("val", KNN_VAL, SEED + 2)):
+        for c in range(KNN_CLASSES):
+            write_images(root / split / f"class{c}", n // KNN_CLASSES, 256,
+                         seed=seed + 10 * c, offset=40.0 * c - 60.0)
+    data = {"train": str(root / "train"), "val": str(root / "val")}
+    # The CPU's embeddings of KNN_CPU_IMAGES train images, as embed_split
+    # computes them (plain attention, IEEE fp32).
+    cpu = K.exported_backbone(load_exported_model(exported), torch.float32,
+                              torch.device("cpu"))
+    per_class = KNN_TRAIN // KNN_CLASSES
+    picks = [c * per_class + i for c in range(KNN_CLASSES)
+             for i in range(KNN_CPU_IMAGES // KNN_CLASSES)]
+    train_set = ImageClassificationDataset(root / "train", (224, 224))
+    x = torch.from_numpy(np.stack([train_set[i]["images"] for i in picks]))
+    x = ((x.float() / 255.0 - torch.tensor(IMAGENET_MEAN))
+         / torch.tensor(IMAGENET_STD))
+    with torch.no_grad():
+        ref = cpu.forward_pool(cpu.forward_features(x))
+    results = {"by_shape": {}}
+    prior = os.environ.get("LIGHTLY_TRAIN_MATMUL_PRECISION")
+    for tag, precision, matmul in (("fp32_highest", "fp32", "highest"),
+                                   ("fp32_default", "fp32", "default"),
+                                   ("bf16", "bf16", "default")):
+        os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = matmul
+        calls = []
+        real = K.knn_accuracy
+
+        def recorded(*args, **kwargs):
+            calls.append((args, kwargs))
+            return real(*args, **kwargs)
+
+        spies = [CallCount(torch.nn.functional,
+                           "scaled_dot_product_attention"),
+                 CallCount(A, "dot_product_attention")]
+        K.knn_accuracy = recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters(A, F)
+        t0 = time.perf_counter()
+        try:
+            got = lt.evaluate_knn(data=data, checkpoint=str(exported),
+                                  precision=precision)
+            torch.cuda.synchronize()
+        finally:
+            K.knn_accuracy = real
+            for spied in spies:
+                spied.restore()
+            if prior is None:
+                os.environ.pop("LIGHTLY_TRAIN_MATMUL_PRECISION", None)
+            else:
+                os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = prior
+            pin_ieee()
+        wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        by_shape = launches_by_shape(A)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lib = A.fwd_library(torch_dtype(precision), HEAD_DIM)
+        want = {(lib, KNN_SHAPE): DEPTH * KNN_BATCHES}
+        (args, kwargs), = calls
+        val_z, val_y, train_z, train_y = (a.cpu() for a in args)
+        cpu_acc = knn_accuracy(val_z, val_y, train_z, train_y, **kwargs)
+        emb = train_z[picks]
+        rel = float((emb - ref).norm() / ref.norm())
+        centred = float(((emb - emb.mean(0)) - (ref - ref.mean(0))).norm()
+                        / (ref - ref.mean(0)).norm())
+        tol = 5e-2 if precision == "bf16" else KNN_TOL[matmul]
+        row = {"phase": "3q (c)", "run": tag, "knn_top1": got["knn_top1"],
+               "cpu_knn_top1": cpu_acc, "launches": launches,
+               "k1_per_batch": by_shape.get((lib, KNN_SHAPE), 0)
+               / KNN_BATCHES, "precision": precision,
+               "wall_s": wall, "ms_per_batch": wall * 1e3 / KNN_BATCHES,
+               "peak_gib": peak, "rel_l2_vs_cpu": rel,
+               "centred_rel_l2_vs_cpu": centred, "tol": tol, "card": card}
+        print(json.dumps(row), flush=True)
+        results[tag] = row
+        for key, c in by_shape.items():
+            results["by_shape"][key] = results["by_shape"].get(key, 0) + c
+        if launches != [DEPTH * KNN_BATCHES, 0, 0, 0, 0] or by_shape != want:
+            fail(f"phase 3q (c) {tag}: launches {launches}, {by_shape}")
+        if spies[0].calls or spies[1].calls:
+            fail(f"phase 3q (c) {tag}: SDPA {spies[0].calls}, plain "
+                 f"attention {spies[1].calls}")
+        if (train_z.shape != (KNN_TRAIN, 768) or val_z.shape
+                != (KNN_VAL, 768) or not torch.isfinite(train_z).all()
+                or not torch.isfinite(val_z).all()):
+            fail(f"phase 3q (c) {tag}: embeddings {train_z.shape}, "
+                 f"{val_z.shape}")
+        if got["knn_top1"] != cpu_acc or not rel <= tol:
+            fail(f"phase 3q (c) {tag}: accuracy {got} against the CPU's "
+                 f"{cpu_acc}, embeddings {rel} (tol {tol})")
+    return results
+
+
+def surface_cli(lt, A, card: str, work: Path) -> dict:
+    """Phase 3q (d): ``python -m lightly_train_tpu_torch list_models``
+    prints ``list_models()``; ``pretrain`` of DINOv2 ViT-B/14 at phase 3's
+    batch for CLI_STEPS steps through the CLI (CLI_CHILD, the counts read in
+    the subprocess as it ends; the checkpoint only at the end, as phase
+    3's) exits 0 on the card with CLI_STEPS finite logged steps and
+    launches as phase 3's, on the bf16 libraries at GLOBAL and LOCAL."""
+    out = work / "cli_run"
+    results = {}
+    for tag, child, argv in (
+            ("list_models", ["-m", "lightly_train_tpu_torch"],
+             ["list_models"]),
+            ("pretrain", ["-c", CLI_CHILD],
+             ["pretrain", f"out={out}", f"data={work / 'images'}",
+              "model=dinov2/vitb14", "method=dinov2",
+              f"batch_size={BATCH}", f"steps={CLI_STEPS}", "log_every=1",
+              f"checkpoint_every={CLI_STEPS}", "canonical_size=256",
+              f"seed={SEED}"])):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, *child, *argv],
+                             capture_output=True, text=True, timeout=600,
+                             cwd=ROOT)
+        wall = time.perf_counter() - t0
+        results[f"{tag}_s"] = wall
+        print(f"  (d) python -m lightly_train_tpu_torch {argv[0]}: exit "
+              f"{run.returncode}, {wall:.1f} s", flush=True)
+        if run.returncode != 0:
+            fail(f"phase 3q (d) {tag}: {run.stderr[-2000:]}")
+        if (tag == "list_models"
+                and run.stdout.splitlines() != lt.list_models()):
+            fail("phase 3q (d): list_models through the CLI")
+    counted = [json.loads(line[len("launches "):])
+               for line in run.stdout.splitlines()
+               if line.startswith("launches ")]
+    if len(counted) != 1:
+        fail(f"phase 3q (d): the CLI's counts {run.stdout[-2000:]}")
+    launches = counted[0]["launches"]
+    by_shape = {(lib, tuple(shape)): c
+                for lib, shape, c in counted[0]["by_shape"]}
+    steps = logged_steps(out)
+    fwd, bwd = (A.fwd_library(torch_dtype("bf16"), HEAD_DIM),
+                A.bwd_library(torch_dtype("bf16"), HEAD_DIM))
+    want = {(fwd, GLOBAL): 2 * DEPTH * CLI_STEPS,
+            (fwd, LOCAL): DEPTH * CLI_STEPS,
+            (bwd, GLOBAL): DEPTH * CLI_STEPS, (bwd, LOCAL): DEPTH * CLI_STEPS}
+    print(f"  (d) the CLI's pretrain DINOv2 ViT-B/14 bf16, batch {BATCH}: "
+          f"steps {[round(r['profiling/step_time'] * 1e3, 1) for r in steps]}"
+          f" ms; launches {launches} (expected "
+          f"{dinov2_expected(CLI_STEPS)}) [{card}]", flush=True)
+    if launches != dinov2_expected(CLI_STEPS) or by_shape != want:
+        fail(f"phase 3q (d): launches {launches}, by shape {by_shape}")
+    if [r["step"] for r in steps] != list(range(1, CLI_STEPS + 1)) or not all(
+            math.isfinite(r["train_loss"]) for r in steps):
+        fail(f"phase 3q (d): the CLI's metrics.jsonl {steps}")
+    shutil.rmtree(out)
+    results.update(launches=launches, by_shape=by_shape,
+                   step_ms=[r["profiling/step_time"] * 1e3 for r in steps])
+    return results
+
+
+def run_surface_path(lt, A, F, card: str, work: Path) -> dict:
+    """Phase 3q: (a) ``surface_pretrain``, (b) ``surface_export``, (c)
+    ``surface_knn``, (d) ``surface_cli``."""
+    results = {"a": surface_pretrain(lt, A, F, card, work)}
+    exported = results["a"]["out"] / "exported_models" / "exported_last"
+    pin_ieee()
+    surface_export(lt, A, F, work, exported)
+    results["c"] = surface_knn(lt, A, F, card, work, exported)
+    results["d"] = surface_cli(lt, A, card, work)
+    results["by_shape"] = dict(results["a"]["by_shape"])
+    for key, c in [*results["c"].pop("by_shape").items(),
+                   *results["d"]["by_shape"].items()]:
+        results["by_shape"][key] = results["by_shape"].get(key, 0) + c
+    shutil.rmtree(results["a"].pop("out"))
+    shutil.rmtree(work / "knn")
+    return results
+
 def main() -> int:
     import torch
 
@@ -4284,13 +4767,18 @@ def main() -> int:
           f"YOLO-NAS-L, a user's torch module, embed, ECViT-S+ fp32 against "
           f"the CPU; bf16, {ITEM10_STEPS} steps each", flush=True)
     item10 = run_item10_path(lt, A, F, card, work)
-    # Each (library, shape) that phases 3o and 3p launched K1 or K2 at was
-    # held against the plain version in phase 2.
+    pin_ieee()
+    phase(f"phase 3q: the run surface and item 11 (pretrain DINOv2 "
+          f"ViT-B/14 bf16 with embed_dim, profile and the logger backends; "
+          f"export; evaluate_knn fp32 and bf16; the CLI)", flush=True)
+    surface = run_surface_path(lt, A, F, card, work)
+    # Each (library, shape) that phases 3o, 3p and 3q launched K1 or K2 at
+    # was held against the plain version in phase 2.
     covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
                for kernels, dtype, shape, _ in ATTENTION_CASES
                if kernels == "flat"
                for route in (A.fwd_library, A.bwd_library)}
-    for label, ran in (("3o", cnn), ("3p", item10)):
+    for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface)):
         if set(ran["by_shape"]) - covered:
             fail(f"phase {label} launched at shapes phase 2 does not hold: "
                  f"{sorted(set(ran['by_shape']) - covered)}")
@@ -4342,6 +4830,9 @@ def main() -> int:
                     for r in (cnn, item10))
                    for shape in (ECVIT_GLOBAL, ECVIT_LOCAL, ECVIT_FP32,
                                  TEACHER_FP32_CHECK)},
+                # Phase 3q (c)'s evaluate_knn runs (fp32 twice, bf16 once).
+                KNN_SHAPE: surface["by_shape"].get(
+                    (route(torch_dtype(dtype), HEAD_DIM), KNN_SHAPE), 0),
             })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
@@ -4398,6 +4889,18 @@ def main() -> int:
                 (route(torch_dtype(dtype), row["shape"][3]),
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),
+            # Phase 3q's: (a)'s and (d)'s DINOv2 runs at GLOBAL and LOCAL,
+            # (c)'s evaluate_knn at KNN_SHAPE (12 a batch).
+            **({"launches_3q": surface["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
+            # Each evaluate_knn run's K1 a batch in the row's dtype.
+            **({"launches_per_batch": {
+                tag: r["k1_per_batch"] for tag, r in surface["c"].items()
+                if r["precision"] == dtype}}
+               if kernel == "K1" and tuple(row["shape"]) == KNN_SHAPE
+               else {}),
             **({"launches_remat": remat["by_shape"].get(
                 (lib, tuple(row["shape"])), 0),
                 "launches_remat_per_step": remat["by_shape"].get(
@@ -4416,6 +4919,8 @@ def main() -> int:
         "launches_distillation": {p: distill[p]["launches"][2]
                                   for p in DTYPES},
         "launches_remat": remat["launches"][2],
+        "launches_3q": surface["a"]["launches"][2]
+        + surface["d"]["launches"][2],
         "launches_3o_dino_resnet50": cnn["b_dino_resnet50"][
             "launches_per_step"]["K3"] * CNN_STEPS,
         **{f"launches_3p_{tag}": item10[tag]["launches_per_step"]["K3"]

@@ -20,12 +20,18 @@ and stops the run (``_debug/``), which ``replay_nan_capture`` re-runs.
 ``use_dataset_masks``); the loader then yields ``{"images", "masks"}``
 batches.
 
-Not ported yet, and refused when set to anything but their defaults:
-``fsdp`` > 1 (ROADMAP item 7.6), ``profile``,
-``profile_start``, ``profile_steps``, and the tensorboard, wandb and mlflow
-loggers where their package is installed (item 7.5; where it is absent the
-run warns and goes on, as the JAX package does). The fields keep the JAX
-package's names and defaults, so configs stay compatible.
+As in the JAX package, the run's file list is written once, by the main
+process, to a memory-mapped file that the dataset reads
+(``_data/mmap_lifecycle.py``), the system is logged at the start, the run
+is reported to the event tracker (``_events/``, local and off by default),
+the tensorboard, wandb and mlflow loggers write where their package imports
+(and warn where it does not), and ``profile=True`` traces steps
+``[profile_start, profile_start + profile_steps)`` into ``out/profile``
+with ``torch.profiler``.
+
+Not ported yet, and refused when set to anything but its default: ``fsdp``
+> 1 (ROADMAP item 7.6). The fields keep the JAX package's names and
+defaults, so configs stay compatible.
 """
 
 from __future__ import annotations
@@ -51,7 +57,13 @@ from lightly_train_tpu_torch._data.image_dataset import (
     list_image_files,
 )
 from lightly_train_tpu_torch._data.loader import PretrainLoader, SyntheticLoader
+from lightly_train_tpu_torch._data.memory_mapped_sequence import (
+    MemoryMappedSequence,
+    write_items_to_file,
+)
+from lightly_train_tpu_torch._data.mmap_lifecycle import dataset_mmap_path
 from lightly_train_tpu_torch._debug.nan_guard import NaNGuard
+from lightly_train_tpu_torch._events import tracker
 from lightly_train_tpu_torch._loggers.multi import (
     build_loggers,
     resolve_loggers,
@@ -65,10 +77,13 @@ from lightly_train_tpu_torch._optim import OPTIMIZER_ARGS_TYPES, cosine_warmup
 from lightly_train_tpu_torch._optim.fused_update import build_fused_updater
 from lightly_train_tpu_torch._optim.update import build_update
 from lightly_train_tpu_torch._scaling import ScalingInfo
-from lightly_train_tpu_torch._system import apply_matmul_precision
+from lightly_train_tpu_torch._system import (
+    apply_matmul_precision,
+    log_system_information,
+)
 from lightly_train_tpu_torch._visualize.grids import save_augmentation_grid
 from lightly_train_tpu_torch.errors import ConfigError
-from lightly_train_tpu_torch.methods.base import TrainState
+from lightly_train_tpu_torch.methods.base import TrainState, ViewSpec
 from lightly_train_tpu_torch.methods.method_helpers import get_method_cls
 from lightly_train_tpu_torch.models.embedding import project_wrapped
 from lightly_train_tpu_torch.models.package_registry import (
@@ -77,9 +92,11 @@ from lightly_train_tpu_torch.models.package_registry import (
     resolve_model_name,
 )
 from lightly_train_tpu_torch.ops.augment import (
+    ViewAugmentConfig,
     augment_view_with_geometry,
     override_view_specs,
 )
+from lightly_train_tpu_torch.parallel.distributed import is_main_process
 
 logger = get_logger("pretrain")
 
@@ -127,10 +144,7 @@ class TrainConfig(Config):
 
 # Options not ported yet, with their defaults and the ROADMAP item that
 # ports them: each is refused when set to anything else.
-_NOT_PORTED = {
-    "fsdp": (1, "7.6"), "profile": (False, "7.5"),
-    "profile_start": (10, "7.5"), "profile_steps": (5, "7.5"),
-}
+_NOT_PORTED = {"fsdp": (1, "7.6")}
 
 
 def _resolve_optim_args(config: TrainConfig, defaults):
@@ -158,10 +172,10 @@ def _device_capacity(accelerator: str) -> Optional[int]:
         torch.cuda.current_device()).total_memory
 
 
-def _check_config(config: TrainConfig) -> list:
-    """Raises for an option that is not ported and for options that
-    contradict each other, and for a model whose training state does not
-    fit the card; returns the resolved loggers."""
+def _check_config(config: TrainConfig) -> None:
+    """Raises for an option that is not ported, for options that
+    contradict each other, for an unknown logger and for a model whose
+    training state does not fit the card."""
     method_cls, method_args_cls = get_method_cls(config.method)
     # Distillation's frozen teacher, by name (its args' ``teacher``).
     teacher = (config.method_args.get("teacher", method_args_cls.teacher)
@@ -179,13 +193,16 @@ def _check_config(config: TrainConfig) -> list:
                 f"pretrain option {key}={getattr(config, key)!r} is not ported "
                 f"to PyTorch yet (ROADMAP item {item})."
             )
+    # transform_args' refusals (channel_drop) before anything is built.
+    override_view_specs([ViewSpec(ViewAugmentConfig(), 1)],
+                        config.transform_args or None)
     if config.checkpoint is not None and config.resume_interrupted:
         raise ConfigError(
             "checkpoint= and resume_interrupted=True cannot be combined: "
             "checkpoint starts a NEW run from previous weights, "
             "resume_interrupted continues an interrupted run. Set one."
         )
-    return resolve_loggers(config.loggers)
+    resolve_loggers(config.loggers)
 
 
 def resolve_device(accelerator: str) -> torch.device:
@@ -234,7 +251,19 @@ def pretrain(
 
 
 def pretrain_from_config(config: TrainConfig) -> TrainState:
-    loggers = _check_config(config)
+    """Checks the config, then runs the pretraining inside the file list's
+    lifecycle (its reference count, reuse and the check for a concurrent
+    run on the same out dir)."""
+    _check_config(config)
+    if config.data is None:
+        return _pretrain_body(config, None)
+    with dataset_mmap_path(config.data, config.out, config.resume_interrupted,
+                           config.overwrite) as mmap_path:
+        return _pretrain_body(config, mmap_path)
+
+
+def _pretrain_body(config: TrainConfig,
+                   mmap_path: Optional[Path]) -> TrainState:
     device = resolve_device(config.accelerator)
     pretrained = None
     if config.checkpoint is not None:
@@ -261,10 +290,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
                 torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "CPU")
     apply_matmul_precision()
+    log_system_information()
     logger.warning(
-        "The port writes less than the JAX package: the profile trace "
-        "(profile=True) and the tensorboard, wandb and mlflow logger "
-        "backends are refused (ROADMAP item 7.5)."
+        "The port runs on one device: sharding the model over devices "
+        "(fsdp > 1) is refused (ROADMAP item 7.6)."
     )
 
     # ---- data -------------------------------------------------------------
@@ -272,10 +301,14 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
     dataset = None
     dataset_size = 0
     if config.data is not None:
-        dirs = [config.data] if isinstance(config.data, str) else config.data
-        files = [f for d in dirs for f in list_image_files(Path(d))]
+        if is_main_process() and not mmap_path.exists():
+            dirs = ([config.data] if isinstance(config.data, str)
+                    else config.data)
+            write_items_to_file(
+                [f for d in dirs for f in list_image_files(Path(d))],
+                mmap_path)
         dataset = ImageDataset(
-            files, canonical_hw,
+            MemoryMappedSequence(mmap_path), canonical_hw,
             mask_dir=Path(config.mask_dir) if config.mask_dir else None)
         dataset_size = len(dataset)
 
@@ -288,6 +321,11 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
                     "dim %d", config.model, config.embed_dim)
     method_cls, method_args_cls = get_method_cls(config.method)
     method_args = config_validate(method_args_cls, config.method_args)
+    tracker.track_training_started(
+        task_type="ssl_pretraining", model=config.model,
+        method=config.method, batch_size=config.batch_size, devices=1,
+        steps=config.steps,
+    )
 
     batch_size = (
         config.batch_size if config.batch_size != AUTO
@@ -339,7 +377,7 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
         logger.info("Resumed from step %d", state.step)
     step_gen = torch.Generator(device=device)
 
-    run_loggers = build_loggers(out_dir, loggers)
+    run_loggers = build_loggers(out_dir, config.loggers)
     run_loggers.log_hyperparams({
         **config.dump(),
         "resolved_batch_size": batch_size,
@@ -401,7 +439,10 @@ def pretrain_from_config(config: TrainConfig) -> TrainState:
             seed=config.seed, log_every=config.log_every, on_log=on_log,
             on_checkpoint=on_checkpoint, checkpoint_every=checkpoint_every,
             nan_guard=NaNGuard(out_dir, enabled=config.nan_check),
-            on_first_batch=on_first_batch)
+            on_first_batch=on_first_batch,
+            profile_dir=str(out_dir / "profile") if config.profile else None,
+            profile_start=config.profile_start,
+            profile_steps=config.profile_steps)
     finally:
         run_loggers.close()
     ckpt_mgr.wait()

@@ -14,6 +14,14 @@ gets them appended to its views, in the JAX order: the views, then one mask
 crop per view (following the view's crop and flip), then one (B, 5)
 geometry array per view.
 
+:func:`fit` traces steps ``[profile_start, profile_start + profile_steps)``
+with ``torch.profiler`` into ``profile_dir`` where one is given (the JAX
+loop's ``jax.profiler`` window): the trace starts before the first step at
+or after ``profile_start`` and stops after ``profile_steps`` steps or at the
+end of the run, with the device's work finished, and
+``tensorboard_trace_handler`` writes it there as a Chrome trace (no
+``tensorboard`` package needed).
+
 Each step's randomness (augmentation, iBOT masks, drop path) comes from one
 generator that :func:`fit` seeds from (seed, step) before the step, as the
 JAX loop folds the step into its base key: a resumed run replays the steps
@@ -200,6 +208,39 @@ def _read_back(flag: torch.Tensor):
     return host, event
 
 
+class StepProfiler:
+    """The ``torch.profiler`` window of :func:`fit`: its CUDA activity
+    where ``device`` is a card, its trace written into ``profile_dir``."""
+
+    def __init__(self, profile_dir: str, device: torch.device):
+        self.profile_dir = profile_dir
+        self.device = device
+        self.prof = None
+
+    def start(self) -> None:
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(
+            activities=activities,
+            on_trace_ready=tensorboard_trace_handler(self.profile_dir))
+        self.prof.start()
+
+    def stop(self) -> None:
+        """Waits for the window's device work, then writes the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.prof = None
+        logger.info("Wrote profiler trace to %s", self.profile_dir)
+
+
 def fit(
     train_step: Callable,
     state: TrainState,
@@ -213,6 +254,9 @@ def fit(
     checkpoint_every: Optional[int] = None,
     nan_guard: Optional[NaNGuard] = None,
     on_first_batch: Optional[Callable[[torch.Tensor], None]] = None,
+    profile_dir: Optional[str] = None,
+    profile_start: int = 10,
+    profile_steps: int = 5,
 ) -> TrainState:
     """Host step loop: feed batches, log throughput, checkpoint.
 
@@ -225,6 +269,8 @@ def fit(
     the generator's state at its start) and stops the run there.
     ``on_checkpoint`` runs every ``checkpoint_every`` steps before the
     last, and once at the end; ``on_first_batch`` on the run's first batch.
+    With ``profile_dir``, steps ``[profile_start, profile_start +
+    profile_steps)`` are traced there (:class:`StepProfiler`).
     """
     burn_in = {1, 2, 5, 10, 50, 100}
     current = state.step
@@ -242,8 +288,19 @@ def fit(
         nan_guard.check(bool(host), step, batch, generator_state,
                         dict(state.params.named_parameters()))
 
+    profiler = (StepProfiler(profile_dir, generator.device)
+                if profile_dir is not None else None)
+    profiled = False
     batch_iter = iter(batches)
     while current < total_steps:
+        if profiler is not None:
+            if (profiler.prof is None and not profiled
+                    and current >= profile_start):
+                profiler.start()
+            elif (profiler.prof is not None
+                  and current >= profile_start + profile_steps):
+                profiler.stop()
+                profiled = True
         t_data = time.perf_counter()
         batch = next(batch_iter)
         data_wait += time.perf_counter() - t_data
@@ -280,6 +337,8 @@ def fit(
         if (on_checkpoint is not None and checkpoint_every is not None
                 and current % checkpoint_every == 0 and current < total_steps):
             on_checkpoint(current, state)
+    if profiler is not None and profiler.prof is not None:
+        profiler.stop()
     if lagged is not None:
         check(*lagged)  # the last step's flag
     if on_checkpoint is not None:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Generic, TypeVar
 
 T = TypeVar("T")
@@ -32,8 +33,35 @@ class EnvVar(Generic[T]):
         return self.name in os.environ
 
 
+def _parse_bool(raw: str) -> bool:
+    return raw.strip().lower() in {"1", "true", "yes", "on"}
+
+
+def _default_cache_dir() -> Path:
+    # Apart from the JAX package's, so the two never share a file list, a
+    # reference count or a user id.
+    return Path(os.environ.get("XDG_CACHE_HOME", Path.home() / ".cache")) / (
+        "lightly_train_tpu_torch"
+    )
+
+
 class Env:
     """All environment knobs. Access with ``Env.<NAME>.value``."""
+
+    # Cache dir of the mmap file lists, the events file and the user id.
+    LIGHTLY_TRAIN_CACHE_DIR: EnvVar[Path] = EnvVar(
+        "LIGHTLY_TRAIN_CACHE_DIR", _default_cache_dir(), Path
+    )
+    # Keep the mmap file list of a data dir across runs (keyed by ``data``
+    # instead of ``out``).
+    LIGHTLY_TRAIN_MMAP_REUSE_FILE: EnvVar[bool] = EnvVar(
+        "LIGHTLY_TRAIN_MMAP_REUSE_FILE", False, _parse_bool
+    )
+    # Usage events: disabled unless turned on; when on, appended to a local
+    # JSONL file (``_events/tracker.py``), never sent anywhere.
+    LIGHTLY_TRAIN_EVENTS_DISABLED: EnvVar[bool] = EnvVar(
+        "LIGHTLY_TRAIN_EVENTS_DISABLED", True, _parse_bool
+    )
 
     # Image decode mode: RGB (the only mode the port decodes so far).
     LIGHTLY_TRAIN_IMAGE_MODE: EnvVar[str] = EnvVar(

@@ -40,10 +40,17 @@ EdgeCrafter ``ECViTModelWrapper`` state dict (``backbone.*``,
 ``ultralytics/*`` and ``ecvit/*`` names to them, as the JAX one does. A
 pickled ultralytics module cannot be read with ``weights_only=True``, in
 either package; its state dict can.
+
+The other way, for ``export``: :func:`params_to_jax` turns the port's state
+dict back into the Flax parameter tree (the inverse of
+``from_jax.params_from_jax``), and :func:`convert_flax_vit_to_torch_state_dict`
+(the JAX package's, copied) writes a DINOv2/DINOv3 ViT's tree with Meta's
+names.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Dict, Mapping, Sequence, Tuple
 
@@ -517,3 +524,113 @@ def convert_ecvit_state_dict(
     for i in range(n_projector):
         conv_norm(f"projector{i}", f"projector.{i}")
     return {"params": params, "batch_stats": stats}
+
+
+def _to_flax_leaf(name: str, value: np.ndarray) -> Tuple[list, np.ndarray]:
+    """(Flax path, array) of one state-dict entry: the inverse of
+    ``from_jax._convert_leaf``."""
+    name = re.sub(r"(^|\.)blocks\.(\d+)(?=\.)", r"\1block\2", name)
+    name = re.sub(r"(^|\.)mlp\.(\d+)(?=\.)", r"\1mlp\2", name)
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        if value.ndim == 4:  # OIHW -> HWIO (depthwise (C, 1, h, w) too)
+            parts[-1], value = "kernel", value.transpose(2, 3, 1, 0)
+        elif value.ndim == 2:  # (out, in) -> (in, out)
+            parts[-1], value = "kernel", value.T
+        elif value.ndim == 1:  # a norm's
+            parts[-1] = "scale"
+        else:
+            raise ValueError(f"unexpected weight rank at {name}: "
+                             f"{value.shape}")
+    elif parts[-1] == "v":  # WeightNormDense's direction, (out, in)
+        value = value.T
+    return parts, value
+
+
+def params_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The Flax parameter tree (nested dicts of float32 numpy arrays) of a
+    state dict of the port's parameters (no buffers): ``weight`` (out, in)
+    -> ``kernel`` (in, out), OIHW -> HWIO, a norm's 1-d ``weight`` ->
+    ``scale``, ``v`` transposed back, ``blocks.{i}`` -> ``block{i}`` and
+    ``mlp.{i}`` -> ``mlp{i}``; every other name, and 0-d leaves, as they
+    are."""
+    tree: Dict[str, Any] = {}
+    for name, value in state.items():
+        arr = value.detach().cpu().float().numpy() if isinstance(
+            value, torch.Tensor) else np.asarray(value, np.float32)
+        parts, arr = _to_flax_leaf(name, arr)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def convert_flax_vit_to_torch_state_dict(
+    params: Mapping[str, Any], depth: int
+) -> Dict[str, np.ndarray]:
+    """Flax VisionTransformer params -> Meta torch naming (the JAX
+    package's inverse of :func:`convert_torch_vit_state_dict`), which
+    ``export(format="torch_state_dict")`` writes for a DINOv2/DINOv3 ViT.
+    The CLS entry of ``pos_embed`` was folded into ``cls_token`` at import;
+    a zero row stands in its place (the same forward)."""
+    p = {k: _np_tree(v) for k, v in params.items()}
+    sd: Dict[str, np.ndarray] = {}
+    d_model = p["cls_token"].shape[-1]
+    sd["cls_token"] = p["cls_token"]
+    sd["mask_token"] = p["mask_token"].reshape(1, d_model)
+    if "pos_embed" in p:
+        pos = p["pos_embed"]  # (1, N, D)
+        sd["pos_embed"] = np.concatenate(
+            [np.zeros((1, 1, d_model), np.float32), pos], axis=1
+        )
+    if "register_tokens" in p:
+        key = "register_tokens" if "pos_embed" in p else "storage_tokens"
+        sd[key] = p["register_tokens"]
+    sd["patch_embed.proj.weight"] = p["patch_embed"]["kernel"].transpose(
+        3, 2, 0, 1)
+    sd["patch_embed.proj.bias"] = p["patch_embed"]["bias"]
+    for i in range(depth):
+        b = p[f"block{i}"]
+        o = f"blocks.{i}."
+        sd[f"{o}norm1.weight"] = b["norm1"]["scale"]
+        sd[f"{o}norm1.bias"] = b["norm1"]["bias"]
+        sd[f"{o}norm2.weight"] = b["norm2"]["scale"]
+        sd[f"{o}norm2.bias"] = b["norm2"]["bias"]
+        attn = b["attn"]
+        sd[f"{o}attn.qkv.weight"] = np.concatenate(
+            [attn["q"]["kernel"].T, attn["k"]["kernel"].T,
+             attn["v"]["kernel"].T], axis=0)
+        if "bias" in attn["q"]:
+            k_bias = attn.get("k", {}).get(
+                "bias", np.zeros((d_model,), np.float32))
+            sd[f"{o}attn.qkv.bias"] = np.concatenate(
+                [attn["q"]["bias"], k_bias, attn["v"]["bias"]], axis=0)
+        sd[f"{o}attn.proj.weight"] = attn["proj"]["kernel"].T
+        sd[f"{o}attn.proj.bias"] = attn["proj"]["bias"]
+        if "ls1" in b:
+            sd[f"{o}ls1.gamma"] = b["ls1"]["gamma"]
+            sd[f"{o}ls2.gamma"] = b["ls2"]["gamma"]
+        mlp = b["mlp"]
+        if "fc1" in mlp:
+            sd[f"{o}mlp.fc1.weight"] = mlp["fc1"]["kernel"].T
+            sd[f"{o}mlp.fc1.bias"] = mlp["fc1"]["bias"]
+            sd[f"{o}mlp.fc2.weight"] = mlp["fc2"]["kernel"].T
+            sd[f"{o}mlp.fc2.bias"] = mlp["fc2"]["bias"]
+        else:  # SwiGLU
+            sd[f"{o}mlp.w1.weight"] = mlp["w1"]["kernel"].T
+            sd[f"{o}mlp.w2.weight"] = mlp["w2"]["kernel"].T
+            sd[f"{o}mlp.w3.weight"] = mlp["w3"]["kernel"].T
+            for name in ("w1", "w2", "w3"):
+                if "bias" in mlp[name]:
+                    sd[f"{o}mlp.{name}.bias"] = mlp[name]["bias"]
+    sd["norm.weight"] = p["norm"]["scale"]
+    sd["norm.bias"] = p["norm"]["bias"]
+    return sd
+
+
+def _np_tree(tree: Any) -> Any:
+    """(Nested) arrays as float32 numpy."""
+    if isinstance(tree, Mapping):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return _t(tree)

@@ -1,4 +1,4 @@
-"""Shared typed structures for datasets and batches.
+"""Shared typed structures for datasets, batches and the commands' enums.
 
 Copy of the parts of ``lightly_train_tpu/types.py`` the port uses. A batch is
 a uint8 (B, H, W, 3) tensor at the canonical host size; multi-crop views are
@@ -60,8 +60,16 @@ class EmbeddingFormat(str, Enum):
 
 
 class ModelFormat(str, Enum):
-    """Formats of the ``export`` command (not ported yet)."""
+    """Formats of the ``export`` command."""
 
     PACKAGE_DEFAULT = "package_default"
     NUMPY_STATE_DICT = "numpy_state_dict"
     TORCH_STATE_DICT = "torch_state_dict"
+
+
+class ModelPart(str, Enum):
+    """Which part of a pretrain artifact ``export`` writes: the bare
+    backbone, or the backbone plus the ``embed_dim`` projection head."""
+
+    MODEL = "model"
+    EMBEDDING_MODEL = "embedding_model"

@@ -36,6 +36,7 @@ from lightly_train_tpu_torch.models.package_registry import (
     get_wrapped_model,
     refuse_pretraining,
 )
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 GIB80 = 80 * 2 ** 30
 

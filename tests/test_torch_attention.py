@@ -20,6 +20,7 @@ from lightly_train_tpu.ops.pallas.attention import (
 from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch.ops import kernels as port_kernels
 from lightly_train_tpu_torch.ops.kernels import attention as A
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 H, HD = 2, 64
 DTYPES = {"fp32": (jnp.float32, torch.float32),

@@ -19,6 +19,7 @@ from lightly_train_tpu.ops import augment as JA
 from lightly_train_tpu.ops import masking as JM
 from lightly_train_tpu_torch.ops import augment as TA
 from lightly_train_tpu_torch.ops import masking as TM
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 B = 4
 

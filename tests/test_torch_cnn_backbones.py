@@ -58,6 +58,7 @@ from lightly_train_tpu_torch.models.package_registry import (
     list_models,
 )
 from test_torch_parity import rel_l2
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -69,6 +69,7 @@ from test_torch_parity import (
     port_init,
     student_buffers,
 )
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 RESNET = "torchvision/resnettest"
 TWO_VIEWS = dict(image_size=SIZE, hidden_dim=32, output_dim=16)
@@ -318,9 +319,13 @@ def test_dinov2_refuses_batchnorm_as_the_jax_package(tmp_path, data, model,
     """DINOv2 and DINOv31 apply their student without ``mutable``: the JAX
     run stops at the first step's student forward with Flax's
     ModifyScopeVariableError, having written the same files; so does the
-    port's, with its error of that name."""
+    port's, with its error of that name. The augmentation grid, which both
+    would draw before the step (most of the case's time, in the JAX
+    package's eager augmentation), is off in both: ``test_torch_checkpoint.
+    py`` holds it."""
     args = dict(data=str(data), model=model, method=method, batch_size=4,
                 steps=2, precision="fp32", canonical_size=48, num_workers=0,
+                log_augmentations=False,
                 method_args=dict(output_dim=64, hidden_dim=32,
                                  bottleneck_dim=16, local_view_count=2,
                                  global_image_size=64, local_image_size=32))
@@ -342,13 +347,14 @@ def test_dinov2_on_a_convnext_is_nan_as_the_jax_package(tmp_path, data,
     feature map holds fewer tokens than the mask grid of ``patch_size or
     16``: the JAX package's ``take_along_axis`` fills the missing ones with
     NaN, the first loss is NaN and the run stops with NaNDetectedError at
-    its first step; the port's gather fills them alike."""
+    its first step; the port's gather fills them alike. The augmentation
+    grid is off in both, as in the refusal above."""
     from lightly_train_tpu.errors import NaNDetectedError as JaxNaN
     from lightly_train_tpu_torch.errors import NaNDetectedError
 
     args = dict(data=str(data), model="dinov3/convnext-test", method=method,
                 batch_size=4, steps=2, precision="fp32", canonical_size=48,
-                num_workers=0, method_args=dict(
+                num_workers=0, log_augmentations=False, method_args=dict(
                     output_dim=64, hidden_dim=32, bottleneck_dim=16,
                     local_view_count=2, global_image_size=64,
                     local_image_size=32))

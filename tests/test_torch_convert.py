@@ -46,6 +46,7 @@ from lightly_train_tpu_torch.models.from_jax import (
     variables_from_jax,
 )
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "images"
 DINOV2, DINOV3 = "dinov2/vittest14", "dinov3/vittest16"

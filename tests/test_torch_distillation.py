@@ -55,6 +55,7 @@ from lightly_train_tpu_torch.models.from_jax import (
 from lightly_train_tpu_torch.models.heads import ProjectionHead
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.ops import losses as L
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 STUDENT, TEACHER = "dinov2/vittest14", "dinov3/vittest16"
 SIZE, B, Q, TOTAL = 112, 4, 16, 10

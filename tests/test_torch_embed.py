@@ -28,6 +28,7 @@ from lightly_train_tpu_torch.models.embedding import project_wrapped
 from lightly_train_tpu_torch.models.from_jax import params_from_jax
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from test_torch_vit import checkpoint_scale
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 MODEL = "dinov2/vittest14"
 EMBED_DIM = 24

@@ -31,6 +31,7 @@ from lightly_train_tpu_torch._optim import AdamWArgs, cosine_warmup
 from lightly_train_tpu_torch._optim import fused_update as F
 from lightly_train_tpu_torch.methods.dinov2 import DINOv2, DINOv2Args
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 HP = dict(b1=0.9, b2=0.999, eps=1e-8)
 SCALARS = np.array([[0.7, 1.5, 1.1, 2e-3, 0.04, 0.995, 0.0, 0.0]], np.float32)

@@ -17,6 +17,7 @@ from lightly_train_tpu_torch.errors import (
     ConfigUnknownKeyError,
     ConfigValidationError,
 )
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "PIL",
@@ -139,10 +140,11 @@ def test_config_errors():
 def test_unported_methods_name_their_roadmap_item(tmp_path, method):
     """Every method of the JAX package is ported, and so are its 8-bit
     AdamW and every backbone (ROADMAP item 10, ECViT last); what such a
-    run still lacks names its item: FSDP (item 7.6) for DINO, the profile
-    trace (item 7.5) for SimCLR."""
+    run still lacks names its item: FSDP (item 7.6) for DINO, channel drop
+    (item 19) for SimCLR."""
     option, item = {"dino": ({"fsdp": 2}, "7.6"),
-                    "simclr": ({"profile": True}, "7.5")}[method]
+                    "simclr": ({"transform_args": {"channel_drop": {
+                        "num_channels_keep": 3}}}, "19")}[method]
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         lt.pretrain(out=str(tmp_path / "o"), model="ecvit/ecvits",
                     method=method, accelerator="cpu", steps=1,
@@ -155,11 +157,16 @@ def test_unported_methods_name_their_roadmap_item(tmp_path, method):
     {"profile": True}, {"loggers": ["tensorboard"]},
 ])
 def test_unported_options_are_refused(tmp_path, option):
-    # The options wait for parts of item 7. A checkpoint path that is no
-    # file is read as an exported folder: without one it raises what the
-    # JAX package raises there (FileNotFoundError, its metadata.json).
-    # mask_dir is ported: a folder without masks raises what the JAX
-    # package raises (DatasetError).
+    # fsdp waits for item 7.6. A checkpoint path that is no file is read
+    # as an exported folder: without one it raises what the JAX package
+    # raises there (FileNotFoundError, its metadata.json). mask_dir is
+    # ported: a folder without masks raises what the JAX package raises
+    # (DatasetError). The profile options and the tensorboard logger are
+    # ported (item 7.5) and run as in the JAX package: profile_start or
+    # profile_steps alone writes no trace, and neither does profile=True
+    # with the window (steps 10-14 by default) past the run's last step;
+    # the list form without jsonl writes tensorboard events and no
+    # metrics.jsonl.
     if "mask_dir" in option:
         from lightly_train_tpu_torch.errors import DatasetError
 
@@ -169,12 +176,26 @@ def test_unported_options_are_refused(tmp_path, option):
                 tmp_path / "images"), model="dinov2/vittest14",
                 method="dinov2", accelerator="cpu", steps=1, **option)
         return
-    expected = (FileNotFoundError if "checkpoint" in option
-                else NotImplementedError)
-    with pytest.raises(expected, match=None if "checkpoint" in option
-                       else r"ROADMAP item 7\b"):
-        lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
-                    method="dinov2", accelerator="cpu", steps=1, **option)
+    if {"fsdp", "checkpoint"} & set(option):
+        expected = (FileNotFoundError if "checkpoint" in option
+                    else NotImplementedError)
+        with pytest.raises(expected, match=None if "checkpoint" in option
+                           else r"ROADMAP item 7\.6\b"):
+            lt.pretrain(out=str(tmp_path / "o"), model="dinov2/vittest14",
+                        method="dinov2", accelerator="cpu", steps=1,
+                        **option)
+        return
+    _write_ppm_folder(tmp_path / "images", n=2)
+    out = tmp_path / "o"
+    state = lt.pretrain(out=str(out), data=str(tmp_path / "images"),
+                        model="dinov2/vittest14", method="dinov2",
+                        accelerator="cpu", steps=1, batch_size=2,
+                        precision="fp32", canonical_size=36, num_workers=1,
+                        method_args=SMALL, **option)
+    assert state.step == 1
+    assert not (out / "profile").exists()
+    assert (out / "metrics.jsonl").exists() == ("loggers" not in option)
+    assert (out / "tensorboard").exists() == ("loggers" in option)
 
 
 def test_fp32_pretrain_is_accepted_for_the_card(tmp_path):

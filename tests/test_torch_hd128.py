@@ -18,6 +18,7 @@ JAX package on the CPU.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +63,7 @@ from lightly_train_tpu_torch.models.package_registry import (
     refuse_pretraining,
 )
 from lightly_train_tpu_torch.ops.kernels import attention as A
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 HD, H = 128, 2
 DTYPES = {"fp32": (jnp.float32, torch.float32),
@@ -417,6 +419,39 @@ def _teacher_pair():
             TW.WrappedModel(TEACHER, TV.VisionTransformer(cfg_t), 256, 16))
 
 
+def _jax_distill_init(j_method):
+    """The JAX method's (params, model_state, method_state) from the
+    shapes of its init (``jax.eval_shape``: no init runs), with the values
+    the init's would be replaced by: the student and heads, and the
+    teacher, drawn at checkpoint scale (seeds 0 and 1); the queue and its
+    counters at the init's zeros."""
+    params, model_state, ms = jax.eval_shape(
+        j_method.init, jax.random.key(0),
+        jnp.zeros((2, SIZE, SIZE, 3), jnp.float32))
+    zeros = functools.partial(jax.tree_util.tree_map,
+                              lambda x: jnp.zeros(x.shape, x.dtype))
+    ms = {**{k: zeros(v) for k, v in ms.items() if k != "teacher"},
+          "teacher": {"params": distill_scale(ms["teacher"]["params"], 1)}}
+    return distill_scale(params, 0), zeros(model_state), ms
+
+
+def _jax_distill_step(j_method, j_opt, params, model_state, ms, view, rng):
+    """One JAX distillation step at state step 0, compiled as one program
+    (the loss, its gradient and the masked update): (loss, params, method
+    state)."""
+    @jax.jit
+    def step(p, opt_state, ms, view):
+        (loss, (_, ms, _)), grads = jax.value_and_grad(
+            lambda p: j_method.loss_fn(p, model_state, ms, [view], rng,
+                                       jnp.asarray(0), TOTAL),
+            has_aux=True)(p)
+        updates, _ = j_opt.update(grads, opt_state, p)
+        p = optax.apply_updates(p, j_method.mask_updates(updates, 0))
+        return loss, p, ms
+
+    return step(params, jax.jit(j_opt.init)(params), ms, jnp.asarray(view))
+
+
 def test_distillation_step_from_an_hd128_teacher_matches_jax(monkeypatch):
     """One distillation v3 step (LARS) of a vittest14 student from the
     frozen narrow DINOv3 hd-128 teacher at 112^2 (N = 54 with the
@@ -430,11 +465,7 @@ def test_distillation_step_from_an_hd128_teacher_matches_jax(monkeypatch):
     j_method = JV3.DistillationV3(jax_get_wrapped_model(STUDENT),
                                   JV3.DistillationV3Args(**args),
                                   teacher_wrapped=teacher_j)
-    j_params, j_model_state, j_ms = j_method.init(
-        jax.random.key(0), jnp.zeros((2, SIZE, SIZE, 3), jnp.float32))
-    j_params = distill_scale(j_params, 0)
-    j_ms = {**j_ms, "teacher": {
-        "params": distill_scale(j_ms["teacher"]["params"], 1)}}
+    j_params, j_model_state, j_ms = _jax_distill_init(j_method)
 
     monkeypatch.setattr(V3, "get_wrapped_model", lambda name: (
         teacher_t if name == TEACHER else get_wrapped_model(name)))
@@ -459,17 +490,11 @@ def test_distillation_step_from_an_hd128_teacher_matches_jax(monkeypatch):
         lr_scales=j_method.lr_scales(j_params),
         weight_decay_schedule=j_method.weight_decay_schedule(TOTAL),
         wd_mask=j_method.wd_mask(j_params))
-    j_opt_state = j_opt.init(j_params)
     view = np.random.default_rng(100).standard_normal(
         (B, SIZE, SIZE, 3)).astype(np.float32)
     rng = jax.random.key(1000)
-    (j_loss, (_, j_ms, _)), grads = jax.value_and_grad(
-        lambda p: j_method.loss_fn(p, j_model_state, j_ms, [jnp.asarray(view)],
-                                   rng, jnp.asarray(0), TOTAL),
-        has_aux=True)(j_params)
-    updates, j_opt_state = j_opt.update(grads, j_opt_state, j_params)
-    j_params = optax.apply_updates(j_params,
-                                   j_method.mask_updates(updates, 0))
+    j_loss, j_params, j_ms = _jax_distill_step(
+        j_method, j_opt, j_params, j_model_state, j_ms, view, rng)
 
     lam, apply = jax_mixup_draw(rng, method.args.mixup_prob)
     masks = [(torch.tensor(np.asarray(lam)), torch.tensor(np.asarray(apply)))]
@@ -503,11 +528,7 @@ def test_distillation_step_of_an_hd128_student_matches_jax(flavour, patch):
     j_method = JV3.DistillationV3(
         JW.WrappedModel(name, JV.VisionTransformer(cfg_j), 256, patch),
         JV3.DistillationV3Args(**args))
-    j_params, j_model_state, j_ms = j_method.init(
-        jax.random.key(0), jnp.zeros((2, SIZE, SIZE, 3), jnp.float32))
-    j_params = distill_scale(j_params, 0)
-    j_ms = {**j_ms, "teacher": {
-        "params": distill_scale(j_ms["teacher"]["params"], 1)}}
+    j_params, j_model_state, j_ms = _jax_distill_init(j_method)
 
     method = V3.DistillationV3(
         TW.WrappedModel(name, TV.VisionTransformer(cfg_t), 256, patch),
@@ -536,17 +557,11 @@ def test_distillation_step_of_an_hd128_student_matches_jax(flavour, patch):
         lr_scales=j_method.lr_scales(j_params),
         weight_decay_schedule=j_method.weight_decay_schedule(TOTAL),
         wd_mask=j_method.wd_mask(j_params))
-    j_opt_state = j_opt.init(j_params)
     view = np.random.default_rng(101).standard_normal(
         (B, SIZE, SIZE, 3)).astype(np.float32)
     rng = jax.random.key(1001)
-    (j_loss, (_, j_ms, _)), grads = jax.value_and_grad(
-        lambda p: j_method.loss_fn(p, j_model_state, j_ms, [jnp.asarray(view)],
-                                   rng, jnp.asarray(0), TOTAL),
-        has_aux=True)(j_params)
-    updates, j_opt_state = j_opt.update(grads, j_opt_state, j_params)
-    j_params = optax.apply_updates(j_params,
-                                   j_method.mask_updates(updates, 0))
+    j_loss, j_params, j_ms = _jax_distill_step(
+        j_method, j_opt, j_params, j_model_state, j_ms, view, rng)
 
     lam, apply = jax_mixup_draw(rng, method.args.mixup_prob)
     masks = [(torch.tensor(np.asarray(lam)), torch.tensor(np.asarray(apply)))]

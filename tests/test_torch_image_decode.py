@@ -29,6 +29,7 @@ from lightly_train_tpu_torch._data import image_dataset as D
 from lightly_train_tpu_torch._data.jpeg import decode_jpeg, draft_scale
 from lightly_train_tpu_torch._data.png import ADAM7, decode_png
 from lightly_train_tpu_torch.errors import DatasetError
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "images"
 MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())

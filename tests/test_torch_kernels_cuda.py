@@ -16,6 +16,7 @@ import torch
 from lightly_train_tpu_torch import _native
 from lightly_train_tpu_torch._optim import fused_update as F
 from lightly_train_tpu_torch.ops.kernels import attention as A
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 HD = 64

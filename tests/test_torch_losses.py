@@ -10,6 +10,7 @@ from lightly_train_tpu.ops import losses as JL
 from lightly_train_tpu.ops.ema import cosine_schedule as jax_cosine_schedule
 from lightly_train_tpu_torch.ops import losses as TL
 from lightly_train_tpu_torch.ops.ema import cosine_schedule
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 
 def _rand(seed, *shape, scale=1.0):

@@ -21,6 +21,7 @@ from lightly_train_tpu._data.image_dataset import ImageDataset as JaxDataset
 from lightly_train_tpu_torch._data import image_dataset as D
 from lightly_train_tpu_torch._data.loader import PretrainLoader
 from lightly_train_tpu_torch.errors import DatasetError
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
 

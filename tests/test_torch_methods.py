@@ -59,6 +59,7 @@ from lightly_train_tpu_torch.models.from_jax import (
 )
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.ops import losses as L
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 STUDENT = "dinov2/vittest14"
 SIZE, LOCAL, B, TOTAL, GRID = 112, 56, 4, 10, 8

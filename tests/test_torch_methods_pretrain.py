@@ -18,6 +18,7 @@ import pytest
 
 import lightly_train_tpu as jlt
 import lightly_train_tpu_torch as lt
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)

@@ -42,6 +42,7 @@ from lightly_train_tpu_torch.models import package_registry as R
 from lightly_train_tpu_torch.models import torch_module as TM
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
 from test_torch_parity import rel_l2
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,7 @@ from lightly_train_tpu_torch._debug.nan_guard import (
 from lightly_train_tpu_torch.errors import NaNDetectedError
 from lightly_train_tpu_torch.methods.base import TrainState
 from lightly_train_tpu_torch.models.from_jax import params_from_jax
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)
@@ -104,10 +105,13 @@ def _images(folder):
 
 # The leaf set to NaN once state step 3 has run, before the step-3
 # checkpoint is written: step 4 (state step 3) is the first non-finite one.
+# The augmentation grid is off in both runs (the JAX package draws it with
+# eager ops, a fifth of its run; test_torch_checkpoint.py holds it).
 POISON = ("student", "block1", "mlp", "fc1", "kernel")
 RUN = dict(model="dinov2/vittest14", method="dinov2", batch_size=4, steps=5,
            precision="fp32", canonical_size=36, num_workers=0,
-           method_args=SMALL, checkpoint_every=3, log_every=50)
+           method_args=SMALL, checkpoint_every=3, log_every=50,
+           log_augmentations=False)
 
 
 def _port_run(out, data, monkeypatch):

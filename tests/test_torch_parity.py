@@ -44,6 +44,7 @@ from lightly_train_tpu_torch.models.from_jax import (
     variables_from_jax,
 )
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 SIZE, LOCAL, B, TOTAL = 64, 32, 4, 10
 MULTI_CROP = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,

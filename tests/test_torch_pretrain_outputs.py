@@ -15,6 +15,7 @@ import torch
 import lightly_train_tpu_torch as lt
 from lightly_train_tpu_torch._commands import train as T
 from lightly_train_tpu_torch.errors import NaNDetectedError
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)
@@ -139,14 +140,15 @@ def test_the_default_run_warns_what_it_does_not_write(tmp_path, caplog):
         _pretrain(tmp_path, steps=1)
     warnings = [r.getMessage() for r in caplog.records
                 if r.levelno == logging.WARNING]
-    # It names what is still not written (the profile trace, the logger
-    # backends), and no longer the checkpoints, the grid, the export or the
-    # NaN capture, which the run now writes.
-    assert any("profile" in m and "tensorboard, wandb and mlflow" in m
-               and "ROADMAP item 7.5" in m for m in warnings), warnings
+    # It names what is still refused (fsdp, item 7.6), and no longer the
+    # profile trace or the logger backends (item 7.5), the checkpoints, the
+    # grid, the export or the NaN capture, which the run now writes.
+    assert any("fsdp" in m and "ROADMAP item 7.6" in m
+               for m in warnings), warnings
     assert not any("checkpoint" in m or "augmentations.png" in m
                    or "exported_last" in m or "nan_capture" in m
-                   or "item 7.3" in m for m in warnings), warnings
+                   or "item 7.3" in m or "item 7.5" in m or "profile" in m
+                   or "tensorboard" in m for m in warnings), warnings
     out = tmp_path / "out"
     assert (out / "checkpoints" / "step_1.pt").exists()
     assert (out / "augmentations.png").exists()
@@ -171,9 +173,26 @@ def test_an_absent_logger_package_warns_and_the_run_goes_on(
 
 
 def test_an_installed_logger_package_is_refused(tmp_path, monkeypatch):
-    """The port does not write to it yet, and must not silently log
-    nothing."""
-    monkeypatch.setitem(sys.modules, "mlflow", types.ModuleType("mlflow"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7.5"):
-        _pretrain(tmp_path, loggers={"mlflow": {}})
-    assert not (tmp_path / "out").exists()
+    """An installed package now receives the run (ROADMAP item 7.5): a
+    stand-in ``mlflow`` gets the run started, the run's params (each cut
+    to 250 characters), every logged step's metrics with ``/`` as ``_``,
+    and the run ended, as the JAX package's MLflow logger sends them."""
+    calls = []
+    mlflow = types.ModuleType("mlflow")
+    for name in ("start_run", "log_params", "log_metrics", "end_run"):
+        setattr(mlflow, name, lambda *a, name=name, **k: calls.append(
+            (name, a, k)))
+    monkeypatch.setitem(sys.modules, "mlflow", mlflow)
+    state, path = _pretrain(tmp_path, loggers={"mlflow": {}})
+    assert state.step == 2
+    assert [c[0] for c in calls] == ["start_run", "log_params",
+                                     "log_metrics", "log_metrics", "end_run"]
+    params = calls[1][1][0]
+    assert params["model"] == "dinov2/vittest14"
+    assert params["resolved_steps"] == "2"
+    assert all(len(v) <= 250 for v in params.values())
+    for (_, (metrics,), kwargs), step in zip(calls[2:4], (1, 2)):
+        assert kwargs == {"step": step}
+        assert "train_loss" in metrics and "profiling_step_time" in metrics
+        assert not any("/" in k for k in metrics)
+    assert [r["step"] for r in _records(path) if "step" in r] == [1, 2]

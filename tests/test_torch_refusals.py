@@ -17,6 +17,7 @@ from lightly_train_tpu_torch._commands import train
 from lightly_train_tpu_torch._optim import JAX_OPTIMIZERS
 from lightly_train_tpu_torch.errors import ConfigError
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(output_dim=64, hidden_dim=32, bottleneck_dim=16,
              local_view_count=2, global_image_size=28, local_image_size=14)

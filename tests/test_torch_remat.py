@@ -31,6 +31,7 @@ from lightly_train_tpu_torch.models import vit as TV
 from lightly_train_tpu_torch.models.from_jax import params_from_jax
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.models.wrapper import WrappedModel
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 POLICIES = [None, "nothing_saveable", "everything_saveable", "dots_saveable",
             "checkpoint_dots", "dots_with_no_batch_dims_saveable",

@@ -47,6 +47,7 @@ from lightly_train_tpu_torch.models.from_jax import (
 )
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.ops.ema import cosine_schedule
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 OPTIMIZERS = {
     "adamw": (JaxAdamWArgs(lr=0.1, weight_decay=0.05),

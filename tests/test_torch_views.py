@@ -34,6 +34,7 @@ from lightly_train_tpu_torch.methods import detcon as DT
 from lightly_train_tpu_torch.methods import dinov31 as D31
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
 from lightly_train_tpu_torch.ops import augment as TA
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 STUDENT = "dinov2/vittest14"
 

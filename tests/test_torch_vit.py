@@ -29,6 +29,7 @@ from lightly_train_tpu_torch.models.from_jax import (
 )
 from lightly_train_tpu_torch.models.heads import DINOHead
 from lightly_train_tpu_torch.models.package_registry import get_wrapped_model
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
