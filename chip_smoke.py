@@ -19,9 +19,10 @@ Phases (any failure exits non-zero):
    (64, 197, 6, 64) in both dtypes, at its local shape (192, 37, 6, 64) in
    bf16, and in fp32 at the shapes of the fp32 checks of 3o and 3p (the
    teacher's (4, 54, 12, 64), ECViT-S+'s (4, 50, 6, 64)), and in both
-   dtypes at ``evaluate_knn``'s batch of phase 3q (256, 257, 12, 64); the
-   script fails if 3o, 3p or 3q launched K1 or K2 at a shape phase 2 did
-   not hold; K1/K2
+   dtypes at ``evaluate_knn``'s batch of phase 3q (256, 257, 12, 64), and
+   at fine-tuning's shapes of phase 3r (bf16 (128, 257, 12, 64) and (16,
+   257, 12, 64), fp32 (8, 257, 12, 64)); the script fails if 3o, 3p, 3q or
+   3r launched K1 or K2 at a shape phase 2 did not hold; K1/K2
    at head dim 128 in both dtypes at
    the 7B teacher's and 7B student's shape of phases 3j and 3l, the 7B
    embed shape of phase 3k, at N = 37 and at N = 730; K4/K5
@@ -118,8 +119,10 @@ Phases (any failure exits non-zero):
    K1 launches of the student on the bf16 forward at (64, 201, 32, 128)
    (40 forward, 40 recomputed), 40 K2 on the bf16 backward there, 12 K1 of
    the fp32 ViT-B/16 teacher at (64, 201, 12, 64), no K3; finite losses,
-   step times, peak memory, the checkpoint and the export written; one
-   profiled step (the share of the device's time in K1 and K2); on one
+   step times, peak memory, the checkpoint handed over at the end
+   (counted, not written: 3j writes a 7B checkpoint) and the export
+   written at the end (timed); one profiled step (the share of the
+   device's time in K1 and K2); on one
    fixed batch, the student's gradients with the kernels held to those
    with K2's plain version in its place (5e-2 relative L2 on each checked
    leaf), and those with autograd through the plain forward written down;
@@ -199,8 +202,24 @@ Phases (any failure exits non-zero):
    the port's CPU run and the accuracy against the CPU's ``knn_accuracy``
    of the same embeddings; and the CLI in a subprocess (``list_models``,
    and ``pretrain`` of DINOv2 ViT-B/14 for 2 steps at phase 3's batch, its
-   launches counted in the subprocess and held to phase 3's). 3j, 3k, 3l
-   and 3m delete what they wrote. Each phase's wall time is printed. ``pretrain`` applies
+   launches counted in the subprocess and held to phase 3's). (3r, after
+   3q) Fine-tuning from phase 3's export at ViT-B/14 width, bf16, 4 steps
+   each: ``train_image_classification`` at its default batch of 128 (the
+   backbone trained: K1 and K2 12 a step at (128, 257, 12, 64), K1 12 a
+   val batch) and linear ``train_semantic_segmentation`` at its default
+   batch of 16 (frozen: K1 12 a step at (16, 257, 12, 64), no K2; val at
+   448^2 in 9 tiles, 108 K1 a val batch), each val batch's launches
+   counted around it and a step's from the rest, K3 0 and no SDPA or plain
+   attention in either, finite losses, the val metric keys,
+   ``exported_best`` and ``exported_last``, step times, peak memory and
+   the val step's time; both multihead entry points at vittest14 (K1 at
+   (8, 257, 2, 16) only), the classification one stopped after its step-2
+   checkpoint and resumed (the losses of steps 3-4 bitwise those of the
+   uninterrupted run); one fp32 step of the classification path on 8 images
+   (SGD, LayerScale 0.5, ``highest``) on the card against the port's CPU
+   path, the loss, the parameters and their change within 1e-2, its 12 K1
+   and 12 K2 fp32 at (8, 257, 12, 64). 3j, 3k, 3m and 3r delete what they
+   wrote. Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -490,6 +509,27 @@ finally:
         "by_shape": [[lib, [b, n, h, hd], c] for (lib, (b, h, n, hd)), c
                      in A.shape_launches.items()]}), flush=True)
 """
+
+# Phase 3r: fine-tuning (ROADMAP item 12) at ViT-B/14 width, warm-started
+# from phase 3's bf16 DINOv2 export, bf16, FT_STEPS steps each. (a)
+# ``train_image_classification`` at its default batch of 128 on two class
+# folders of FT_TRAIN images each (FT_VAL val images each), the backbone
+# trained: K1 and K2 12 a step at FT_CLS, K1 12 a val batch; (b) linear
+# ``train_semantic_segmentation`` at its default batch of 16 (backbone
+# frozen: no K2) on phase 3's images with FT_SEG_CLASSES-class masks,
+# validated at FT_VAL_SIZE^2 on FT_SEG_VAL images in FT_TILES tiles of
+# 224^2, 12 K1 a tile; (c) the two multihead entry points at vittest14
+# (hd 16, batch 8: HD16_SMALL), the classification one FT_MH_STEPS steps,
+# stopped after its step-2 checkpoint and resumed; (d) one fp32 step of
+# (a)'s path on 8 images (FT_FP32) on the card against the port's CPU path.
+FT_MODEL, FT_STEPS = "dinov2/vitb14", 4
+FT_TRAIN, FT_VAL = 64, 32
+FT_CLS = (2 * FT_TRAIN, 257, HEADS, HEAD_DIM)
+FT_SEG = (16, 257, HEADS, HEAD_DIM)
+FT_SEG_CLASSES, FT_SEG_VAL, FT_VAL_SIZE, FT_TILES = 8, 16, 448, 9
+FT_MH_STEPS, FT_MH_BATCH = 4, 8
+FT_FP32 = (8, 257, HEADS, HEAD_DIM)
+FT_NO_AUG = {"random_crop": None, "random_flip": None, "color_jitter": None}
 
 # The phase running now and when it started (``phase``).
 _CLOCK = {"name": None, "t0": 0.0}
@@ -838,7 +878,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # phases 3j and 3l, the embed shape of phase 3k, N = 37 and N = 730);
 # K1/K2 at ECViT's shapes of phase 3p (bf16 global and local, fp32 in (g))
 # and fp32 at the teacher's shape of the fp32 checks of 3o (a) and 3p (g);
-# K1/K2 at evaluate_knn's batch of phase 3q (c) in both dtypes;
+# K1/K2 at evaluate_knn's batch of phase 3q (c) in both dtypes; K1/K2 at
+# the fine-tuning shapes of phase 3r (bf16 (a) and (b), fp32 (d));
 # K4/K5 at the ViT-B/14 shapes and the 7B embed shape in both layouts and
 # dtypes, and at the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
@@ -857,6 +898,8 @@ ATTENTION_CASES = [
     ("flat", "fp32", ECVIT_FP32, "flat"),
     ("flat", "fp32", TEACHER_FP32_CHECK, "flat")] + [
     ("flat", dtype, KNN_SHAPE, "flat") for dtype in DTYPES] + [
+    ("flat", "bf16", FT_CLS, "flat"), ("flat", "bf16", FT_SEG, "flat"),
+    ("flat", "fp32", FT_FP32, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -1783,12 +1826,9 @@ def held_to_plain_attention(A, module, images, keys, tol: float,
     return rel
 
 
-def timed_saves(drop: bool = False, sizes: Optional[list] = None):
+def timed_saves():
     """Wraps ``CheckpointManager.save`` to record each call's seconds;
-    returns (the list they land in, a function that puts it back). With
-    ``drop`` each step file is deleted as soon as it is written, its size
-    in GiB appended to ``sizes`` first, so that a 7B run holds one 25 GiB
-    file on disk at a time: its checkpoint, then its export."""
+    returns (the list they land in, a function that puts it back)."""
     from lightly_train_tpu_torch._checkpoint import checkpoint as C
 
     seconds = []
@@ -1798,12 +1838,63 @@ def timed_saves(drop: bool = False, sizes: Optional[list] = None):
         t0 = time.perf_counter()
         save(self, step, *args, **kwargs)
         seconds.append(time.perf_counter() - t0)
-        if drop:
-            sizes.append(self.path(step).stat().st_size / 2 ** 30)
-            self.path(step).unlink()
 
     C.CheckpointManager.save = timed
     return seconds, lambda: setattr(C.CheckpointManager, "save", save)
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor in ``obj``: a tensor, a module's state dict,
+    an object with ``state_dict()`` (an updater), or dicts, lists and
+    tuples of them."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, torch.nn.Module) or hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
+def counted_writes():
+    """Phase 3l's checkpoint counted and not written, its export written
+    and timed: ``CheckpointManager.save`` replaced by a recorder of each
+    call (its step and the bytes of the tensors it was handed), and
+    ``pretrain``'s ``export_model`` wrapped to record its model name, the
+    bytes it was handed and its seconds. Phase 3j writes and times a 7B
+    checkpoint of the same format; writing 3l's 25 GiB checkpoint as well
+    cost 34-40 s of the script's limit. Returns (the records, a function
+    that puts both back)."""
+    from lightly_train_tpu_torch._checkpoint import checkpoint as C
+    from lightly_train_tpu_torch._commands import train as T
+
+    records = {"checkpoint": [], "export": []}
+    save, export = C.CheckpointManager.save, T.export_model
+
+    def save_stub(self, step, state, model, method):
+        records["checkpoint"].append((step, tensor_bytes(
+            [state.params, state.method_state, state.updater])))
+
+    def timed_export(out_path, model_name, backbone_state, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = export(out_path, model_name, backbone_state, *args,
+                        **kwargs)
+        records["export"].append((model_name, tensor_bytes(backbone_state),
+                                  time.perf_counter() - t0))
+        return result
+
+    C.CheckpointManager.save = save_stub
+    T.export_model = timed_export
+
+    def restore():
+        C.CheckpointManager.save = save
+        T.export_model = export
+
+    return records, restore
 
 
 def two_images(work: Path, size: int = 224):
@@ -2180,7 +2271,9 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
     bf16 forward at TEACHER_7B (40 forward, 40 recomputed), 40 K2 on the
     bf16 backward there, 12 K1 of the fp32 ViT-B/16 teacher at TEACHER, no
     K3. The student is built on the card and drawn leaf by leaf from the
-    CPU generator. Then: the checkpoint and the export it wrote, one
+    CPU generator. Then: the checkpoint it hands over (of the student's
+    size; counted, not written: ``counted_writes``) and the export it
+    writes (timed), one
     profiled step and the student's gradients on a fixed batch with the
     kernels against K2's plain version and the plain attention
     (``student_7b_fixed_batch``), and DINOv2 with the same student refused
@@ -2207,8 +2300,7 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
         return result
 
     V3.DistillationV3.init = timed_init
-    ckpt_gib = []
-    saves, restore = timed_saves(drop=True, sizes=ckpt_gib)
+    writes, restore = counted_writes()
     torch.cuda.reset_peak_memory_stats()
     counters = reset_counters(A, F)
     t0 = time.perf_counter()
@@ -2252,12 +2344,22 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
     n_params = sum(p.numel() for p in student.parameters())
     if n_params != 6_716_035_072 or student.cfg.remat_every != 1:
         fail("the student is not the full DINOv3 7B/16 with remat_every 1")
-    # One checkpoint, at the end, deleted as it was written (timed_saves).
+    # One checkpoint, at the end, counted (counted_writes): it holds the
+    # student, its heads and the frozen teacher (the updater has no moments
+    # at momentum 0). One export of the student, written.
+    student_bytes = tensor_bytes(student)
+    ckpt = writes["checkpoint"]
     export = out / "exported_models" / "exported_last" / "model.pt"
-    if len(ckpt_gib) != 1 or not export.is_file():
-        fail(f"7B-student run wrote checkpoints of {ckpt_gib} GiB, export "
-             f"{export.is_file()}")
+    if ([step for step, _ in ckpt] != [steps] or ckpt[0][1] <= student_bytes
+            or [w[:2] for w in writes["export"]] != [(STUDENT_7B,
+                                                      student_bytes)]
+            or not export.is_file()
+            or export.stat().st_size < student_bytes):
+        fail(f"7B-student run's writes: {writes} (student "
+             f"{student_bytes} bytes), export {export.is_file()}")
+    ckpt_gib = ckpt[0][1] / 2 ** 30
     export_gib = export.stat().st_size / 2 ** 30
+    export_s = writes["export"][0][2]
     shutil.rmtree(out)
     times = [r["profiling/step_time"] * 1e3 for r in logged]
 
@@ -2316,16 +2418,16 @@ def run_student_7b_path(lt, A, F, card: str, work: Path) -> dict:
     print(f"7B student: {n_params} parameters, method init (student drawn "
           f"leaf by leaf on the card, heads, teacher) {built[0]:.1f} s; step "
           f"ms {times}; peak {peak_gib:.2f} GiB; checkpoint "
-          f"{ckpt_gib[0]:.2f} GiB saved in {saves[-1]:.1f} s, export "
-          f"{export_gib:.2f} GiB; "
+          f"{ckpt_gib:.2f} GiB handed over (counted, not written), export "
+          f"{export_gib:.2f} GiB written in {export_s:.1f} s; "
           f"wall {wall:.1f} s [{card}]", flush=True)
     del state, student, fixed, got, exact
     torch.cuda.empty_cache()
     return {"launches": launches, "by_shape": by_shape, "step_ms": times,
             "profile": prof,
             "peak_gib": peak_gib, "init_s": built[0],
-            "checkpoint_gib": ckpt_gib[0], "checkpoint_save_s": saves[-1],
-            "export_gib": export_gib, "wall_s": wall, "grad_rel_l2": rel}
+            "checkpoint_gib": ckpt_gib, "export_gib": export_gib,
+            "export_s": export_s, "wall_s": wall, "grad_rel_l2": rel}
 
 
 def run_vmem_path(A, card: str, dtype: str) -> dict:
@@ -3803,8 +3905,8 @@ def run_cnn_7b(lt, A, F, card: str, work: Path) -> dict:
     as phase 3l's (K1 80 bf16 and 12 fp32, K2 40 a step, no K3). Its peak
     is printed beside ``refuse_pretraining``'s count of its state. It
     writes no checkpoint and no export: each would be a 25 GiB-plus file
-    (phase 3l writes and times them; adamw8bit's checkpoint and resume
-    are held bitwise on the CPU)."""
+    (phase 3j writes and times a 7B checkpoint, 3k a 7B export;
+    adamw8bit's checkpoint and resume are held bitwise on the CPU)."""
     import torch
 
     from lightly_train_tpu_torch._commands import train as T
@@ -4586,6 +4688,400 @@ def run_surface_path(lt, A, F, card: str, work: Path) -> dict:
     shutil.rmtree(work / "knn")
     return results
 
+def write_class_folders(root: Path, n_train: int, n_val: int) -> dict:
+    """Two class folders of ``n_train`` train and ``n_val`` val images at
+    256^2 (``write_images``), the second class 60 levels brighter."""
+    for split, n, seed in (("train", n_train, SEED + 40),
+                           ("val", n_val, SEED + 41)):
+        for c, offset in ((0, -30.0), (1, 30.0)):
+            write_images(root / split / f"class_{c}", n, 256,
+                         seed=seed + 2 * c, offset=offset)
+    return {"train": str(root / "train"), "val": str(root / "val")}
+
+
+def write_seg_masks(folder: Path, n: int, size: int = 256) -> None:
+    """8-bit gray PNG masks for ``write_images``' first ``n`` stems: ids
+    below FT_SEG_CLASSES in 32-pixel blocks, the top 16 rows 255 (the
+    ignore index)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 42)
+    folder.mkdir(parents=True)
+    for i in range(n):
+        blocks = rng.integers(0, FT_SEG_CLASSES, (size // 32, size // 32))
+        ids = np.repeat(np.repeat(blocks, 32, 0), 32, 1)
+        ids[:16] = 255
+        (folder / f"img_{i:03d}.png").write_bytes(
+            png_bytes(ids[..., None].astype(np.uint8), 0, 8))
+
+
+def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
+    """``lt.<entry>(out=out, **kwargs)`` with every launch counter set to 0
+    just before and read just after, the stock and plain attention counted
+    (``CallCount``), each validation step timed to the card's end and its
+    launches by shape read before and after it, the peak memory and what
+    earlier phases left allocated before it; the train and val records of
+    ``metrics.jsonl``."""
+    import torch
+
+    from lightly_train_tpu_torch._commands import train_task as TT
+
+    val_ms, val_launches = [], []
+    run = TT.run_task_training
+
+    def timed_val(config, train_model, *args):
+        inner = train_model.val_step
+
+        def val_step(model, batch):
+            before = launches_by_shape(A)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = inner(model, batch)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+            val_launches.append({k: n - before.get(k, 0) for k, n in
+                                 launches_by_shape(A).items()
+                                 if n != before.get(k, 0)})
+            return stats
+
+        train_model.val_step = val_step
+        return run(config, train_model, *args)
+
+    TT.run_task_training = timed_val
+    spies = [CallCount(torch.nn.functional, "scaled_dot_product_attention"),
+             CallCount(A, "dot_product_attention")]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters(A, F)
+    t0 = time.perf_counter()
+    try:
+        state, val = getattr(lt, entry)(out=str(out), **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        TT.run_task_training = run
+        for spied in spies:
+            spied.restore()
+    records = logged_steps(out)
+    return {"state": state, "val": val, "wall_s": time.perf_counter() - t0,
+            "launches": [fn.launches for fn in counters],
+            "by_shape": launches_by_shape(A),
+            "stock_calls": [spied.calls for spied in spies],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "held_gib": held, "val_ms": val_ms, "val_by_shape": val_launches,
+            "train": [r for r in records if "train_loss" in r],
+            "val_records": [r for r in records if "train_loss" not in r]}
+
+
+def check_finetune(tag: str, r: dict, out: Path, steps: int, batch: int,
+                   expected: list, by_shape: dict, val_keys: set,
+                   card: str, per_step: dict = None,
+                   per_val_batch: dict = None) -> dict:
+    """Phase 3r's checks of one run: the logged steps with finite losses,
+    the val metric keys, both exports with the task's metadata, the
+    launches in all and by shape, no stock or plain attention, K3 0; where
+    given, the launches by shape of each val batch (read around it) and of
+    a train step (the rest over ``steps``). Returns the step times (ms,
+    from each step's images/s) and the run's numbers."""
+    train = r["train"]
+    step_ms = [batch * 1e3 / x["profiling/images_per_sec"] for x in train]
+    in_val = {}
+    for launched in r["val_by_shape"]:
+        for k, n in launched.items():
+            in_val[k] = in_val.get(k, 0) + n
+    r["per_step"] = {k: (n - in_val.get(k, 0)) / steps
+                     for k, n in r["by_shape"].items()}
+    print(f"  {tag}: steps {[round(ms, 1) for ms in step_ms]} ms "
+          f"({[round(x['profiling/images_per_sec'], 1) for x in train]} "
+          f"img/s; waiting on the loader "
+          f"{[round(x['profiling/data_time'] * 1e3, 1) for x in train]} ms), "
+          f"losses {[round(x['train_loss'], 4) for x in train]}, "
+          f"val {r['val']}, val steps "
+          f"{[round(ms, 1) for ms in r['val_ms']]} ms, peak "
+          f"{r['peak_gib']:.2f} GiB ({r['held_gib']:.2f} GiB held before "
+          f"the run), wall {r['wall_s']:.1f} s; launches "
+          f"{r['launches']} (expected {expected}), by shape {r['by_shape']}, "
+          f"a train step {r['per_step']}, each val batch "
+          f"{r['val_by_shape']} [{card}]", flush=True)
+    if [x["step"] for x in train] != list(range(1, steps + 1)) or not all(
+            math.isfinite(x["train_loss"]) for x in train):
+        fail(f"phase 3r {tag}: metrics.jsonl {train}")
+    if not val_keys <= set(r["val"]) or not all(
+            math.isfinite(v) for v in r["val"].values()):
+        fail(f"phase 3r {tag}: val metrics {r['val']}")
+    for name in ("exported_best", "exported_last"):
+        meta = out / "exported_models" / name / "metadata.json"
+        if not (meta.is_file() and "task" in json.loads(meta.read_text())):
+            fail(f"phase 3r {tag}: {name} missing")
+    if r["launches"] != expected or r["by_shape"] != by_shape:
+        fail(f"phase 3r {tag}: launches {r['launches']} != {expected}, by "
+             f"shape {r['by_shape']} != {by_shape}")
+    if per_step is not None and r["per_step"] != per_step:
+        fail(f"phase 3r {tag}: a train step's launches {r['per_step']} != "
+             f"{per_step}")
+    if per_val_batch is not None and (not r["val_by_shape"] or any(
+            launched != per_val_batch for launched in r["val_by_shape"])):
+        fail(f"phase 3r {tag}: the val batches' launches "
+             f"{r['val_by_shape']} != {per_val_batch} each")
+    if any(r["stock_calls"]):
+        fail(f"phase 3r {tag}: SDPA and plain attention calls "
+             f"{r['stock_calls']}")
+    return {k: v for k, v in r.items() if k not in ("state", "train",
+                                                     "val_records")} | {
+        "step_ms": step_ms}
+
+
+def finetune_fp32_step(lt, device: str, export: Path, data: dict,
+                       out: Path) -> dict:
+    """One fp32 step of (a)'s path on 8 images in a batch of 8 on
+    ``device``, from ``export``, with the random transforms off and SGD
+    (its first step is the gradient times the learning rate, so the
+    parameters' change carries the gradient's rounding and nothing of
+    AdamW's sign-like first step): the loss and every parameter before and
+    after the update (a spy on ``UnfusedUpdate.update_and_apply``)."""
+    from lightly_train_tpu_torch._optim.update import UnfusedUpdate
+
+    snaps = []
+    update = UnfusedUpdate.update_and_apply
+
+    def spy(self, grads, params, *args, **kwargs):
+        snaps.append({n: p.detach().float().cpu().clone()
+                      for n, p in params.items()})
+        norm = update(self, grads, params, *args, **kwargs)
+        snaps.append({n: p.detach().float().cpu().clone()
+                      for n, p in params.items()})
+        return norm
+
+    UnfusedUpdate.update_and_apply = spy
+    try:
+        lt.train_image_classification(
+            out=str(out), data=data, model=FT_MODEL,
+            checkpoint=str(export), steps=1, batch_size=8, precision="fp32",
+            optim="sgd", learning_rate=0.1, transform_args=FT_NO_AUG,
+            log_every=1, seed=SEED, accelerator=device)
+    finally:
+        UnfusedUpdate.update_and_apply = update
+    loss = logged_steps(out)[0]["train_loss"]
+    shutil.rmtree(out)
+    return {"loss": loss, "before": snaps[0], "after": snaps[1]}
+
+
+def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
+    """Phase 3r: (a) ``train_image_classification`` and (b) linear
+    ``train_semantic_segmentation`` at ViT-B/14 width from ``export`` (phase
+    3's bf16 DINOv2 export), bf16, FT_STEPS steps at their default batches
+    (128 and 16), validated at the end; (c) both multihead entry points at
+    vittest14, batch FT_MH_BATCH, and a stopped and resumed run of the
+    classification one; (d) one fp32 step of (a)'s path on the card against
+    the port's CPU path. Each run's launches counted from 0 (K1/K2 by
+    shape, K3 0, no stock or plain attention) and checked by
+    ``check_finetune``."""
+    import os
+
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint.checkpoint import (
+        export_model,
+        load_exported_model,
+    )
+    from lightly_train_tpu_torch._commands import train_task as TT
+
+    cls_data = write_class_folders(work / "ft_cls", FT_TRAIN, FT_VAL)
+    write_seg_masks(work / "ft_masks", 2 * BATCH)
+    write_images(work / "ft_seg_val", FT_SEG_VAL, 256, seed=SEED + 43)
+    seg_data = {"num_classes": FT_SEG_CLASSES,
+                "train": {"images": str(work / "images"),
+                          "masks": str(work / "ft_masks")},
+                "val": {"images": str(work / "ft_seg_val"),
+                        "masks": str(work / "ft_masks")}}
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    fwd16 = A.fwd_library(torch.bfloat16, 16)
+    common = dict(model=FT_MODEL, checkpoint=str(export),
+                  steps=FT_STEPS, precision="bf16", log_every=1,
+                  val_every=FT_STEPS, seed=SEED)
+    results = {}
+
+    # (a) classification, the backbone trained: K1 and K2 12 a step, K1 12
+    # a val batch (2 FT_VAL images in one batch of 128).
+    out = work / "ft_a"
+    val_batches = -(-2 * FT_VAL // FT_CLS[0])
+    r = finetune_run(lt, A, F, "train_image_classification", out,
+                     data=cls_data, **common)
+    results["a"] = check_finetune(
+        "(a) train_image_classification ViT-B/14 bf16, batch 128", r, out,
+        FT_STEPS, FT_CLS[0],
+        [DEPTH * (FT_STEPS + val_batches), DEPTH * FT_STEPS, 0, 0, 0],
+        {(fwd, FT_CLS): DEPTH * (FT_STEPS + val_batches),
+         (bwd, FT_CLS): DEPTH * FT_STEPS},
+        {"val_loss", "val_top1", "val_top5", "val_f1"}, card,
+        per_step={(fwd, FT_CLS): DEPTH, (bwd, FT_CLS): DEPTH},
+        per_val_batch={(fwd, FT_CLS): DEPTH})
+    if not all(p.requires_grad for p in r["state"].params.parameters()):
+        fail("phase 3r (a): the backbone does not train")
+    shutil.rmtree(out)
+    del r
+
+    # (b) the linear probe, frozen: K1 12 a step, none of K2; validation at
+    # FT_VAL_SIZE in FT_TILES tiles of 224^2, 12 K1 a tile.
+    out = work / "ft_b"
+    r = finetune_run(lt, A, F, "train_semantic_segmentation", out,
+                     data=seg_data, val_image_size=FT_VAL_SIZE, **common)
+    results["b"] = check_finetune(
+        f"(b) train_semantic_segmentation ViT-B/14 bf16, batch 16, val "
+        f"{FT_VAL_SIZE}^2 tiled", r, out, FT_STEPS, FT_SEG[0],
+        [DEPTH * (FT_STEPS + FT_TILES), 0, 0, 0, 0],
+        {(fwd, FT_SEG): DEPTH * (FT_STEPS + FT_TILES)}, {"val_loss",
+                                                          "val_miou"}, card,
+        per_step={(fwd, FT_SEG): DEPTH},
+        per_val_batch={(fwd, FT_SEG): DEPTH * FT_TILES})
+    if any(p.requires_grad for p in r["state"].params.backbone.parameters()):
+        fail("phase 3r (b): the probe's backbone requires gradients")
+    shutil.rmtree(out)
+    del r
+
+    # (c) the multihead entry points at vittest14 (hd 16), frozen: K1 2 a
+    # step and 2 a val batch at HD16_SMALL.
+    mh = dict(model="dinov2/vittest14", batch_size=FT_MH_BATCH,
+              precision="bf16", log_every=1, seed=SEED)
+    out = work / "ft_c_cls"
+    cls_val = -(-2 * FT_VAL // FT_MH_BATCH)
+    r = finetune_run(lt, A, F, "train_image_classification_multihead", out,
+                     data=cls_data, steps=FT_MH_STEPS, save_every=2,
+                     val_every=FT_MH_STEPS, **mh)
+    results["c_cls"] = check_finetune(
+        "(c) train_image_classification_multihead vittest14 bf16", r, out,
+        FT_MH_STEPS, FT_MH_BATCH, [2 * (FT_MH_STEPS + cls_val), 0, 0, 0, 0],
+        {(fwd16, HD16_SMALL): 2 * (FT_MH_STEPS + cls_val)},
+        {"val_top1_head_1x", "val_top1_head_01x", "val_top1_best"}, card)
+    straight = r["train"]
+    shutil.rmtree(out)
+
+    class StopAfterTwo(TT.PretrainLoader):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 2:
+                    raise KeyboardInterrupt
+                yield batch
+
+    out = work / "ft_c_resume"
+    loader = TT.PretrainLoader
+    TT.PretrainLoader = StopAfterTwo
+    try:
+        lt.train_image_classification_multihead(
+            out=str(out), data=cls_data, steps=FT_MH_STEPS, save_every=2,
+            val_every=FT_MH_STEPS, **mh)
+        fail("phase 3r (c): the stopped run did not stop")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        TT.PretrainLoader = loader
+    state, _ = lt.train_image_classification_multihead(
+        out=str(out), data=cls_data, steps=FT_MH_STEPS, save_every=2,
+        val_every=FT_MH_STEPS, resume_interrupted=True, **mh)
+    # The run is deterministic on the card: a resume that read other
+    # batches, or restarted the stream, moves the losses of steps 3-4,
+    # which sit near ln 2 with the 2-class heads at chance, so they must be
+    # bitwise the uninterrupted run's.
+    resumed = [x for x in logged_steps(out) if "train_loss" in x]
+    gap = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+              for a, b in zip(resumed[2:], straight[2:]))
+    print(f"  (c) stopped after step 2's checkpoint and resumed: steps "
+          f"{[x['step'] for x in resumed]}, state step {state.step}, losses "
+          f"{[x['train_loss'] for x in resumed]} against the uninterrupted "
+          f"run's {[x['train_loss'] for x in straight]} (steps 3-4 "
+          f"{gap:.2e} apart, bitwise equal required)", flush=True)
+    if state.step != FT_MH_STEPS or [x["step"] for x in resumed] != list(
+            range(1, FT_MH_STEPS + 1)) or [
+                x["train_loss"] for x in resumed[2:]] != [
+                x["train_loss"] for x in straight[2:]]:
+        fail(f"phase 3r (c): the resumed run {resumed}, step {state.step}, "
+             f"against {straight}")
+    results["c_resume_gap"] = gap
+    shutil.rmtree(out)
+    out = work / "ft_c_seg"
+    seg_val = -(-FT_SEG_VAL // FT_MH_BATCH)
+    r = finetune_run(lt, A, F, "train_semantic_segmentation_multihead", out,
+                     data=seg_data, steps=2, val_every=2, **mh)
+    results["c_seg"] = check_finetune(
+        "(c) train_semantic_segmentation_multihead vittest14 bf16", r, out,
+        2, FT_MH_BATCH, [2 * (2 + seg_val), 0, 0, 0, 0],
+        {(fwd16, HD16_SMALL): 2 * (2 + seg_val)},
+        {"val_miou_head_1x", "val_miou_head_01x", "val_miou_best"}, card)
+    shutil.rmtree(out)
+    del r
+
+    # (d) one fp32 step on the card against the CPU, LayerScale 0.5 (at
+    # phase 3's 1e-5 the blocks barely reach the loss), IEEE fp32 GEMMs.
+    art = load_exported_model(export)
+    state_dict = {n: (torch.full_like(v, 0.5) if n.endswith("gamma") else v)
+                  for n, v in art["state_dict"].items()}
+    ls05 = work / "ft_ls05"
+    export_model(ls05, art["model_name"], state_dict)
+    data8 = {"train": write_class_folders(work / "ft_fp32", 4, 1)["train"]}
+    prior = os.environ.get("LIGHTLY_TRAIN_MATMUL_PRECISION")
+    os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = "highest"
+    try:
+        counters = reset_counters(A, F)
+        on_card = finetune_fp32_step(lt, "cuda", ls05, data8,
+                                     work / "ft_d_card")
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in counters]
+        by_shape = launches_by_shape(A)
+        t0 = time.perf_counter()
+        on_cpu = finetune_fp32_step(lt, "cpu", ls05, data8, work / "ft_d_cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        if prior is None:
+            os.environ.pop("LIGHTLY_TRAIN_MATMUL_PRECISION", None)
+        else:
+            os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = prior
+        pin_ieee()
+    shutil.rmtree(ls05)
+    shutil.rmtree(work / "ft_fp32")
+    names = sorted(on_cpu["before"])
+
+    def flat(run, change):
+        return torch.cat([(run["after"][n] - (run["before"][n] if change
+                                              else 0)).reshape(-1)
+                          for n in names])
+
+    if any(not torch.equal(on_card["before"][n], on_cpu["before"][n])
+           for n in names):
+        fail("phase 3r (d): the card's and the CPU's initial parameters "
+             "differ")
+    ref_change = flat(on_cpu, True)
+    errors = {
+        "loss": abs(on_card["loss"] - on_cpu["loss"]) / abs(on_cpu["loss"]),
+        "parameters": ((flat(on_card, False) - flat(on_cpu, False)).norm()
+                       / flat(on_cpu, False).norm()).item(),
+        "parameter_change": ((flat(on_card, True) - ref_change).norm()
+                             / ref_change.norm()).item(),
+    }
+    fwd32 = A.fwd_library(torch.float32, HEAD_DIM)
+    bwd32 = A.bwd_library(torch.float32, HEAD_DIM)
+    want = {(fwd32, FT_FP32): DEPTH, (bwd32, FT_FP32): DEPTH}
+    print(f"  (d) one fp32 step of (a)'s path on 8 images (SGD, LayerScale "
+          f"0.5, highest), card against CPU: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errors.items())
+          + f" (tol 1e-2); losses card {on_card['loss']:.6f}, CPU "
+          f"{on_cpu['loss']:.6f}; the CPU's step {cpu_s:.1f} s; launches "
+          f"{launches}, by shape {by_shape} [{card}]", flush=True)
+    if not all(v <= 1e-2 for v in errors.values()) or not ref_change.norm():
+        fail(f"phase 3r (d): card against CPU {errors}")
+    if launches != [DEPTH, DEPTH, 0, 0, 0] or by_shape != want:
+        fail(f"phase 3r (d): launches {launches}, by shape {by_shape}")
+    results["d"] = {**errors, "by_shape": by_shape}
+    for name in ("ft_cls", "ft_masks", "ft_seg_val"):
+        shutil.rmtree(work / name)
+    results["by_shape"] = {}
+    for key in ("a", "b", "c_cls", "c_seg", "d"):
+        for shape_key, c in results[key]["by_shape"].items():
+            results["by_shape"][shape_key] = results["by_shape"].get(
+                shape_key, 0) + c
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -4772,13 +5268,24 @@ def main() -> int:
           f"ViT-B/14 bf16 with embed_dim, profile and the logger backends; "
           f"export; evaluate_knn fp32 and bf16; the CLI)", flush=True)
     surface = run_surface_path(lt, A, F, card, work)
-    # Each (library, shape) that phases 3o, 3p and 3q launched K1 or K2 at
-    # was held against the plain version in phase 2.
+    pin_ieee()
+    phase(f"phase 3r: fine-tuning at ViT-B/14 width from phase 3's export "
+          f"(train_image_classification, batch 128, and linear "
+          f"train_semantic_segmentation, batch 16, val {FT_VAL_SIZE}^2 "
+          f"tiled; bf16, {FT_STEPS} steps each), the multihead entry points "
+          f"at vittest14, a resume, one fp32 step against the CPU",
+          flush=True)
+    finetune = run_finetune_path(
+        lt, A, F, card, work,
+        paths["bf16"]["out"] / "exported_models" / "exported_last")
+    # Each (library, shape) that phases 3o, 3p, 3q and 3r launched K1 or K2
+    # at was held against the plain version in phase 2.
     covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
                for kernels, dtype, shape, _ in ATTENTION_CASES
                if kernels == "flat"
                for route in (A.fwd_library, A.bwd_library)}
-    for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface)):
+    for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface),
+                       ("3r", finetune)):
         if set(ran["by_shape"]) - covered:
             fail(f"phase {label} launched at shapes phase 2 does not hold: "
                  f"{sorted(set(ran['by_shape']) - covered)}")
@@ -4803,6 +5310,21 @@ def main() -> int:
     # pretrain path of the row's dtype, at the global and local shapes of
     # ViT-B/14 (phases 3, 3b) and of vittest14 (phase 3e); K4/K5: phase 3c,
     # at the global shape), 0 for shapes no path runs.
+    def ft_per_step(kernel: str, dtype: str, shape: tuple) -> dict:
+        """Measured in phase 3r (a) at FT_CLS and (b) at FT_SEG (bf16): the
+        launches of each val batch, counted around it, and of a train step
+        (the run's launches less the val batches', over its steps)."""
+        if kernel not in ("K1", "K2") or dtype != "bf16" or shape not in (
+                FT_CLS, FT_SEG):
+            return {}
+        ft_run = finetune["a" if shape == FT_CLS else "b"]
+        key = (getattr(A, f"{KERNELS[kernel][1]}_library")(torch.bfloat16,
+                                                           shape[3]), shape)
+        return {"launches_3r_per_step": ft_run["per_step"].get(key, 0),
+                "launches_3r_per_val_batch": [
+                    launched.get(key, 0)
+                    for launched in ft_run["val_by_shape"]]}
+
     kernels = []
     for (kernel, dtype), rows in attn.items():
         name, direction, line = KERNELS[kernel]
@@ -4833,6 +5355,12 @@ def main() -> int:
                 # Phase 3q (c)'s evaluate_knn runs (fp32 twice, bf16 once).
                 KNN_SHAPE: surface["by_shape"].get(
                     (route(torch_dtype(dtype), HEAD_DIM), KNN_SHAPE), 0),
+                # Phase 3r's fine-tuning runs: (a) at FT_CLS, (b) at FT_SEG
+                # (bf16), (c)'s multihead runs at HD16_SMALL, (d) at FT_FP32
+                # (fp32).
+                **{shape: finetune["by_shape"].get(
+                    (route(torch_dtype(dtype), shape[3]), shape), 0)
+                   for shape in (FT_CLS, FT_SEG, FT_FP32, HD16_SMALL)},
             })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
@@ -4895,6 +5423,14 @@ def main() -> int:
                 (route(torch_dtype(dtype), row["shape"][3]),
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),
+            # Phase 3r's at the row's shape: (a)'s and (b)'s K1 and K2 a
+            # train step, K1 a val batch ((b): FT_TILES tiles), and the
+            # multihead runs' at HD16_SMALL.
+            **({"launches_3r": finetune["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
+            **ft_per_step(kernel, dtype, tuple(row["shape"])),
             # Each evaluate_knn run's K1 a batch in the row's dtype.
             **({"launches_per_batch": {
                 tag: r["k1_per_batch"] for tag, r in surface["c"].items()
@@ -4921,6 +5457,8 @@ def main() -> int:
         "launches_remat": remat["launches"][2],
         "launches_3q": surface["a"]["launches"][2]
         + surface["d"]["launches"][2],
+        "launches_3r": sum(finetune[k]["launches"][2]
+                           for k in ("a", "b", "c_cls", "c_seg")),
         "launches_3o_dino_resnet50": cnn["b_dino_resnet50"][
             "launches_per_step"]["K3"] * CNN_STEPS,
         **{f"launches_3p_{tag}": item10[tag]["launches_per_step"]["K3"]

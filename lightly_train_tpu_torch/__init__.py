@@ -2,7 +2,11 @@
 
 The JAX package ``lightly_train_tpu`` is the reference; this package imports
 nothing of it (nor of JAX). Entry points run on the card unless the caller
-asks for the CPU. The CLI is ``python -m lightly_train_tpu_torch``.
+asks for the CPU. The CLI is ``python -m lightly_train_tpu_torch``. Of the
+fine-tuning entry points, image classification, linear semantic
+segmentation and their multihead forms run; object detection (ROADMAP item
+14), instance and panoptic segmentation (item 13) raise
+``NotImplementedError``.
 """
 
 from lightly_train_tpu_torch._commands.embed import embed, embed_from_config
@@ -11,6 +15,15 @@ from lightly_train_tpu_torch._commands.export import export
 from lightly_train_tpu_torch._commands.train import (
     pretrain,
     pretrain_from_config,
+)
+from lightly_train_tpu_torch._commands.train_task import (
+    train_image_classification,
+    train_image_classification_multihead,
+    train_instance_segmentation,
+    train_object_detection,
+    train_panoptic_segmentation,
+    train_semantic_segmentation,
+    train_semantic_segmentation_multihead,
 )
 from lightly_train_tpu_torch.methods.method_helpers import list_methods
 from lightly_train_tpu_torch.models.package_registry import list_models
@@ -36,6 +49,13 @@ __all__ = [
     "pretrain",
     "pretrain_from_config",
     "train",
+    "train_image_classification",
+    "train_image_classification_multihead",
+    "train_instance_segmentation",
+    "train_object_detection",
+    "train_panoptic_segmentation",
+    "train_semantic_segmentation",
+    "train_semantic_segmentation_multihead",
 ]
 
 __version__ = "0.1.0"

@@ -18,6 +18,12 @@ orbax, so both tiers are torch files:
   run with ``embed_dim``, the state dict of its linear embedding head
   (``embed_head.pt``: ``weight``, ``bias``).
 
+A fine-tuning task saves its state the same way (``tasks/base.py``'s
+``TaskTrainState``: the task model's parameters and buffers, the updater's
+state, no method state) and exports the whole task model (backbone and
+head) with the task's metadata (``task``, ``task_args``, ``steps``,
+``classes`` or ``architecture``).
+
 Also :func:`merge_pretrained`, the port of ``_commands/train_task.py``'s
 ``_merge_pretrained`` over flat state dicts.
 """
@@ -193,6 +199,7 @@ def resolve_pretrained_source(
 
 def merge_pretrained(
     init: Mapping[str, torch.Tensor], pretrained: Mapping[str, torch.Tensor],
+    require_overlap: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Key-wise overlay of ``pretrained`` onto ``init`` (state dicts).
 
@@ -200,8 +207,16 @@ def merge_pretrained(
     ignored. A shape mismatch is an error (a wrong checkpoint must not
     silently train from scratch), except for ``pos_embed`` (interpolated at
     run time) or under ``LIGHTLY_TRAIN_ALLOW_SHAPE_MISMATCH=1``: then the
-    leaf keeps its init, with a warning.
+    leaf keeps its init, with a warning. With ``require_overlap`` (the
+    fine-tuning entry points) a checkpoint that shares no name with
+    ``init`` is an error too: it would merge as a silent no-op.
     """
+    if require_overlap and not set(pretrained) & set(init):
+        raise ConfigError(
+            "The pretrained checkpoint shares no parameter names with this "
+            "model — it was exported for a different architecture or "
+            "nesting. Nothing was loaded."
+        )
     out = dict(init)
     for name, value in pretrained.items():
         if name not in out:

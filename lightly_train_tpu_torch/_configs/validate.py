@@ -4,7 +4,7 @@ Port of ``lightly_train_tpu/_configs/validate.py`` without pydantic: unknown
 keys raise :class:`ConfigUnknownKeyError` with a "did you mean" hint, values
 are checked against the field annotations (with pydantic's lax coercions
 that the configs rely on: int -> float, list -> tuple, a value -> its enum
-member) and wrong ones raise
+member, a dict -> a nested config) and wrong ones raise
 :class:`ConfigValidationError`.
 """
 
@@ -62,6 +62,13 @@ def _coerce(value: Any, tp: Any, where: str) -> Any:
         if isinstance(value, str):
             return value
         raise ConfigValidationError(f"{where}: expected str, got {value!r}")
+    if origin in (tuple, typing.Tuple) and len(args) == 2 \
+            and args[1] is Ellipsis:
+        if not isinstance(value, (list, tuple)):
+            raise ConfigValidationError(
+                f"{where}: expected a tuple, got {value!r}")
+        return tuple(_coerce(v, args[0], f"{where}[{i}]")
+                     for i, v in enumerate(value))
     if origin in (tuple, typing.Tuple):
         if not isinstance(value, (list, tuple)) or len(value) != len(args):
             raise ConfigValidationError(
@@ -84,6 +91,9 @@ def _coerce(value: Any, tp: Any, where: str) -> Any:
         return dict(value)
     if isinstance(tp, type) and isinstance(value, tp):
         return value
+    if (isinstance(tp, type) and dataclasses.is_dataclass(tp)
+            and isinstance(value, Mapping)):
+        return config_validate(tp, value)
     if isinstance(tp, type) and issubclass(tp, enum.Enum):
         try:
             return tp(value)

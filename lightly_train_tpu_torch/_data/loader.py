@@ -4,7 +4,8 @@ Port of ``lightly_train_tpu/_data/loader.py`` for one process: a thread pool
 decodes images to canonical uint8 batches, a background producer keeps
 ``prefetch`` batches in flight, and each batch is collated into pinned host
 memory and copied to the device without blocking the host. A dataset with
-``mask_dir`` yields ``{"images", "masks"}`` items, collated key by key.
+``mask_dir``, and every fine-tuning dataset, yields dict items (``{"images",
+"masks"}``, ``{"images", "labels"}``), collated key by key.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def _collate(items: list, device: torch.device):
 class PretrainLoader:
     """Infinite shuffled loader of uint8 (B, H0, W0, 3) device batches
     (``{"images", "masks"}`` with the int32 (B, H0, W0) masks where the
-    dataset has ``mask_dir``)."""
+    dataset has ``mask_dir``; the fine-tuning tasks' dict batches). Its index
+    stream is the one both packages' pretraining and task loaders draw."""
 
     def __init__(
         self,

@@ -1,9 +1,11 @@
-"""The grid of augmented views that pretraining writes at step 0.
+"""The grid of augmented views that pretraining writes at step 0, and the
+first batch's label grid of a fine-tuning run.
 
 Port of the parts of ``lightly_train_tpu/_visualize/grids.py`` that
-``pretrain`` uses. The GPU machines have no PIL, which the JAX function
-uses twice, so the smaller views are resized with a numpy copy of PIL's
-``NEAREST`` sampling and the PNG is written with ``zlib`` and ``struct``.
+``pretrain`` and the fine-tuning runs use. The GPU machines have no PIL,
+which the JAX functions use, so the smaller views are resized with a numpy
+copy of PIL's ``NEAREST`` sampling and the PNG is written with ``zlib`` and
+``struct``.
 """
 
 from __future__ import annotations
@@ -98,4 +100,34 @@ def save_augmentation_grid(views: Sequence[np.ndarray], out_path: Path,
     out_path = Path(out_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     write_png(grid, out_path)
+    return out_path
+
+
+def colorize_mask(mask: np.ndarray, num_classes: int) -> np.ndarray:
+    """(H, W) int mask -> RGB with a deterministic palette (black at ids
+    of ``num_classes`` and above)."""
+    rng = np.random.default_rng(0)
+    palette = rng.integers(0, 255, (max(num_classes, 1), 3), dtype=np.uint8)
+    out = palette[np.clip(mask, 0, num_classes - 1)]
+    out[mask >= num_classes] = 0
+    return out
+
+
+def save_label_grid(images: np.ndarray, out_path: Path,
+                    masks: Optional[np.ndarray] = None,
+                    max_images: int = 8) -> Path:
+    """A grid of the first ``max_images`` normalized images of a batch, each
+    blended with its colourized mask where ``masks`` are given (the task
+    runs' ``first_batch_labels.png``)."""
+    n = min(max_images, images.shape[0])
+    tiles = denormalize(np.asarray(images[:n], np.float32))
+    if masks is not None:
+        num_classes = int(masks.max()) + 1 if masks.size else 1
+        tiles = np.stack([
+            (0.6 * tiles[i] + 0.4 * colorize_mask(
+                masks[i], max(num_classes, 2))).astype(np.uint8)
+            for i in range(n)])
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    write_png(image_grid(tiles), out_path)
     return out_path

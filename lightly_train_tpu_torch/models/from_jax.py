@@ -27,13 +27,17 @@ numpy arrays, into a PyTorch state dict for the port's modules:
   ``m{j}`` scopes and YOLO-NAS's 0-d ``alpha`` carry over under their Flax
   names (a 0-d leaf as a 0-d tensor).
 
+A fine-tuning task's tree (``backbone`` and ``head``, or ``heads/<name>``)
+carries the same way into the port's task model
+(:func:`task_state_from_jax`).
+
 It takes numpy only and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -123,3 +127,15 @@ def method_state_from_jax(method_state: Mapping[str, Any]) -> Dict[str, Any]:
         if key in method_state:
             out[key] = int(method_state[key])
     return out
+
+
+def task_state_from_jax(params: Mapping[str, Any],
+                        model_state: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict of a fine-tuning task model (``tasks/base.py``'s
+    ``TaskModule``) from a JAX task's ``params`` tree (``backbone`` plus
+    ``head``, or ``heads/<name>``) and its ``model_state`` (the backbone's
+    BatchNorm statistics, where it has them)."""
+    state = params_from_jax(params)
+    state.update(variables_from_jax(model_state or {}, prefix="backbone."))
+    return state

@@ -9,8 +9,9 @@ ROOT is the root of a checkout whose ``lightly_train_tpu_torch`` is timed
 one run on one card (parent, change, change, parent). ``--hd128`` times the
 hd-128 rows alone. Rows (B, N, H, hd):
 
-- hd 64: K1/K2 (flat layout) at ViT-B/14's global and local shapes and at
-  N = 730 (batch 8 and 32), K4/K5 (``vmem_attention_fwd``/``_bwd``) in
+- hd 64: K1/K2 (flat layout) at ViT-B/14's global and local shapes, at
+  N = 730 (batch 8 and 32) and at fine-tuning's (batch 128, 16 and 8 at
+  N = 257), K4/K5 (``vmem_attention_fwd``/``_bwd``) in
   both per-head layouts at the global and local shapes;
 - hd 16: K1/K2 and K4/K5 (the (B, N, H, hd) views ``vmem_attention`` hands
   over) at (8, 257, 2, 16) and at vittest14's pretrain shapes at batch 32,
@@ -40,8 +41,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 GLOBAL_B14, LOCAL_B14 = (64, 257, 12, 64), (256, 37, 12, 64)
+# Fine-tuning's shapes (phase 3r of chip_smoke.py): classification at its
+# default batch of 128, the linear probe's batch of 16, the fp32 check's 8.
+FINETUNE = ((128, 257, 12, 64), (16, 257, 12, 64), (8, 257, 12, 64))
 ROWS_64 = ([("flat", s) for s in (GLOBAL_B14, LOCAL_B14, (16, 730, 12, 64),
-                                   (64, 730, 12, 64))]
+                                   (64, 730, 12, 64), *FINETUNE)]
            + [(layout, s) for layout in ("bnhd", "bhnd")
               for s in (GLOBAL_B14, LOCAL_B14)])
 HD16 = ((8, 257, 2, 16), (64, 257, 2, 16), (256, 37, 2, 16))
