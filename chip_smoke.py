@@ -215,11 +215,32 @@ Phases (any failure exits non-zero):
    the val step's time; both multihead entry points at vittest14 (K1 at
    (8, 257, 2, 16) only), the classification one stopped after its step-2
    checkpoint and resumed (the losses of steps 3-4 bitwise those of the
-   uninterrupted run); one fp32 step of the classification path on 8 images
+   uninterrupted run, and the two runs' launches its launches); one fp32
+   step of the classification path on 8 images
    (SGD, LayerScale 0.5, ``highest``) on the card against the port's CPU
    path, the loss, the parameters and their change within 1e-2, its 12 K1
-   and 12 K2 fp32 at (8, 257, 12, 64). 3j, 3k, 3m and 3r delete what they
-   wrote. Each phase's wall time is printed. ``pretrain`` applies
+   and 12 K2 fp32 at (8, 257, 12, 64). (3s, after 3r) EoMT from phase 3's
+   export at ViT-B/14 width, bf16, batch 16, 100 queries in the last 3
+   blocks, at the default slot counts: ``train_semantic_segmentation``
+   with ``dinov2/vitb14-eomt`` on masks of 150 classes (32 active slots)
+   for 4 steps, validated at 448^2 in 9 tiles, and
+   ``train_instance_segmentation`` on a COCO JSON of polygons and RLEs and
+   on a YOLO-seg folder and ``train_panoptic_segmentation`` on id-encoded
+   panoptic PNGs, 48 shapes an image, all written here, at 50 slots for 3
+   steps each, validated at 224^2:
+   a train step K1 and K2 9 each at (16, 257, 12, 64) (the plain blocks)
+   and 3 masked plain attentions (the joint blocks), a val batch K1 9 at
+   257 and 3 at (16, 357, 12, 64) a tile and no masked attention, K3 0, no
+   SDPA or unmasked plain attention, finite losses and val metrics, the
+   exports' ``architecture`` "eomt"; a panoptic run at vittest14 with one
+   joint block, and the same run stopped after its step-2 checkpoint and
+   resumed (steps 3-4 bitwise the uninterrupted run's losses, both runs'
+   launches those of the uninterrupted one, as in 3r); one fp32 semantic
+   step at
+   vittest14 on the card against the CPU (the same uniforms, the Hungarian
+   matcher: assignments equal, the loss within 1e-4, the parameters'
+   change within 1e-2). 3j, 3k, 3m, 3r and 3s delete what they wrote.
+   Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
    phase sets it, and IEEE fp32 is pinned back before any plain version
@@ -530,6 +551,37 @@ FT_SEG_CLASSES, FT_SEG_VAL, FT_VAL_SIZE, FT_TILES = 8, 16, 448, 9
 FT_MH_STEPS, FT_MH_BATCH = 4, 8
 FT_FP32 = (8, 257, HEADS, HEAD_DIM)
 FT_NO_AUG = {"random_crop": None, "random_flip": None, "color_jitter": None}
+
+# Phase 3s: EoMT (ROADMAP item 13) at ViT-B/14 width from phase 3's bf16
+# export, bf16, batch 16 (EoMT's default), 100 queries in the last
+# EOMT_JOINT blocks (the auto count at depth 12): a train step runs K1 and
+# K2 EOMT_PLAIN times at FT_SEG and the plain masked attention EOMT_JOINT
+# times (at (16, 12, 357, 357)); a val batch runs K1 EOMT_PLAIN times at
+# FT_SEG and EOMT_JOINT times at EOMT_QUERIES_SHAPE a tile, no masked
+# attention. (a) train_semantic_segmentation with "-eomt" on phase 3's
+# images and EOMT_SEG_CLASSES-class masks, EOMT_STEPS steps, validated at
+# FT_VAL_SIZE^2 in FT_TILES tiles; (b) train_instance_segmentation on a
+# COCO JSON of polygons and RLEs and on a YOLO-seg folder, (c)
+# train_panoptic_segmentation on id-encoded panoptic PNGs, EOMT_TASK_STEPS
+# steps each, validated at 224^2; then a stopped and resumed panoptic run
+# at vittest14 with one joint block (K1 and K2 at HD16_SMALL in its plain
+# block); (d) one fp32 semantic step at vittest14 on the card against the
+# CPU, the same uniforms and the Hungarian matcher on both.
+EOMT_MODEL, EOMT_STEPS, EOMT_TASK_STEPS = "dinov2/vitb14-eomt", 4, 3
+EOMT_QUERIES, EOMT_JOINT = 100, 3
+EOMT_PLAIN = DEPTH - EOMT_JOINT
+EOMT_QUERIES_SHAPE = (16, 257 + EOMT_QUERIES, HEADS, HEAD_DIM)
+# (a) at EoMT's defaults: ADE20K's 150 classes, in 16-pixel blocks (more
+# than 32 classes an image, so the default max_active_slots of 32 binds);
+# (b) and (c) at the default max_instances of 50, with EOMT_SHAPES shapes
+# an image (COCO: octagons and one RLE rectangle; panoptic: rectangles,
+# one of them a crowd) of COCO's EOMT_CLASSES thing classes.
+EOMT_VAL, EOMT_SEG_CLASSES, EOMT_SEG_BLOCK = 16, 150, 16
+EOMT_CLASSES, EOMT_SHAPES, EOMT_SLOTS = 80, 48, 50
+EOMT_NO_AUG = {"scale_jitter": None, "random_crop": None,
+               "random_flip": None, "color_jitter": None}
+EOMT_SMALL = {"model": "dinov2/vittest14-eomt", "batch_size": 8,
+              "task_args": {"num_joint_blocks": 1, "max_instances": 8}}
 
 # The phase running now and when it started (``phase``).
 _CLOCK = {"name": None, "t0": 0.0}
@@ -879,7 +931,8 @@ def attention_case(A, card: str, kernels: str, dtype: str, shape: tuple,
 # K1/K2 at ECViT's shapes of phase 3p (bf16 global and local, fp32 in (g))
 # and fp32 at the teacher's shape of the fp32 checks of 3o (a) and 3p (g);
 # K1/K2 at evaluate_knn's batch of phase 3q (c) in both dtypes; K1/K2 at
-# the fine-tuning shapes of phase 3r (bf16 (a) and (b), fp32 (d));
+# the fine-tuning shapes of phase 3r (bf16 (a) and (b), fp32 (d)) and K1
+# at EoMT's joint blocks' shape in validation (phase 3s, bf16);
 # K4/K5 at the ViT-B/14 shapes and the 7B embed shape in both layouts and
 # dtypes, and at the hd-16 shapes in vmem_attention's layout.
 # Between them the shapes take both configurations of the fp32 hd-64
@@ -899,7 +952,8 @@ ATTENTION_CASES = [
     ("flat", "fp32", TEACHER_FP32_CHECK, "flat")] + [
     ("flat", dtype, KNN_SHAPE, "flat") for dtype in DTYPES] + [
     ("flat", "bf16", FT_CLS, "flat"), ("flat", "bf16", FT_SEG, "flat"),
-    ("flat", "fp32", FT_FP32, "flat")] + [
+    ("flat", "fp32", FT_FP32, "flat"),
+    ("flat", "bf16", EOMT_QUERIES_SHAPE, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -4699,34 +4753,58 @@ def write_class_folders(root: Path, n_train: int, n_val: int) -> dict:
     return {"train": str(root / "train"), "val": str(root / "val")}
 
 
-def write_seg_masks(folder: Path, n: int, size: int = 256) -> None:
+def write_seg_masks(folder: Path, n: int, size: int = 256,
+                    classes: int = FT_SEG_CLASSES, block: int = 32) -> None:
     """8-bit gray PNG masks for ``write_images``' first ``n`` stems: ids
-    below FT_SEG_CLASSES in 32-pixel blocks, the top 16 rows 255 (the
+    below ``classes`` in ``block``-pixel blocks, the top 16 rows 255 (the
     ignore index)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 42)
     folder.mkdir(parents=True)
     for i in range(n):
-        blocks = rng.integers(0, FT_SEG_CLASSES, (size // 32, size // 32))
-        ids = np.repeat(np.repeat(blocks, 32, 0), 32, 1)
+        blocks = rng.integers(0, classes, (size // block, size // block))
+        ids = np.repeat(np.repeat(blocks, block, 0), block, 1)
         ids[:16] = 255
         (folder / f"img_{i:03d}.png").write_bytes(
             png_bytes(ids[..., None].astype(np.uint8), 0, 8))
 
 
+class PlainAttentionCount:
+    """Wraps the plain attention ``A.dot_product_attention`` to count its
+    masked calls (EoMT's joint blocks in training) apart from its unmasked
+    ones (none on any path of the card) until :meth:`restore`."""
+
+    def __init__(self, A):
+        self.A, self.fn = A, A.dot_product_attention
+        self.masked = self.calls = 0
+
+        def counted(q, k, v, num_heads, mask=None, scale=None):
+            if mask is None:
+                self.calls += 1
+            else:
+                self.masked += 1
+            return self.fn(q, k, v, num_heads, mask, scale)
+
+        A.dot_product_attention = counted
+
+    def restore(self) -> None:
+        self.A.dot_product_attention = self.fn
+
+
 def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
     """``lt.<entry>(out=out, **kwargs)`` with every launch counter set to 0
-    just before and read just after, the stock and plain attention counted
-    (``CallCount``), each validation step timed to the card's end and its
-    launches by shape read before and after it, the peak memory and what
-    earlier phases left allocated before it; the train and val records of
-    ``metrics.jsonl``."""
+    just before and read just after, SDPA and the plain attention counted
+    (``CallCount``, ``PlainAttentionCount``: unmasked and masked apart),
+    each validation step timed to the card's end and its launches by shape
+    and masked plain attentions read before and after it, the peak memory
+    and what earlier phases left allocated before it; the train and val
+    records of ``metrics.jsonl``."""
     import torch
 
     from lightly_train_tpu_torch._commands import train_task as TT
 
-    val_ms, val_launches = [], []
+    val_ms, val_launches, val_masked = [], [], []
     run = TT.run_task_training
 
     def timed_val(config, train_model, *args):
@@ -4734,6 +4812,7 @@ def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
 
         def val_step(model, batch):
             before = launches_by_shape(A)
+            masked = plain.masked
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             stats = inner(model, batch)
@@ -4742,14 +4821,16 @@ def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
             val_launches.append({k: n - before.get(k, 0) for k, n in
                                  launches_by_shape(A).items()
                                  if n != before.get(k, 0)})
+            val_masked.append(plain.masked - masked)
             return stats
 
         train_model.val_step = val_step
         return run(config, train_model, *args)
 
     TT.run_task_training = timed_val
+    plain = PlainAttentionCount(A)
     spies = [CallCount(torch.nn.functional, "scaled_dot_product_attention"),
-             CallCount(A, "dot_product_attention")]
+             plain]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
@@ -4767,6 +4848,7 @@ def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
             "launches": [fn.launches for fn in counters],
             "by_shape": launches_by_shape(A),
             "stock_calls": [spied.calls for spied in spies],
+            "masked_calls": plain.masked, "val_masked": val_masked,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "held_gib": held, "val_ms": val_ms, "val_by_shape": val_launches,
             "train": [r for r in records if "train_loss" in r],
@@ -4776,13 +4858,16 @@ def finetune_run(lt, A, F, entry: str, out: Path, **kwargs) -> dict:
 def check_finetune(tag: str, r: dict, out: Path, steps: int, batch: int,
                    expected: list, by_shape: dict, val_keys: set,
                    card: str, per_step: dict = None,
-                   per_val_batch: dict = None) -> dict:
-    """Phase 3r's checks of one run: the logged steps with finite losses,
-    the val metric keys, both exports with the task's metadata, the
-    launches in all and by shape, no stock or plain attention, K3 0; where
-    given, the launches by shape of each val batch (read around it) and of
-    a train step (the rest over ``steps``). Returns the step times (ms,
-    from each step's images/s) and the run's numbers."""
+                   per_val_batch: dict = None, masked_per_step: int = 0,
+                   phase_id: str = "3r") -> dict:
+    """Phase 3r's (and 3s's) checks of one run: the logged steps with
+    finite losses, the val metric keys, both exports with the task's
+    metadata, the launches in all and by shape, no SDPA and no unmasked
+    plain attention, ``masked_per_step`` masked plain attentions a train
+    step and none in validation, K3 0; where given, the launches by shape
+    of each val batch (read around it) and of a train step (the rest over
+    ``steps``). Returns the step times (ms, from each step's images/s) and
+    the run's numbers."""
     train = r["train"]
     step_ms = [batch * 1e3 / x["profiling/images_per_sec"] for x in train]
     in_val = {}
@@ -4790,7 +4875,8 @@ def check_finetune(tag: str, r: dict, out: Path, steps: int, batch: int,
         for k, n in launched.items():
             in_val[k] = in_val.get(k, 0) + n
     r["per_step"] = {k: (n - in_val.get(k, 0)) / steps
-                     for k, n in r["by_shape"].items()}
+                     for k, n in r["by_shape"].items()
+                     if n != in_val.get(k, 0)}
     print(f"  {tag}: steps {[round(ms, 1) for ms in step_ms]} ms "
           f"({[round(x['profiling/images_per_sec'], 1) for x in train]} "
           f"img/s; waiting on the loader "
@@ -4802,33 +4888,73 @@ def check_finetune(tag: str, r: dict, out: Path, steps: int, batch: int,
           f"the run), wall {r['wall_s']:.1f} s; launches "
           f"{r['launches']} (expected {expected}), by shape {r['by_shape']}, "
           f"a train step {r['per_step']}, each val batch "
-          f"{r['val_by_shape']} [{card}]", flush=True)
+          f"{r['val_by_shape']}; masked plain attentions {r['masked_calls']}"
+          f" (expected {masked_per_step} a step), in each val batch "
+          f"{r['val_masked']} [{card}]", flush=True)
+    where = f"phase {phase_id} {tag}"
     if [x["step"] for x in train] != list(range(1, steps + 1)) or not all(
             math.isfinite(x["train_loss"]) for x in train):
-        fail(f"phase 3r {tag}: metrics.jsonl {train}")
+        fail(f"{where}: metrics.jsonl {train}")
     if not val_keys <= set(r["val"]) or not all(
             math.isfinite(v) for v in r["val"].values()):
-        fail(f"phase 3r {tag}: val metrics {r['val']}")
+        fail(f"{where}: val metrics {r['val']}")
     for name in ("exported_best", "exported_last"):
         meta = out / "exported_models" / name / "metadata.json"
         if not (meta.is_file() and "task" in json.loads(meta.read_text())):
-            fail(f"phase 3r {tag}: {name} missing")
+            fail(f"{where}: {name} missing")
     if r["launches"] != expected or r["by_shape"] != by_shape:
-        fail(f"phase 3r {tag}: launches {r['launches']} != {expected}, by "
+        fail(f"{where}: launches {r['launches']} != {expected}, by "
              f"shape {r['by_shape']} != {by_shape}")
     if per_step is not None and r["per_step"] != per_step:
-        fail(f"phase 3r {tag}: a train step's launches {r['per_step']} != "
+        fail(f"{where}: a train step's launches {r['per_step']} != "
              f"{per_step}")
     if per_val_batch is not None and (not r["val_by_shape"] or any(
             launched != per_val_batch for launched in r["val_by_shape"])):
-        fail(f"phase 3r {tag}: the val batches' launches "
+        fail(f"{where}: the val batches' launches "
              f"{r['val_by_shape']} != {per_val_batch} each")
     if any(r["stock_calls"]):
-        fail(f"phase 3r {tag}: SDPA and plain attention calls "
+        fail(f"{where}: SDPA and unmasked plain attention calls "
              f"{r['stock_calls']}")
+    if r["masked_calls"] != masked_per_step * steps or any(r["val_masked"]):
+        fail(f"{where}: masked plain attentions {r['masked_calls']} (in "
+             f"validation {r['val_masked']}) != {masked_per_step} a step "
+             f"and none in validation")
     return {k: v for k, v in r.items() if k not in ("state", "train",
                                                      "val_records")} | {
         "step_ms": step_ms}
+
+
+def fp32_step(lt, entry: str, out: Path, patches: tuple = (),
+              **kwargs) -> dict:
+    """One step of ``lt.<entry>(out=out, steps=1, **kwargs)`` with each
+    ``(owner, name, value)`` of ``patches`` set for the call: the loss and
+    every parameter before and after the update (a spy on
+    ``UnfusedUpdate.update_and_apply``)."""
+    from lightly_train_tpu_torch._optim.update import UnfusedUpdate
+
+    snaps = []
+    update = UnfusedUpdate.update_and_apply
+
+    def spy(self, grads, params, *args, **kw):
+        snaps.append({n: p.detach().float().cpu().clone()
+                      for n, p in params.items()})
+        norm = update(self, grads, params, *args, **kw)
+        snaps.append({n: p.detach().float().cpu().clone()
+                      for n, p in params.items()})
+        return norm
+
+    patches = ((UnfusedUpdate, "update_and_apply", spy),) + tuple(patches)
+    prior = [getattr(owner, name) for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    try:
+        getattr(lt, entry)(out=str(out), steps=1, **kwargs)
+    finally:
+        for (owner, name, _), value in zip(patches, prior):
+            setattr(owner, name, value)
+    loss = logged_steps(out)[0]["train_loss"]
+    shutil.rmtree(out)
+    return {"loss": loss, "before": snaps[0], "after": snaps[1]}
 
 
 def finetune_fp32_step(lt, device: str, export: Path, data: dict,
@@ -4837,33 +4963,117 @@ def finetune_fp32_step(lt, device: str, export: Path, data: dict,
     ``device``, from ``export``, with the random transforms off and SGD
     (its first step is the gradient times the learning rate, so the
     parameters' change carries the gradient's rounding and nothing of
-    AdamW's sign-like first step): the loss and every parameter before and
-    after the update (a spy on ``UnfusedUpdate.update_and_apply``)."""
-    from lightly_train_tpu_torch._optim.update import UnfusedUpdate
+    AdamW's sign-like first step): ``fp32_step``'s loss and parameters."""
+    return fp32_step(
+        lt, "train_image_classification", out, data=data, model=FT_MODEL,
+        checkpoint=str(export), batch_size=8, precision="fp32", optim="sgd",
+        learning_rate=0.1, transform_args=FT_NO_AUG, log_every=1, seed=SEED,
+        accelerator=device)
 
-    snaps = []
-    update = UnfusedUpdate.update_and_apply
 
-    def spy(self, grads, params, *args, **kwargs):
-        snaps.append({n: p.detach().float().cpu().clone()
-                      for n, p in params.items()})
-        norm = update(self, grads, params, *args, **kwargs)
-        snaps.append({n: p.detach().float().cpu().clone()
-                      for n, p in params.items()})
-        return norm
+def card_against_cpu(A, F, where: str, step) -> dict:
+    """``step(device)`` (an ``fp32_step``) on the card, its launches
+    counted from 0, and on the CPU, under
+    ``LIGHTLY_TRAIN_MATMUL_PRECISION=highest`` (IEEE fp32 pinned again
+    after): both runs, the card's launches and by shape, the CPU's seconds,
+    and the relative errors of the loss, the parameters and their change.
+    Fails where the initial parameters differ or nothing changed."""
+    import os
 
-    UnfusedUpdate.update_and_apply = spy
+    import torch
+
+    prior = os.environ.get("LIGHTLY_TRAIN_MATMUL_PRECISION")
+    os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = "highest"
     try:
-        lt.train_image_classification(
-            out=str(out), data=data, model=FT_MODEL,
-            checkpoint=str(export), steps=1, batch_size=8, precision="fp32",
-            optim="sgd", learning_rate=0.1, transform_args=FT_NO_AUG,
-            log_every=1, seed=SEED, accelerator=device)
+        counters = reset_counters(A, F)
+        on_card = step("cuda")
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in counters]
+        by_shape = launches_by_shape(A)
+        t0 = time.perf_counter()
+        on_cpu = step("cpu")
+        cpu_s = time.perf_counter() - t0
     finally:
-        UnfusedUpdate.update_and_apply = update
-    loss = logged_steps(out)[0]["train_loss"]
+        if prior is None:
+            os.environ.pop("LIGHTLY_TRAIN_MATMUL_PRECISION", None)
+        else:
+            os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = prior
+        pin_ieee()
+    names = sorted(on_cpu["before"])
+
+    def flat(run, change):
+        return torch.cat([(run["after"][n] - (run["before"][n] if change
+                                              else 0)).reshape(-1)
+                          for n in names])
+
+    if any(not torch.equal(on_card["before"][n], on_cpu["before"][n])
+           for n in names):
+        fail(f"{where}: the card's and the CPU's initial parameters differ")
+    ref_change = flat(on_cpu, True)
+    if not ref_change.norm():
+        fail(f"{where}: the CPU's step changed no parameter")
+    errors = {
+        "loss": abs(on_card["loss"] - on_cpu["loss"]) / abs(on_cpu["loss"]),
+        "parameters": ((flat(on_card, False) - flat(on_cpu, False)).norm()
+                       / flat(on_cpu, False).norm()).item(),
+        "parameter_change": ((flat(on_card, True) - ref_change).norm()
+                             / ref_change.norm()).item(),
+    }
+    return {"card": on_card, "cpu": on_cpu, "launches": launches,
+            "by_shape": by_shape, "cpu_s": cpu_s, "errors": errors}
+
+
+def stop_and_resume(lt, A, F, where: str, entry: str, out: Path,
+                    straight: list, last_step: int, card: str,
+                    **kwargs) -> dict:
+    """``lt.<entry>(out=out, **kwargs)`` (``save_every=2``) stopped after
+    its step-2 checkpoint (the loader raises before batch 3), then resumed
+    with ``resume_interrupted``: both runs' launches counted from 0 and
+    read after, and the gap of the resumed losses of steps 3 on from the
+    uninterrupted run's ``straight`` records, which the resume must equal
+    bitwise (the runs are deterministic on the card: a resume that read
+    other batches, restarted the stream or annealed on another horizon
+    moves them)."""
+    from lightly_train_tpu_torch._commands import train_task as TT
+
+    class StopAfterTwo(TT.PretrainLoader):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 2:
+                    raise KeyboardInterrupt
+                yield batch
+
+    counters = reset_counters(A, F)
+    loader = TT.PretrainLoader
+    TT.PretrainLoader = StopAfterTwo
+    try:
+        getattr(lt, entry)(out=str(out), **kwargs)
+        fail(f"{where}: the stopped run did not stop")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        TT.PretrainLoader = loader
+    state, _ = getattr(lt, entry)(out=str(out), resume_interrupted=True,
+                                  **kwargs)
+    launches = [fn.launches for fn in counters]
+    by_shape = launches_by_shape(A)
+    resumed = [x for x in logged_steps(out) if "train_loss" in x]
+    gap = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+              for a, b in zip(resumed[2:], straight[2:]))
+    print(f"  {where}: stopped after step 2's checkpoint and resumed: steps "
+          f"{[x['step'] for x in resumed]}, state step {state.step}, losses "
+          f"{[x['train_loss'] for x in resumed]} against the uninterrupted "
+          f"run's {[x['train_loss'] for x in straight]} (steps 3 on "
+          f"{gap:.2e} apart, bitwise equal required); launches of both "
+          f"runs {launches}, by shape {by_shape} [{card}]", flush=True)
+    if state.step != last_step or [x["step"] for x in resumed] != list(
+            range(1, last_step + 1)) or [
+                x["train_loss"] for x in resumed[2:]] != [
+                x["train_loss"] for x in straight[2:]]:
+        fail(f"{where}: the resumed run {resumed}, step {state.step}, "
+             f"against {straight}")
     shutil.rmtree(out)
-    return {"loss": loss, "before": snaps[0], "after": snaps[1]}
+    return {"gap": gap, "launches": launches, "by_shape": by_shape}
 
 
 def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
@@ -4876,15 +5086,12 @@ def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
     the port's CPU path. Each run's launches counted from 0 (K1/K2 by
     shape, K3 0, no stock or plain attention) and checked by
     ``check_finetune``."""
-    import os
-
     import torch
 
     from lightly_train_tpu_torch._checkpoint.checkpoint import (
         export_model,
         load_exported_model,
     )
-    from lightly_train_tpu_torch._commands import train_task as TT
 
     cls_data = write_class_folders(work / "ft_cls", FT_TRAIN, FT_VAL)
     write_seg_masks(work / "ft_masks", 2 * BATCH)
@@ -4956,49 +5163,17 @@ def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
         {"val_top1_head_1x", "val_top1_head_01x", "val_top1_best"}, card)
     straight = r["train"]
     shutil.rmtree(out)
-
-    class StopAfterTwo(TT.PretrainLoader):
-        def __iter__(self):
-            for i, batch in enumerate(super().__iter__()):
-                if i == 2:
-                    raise KeyboardInterrupt
-                yield batch
-
-    out = work / "ft_c_resume"
-    loader = TT.PretrainLoader
-    TT.PretrainLoader = StopAfterTwo
-    try:
-        lt.train_image_classification_multihead(
-            out=str(out), data=cls_data, steps=FT_MH_STEPS, save_every=2,
-            val_every=FT_MH_STEPS, **mh)
-        fail("phase 3r (c): the stopped run did not stop")
-    except KeyboardInterrupt:
-        pass
-    finally:
-        TT.PretrainLoader = loader
-    state, _ = lt.train_image_classification_multihead(
-        out=str(out), data=cls_data, steps=FT_MH_STEPS, save_every=2,
-        val_every=FT_MH_STEPS, resume_interrupted=True, **mh)
-    # The run is deterministic on the card: a resume that read other
-    # batches, or restarted the stream, moves the losses of steps 3-4,
-    # which sit near ln 2 with the 2-class heads at chance, so they must be
-    # bitwise the uninterrupted run's.
-    resumed = [x for x in logged_steps(out) if "train_loss" in x]
-    gap = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
-              for a, b in zip(resumed[2:], straight[2:]))
-    print(f"  (c) stopped after step 2's checkpoint and resumed: steps "
-          f"{[x['step'] for x in resumed]}, state step {state.step}, losses "
-          f"{[x['train_loss'] for x in resumed]} against the uninterrupted "
-          f"run's {[x['train_loss'] for x in straight]} (steps 3-4 "
-          f"{gap:.2e} apart, bitwise equal required)", flush=True)
-    if state.step != FT_MH_STEPS or [x["step"] for x in resumed] != list(
-            range(1, FT_MH_STEPS + 1)) or [
-                x["train_loss"] for x in resumed[2:]] != [
-                x["train_loss"] for x in straight[2:]]:
-        fail(f"phase 3r (c): the resumed run {resumed}, step {state.step}, "
-             f"against {straight}")
-    results["c_resume_gap"] = gap
-    shutil.rmtree(out)
+    # Stopped and resumed: steps 3-4 sit near ln 2 with the 2-class heads
+    # at chance; both runs launch what the uninterrupted one did.
+    resume = stop_and_resume(
+        lt, A, F, "phase 3r (c)", "train_image_classification_multihead",
+        work / "ft_c_resume", straight, FT_MH_STEPS, card, data=cls_data,
+        steps=FT_MH_STEPS, save_every=2, val_every=FT_MH_STEPS, **mh)
+    if resume["by_shape"] != results["c_cls"]["by_shape"]:
+        fail(f"phase 3r (c): the stopped and resumed runs launched "
+             f"{resume['by_shape']}, the uninterrupted one "
+             f"{results['c_cls']['by_shape']}")
+    results["c_resume"] = resume
     out = work / "ft_c_seg"
     seg_val = -(-FT_SEG_VAL // FT_MH_BATCH)
     r = finetune_run(lt, A, F, "train_semantic_segmentation_multihead", out,
@@ -5019,45 +5194,12 @@ def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
     ls05 = work / "ft_ls05"
     export_model(ls05, art["model_name"], state_dict)
     data8 = {"train": write_class_folders(work / "ft_fp32", 4, 1)["train"]}
-    prior = os.environ.get("LIGHTLY_TRAIN_MATMUL_PRECISION")
-    os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = "highest"
-    try:
-        counters = reset_counters(A, F)
-        on_card = finetune_fp32_step(lt, "cuda", ls05, data8,
-                                     work / "ft_d_card")
-        torch.cuda.synchronize()
-        launches = [fn.launches for fn in counters]
-        by_shape = launches_by_shape(A)
-        t0 = time.perf_counter()
-        on_cpu = finetune_fp32_step(lt, "cpu", ls05, data8, work / "ft_d_cpu")
-        cpu_s = time.perf_counter() - t0
-    finally:
-        if prior is None:
-            os.environ.pop("LIGHTLY_TRAIN_MATMUL_PRECISION", None)
-        else:
-            os.environ["LIGHTLY_TRAIN_MATMUL_PRECISION"] = prior
-        pin_ieee()
+    d = card_against_cpu(A, F, "phase 3r (d)", lambda device: (
+        finetune_fp32_step(lt, device, ls05, data8, work / f"ft_d_{device}")))
     shutil.rmtree(ls05)
     shutil.rmtree(work / "ft_fp32")
-    names = sorted(on_cpu["before"])
-
-    def flat(run, change):
-        return torch.cat([(run["after"][n] - (run["before"][n] if change
-                                              else 0)).reshape(-1)
-                          for n in names])
-
-    if any(not torch.equal(on_card["before"][n], on_cpu["before"][n])
-           for n in names):
-        fail("phase 3r (d): the card's and the CPU's initial parameters "
-             "differ")
-    ref_change = flat(on_cpu, True)
-    errors = {
-        "loss": abs(on_card["loss"] - on_cpu["loss"]) / abs(on_cpu["loss"]),
-        "parameters": ((flat(on_card, False) - flat(on_cpu, False)).norm()
-                       / flat(on_cpu, False).norm()).item(),
-        "parameter_change": ((flat(on_card, True) - ref_change).norm()
-                             / ref_change.norm()).item(),
-    }
+    on_card, on_cpu, errors = d["card"], d["cpu"], d["errors"]
+    launches, by_shape, cpu_s = d["launches"], d["by_shape"], d["cpu_s"]
     fwd32 = A.fwd_library(torch.float32, HEAD_DIM)
     bwd32 = A.bwd_library(torch.float32, HEAD_DIM)
     want = {(fwd32, FT_FP32): DEPTH, (bwd32, FT_FP32): DEPTH}
@@ -5067,7 +5209,7 @@ def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
           + f" (tol 1e-2); losses card {on_card['loss']:.6f}, CPU "
           f"{on_cpu['loss']:.6f}; the CPU's step {cpu_s:.1f} s; launches "
           f"{launches}, by shape {by_shape} [{card}]", flush=True)
-    if not all(v <= 1e-2 for v in errors.values()) or not ref_change.norm():
+    if not all(v <= 1e-2 for v in errors.values()):
         fail(f"phase 3r (d): card against CPU {errors}")
     if launches != [DEPTH, DEPTH, 0, 0, 0] or by_shape != want:
         fail(f"phase 3r (d): launches {launches}, by shape {by_shape}")
@@ -5075,7 +5217,300 @@ def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
     for name in ("ft_cls", "ft_masks", "ft_seg_val"):
         shutil.rmtree(work / name)
     results["by_shape"] = {}
-    for key in ("a", "b", "c_cls", "c_seg", "d"):
+    for key in ("a", "b", "c_cls", "c_resume", "c_seg", "d"):
+        for shape_key, c in results[key]["by_shape"].items():
+            results["by_shape"][shape_key] = results["by_shape"].get(
+                shape_key, 0) + c
+    return results
+
+
+def rle_string(mask) -> str:
+    """pycocotools' compressed RLE counts of a bool (h, w) mask: the runs in
+    column-major order from a background run, those after the first two as
+    deltas, 5 bits a character from ASCII 48 with a continuation bit."""
+    import numpy as np
+
+    flat = mask.T.reshape(-1)
+    edges = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    counts = np.diff(np.concatenate([[0], edges, [flat.size]])).tolist()
+    if flat[0]:
+        counts = [0] + counts
+    out = []
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not ((x == 0 and not c & 0x10) or (x == -1 and c & 0x10))
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def write_eomt_data(work: Path) -> dict:
+    """Phase 3s's instance and panoptic data for phase 3's 2 BATCH images
+    (train) and EOMT_VAL more (val, ``work / "eomt_val"``), 256^2, in
+    EOMT_CLASSES categories: a COCO instance JSON of EOMT_SHAPES - 1 convex
+    octagons and one RLE rectangle an image (later octagons painting over
+    parts of earlier ones); a YOLO-seg folder of the same octagons (PNG
+    copies of the images); RGB id-encoded panoptic PNGs of EOMT_SHAPES
+    rectangles an image, the last a crowd segment, the rest void."""
+    import numpy as np
+
+    from lightly_train_tpu_torch._data.image_dataset import read_ppm
+
+    write_images(work / "eomt_val", EOMT_VAL, 256, seed=SEED + 44)
+    rng = np.random.default_rng(SEED + 50)
+    size = 256
+    data = {"coco": {}, "yolo": {"format": "yolo",
+                                 "num_classes": EOMT_CLASSES},
+            "panoptic": {}}
+    for split, folder, n in (("train", work / "images", 2 * BATCH),
+                             ("val", work / "eomt_val", EOMT_VAL)):
+        yolo = work / "eomt_yolo" / split
+        pan = work / "eomt_panoptic" / split
+        for d in (yolo / "images", yolo / "labels", pan):
+            d.mkdir(parents=True)
+        images, anns, pan_anns = [], [], []
+        for i in range(n):
+            name = f"img_{i:03d}.ppm"
+            images.append({"id": i, "file_name": name, "width": size,
+                           "height": size})
+            (yolo / "images" / f"img_{i:03d}.png").write_bytes(png_bytes(
+                read_ppm(str(folder / name)), 2, 8))
+            lines = []
+            for k in range(EOMT_SHAPES - 1):
+                cat = int(rng.integers(0, EOMT_CLASSES))
+                c = rng.uniform(30, size - 30, 2)
+                angles = np.sort(rng.uniform(0, 2 * np.pi, 8))
+                r = rng.uniform(8, 30)
+                pts = np.stack([c[0] + r * np.cos(angles),
+                                c[1] + r * np.sin(angles)], 1)
+                anns.append({"id": len(anns), "image_id": i,
+                             "category_id": cat + 1, "iscrowd": 0,
+                             "segmentation": [pts.reshape(-1).tolist()]})
+                lines.append(f"{cat} " + " ".join(
+                    f"{v / size:.5f}" for v in pts.reshape(-1)))
+            box = np.zeros((size, size), bool)
+            y, x = rng.integers(0, size - 60, 2)
+            box[y:y + 50, x:x + 60] = True
+            anns.append({"id": len(anns), "image_id": i, "category_id": 2,
+                         "iscrowd": 0, "segmentation": {
+                             "size": [size, size], "counts": rle_string(box)}})
+            (yolo / "labels" / f"img_{i:03d}.txt").write_text(
+                "\n".join(lines))
+            ids = np.zeros((size, size), np.int64)
+            segments = []
+            for k in range(EOMT_SHAPES):
+                sid = int(rng.integers(1, 2 ** 24))
+                y, x = rng.integers(0, size - 20, 2)
+                ids[y:y + int(rng.integers(15, 60)),
+                    x:x + int(rng.integers(15, 60))] = sid
+                segments.append({
+                    "id": sid, "iscrowd": int(k == EOMT_SHAPES - 1),
+                    "category_id": int(rng.integers(1, EOMT_CLASSES + 1))})
+            rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1)
+            (pan / f"img_{i:03d}.png").write_bytes(png_bytes(
+                rgb.astype(np.uint8), 2, 8))
+            pan_anns.append({"image_id": i, "file_name": f"img_{i:03d}.png",
+                             "segments_info": segments})
+        categories = [{"id": c, "name": str(c)}
+                      for c in range(1, EOMT_CLASSES + 1)]
+        (work / f"eomt_coco_{split}.json").write_text(json.dumps({
+            "images": images, "annotations": anns,
+            "categories": categories}))
+        (work / f"eomt_panoptic_{split}.json").write_text(json.dumps({
+            "images": images, "annotations": pan_anns,
+            "categories": categories}))
+        data["coco"][split] = {
+            "images": str(folder),
+            "annotations": str(work / f"eomt_coco_{split}.json")}
+        data["yolo"][split] = {"images": str(yolo / "images"),
+                               "labels": str(yolo / "labels")}
+        data["panoptic"][split] = {
+            "images": str(folder), "panoptic": str(pan),
+            "annotations": str(work / f"eomt_panoptic_{split}.json")}
+    return data
+
+
+def eomt_fp32_step(lt, device: str, data: dict, out: Path) -> dict:
+    """One fp32 EoMT semantic step at vittest14 (one joint block, batch 8,
+    random transforms off, SGD with no warmup) on ``device``, every uniform
+    drawn from one CPU generator seeded SEED and moved to the device (the
+    same on the card and the CPU), the Hungarian matcher: ``fp32_step``'s
+    loss and parameters, and each level's assignment."""
+    import torch
+
+    from lightly_train_tpu_torch.ops import point_sampling as PS
+    from lightly_train_tpu_torch.tasks import eomt_semantic_segmentation as E
+
+    assignments, match = [], E.hungarian_match
+    gen = torch.Generator().manual_seed(SEED)
+
+    def cpu_uniform(generator, shape, device_):
+        return torch.rand(tuple(shape), generator=gen).to(device_)
+
+    def recorded(cost, valid):
+        a = match(cost, valid)
+        assignments.append(a.cpu())
+        return a
+
+    r = fp32_step(
+        lt, "train_semantic_segmentation", out,
+        ((PS, "uniform", cpu_uniform), (E, "hungarian_match", recorded)),
+        data={k: v for k, v in data.items() if k != "val"},
+        model=EOMT_SMALL["model"], batch_size=8, precision="fp32",
+        optim="sgd", learning_rate=0.1, transform_args=EOMT_NO_AUG,
+        log_every=1, seed=SEED,
+        task_args={"num_joint_blocks": 1, "lr_warmup_steps": [0, 0]},
+        accelerator=device)
+    return {**r, "assignments": assignments}
+
+
+def run_eomt_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
+    """Phase 3s: EoMT's three entry points at ViT-B/14 width from
+    ``export`` (phase 3's bf16 DINOv2 export), bf16, batch 16, at the
+    default class and slot counts: (a) ``train_semantic_segmentation`` with
+    ``-eomt`` on EOMT_SEG_CLASSES-class masks (32 active slots; val at
+    FT_VAL_SIZE^2 in FT_TILES tiles), (b) ``train_instance_segmentation``
+    on COCO JSON and on YOLO-seg labels, (c) ``train_panoptic_segmentation``
+    (EOMT_SLOTS slots; val at 224^2), each run's launches counted from 0
+    (K1/K2 by shape, K3 0, no SDPA or unmasked plain attention, EOMT_JOINT
+    masked plain attentions a step and none in validation) and checked by
+    ``check_finetune``; then a panoptic run at vittest14, and the same run
+    stopped after its step-2 checkpoint and resumed (bitwise the
+    uninterrupted run's losses, and its launches); (d) one fp32 semantic
+    step on the card against the port's CPU path."""
+    import torch
+
+    data = write_eomt_data(work)
+    write_seg_masks(work / "eomt_masks", 2 * BATCH,
+                    classes=EOMT_SEG_CLASSES, block=EOMT_SEG_BLOCK)
+    write_seg_masks(work / "eomt_masks8", 2 * BATCH)
+    seg_data = {"num_classes": EOMT_SEG_CLASSES,
+                "train": {"images": str(work / "images"),
+                          "masks": str(work / "eomt_masks")},
+                "val": {"images": str(work / "eomt_val"),
+                        "masks": str(work / "eomt_masks")}}
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    common = dict(model=EOMT_MODEL, checkpoint=str(export),
+                  precision="bf16", log_every=1, seed=SEED)
+    per_step = {(fwd, FT_SEG): EOMT_PLAIN, (bwd, FT_SEG): EOMT_PLAIN}
+    results = {}
+
+    def run(tag, key, entry, data_, steps, tiles, val_keys, slots,
+            **kwargs):
+        out = work / f"eomt_{key}"
+        r = finetune_run(lt, A, F, entry, out, data=data_, steps=steps,
+                         val_every=steps, **common, **kwargs)
+        val_batch = {(fwd, FT_SEG): EOMT_PLAIN * tiles,
+                     (fwd, EOMT_QUERIES_SHAPE): EOMT_JOINT * tiles}
+        results[key] = check_finetune(
+            tag, r, out, steps, FT_SEG[0],
+            [EOMT_PLAIN * steps + (EOMT_PLAIN + EOMT_JOINT) * tiles,
+             EOMT_PLAIN * steps, 0, 0, 0],
+            {(fwd, FT_SEG): EOMT_PLAIN * (steps + tiles),
+             (bwd, FT_SEG): EOMT_PLAIN * steps,
+             (fwd, EOMT_QUERIES_SHAPE): EOMT_JOINT * tiles},
+            val_keys, card, per_step=per_step, per_val_batch=val_batch,
+            masked_per_step=EOMT_JOINT, phase_id="3s")
+        meta = json.loads((out / "exported_models" / "exported_last" /
+                           "metadata.json").read_text())
+        args = meta["task_args"]
+        if meta.get("architecture") != "eomt" or args[
+                "num_joint_blocks"] != EOMT_JOINT or args.get(
+                    "max_instances", args.get("max_active_slots")) != slots:
+            fail(f"phase 3s {tag}: exported metadata {meta}")
+        results[key]["slots"] = slots
+        shutil.rmtree(out)
+
+    run(f"(a) train_semantic_segmentation {EOMT_MODEL} bf16, batch 16, "
+        f"{EOMT_SEG_CLASSES} classes (32 active slots), val {FT_VAL_SIZE}^2 "
+        f"in {FT_TILES} tiles", "a", "train_semantic_segmentation", seg_data,
+        EOMT_STEPS, FT_TILES, {"val_miou"}, 32, val_image_size=FT_VAL_SIZE)
+    for fmt in ("coco", "yolo"):
+        run(f"(b) train_instance_segmentation {EOMT_MODEL} bf16 on {fmt}, "
+            f"{EOMT_SLOTS} slots", f"b_{fmt}", "train_instance_segmentation",
+            data[fmt], EOMT_TASK_STEPS, 1, {"val_mask_map", "val_mask_map50"},
+            EOMT_SLOTS)
+    run(f"(c) train_panoptic_segmentation {EOMT_MODEL} bf16, {EOMT_SLOTS} "
+        f"slots", "c", "train_panoptic_segmentation", data["panoptic"],
+        EOMT_TASK_STEPS, 1, {"val_pq"}, EOMT_SLOTS)
+
+    # (c) at vittest14 with one joint block: K1 and K2 once a step at
+    # HD16_SMALL (its plain block), one masked plain attention a step, no
+    # validation; then stopped after its step-2 checkpoint and resumed.
+    train_only = {"train": data["panoptic"]["train"]}
+    small = dict(EOMT_SMALL, data=train_only, steps=EOMT_STEPS, save_every=2,
+                 precision="bf16", log_every=1, seed=SEED)
+    counters = reset_counters(A, F)
+    plain = PlainAttentionCount(A)
+    try:
+        lt.train_panoptic_segmentation(out=str(work / "eomt_straight"),
+                                       **small)
+    finally:
+        plain.restore()
+    fwd16 = A.fwd_library(torch.bfloat16, 16)
+    bwd16 = A.bwd_library(torch.bfloat16, 16)
+    want = {(fwd16, HD16_SMALL): EOMT_STEPS, (bwd16, HD16_SMALL): EOMT_STEPS}
+    if [fn.launches for fn in counters] != [EOMT_STEPS, EOMT_STEPS, 0, 0, 0] \
+            or launches_by_shape(A) != want or plain.calls or \
+            plain.masked != EOMT_STEPS:
+        fail(f"phase 3s (c) vittest14: launches "
+             f"{[fn.launches for fn in counters]}, by shape "
+             f"{launches_by_shape(A)}, plain attention {plain.calls} "
+             f"unmasked and {plain.masked} masked")
+    results["c_small"] = {"by_shape": launches_by_shape(A)}
+    straight = [x for x in logged_steps(work / "eomt_straight")
+                if "train_loss" in x]
+    shutil.rmtree(work / "eomt_straight")
+    resume = stop_and_resume(
+        lt, A, F, "phase 3s (c) vittest14 panoptic",
+        "train_panoptic_segmentation", work / "eomt_resumed", straight,
+        EOMT_STEPS, card, **small)
+    if resume["by_shape"] != want:
+        fail(f"phase 3s (c): the stopped and resumed runs launched "
+             f"{resume['by_shape']}, the uninterrupted one {want}")
+    results["c_resume"] = resume
+
+    # (d) one fp32 step on the card against the CPU (8-class masks), IEEE
+    # fp32 GEMMs.
+    seg8 = {"num_classes": FT_SEG_CLASSES,
+            "train": {"images": str(work / "images"),
+                      "masks": str(work / "eomt_masks8")}}
+    d = card_against_cpu(A, F, "phase 3s (d)", lambda device: (
+        eomt_fp32_step(lt, device, seg8, work / f"eomt_d_{device}")))
+    on_card, on_cpu, errors = d["card"], d["cpu"], d["errors"]
+    same_match = len(on_card["assignments"]) == len(on_cpu["assignments"]) \
+        == 2 and all(torch.equal(a, b) for a, b in
+                     zip(on_card["assignments"], on_cpu["assignments"]))
+    fwd32 = A.fwd_library(torch.float32, 16)
+    bwd32 = A.bwd_library(torch.float32, 16)
+    want = {(fwd32, HD16_SMALL): 1, (bwd32, HD16_SMALL): 1}
+    print(f"  (d) one fp32 EoMT step at vittest14 (SGD, highest, the same "
+          f"uniforms, Hungarian), card against CPU: loss "
+          f"{errors['loss']:.3e} (tol 1e-4), parameters "
+          f"{errors['parameters']:.3e}, their change "
+          f"{errors['parameter_change']:.3e} (tol 1e-2); assignments equal "
+          f"{same_match}; losses card {on_card['loss']:.6f}, CPU "
+          f"{on_cpu['loss']:.6f}; the CPU's step {d['cpu_s']:.1f} s; "
+          f"launches {d['launches']}, by shape {d['by_shape']} [{card}]",
+          flush=True)
+    if not (errors["loss"] <= 1e-4 and errors["parameters"] <= 1e-2
+            and errors["parameter_change"] <= 1e-2 and same_match):
+        fail(f"phase 3s (d): card against CPU {errors}, assignments equal "
+             f"{same_match}")
+    if d["launches"] != [1, 1, 0, 0, 0] or d["by_shape"] != want:
+        fail(f"phase 3s (d): launches {d['launches']}, by shape "
+             f"{d['by_shape']}")
+    results["d"] = {**errors, "by_shape": d["by_shape"]}
+    for name in ("eomt_masks", "eomt_masks8", "eomt_val", "eomt_yolo",
+                 "eomt_panoptic"):
+        shutil.rmtree(work / name)
+    results["by_shape"] = {}
+    for key in ("a", "b_coco", "b_yolo", "c", "c_small", "c_resume", "d"):
         for shape_key, c in results[key]["by_shape"].items():
             results["by_shape"][shape_key] = results["by_shape"].get(
                 shape_key, 0) + c
@@ -5278,14 +5713,25 @@ def main() -> int:
     finetune = run_finetune_path(
         lt, A, F, card, work,
         paths["bf16"]["out"] / "exported_models" / "exported_last")
-    # Each (library, shape) that phases 3o, 3p, 3q and 3r launched K1 or K2
-    # at was held against the plain version in phase 2.
+    pin_ieee()
+    phase(f"phase 3s: EoMT at ViT-B/14 width from phase 3's export "
+          f"(train_semantic_segmentation -eomt, {EOMT_SEG_CLASSES} classes, "
+          f"{EOMT_STEPS} steps, val {FT_VAL_SIZE}^2 tiled; "
+          f"train_instance_segmentation on COCO and YOLO-seg and "
+          f"train_panoptic_segmentation, {EOMT_SLOTS} slots, "
+          f"{EOMT_TASK_STEPS} steps; bf16, batch 16), a panoptic resume at "
+          f"vittest14, one fp32 step against the CPU", flush=True)
+    eomt = run_eomt_path(
+        lt, A, F, card, work,
+        paths["bf16"]["out"] / "exported_models" / "exported_last")
+    # Each (library, shape) that phases 3o, 3p, 3q, 3r and 3s launched K1
+    # or K2 at was held against the plain version in phase 2.
     covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
                for kernels, dtype, shape, _ in ATTENTION_CASES
                if kernels == "flat"
                for route in (A.fwd_library, A.bwd_library)}
     for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface),
-                       ("3r", finetune)):
+                       ("3r", finetune), ("3s", eomt)):
         if set(ran["by_shape"]) - covered:
             fail(f"phase {label} launched at shapes phase 2 does not hold: "
                  f"{sorted(set(ran['by_shape']) - covered)}")
@@ -5325,6 +5771,19 @@ def main() -> int:
                     launched.get(key, 0)
                     for launched in ft_run["val_by_shape"]]}
 
+    def eomt_per_step(kernel: str, dtype: str, shape: tuple) -> dict:
+        """Measured in phase 3s (a) (bf16): the launches of a train step
+        and of each val batch at FT_SEG and EOMT_QUERIES_SHAPE."""
+        if kernel not in ("K1", "K2") or dtype != "bf16" or shape not in (
+                FT_SEG, EOMT_QUERIES_SHAPE):
+            return {}
+        key = (getattr(A, f"{KERNELS[kernel][1]}_library")(torch.bfloat16,
+                                                           shape[3]), shape)
+        return {"launches_3s_per_step": eomt["a"]["per_step"].get(key, 0),
+                "launches_3s_per_val_batch": [
+                    launched.get(key, 0)
+                    for launched in eomt["a"]["val_by_shape"]]}
+
     kernels = []
     for (kernel, dtype), rows in attn.items():
         name, direction, line = KERNELS[kernel]
@@ -5357,10 +5816,14 @@ def main() -> int:
                     (route(torch_dtype(dtype), HEAD_DIM), KNN_SHAPE), 0),
                 # Phase 3r's fine-tuning runs: (a) at FT_CLS, (b) at FT_SEG
                 # (bf16), (c)'s multihead runs at HD16_SMALL, (d) at FT_FP32
-                # (fp32).
-                **{shape: finetune["by_shape"].get(
+                # (fp32); phase 3s's EoMT runs at FT_SEG (the plain blocks)
+                # and EOMT_QUERIES_SHAPE (the joint blocks in validation),
+                # bf16, and at HD16_SMALL (vittest14, bf16 and fp32).
+                **{shape: sum(r["by_shape"].get(
                     (route(torch_dtype(dtype), shape[3]), shape), 0)
-                   for shape in (FT_CLS, FT_SEG, FT_FP32, HD16_SMALL)},
+                    for r in (finetune, eomt))
+                   for shape in (FT_CLS, FT_SEG, FT_FP32, HD16_SMALL,
+                                 EOMT_QUERIES_SHAPE)},
             })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
@@ -5431,6 +5894,13 @@ def main() -> int:
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),
             **ft_per_step(kernel, dtype, tuple(row["shape"])),
+            # Phase 3s's at the row's shape, and (a)'s a train step and a
+            # val batch (FT_TILES tiles).
+            **({"launches_3s": eomt["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
+            **eomt_per_step(kernel, dtype, tuple(row["shape"])),
             # Each evaluate_knn run's K1 a batch in the row's dtype.
             **({"launches_per_batch": {
                 tag: r["k1_per_batch"] for tag, r in surface["c"].items()

@@ -3,10 +3,10 @@
 The JAX package ``lightly_train_tpu`` is the reference; this package imports
 nothing of it (nor of JAX). Entry points run on the card unless the caller
 asks for the CPU. The CLI is ``python -m lightly_train_tpu_torch``. Of the
-fine-tuning entry points, image classification, linear semantic
-segmentation and their multihead forms run; object detection (ROADMAP item
-14), instance and panoptic segmentation (item 13) raise
-``NotImplementedError``.
+fine-tuning entry points, image classification, semantic segmentation
+(linear and EoMT), their multihead forms and EoMT instance and panoptic
+segmentation run; object detection and LT-DETR instance segmentation
+(ROADMAP item 14) raise ``NotImplementedError``.
 """
 
 from lightly_train_tpu_torch._commands.embed import embed, embed_from_config

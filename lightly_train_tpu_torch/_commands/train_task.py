@@ -3,23 +3,26 @@
 Port of ``lightly_train_tpu/_commands/train_task.py``: the generic step loop
 of every task (the transform on the device, the loss, gradient accumulation
 over microbatches, the unfused update), validation every ``val_every``
-steps with device-summed statistics, ``exported_best`` on the task's watch
+steps with device-summed statistics (or each batch's collected on the host
+where the task's ``val_mode`` is "collect": instance and panoptic
+segmentation), ``exported_best`` on the task's watch
 metric and ``exported_last`` at the end, checkpoints every ``save_every``
 steps and at the end, ``resume_interrupted``, the loggers, the event
 tracker, the system log and the first batch's label grid.
 
 Ported entry points: ``train_image_classification``,
 ``train_image_classification_multihead``, ``train_semantic_segmentation``
-(the linear probe) and ``train_semantic_segmentation_multihead``. They run
-on the card unless the caller passes ``accelerator="cpu"``
-(``_commands/train.py::resolve_device``, which never falls back). Not
-ported yet, each refused before anything is built: ``train_object_detection``
-(ROADMAP item 14), ``train_instance_segmentation``,
-``train_panoptic_segmentation`` and a ``-eomt`` model for
-``train_semantic_segmentation`` (item 13).
+(the linear probe, and EoMT with a ``-eomt`` model),
+``train_semantic_segmentation_multihead``, ``train_instance_segmentation``
+and ``train_panoptic_segmentation`` (EoMT). They run on the card unless the
+caller passes ``accelerator="cpu"`` (``_commands/train.py::resolve_device``,
+which never falls back). Not ported yet, each refused before anything is
+built: ``train_object_detection`` and a ``-ltdetr`` model for
+``train_instance_segmentation`` (ROADMAP item 14).
 
 The update is ``_optim/update.py``'s unfused chain (AdamW by default, with
-the task's per-parameter lr scales); a frozen backbone's parameters get a
+the task's per-parameter lr scales, and EoMT's two schedules by parameter
+group); a frozen backbone's parameters get a
 zero gradient there, so AdamW's decoupled weight decay still shrinks them by
 ``1 - lr * wd`` a step, as in the JAX package.
 """
@@ -294,6 +297,9 @@ def run_task_training(
     )
     total_steps = (config.steps if config.steps != AUTO
                    else args.default_steps)
+    # Step-based schedules inside the task (EoMT's attention-mask
+    # annealing) end with this run, not at the task's default_steps.
+    train_model.total_steps = total_steps
     accum = max(1, config.grad_accum_steps)
     if batch_size % accum != 0:
         raise ConfigError(
@@ -320,10 +326,12 @@ def run_task_training(
             model.backbone.state_dict(), pretrained, require_overlap=True))
         logger.info("Initialized backbone from pretrained checkpoint")
     named = dict(model.named_parameters())
-    updater = UnfusedUpdate(optim_args, lr_schedule, named,
-                            grad_clip_norm=train_model.grad_clip_norm(),
-                            lr_scales=train_model.lr_scales(named),
-                            seed=config.seed)
+    updater = UnfusedUpdate(
+        optim_args, lr_schedule, named,
+        grad_clip_norm=train_model.grad_clip_norm(),
+        lr_scales=train_model.lr_scales(named), seed=config.seed,
+        schedule_groups=train_model.lr_schedule_groups(base_lr, total_steps,
+                                                       named))
     state = TaskTrainState(step=0, params=model, updater=updater)
     train_tf = _build_transform(config, train_model, dtype)
     ckpt_mgr = CheckpointManager(out_dir / "checkpoints")
@@ -351,12 +359,19 @@ def run_task_training(
         if val_loader is None:
             return {}
         total: Optional[Dict[str, torch.Tensor]] = None
+        collected = []
         with torch.no_grad():
             for batch in val_loader:
                 stats = train_model.val_step(
                     state.params, _device_val_transform(batch, dtype))
+                if train_model.val_mode == "collect":
+                    collected.append({k: v.cpu().numpy()
+                                      for k, v in stats.items()})
+                    continue
                 total = (stats if total is None else
                          {k: total[k] + v for k, v in stats.items()})
+        if train_model.val_mode == "collect":
+            return train_model.val_finalize(collected) if collected else {}
         return train_model.val_finalize(total) if total is not None else {}
 
     def export_artifact(name: str) -> None:
@@ -562,21 +577,26 @@ def train_semantic_segmentation(out: str, data: Dict[str, Any], model: Any,
                                 **kwargs: Any):
     """data: {"train": {"images": dir, "masks": dir}, "val": {...},
     "num_classes": int} (or ``classes`` and ``ignore_classes``). A model
-    name without ``-eomt`` (``-linear`` or no suffix) trains the linear
-    probe; EoMT waits for ROADMAP item 13."""
+    name ending in ``-eomt`` (``dinov2/vitb14-eomt``) trains the EoMT mask
+    transformer; without it (``-linear`` or no suffix) the linear probe."""
+    from lightly_train_tpu_torch.tasks.eomt_semantic_segmentation import (
+        EoMTSemanticSegmentationArgs,
+        EoMTSemanticSegmentationTrainModel,
+    )
     from lightly_train_tpu_torch.tasks.semantic_segmentation_linear import (
         LinearSemanticSegmentationArgs,
         LinearSemanticSegmentationTrainModel,
     )
 
-    if isinstance(model, str) and model.endswith("-eomt"):
-        raise NotImplementedError(
-            f"train_semantic_segmentation with an EoMT model ('{model}') is "
-            "not ported to PyTorch yet (ROADMAP item 13); a model name "
-            "without '-eomt' trains the linear probe.")
     config = _config(out, model, kwargs)
+    use_eomt = config.model.endswith("-eomt")
     config = dataclasses.replace(
-        config, model=config.model.removesuffix("-linear"))
+        config,
+        model=config.model.removesuffix("-eomt").removesuffix("-linear"))
+    if use_eomt:
+        return _segmentation(config, data, EoMTSemanticSegmentationArgs,
+                             EoMTSemanticSegmentationTrainModel,
+                             {"architecture": "eomt"})
     return _segmentation(config, data, LinearSemanticSegmentationArgs,
                          LinearSemanticSegmentationTrainModel,
                          {"architecture": "linear"})
@@ -596,21 +616,97 @@ def train_semantic_segmentation_multihead(out: str, data: Dict[str, Any],
                          SemanticSegmentationMultiheadTrainModel)
 
 
-def _not_ported(name: str, item: str, what: str):
-    def entry(out: str, data: Dict[str, Any], model: Any, **kwargs: Any):
+def _refuse_ltdetr(model: Any) -> None:
+    if isinstance(model, str) and model.endswith("-ltdetr"):
         raise NotImplementedError(
-            f"{name} ({what}) is not ported to PyTorch yet (ROADMAP item "
-            f"{item}).")
-
-    entry.__name__ = entry.__qualname__ = name
-    entry.__doc__ = f"{what}: not ported yet (ROADMAP item {item})."
-    return entry
+            f"train_instance_segmentation with an LT-DETR model ('{model}') "
+            "is not ported to PyTorch yet (ROADMAP item 14); a model name "
+            "ending in '-eomt', or without a suffix, trains EoMT.")
 
 
-train_object_detection = _not_ported(
-    "train_object_detection", "14", "LT-DETR and PicoDet detection")
-train_instance_segmentation = _not_ported(
-    "train_instance_segmentation", "13", "EoMT and LT-DETR instance "
-    "segmentation")
-train_panoptic_segmentation = _not_ported(
-    "train_panoptic_segmentation", "13", "EoMT panoptic segmentation")
+def _eomt(config: TrainTaskConfig, build, args_cls, model_cls,
+          num_classes: Optional[int]):
+    """EoMT on the datasets ``build(split)`` makes of ``data``'s splits."""
+    hw = (config.image_size, config.image_size)
+    max_instances = int(config.task_args.get("max_instances", 50))
+    train_ds = build("train", hw, max_instances)
+    val_ds = build("val", hw, max_instances)
+    task_args = config_validate(args_cls, {
+        "num_classes": (train_ds.num_classes if num_classes is None
+                        else num_classes), **config.task_args})
+    wrapped, pretrained, meta = _load_backbone(config)
+    meta["architecture"] = "eomt"
+    return run_task_training(config, model_cls(wrapped, task_args), train_ds,
+                             val_ds, meta, pretrained)
+
+
+def train_instance_segmentation(out: str, data: Dict[str, Any], model: Any,
+                                **kwargs: Any):
+    """EoMT instance segmentation. data (COCO): {"train": {"images": dir,
+    "annotations": json}, "val": {...}}; data (YOLO-seg): {"format":
+    "yolo", "num_classes": int, "train": {"images": dir, "labels": dir},
+    "val": {...}}. A model name ending in ``-eomt`` or without a suffix
+    trains EoMT; ``-ltdetr`` waits for ROADMAP item 14."""
+    from lightly_train_tpu_torch.tasks.eomt_instance_panoptic import (
+        COCOInstanceSegmentationDataset,
+        EoMTInstanceSegmentationArgs,
+        EoMTInstanceSegmentationTrainModel,
+        YOLOInstanceSegmentationDataset,
+    )
+
+    _refuse_ltdetr(model)
+    config = _config(out, model, kwargs)
+    config = dataclasses.replace(config,
+                                 model=config.model.removesuffix("-eomt"))
+    yolo = data.get("format") == "yolo"
+
+    def build(split, hw, max_instances):
+        if split not in data:
+            return None
+        s = data[split]
+        if yolo:
+            return YOLOInstanceSegmentationDataset(
+                Path(s["images"]), Path(s["labels"]),
+                int(data["num_classes"]), hw, max_instances)
+        return COCOInstanceSegmentationDataset(
+            Path(s["images"]), Path(s["annotations"]), hw, max_instances)
+
+    return _eomt(config, build, EoMTInstanceSegmentationArgs,
+                 EoMTInstanceSegmentationTrainModel,
+                 data.get("num_classes"))
+
+
+def train_panoptic_segmentation(out: str, data: Dict[str, Any], model: Any,
+                                **kwargs: Any):
+    """EoMT panoptic segmentation, COCO panoptic format: data: {"train":
+    {"images": dir, "panoptic": dir, "annotations": json}, "val":
+    {...}}."""
+    from lightly_train_tpu_torch.tasks.eomt_instance_panoptic import (
+        COCOPanopticSegmentationDataset,
+        EoMTPanopticSegmentationArgs,
+        EoMTPanopticSegmentationTrainModel,
+    )
+
+    config = _config(out, model, kwargs)
+    config = dataclasses.replace(config,
+                                 model=config.model.removesuffix("-eomt"))
+
+    def build(split, hw, max_instances):
+        if split not in data:
+            return None
+        s = data[split]
+        return COCOPanopticSegmentationDataset(
+            Path(s["images"]), Path(s["panoptic"]), Path(s["annotations"]),
+            hw, max_instances)
+
+    return _eomt(config, build, EoMTPanopticSegmentationArgs,
+                 EoMTPanopticSegmentationTrainModel,
+                 data.get("num_classes"))
+
+
+def train_object_detection(out: str, data: Dict[str, Any], model: Any,
+                           **kwargs: Any):
+    """LT-DETR and PicoDet detection: not ported yet (ROADMAP item 14)."""
+    raise NotImplementedError(
+        "train_object_detection (LT-DETR and PicoDet detection) is not "
+        "ported to PyTorch yet (ROADMAP item 14).")

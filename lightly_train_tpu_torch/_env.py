@@ -88,3 +88,9 @@ class Env:
     LIGHTLY_TRAIN_VMEM_ATTENTION: EnvVar[str] = EnvVar(
         "LIGHTLY_TRAIN_VMEM_ATTENTION", "1", str
     )
+    # The EoMT losses' matcher: "auto" (the exact Hungarian, scipy's
+    # linear_sum_assignment on the host, on the card and on the CPU),
+    # "hungarian" or "greedy" (the JAX package's device matcher).
+    LIGHTLY_TRAIN_MATCHER: EnvVar[str] = EnvVar(
+        "LIGHTLY_TRAIN_MATCHER", "auto", str
+    )

@@ -1,14 +1,18 @@
 """Learning-rate schedules.
 
-Port of the pretraining schedules of ``lightly_train_tpu/_optim/schedules.py``.
-The step count lives on the host in the port, so a schedule is a plain
-``step -> float`` function evaluated in Python.
+Port of ``lightly_train_tpu/_optim/schedules.py``'s ``cosine_warmup``,
+``two_stage_warmup_poly`` (EoMT) and ``scale_lr_for_batch_size``. The step
+count lives on the host in the port, so a schedule is a plain
+``step -> float`` function evaluated in Python (EoMT's in float32, in the
+JAX schedule's order of operations).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Tuple
+
+import numpy as np
 
 Schedule = Callable[[int], float]
 
@@ -38,6 +42,43 @@ def cosine_warmup(
         )
 
     return schedule
+
+
+def two_stage_warmup_poly(
+    base_lr: float,
+    total_steps: int,
+    warmup_steps: Tuple[int, int] = (500, 1000),
+    poly_power: float = 0.9,
+) -> Tuple[Schedule, Schedule]:
+    """EoMT's two-stage warmup: (backbone schedule, heads' schedule).
+
+    The heads warm up linearly over ``warmup_steps[0]``, then decay as
+    ``(1 - t / horizon) ** poly_power`` over the rest; the backbone's lr is 0
+    during the heads' warmup, then warms up over ``warmup_steps[1]``, then
+    decays over what remains."""
+    f32 = np.float32
+    head_warm, bb_warm = int(warmup_steps[0]), int(warmup_steps[1])
+    lr, power = f32(base_lr), f32(poly_power)
+
+    def head_schedule(step: int) -> float:
+        t = f32(step)
+        if t < head_warm:
+            return float(lr * t / f32(max(head_warm, 1)))
+        adjusted = max(t - f32(head_warm), f32(0.0))
+        return float(lr * (f32(1.0) - adjusted / f32(
+            max(total_steps - head_warm, 1))) ** power)
+
+    def backbone_schedule(step: int) -> float:
+        t = f32(step)
+        if t < head_warm:
+            return 0.0
+        if t < head_warm + bb_warm:
+            return float(lr * (t - f32(head_warm)) / f32(max(bb_warm, 1)))
+        adjusted = max(t - f32(head_warm) - f32(bb_warm), f32(0.0))
+        return float(lr * (f32(1.0) - adjusted / f32(
+            max(total_steps - head_warm - bb_warm, 1))) ** power)
+
+    return backbone_schedule, head_schedule
 
 
 def scale_lr_for_batch_size(

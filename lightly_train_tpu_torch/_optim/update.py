@@ -22,7 +22,9 @@ order:
 3. ``u <- u + wd p`` on the leaves the weight-decay mask decays, with wd
    from the method's schedule where it gives one;
 4. ``u <- u s`` with the method's per-leaf lr scales;
-5. ``u <- -lr(count) u``.
+5. ``u <- -lr(count) u``, or, with ``schedule_groups`` (EoMT's two clocks,
+   ``optimizers.py::scale_by_grouped_schedules``), ``u <-
+   -schedules[g](count) u`` with the leaf's group ``g``.
 
 The method then masks the updates (``Method.mask_updates``), they are added
 to the parameters, and the method's ``post_update`` runs (the train step,
@@ -36,7 +38,15 @@ waits on the card. No ``torch.optim`` class runs.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Union
+from typing import (
+    Callable,
+    Dict,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -74,6 +84,8 @@ class UnfusedUpdate:
         weight_decay_schedule: Optional[Schedule] = None,
         wd_mask: Optional[Mapping[str, bool]] = None,
         seed: int = 0,
+        schedule_groups: Optional[Tuple[Sequence[Schedule],
+                                        Mapping[str, int]]] = None,
     ):
         if type(args) not in (AdamWArgs, AdamW8bitArgs, SGDArgs, LARSArgs):
             raise ValueError(f"Unknown optimizer args type: {type(args)}")
@@ -86,6 +98,12 @@ class UnfusedUpdate:
                           else [float(lr_scales[n]) for n in self.names])
         mask = no_weight_decay_mask(params) if wd_mask is None else wd_mask
         self.decays = [bool(mask[n]) for n in self.names]
+        # (schedules, each leaf's index into them) or None.
+        self.schedule_groups = None
+        if schedule_groups is not None:
+            schedules, groups = schedule_groups
+            self.schedule_groups = (list(schedules),
+                                    [int(groups[n]) for n in self.names])
         self.count = 0
         # Adam's moments, or the momentum trace of SGD and LARS.
         self.moments: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -175,6 +193,9 @@ class UnfusedUpdate:
         decay = wd > 0 or self.weight_decay_schedule is not None
         lr = self.learning_rate
         step = -float(f32(lr(self.count) if callable(lr) else lr))
+        if self.schedule_groups is not None:
+            schedules, groups = self.schedule_groups
+            steps = [-float(f32(s(self.count))) for s in schedules]
         for i, name in enumerate(self.names):
             p = params[name]
             g = grads.pop(name)
@@ -207,7 +228,8 @@ class UnfusedUpdate:
                 u = u + wd * p
             if self.lr_scales is not None:
                 u = u * self.lr_scales[i]
-            u = u * step
+            u = u * (step if self.schedule_groups is None
+                     else steps[groups[i]])
             if mask is not None:
                 u = mask(name, u)
             p.add_(u.to(p.dtype))

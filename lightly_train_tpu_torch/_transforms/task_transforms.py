@@ -5,10 +5,11 @@ Port of ``lightly_train_tpu/_transforms/task_transforms.py``. Each
 fields and the JAX package's resolution rules, and each task family has
 the reference's default recipe:
 
-- semantic segmentation (linear and multihead): scale jitter (0.5-2.0, 20
-  scales) -> random crop (``image_size``, centre padding, masks filled
-  with ``ignore_index``) -> horizontal flip (0.5) -> colour jitter (p 0.5)
-  -> normalize;
+- semantic, instance and panoptic segmentation (EoMT, linear and
+  multihead): scale jitter (0.5-2.0, 20 scales) -> random crop
+  (``image_size``, centre padding, masks filled with ``ignore_index``, the
+  slot-id map with ``NO_SEGMENT``) -> horizontal flip (0.5) -> colour
+  jitter (p 0.5) -> normalize;
 - image classification (and multihead): RandomResizedCrop (area 0.2-1.0)
   -> horizontal flip (0.5) -> colour jitter -> normalize.
 
@@ -211,6 +212,8 @@ class ImageClassificationTransformArgs(TaskTransformArgs):
 
 TASK_TRANSFORM_ARGS: Dict[str, type] = {
     "semantic_segmentation": SemanticSegmentationTransformArgs,
+    "instance_segmentation": SemanticSegmentationTransformArgs,
+    "panoptic_segmentation": SemanticSegmentationTransformArgs,
     "image_classification": ImageClassificationTransformArgs,
 }
 
@@ -243,10 +246,25 @@ def resolve_task_transform_args(
 # On-device pipeline
 # ---------------------------------------------------------------------------
 
-# Spatial integer id-map batch keys (filled with ignore_index outside).
-_MAP_KEYS = ("masks",)
+# Spatial integer id-map batch keys: ``masks`` (filled with ignore_index
+# outside the image) and the instance and panoptic slot-id map ``seg_map``
+# (filled with NO_SEGMENT).
+_MAP_KEYS = ("masks", "seg_map")
+# ``tasks/eomt_instance_panoptic.py``'s NO_SEGMENT.
+NO_SEGMENT = 255
 
 Params = Dict[str, Any]
+
+
+def ids_present(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) flags of the ids below ``n`` present in each (H, W) map of
+    non-negative ids (``n`` and above: none), counted without a one-hot
+    map."""
+    B = ids.shape[0]
+    idx = ids.long().clamp(max=n) + (n + 1) * torch.arange(
+        B, device=ids.device)[:, None, None]
+    counts = torch.bincount(idx.reshape(-1), minlength=B * (n + 1))
+    return counts.reshape(B, n + 1)[:, :n] > 0
 
 
 class TrainTransform:
@@ -255,8 +273,9 @@ class TrainTransform:
     smallest-max-size and random crop, or RandomResizedCrop, with the flips
     folded into the sampling coordinates) -> rotate90 -> rotate -> colour
     jitter -> normalize. Images come in as (B, H, W, C) uint8 and leave
-    normalized in ``dtype``; ``masks`` follow the geometry, nearest, with
-    ``ignore_index`` fills."""
+    normalized in ``dtype``; ``masks`` and ``seg_map`` follow the
+    geometry, nearest, with ``ignore_index`` and ``NO_SEGMENT`` fills, and
+    a crop drops from ``seg_valid`` every slot it removed."""
 
     def __init__(self, args: TaskTransformArgs, dtype: torch.dtype):
         self.args = args
@@ -375,8 +394,13 @@ class TrainTransform:
                                           fill=fill, hflip=hflip, vflip=vflip)
             for k in map_keys:
                 out[k] = T.padded_crop_resize_nearest(
-                    batch[k], y0, x0, h, w, self.out_hw, fill=ignore,
+                    batch[k], y0, x0, h, w, self.out_hw,
+                    fill=NO_SEGMENT if k == "seg_map" else ignore,
                     hflip=hflip, vflip=vflip)
+            if "seg_map" in batch and "seg_valid" in batch:
+                # A slot the crop removed whole is no target any more.
+                out["seg_valid"] = batch["seg_valid"] & ids_present(
+                    out["seg_map"], batch["seg_valid"].shape[1])
         else:
             # No crop: the flips are explicit reversals, joint with maps.
             for do, axis in ((hflip, 2), (vflip, 1)):

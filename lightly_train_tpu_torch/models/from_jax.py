@@ -23,6 +23,11 @@ numpy arrays, into a PyTorch state dict for the port's modules:
   (kh, kw, 1, C) -> (C, 1, kh, kw); BatchNorm ``scale`` -> ``weight``;
   its ``batch_stats`` ``mean`` and ``var`` become the layer's buffers
   (:func:`variables_from_jax`);
+- EoMT's trunk keeps the ViT's names, with ``queries``, ``class_head``,
+  ``mask_head{0,1,2}`` and ``upscale{0,1}/{conv1, conv2, norm}`` as they
+  are: ``conv1`` is a Flax ``ConvTranspose`` kernel (kh, kw, I, O), which
+  becomes torch's ``ConvTranspose2d`` weight (I, O, kh, kw) flipped in both
+  spatial axes; ``conv2`` is a depthwise conv;
 - ECViT's ``register_token``, the ultralytics backbones' ``layer{i}`` and
   ``m{j}`` scopes and YOLO-NAS's 0-d ``alpha`` carry over under their Flax
   names (a 0-d leaf as a 0-d tensor).
@@ -54,12 +59,22 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+# EoMT's upscaling blocks' transposed convolutions.
+_TRANSPOSED_CONV = re.compile(r"(^|\.)upscale\d+\.conv1\.kernel$")
+
+
 def _convert_leaf(name: str, value: np.ndarray):
     parts = name.split(".")
     leaf = parts[-1]
     if leaf == "kernel":
         parts[-1] = "weight"
-        if value.ndim == 4:  # HWIO conv -> OIHW
+        if value.ndim == 4 and _TRANSPOSED_CONV.search(name):
+            # Flax's ConvTranspose (transpose_kernel=False) correlates the
+            # dilated input with its kernel; torch's ConvTranspose2d
+            # scatters through its weight: (kh, kw, I, O) -> (I, O, kh, kw),
+            # flipped in both spatial axes.
+            value = value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif value.ndim == 4:  # HWIO conv -> OIHW
             value = value.transpose(3, 2, 0, 1)
         elif value.ndim == 2:
             value = value.T

@@ -456,13 +456,10 @@ class VisionTransformer(nn.Module):
             elif isinstance(m, LayerScale):
                 m.gamma.data.fill_(self.cfg.layerscale_init)
 
-    def forward(
-        self,
-        images: torch.Tensor,
-        mask: Optional[torch.Tensor] = None,
-        train: bool = False,
-        generator: Optional[torch.Generator] = None,
-    ) -> Dict[str, torch.Tensor]:
+    def embed(self, images: torch.Tensor,
+              mask: Optional[torch.Tensor] = None):
+        """The token sequence before the first block: (x (B, N, D), the
+        RoPE tables or None, the patch grid (gh, gw))."""
         cfg = self.cfg
         B, H, W, _ = images.shape
         gh, gw = H // cfg.patch_size, W // cfg.patch_size
@@ -487,6 +484,18 @@ class VisionTransformer(nn.Module):
         rope = (rope_tables((gh, gw), cfg.embed_dim // cfg.num_heads,
                             cfg.rope_base, cfg.dtype, x.device)
                 if cfg.use_rope else None)
+        return x, rope, (gh, gw)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B = images.shape[0]
+        x, rope, (gh, gw) = self.embed(images, mask)
         saved_ops = REMAT_POLICIES[cfg.remat_policy]
         remat = (cfg.remat_every > 0 and saved_ops is not None
                  and torch.is_grad_enabled())

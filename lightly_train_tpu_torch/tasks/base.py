@@ -70,6 +70,10 @@ class TaskTrainModel(abc.ABC):
     # Set by the runtime: the training resolution, above which validation
     # runs tiled (``tasks/tiling.py``).
     val_tile_size: Optional[int] = None
+    # "sum": the runtime sums ``val_step``'s statistics over the batches;
+    # "collect": it hands ``val_finalize`` the list of each batch's
+    # statistics on the host.
+    val_mode: str = "sum"
 
     def __init__(self, wrapped: WrappedModel, args: TaskArgs):
         self.wrapped = wrapped
@@ -97,8 +101,9 @@ class TaskTrainModel(abc.ABC):
         """Per-batch validation statistics (summable across batches)."""
 
     @abc.abstractmethod
-    def val_finalize(self, stats: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """Reduce summed validation statistics to the final metrics."""
+    def val_finalize(self, stats: Any) -> Dict[str, float]:
+        """Reduce the validation statistics (summed, or the host list of
+        ``val_mode`` "collect") to the final metrics."""
 
     @abc.abstractmethod
     def predict(self, model: TaskModule, images: torch.Tensor) -> torch.Tensor:
@@ -126,6 +131,13 @@ class TaskTrainModel(abc.ABC):
         from lightly_train_tpu_torch._optim import cosine_warmup
 
         return cosine_warmup(base_lr, total_steps, int(0.05 * total_steps))
+
+    def lr_schedule_groups(self, base_lr: float, total_steps: int,
+                           params: Mapping[str, torch.Tensor]):
+        """(schedules, {name: index into them}) where groups of parameters
+        run on schedules of their own (EoMT's two clocks); None keeps the
+        one schedule of :meth:`lr_schedule`."""
+        return None
 
     def scaled_lr(self, base_lr: float, global_batch_size: int) -> float:
         return base_lr

@@ -1,0 +1,257 @@
+"""The instance and panoptic data path in the port against the JAX
+package: RLE decoding, the polygon rasterizer against PIL, the YOLO-seg,
+COCO instance and COCO panoptic datasets, the COCO mAP module and the
+``seg_map`` train transform.
+
+The rasterizer is held to PIL's ``ImageDraw.polygon(fill=1, outline=1)``
+bit for bit on 600 random polygons: convex, concave (star-shaped),
+self-crossing, sub-pixel, reaching outside the image, with fractional and
+half-integer vertices, and of fewer than 3 points. The datasets read files
+``torch_fixtures/eomt_data.py`` writes, with PIL blocked for the port:
+every item equal. ``compute_map`` and ``compute_map_generic`` give the same
+floats on random boxes and masks with ties and empty images. The train
+transform is fed the JAX transform's draws (``test_torch_task_augs.py``'s
+``_jax_params``): ``seg_map`` and ``seg_valid`` equal.
+"""
+
+import builtins
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image, ImageDraw
+
+from lightly_train_tpu._transforms import task_transforms as JTF
+from lightly_train_tpu.tasks import eomt_instance_panoptic as JIP
+from lightly_train_tpu.tasks.detection import metrics as JM
+from lightly_train_tpu_torch._data.polygon import rasterize_polygons
+from lightly_train_tpu_torch._transforms import task_transforms as TF
+from lightly_train_tpu_torch.tasks import eomt_instance_panoptic as IP
+from lightly_train_tpu_torch.tasks.detection import metrics as M
+from test_torch_task_augs import _jax_params
+from torch_fixtures.eomt_data import (
+    encode_rle,
+    rle_counts,
+    write_coco_instance,
+    write_coco_panoptic,
+    write_yolo_instance,
+)
+from torch_fixtures.threads import one_torch_thread  # noqa: F401
+
+
+def _pil_polygon(points, hw):
+    mask = Image.new("1", (hw[1], hw[0]), 0)
+    ImageDraw.Draw(mask).polygon(points, outline=1, fill=1)
+    return np.asarray(mask, dtype=bool)
+
+
+def _polygon(kind, rng, hw):
+    h, w = hw
+    n = int(rng.integers(3, 12))
+    if kind == "convex":
+        angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+        c, r = rng.uniform(0, [w, h]), rng.uniform(1, 15)
+        return np.stack([c[0] + r * np.cos(angles),
+                         c[1] + r * np.sin(angles)], 1)
+    if kind == "concave":
+        angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+        c, r = rng.uniform(0, [w, h]), rng.uniform(2, 15, n)
+        return np.stack([c[0] + r * np.cos(angles),
+                         c[1] + r * np.sin(angles)], 1)
+    if kind == "crossing":
+        return rng.uniform(0, [w, h], (n, 2))
+    if kind == "subpixel":
+        return rng.uniform(0, [w, h]) + rng.uniform(-1, 1, (n, 2))
+    if kind == "outside":
+        return rng.uniform(-12, [w + 12, h + 12], (n, 2))
+    if kind == "halves":
+        return rng.integers(-4, [2 * w + 4, 2 * h + 4], (n, 2)) / 2.0
+    return rng.uniform(0, [w, h], (int(rng.integers(0, 3)), 2))  # "few"
+
+
+KINDS = ("convex", "concave", "crossing", "subpixel", "outside", "halves",
+         "few")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_rasterizer_matches_pil_bit_for_bit(kind):
+    rng = np.random.default_rng(KINDS.index(kind))
+    for _ in range(90 if kind != "few" else 60):
+        hw = tuple(int(v) for v in rng.integers(5, 40, 2))
+        pts = _polygon(kind, rng, hw)
+        poly = pts.reshape(-1).tolist()
+        got = rasterize_polygons([poly], hw, (1.0, 1.0))
+        want = (_pil_polygon([tuple(p) for p in pts], hw) if len(pts) >= 3
+                else np.zeros(hw, bool))
+        np.testing.assert_array_equal(got, want, err_msg=str(poly))
+
+
+def test_rasterizer_scales_and_unions_like_the_jax_package():
+    polys = [[1.5, 2.0, 30.25, 4.0, 12.0, 22.5], [20.0, 20.0, 39.0, 21.0,
+                                                   25.0, 35.0, 19.5, 30.0],
+             [3.0, 3.0, 9.0, 3.0]]
+    want = JIP._rasterize_polygons(polys, (24, 31), (0.8, 0.65))
+    np.testing.assert_array_equal(
+        rasterize_polygons(polys, (24, 31), (0.8, 0.65)), want)
+
+
+@pytest.mark.parametrize("compressed", [True, False])
+def test_rle_decode_matches_jax(compressed):
+    rng = np.random.default_rng(3)
+    for shape in ((13, 17), (1, 9), (20, 4)):
+        mask = rng.uniform(size=shape) < 0.4
+        mask[0, 0] = compressed
+        seg = (encode_rle(mask) if compressed
+               else {"size": list(shape), "counts": rle_counts(mask)})
+        got = IP.decode_rle(seg)
+        np.testing.assert_array_equal(got, JIP.decode_rle(seg))
+        np.testing.assert_array_equal(got, mask)
+        if compressed:
+            assert (IP._decode_rle_counts(seg["counts"])
+                    == JIP._decode_rle_counts(seg["counts"]))
+
+
+@pytest.fixture
+def no_pil(monkeypatch):
+    """PIL imports fail for the port while the test's own dataset reads run
+    (the JAX datasets are read first, with PIL)."""
+    real = builtins.__import__
+
+    def guarded(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("PIL blocked for the port")
+        return real(name, *args, **kwargs)
+
+    return lambda: monkeypatch.setattr(builtins, "__import__", guarded)
+
+
+def _items(ds):
+    return [ds[i] for i in range(len(ds))]
+
+
+def _same_items(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
+@pytest.mark.parametrize("fmt", ["coco", "yolo", "panoptic"])
+def test_datasets_match_jax(fmt, tmp_path, no_pil):
+    hw, slots = (36, 44), 7
+    if fmt == "coco":
+        data = write_coco_instance(tmp_path)
+        args = (data["train"]["images"], data["train"]["annotations"], hw,
+                slots)
+        j_ds = JIP.COCOInstanceSegmentationDataset(*args)
+        mk = IP.COCOInstanceSegmentationDataset
+    elif fmt == "yolo":
+        data = write_yolo_instance(tmp_path)
+        args = (data["train"]["images"], data["train"]["labels"], 3, hw, slots)
+        j_ds = JIP.YOLOInstanceSegmentationDataset(*args)
+        mk = IP.YOLOInstanceSegmentationDataset
+    else:
+        data = write_coco_panoptic(tmp_path)
+        split = data["train"]
+        args = (split["images"], split["panoptic"], split["annotations"], hw,
+                slots)
+        j_ds = JIP.COCOPanopticSegmentationDataset(*args)
+        mk = IP.COCOPanopticSegmentationDataset
+    want = _items(j_ds)
+    no_pil()
+    p_ds = mk(*args)
+    assert getattr(p_ds, "num_classes", None) == getattr(j_ds, "num_classes",
+                                                         None)
+    got = _items(p_ds)
+    _same_items(got, want)
+    valid = np.stack([g["seg_valid"] for g in got])
+    assert valid.any() and not valid.all()
+    if fmt == "coco":
+        # An annotation painted over whole leaves its slot invalid.
+        # Slot 4 (a polygon of 2 points) is empty; slot 5, painted over
+        # whole by slot 6 in the odd images, too.
+        assert not valid[:, 4].any()
+        assert any(not g["seg_valid"][5] and (g["seg_map"] == 6).any()
+                   for g in got)
+
+
+def _regions(rng, n, key):
+    if key == "boxes":
+        xy = rng.uniform(0, 50, (n, 2))
+        return np.concatenate([xy, xy + rng.uniform(1, 60, (n, 2))], 1)
+    return rng.uniform(size=(n, 12, 12)) < 0.5
+
+
+@pytest.mark.parametrize("key", ["boxes", "masks"])
+def test_map_module_matches_jax(key):
+    rng = np.random.default_rng(4)
+    preds, targets = [], []
+    for i in range(7):
+        m = int(rng.integers(0, 6))
+        t_regions, t_labels = _regions(rng, m, key), rng.integers(0, 3, m)
+        # Near copies of the targets (some relabelled) and stray regions.
+        noise = (rng.uniform(-3, 3, t_regions.shape) if key == "boxes"
+                 else rng.uniform(size=t_regions.shape) < 0.1)
+        copies = (t_regions + noise if key == "boxes"
+                  else t_regions ^ noise)
+        labels = np.where(rng.uniform(size=m) < 0.8, t_labels,
+                          rng.integers(0, 3, m))
+        n = int(rng.integers(0, 4))
+        regions = np.concatenate([copies, _regions(rng, n, key)])
+        scores = np.round(rng.uniform(size=m + n), 1)  # ties on purpose
+        preds.append({key: regions, "scores": scores,
+                      "labels": np.concatenate([labels,
+                                                rng.integers(0, 3, n)])})
+        targets.append({key: t_regions, "labels": t_labels})
+    if key == "boxes":
+        got, want = M.compute_map(preds, targets), JM.compute_map(preds,
+                                                                  targets)
+    else:
+        def iou(a, b):
+            a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+            inter = (a[:, None] & b[None]).sum(-1)
+            return inter / np.maximum((a[:, None] | b[None]).sum(-1), 1)
+
+        got = M.compute_map_generic(preds, targets, iou, key="masks",
+                                    max_dets=(1, 5))
+        want = JM.compute_map_generic(preds, targets, iou, key="masks",
+                                      max_dets=(1, 5))
+    assert got == want
+    assert 0 < got["map"] < 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_seg_map_transform_matches_jax_on_its_draws(seed):
+    zoom = {"scale_jitter": {"min_scale": 1.5, "max_scale": 2.5}}
+    j_args = JTF.resolve_task_transform_args("instance_segmentation", zoom,
+                                             (16, 16))
+    p_args = TF.resolve_task_transform_args("panoptic_segmentation", zoom,
+                                            (16, 16))
+    assert p_args.dump() == TF.resolve_task_transform_args(
+        "instance_segmentation", zoom, (16, 16)).dump()
+    rng = np.random.default_rng(10 + seed)
+    B, K = 6, 9
+    seg_map = rng.integers(0, K - 1, (B, 20, 20)).astype(np.int32)
+    seg_map[:, :7, :7] = 255
+    seg_map[:, 17:, 17:] = K - 1  # a slot only in the far corner
+    valid = rng.uniform(size=(B, K)) < 0.8
+    valid[:, K - 1] = True
+    batch = {"images": rng.integers(0, 256, (B, 20, 20, 3), np.uint8),
+             "seg_map": seg_map, "seg_valid": valid,
+             "seg_labels": rng.integers(0, 3, (B, K)).astype(np.int32)}
+    key = jax.random.key(20 + seed)
+    want = JTF.build_train_transform(j_args, jnp.float32)(
+        {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    fn = TF.build_train_transform(p_args, torch.float32)
+    got = fn.apply({k: torch.from_numpy(v) for k, v in batch.items()},
+                   _jax_params(j_args, key, batch["images"]))
+    for name in ("seg_map", "seg_valid", "seg_labels"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+    np.testing.assert_allclose(got["images"].numpy(),
+                               np.asarray(want["images"]), atol=2e-5)
+    assert (got["seg_map"].numpy() == 255).any()
+    assert (got["seg_valid"].numpy() != batch["seg_valid"]).any()

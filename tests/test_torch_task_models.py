@@ -238,21 +238,34 @@ def _classify(tmp_path, out="out", **kwargs):
     return lt.train_image_classification(**args)
 
 
-@pytest.mark.parametrize("entry,item", [
-    ("train_object_detection", "14"), ("train_instance_segmentation", "13"),
-    ("train_panoptic_segmentation", "13")])
-def test_unported_entry_points_name_their_item(tmp_path, entry, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        getattr(lt, entry)(out=str(tmp_path / "out"), data={},
-                           model="dinov2/vittest14")
+@pytest.mark.parametrize("entry,model", [
+    ("train_object_detection", "dinov2/vittest14"),
+    ("train_instance_segmentation", "dinov2/vittest14-ltdetr")])
+def test_unported_entry_points_name_their_item(tmp_path, entry, model):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        getattr(lt, entry)(out=str(tmp_path / "out"), data={}, model=model)
     assert not (tmp_path / "out").exists()
 
 
-def test_eomt_is_refused_before_anything_is_built(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        lt.train_semantic_segmentation(
-            out=str(tmp_path / "out"), data={"num_classes": 2},
-            model="dinov2/vittest14-eomt", accelerator="cpu")
+@pytest.mark.parametrize("entry", ["train_semantic_segmentation",
+                                   "train_instance_segmentation",
+                                   "train_panoptic_segmentation"])
+def test_eomt_is_refused_before_anything_is_built(tmp_path, entry):
+    """EoMT on a CNN backbone is refused before the output folder is
+    made."""
+    from torch_fixtures.eomt_data import (
+        write_coco_instance,
+        write_coco_panoptic,
+    )
+
+    data = {"train_semantic_segmentation": lambda r: write_mask_pairs(r),
+            "train_instance_segmentation": write_coco_instance,
+            "train_panoptic_segmentation": write_coco_panoptic}[entry](
+        tmp_path / "data")
+    with pytest.raises(ConfigError, match="EoMT needs a ViT backbone"):
+        getattr(lt, entry)(out=str(tmp_path / "out"), data=data,
+                           model="torchvision/resnettest-eomt",
+                           accelerator="cpu")
     assert not (tmp_path / "out").exists()
 
 
