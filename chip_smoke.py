@@ -21,8 +21,9 @@ Phases (any failure exits non-zero):
    teacher's (4, 54, 12, 64), ECViT-S+'s (4, 50, 6, 64)), and in both
    dtypes at ``evaluate_knn``'s batch of phase 3q (256, 257, 12, 64), and
    at fine-tuning's shapes of phase 3r (bf16 (128, 257, 12, 64) and (16,
-   257, 12, 64), fp32 (8, 257, 12, 64)); the script fails if 3o, 3p, 3q or
-   3r launched K1 or K2 at a shape phase 2 did not hold; K1/K2
+   257, 12, 64), fp32 (8, 257, 12, 64)), and in bf16 at ECViT-T's shape of
+   phase 3t (16, 197, 3, 64); the script fails if 3o, 3p, 3q, 3r, 3s or
+   3t launched K1 or K2 at a shape phase 2 did not hold; K1/K2
    at head dim 128 in both dtypes at
    the 7B teacher's and 7B student's shape of phases 3j and 3l, the 7B
    embed shape of phase 3k, at N = 37 and at N = 730; K4/K5
@@ -214,8 +215,9 @@ Phases (any failure exits non-zero):
    ``exported_best`` and ``exported_last``, step times, peak memory and
    the val step's time; both multihead entry points at vittest14 (K1 at
    (8, 257, 2, 16) only), the classification one stopped after its step-2
-   checkpoint and resumed (the losses of steps 3-4 bitwise those of the
-   uninterrupted run, and the two runs' launches its launches); one fp32
+   checkpoint and resumed (the restored state bitwise the checkpoint's,
+   every loss bitwise the uninterrupted run's, and the two runs' launches
+   its launches); one fp32
    step of the classification path on 8 images
    (SGD, LayerScale 0.5, ``highest``) on the card against the port's CPU
    path, the loss, the parameters and their change within 1e-2, its 12 K1
@@ -234,12 +236,29 @@ Phases (any failure exits non-zero):
    SDPA or unmasked plain attention, finite losses and val metrics, the
    exports' ``architecture`` "eomt"; a panoptic run at vittest14 with one
    joint block, and the same run stopped after its step-2 checkpoint and
-   resumed (steps 3-4 bitwise the uninterrupted run's losses, both runs'
-   launches those of the uninterrupted one, as in 3r); one fp32 semantic
+   resumed (the restored state and every loss bitwise the uninterrupted
+   run's, both runs' launches those of the uninterrupted one, as in 3r);
+   one fp32 semantic
    step at
    vittest14 on the card against the CPU (the same uniforms, the Hungarian
    matcher: assignments equal, the loss within 1e-4, the parameters'
-   change within 1e-2). 3j, 3k, 3m, 3r and 3s delete what they wrote.
+   change within 1e-2). (3t, after 3s) LT-DETR detection from phase 3's
+   export: ``train_object_detection`` of ``dinov2/vitb14-ltdetr`` at the
+   JAX defaults (D-FINE, 300 queries, 2 denoising groups, the EMA), bf16,
+   batch 16, on YOLO labels and on a COCO JSON of 24-40 boxes an image in
+   80 classes that the phase writes for phase 3's images (K1 and K2 12 a
+   step at (16, 257, 12, 64), K1 12 a val batch), ``ltdetrv2-s`` (ECViT-T,
+   random init: K1 and K2 12 a step at (16, 197, 3, 64)), each with its
+   step ms, val batch ms, peak GiB and the host's Hungarian and GO-union
+   syncs a step; ``vittest14-ltdetr`` with the RT-DETRv2 decoder, every
+   window on and rotate-90, stopped after its step-2 checkpoint and resumed
+   (the restored state and every loss bitwise the uninterrupted run's);
+   one fp32 step at
+   vittest14 on the card against the CPU (the same denoising draws, the
+   Hungarian matcher: the loss within 1e-5, the parameters' change within
+   1e-3 where the CPU's gradient is not 0 to rounding). 3j, 3k, 3m, 3r, 3s
+   and 3t
+   delete what they wrote.
    Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
    convolutions by default), so every path runs under ``default`` unless a
@@ -253,6 +272,9 @@ then this check fails.
 training steps in each precision (fp32 under the variable, as ``pretrain``
 runs it), printing the device's busy share and the kernels that take the
 most device time.
+
+``--only-3t`` runs phase 1, phase 3's bf16 run (for its export) and phase
+3t, and prints the contract's last two lines but no kernels line.
 
 ``--7b-lars`` runs phase 1 and then only the DINOv3 7B/16 distillation
 student with LARS at momentum 0.9 (``run_7b_lars``): its peak memory, or
@@ -582,6 +604,25 @@ EOMT_NO_AUG = {"scale_jitter": None, "random_crop": None,
                "random_flip": None, "color_jitter": None}
 EOMT_SMALL = {"model": "dinov2/vittest14-eomt", "batch_size": 8,
               "task_args": {"num_joint_blocks": 1, "max_instances": 8}}
+
+# Phase 3t: LT-DETR detection (ROADMAP items 14.1, 14.2), bf16, batch 16
+# at 224^2 on phase 3's images (train) and DET_VAL more (val), with YOLO
+# labels and a COCO JSON of DET_BOXES_MIN to DET_BOXES_MAX boxes an image in
+# DET_CLASSES classes. (a) dinov2/vitb14-ltdetr from phase 3's export at
+# the JAX defaults (D-FINE, 300 queries, dn_groups 2, the EMA), DET_STEPS
+# steps and one validation on each format: K1 and K2 DEPTH times a step at
+# FT_SEG, K1 DEPTH times a val batch. (b) ltdetrv2-s (ECViT-T, random
+# init) on YOLO: K1 and K2 12 times a step at DET_ECVIT. (c)
+# vittest14-ltdetr with the RT-DETRv2 decoder, every window on from step 0
+# and rotate90_prob 0.5, batch 8 (K1/K2 at HD16_SMALL), stopped after its
+# step-2 checkpoint and resumed. (d) one fp32 step at vittest14 on the card
+# against the CPU (the same denoising draws, the Hungarian matcher).
+DET_MODEL, DET_STEPS, DET_VAL, DET_CLASSES = "dinov2/vitb14-ltdetr", 4, 16, 80
+DET_BOXES_MIN, DET_BOXES_MAX = 24, 40
+DET_ECVIT = (16, 197, 3, HEAD_DIM)
+DET_WINDOWS = {"decoder": "rtdetrv2", "mosaic_window": [0, 1000],
+               "mixup_window": [0, 1000], "zoom_out_window": [0, 1000],
+               "rotate90_prob": 0.5}
 
 # The phase running now and when it started (``phase``).
 _CLOCK = {"name": None, "t0": 0.0}
@@ -953,7 +994,8 @@ ATTENTION_CASES = [
     ("flat", dtype, KNN_SHAPE, "flat") for dtype in DTYPES] + [
     ("flat", "bf16", FT_CLS, "flat"), ("flat", "bf16", FT_SEG, "flat"),
     ("flat", "fp32", FT_FP32, "flat"),
-    ("flat", "bf16", EOMT_QUERIES_SHAPE, "flat")] + [
+    ("flat", "bf16", EOMT_QUERIES_SHAPE, "flat"),
+    ("flat", "bf16", DET_ECVIT, "flat")] + [
     ("vmem", dtype, shape, layout)
     for layout in ("bnhd", "bhnd")
     for dtype in DTYPES
@@ -4927,8 +4969,8 @@ def check_finetune(tag: str, r: dict, out: Path, steps: int, batch: int,
 def fp32_step(lt, entry: str, out: Path, patches: tuple = (),
               **kwargs) -> dict:
     """One step of ``lt.<entry>(out=out, steps=1, **kwargs)`` with each
-    ``(owner, name, value)`` of ``patches`` set for the call: the loss and
-    every parameter before and after the update (a spy on
+    ``(owner, name, value)`` of ``patches`` set for the call: the loss,
+    every parameter before and after the update and its gradient (a spy on
     ``UnfusedUpdate.update_and_apply``)."""
     from lightly_train_tpu_torch._optim.update import UnfusedUpdate
 
@@ -4936,6 +4978,8 @@ def fp32_step(lt, entry: str, out: Path, patches: tuple = (),
     update = UnfusedUpdate.update_and_apply
 
     def spy(self, grads, params, *args, **kw):
+        snaps.append({n: g.detach().float().cpu().clone()
+                      for n, g in grads.items() if g is not None})
         snaps.append({n: p.detach().float().cpu().clone()
                       for n, p in params.items()})
         norm = update(self, grads, params, *args, **kw)
@@ -4954,7 +4998,8 @@ def fp32_step(lt, entry: str, out: Path, patches: tuple = (),
             setattr(owner, name, value)
     loss = logged_steps(out)[0]["train_loss"]
     shutil.rmtree(out)
-    return {"loss": loss, "before": snaps[0], "after": snaps[1]}
+    return {"loss": loss, "grads": snaps[0], "before": snaps[1],
+            "after": snaps[2]}
 
 
 def finetune_fp32_step(lt, device: str, export: Path, data: dict,
@@ -5029,11 +5074,15 @@ def stop_and_resume(lt, A, F, where: str, entry: str, out: Path,
     """``lt.<entry>(out=out, **kwargs)`` (``save_every=2``) stopped after
     its step-2 checkpoint (the loader raises before batch 3), then resumed
     with ``resume_interrupted``: both runs' launches counted from 0 and
-    read after, and the gap of the resumed losses of steps 3 on from the
-    uninterrupted run's ``straight`` records, which the resume must equal
-    bitwise (the runs are deterministic on the card: a resume that read
-    other batches, restarted the stream or annealed on another horizon
-    moves them)."""
+    read after; the state the resume restores (parameters, buffers, the
+    method state, the optimizer, the step) bitwise the checkpoint's; and
+    every logged loss bitwise the uninterrupted run's ``straight`` records
+    (the runs are deterministic on the card: a resume that read other
+    batches, restarted the stream or annealed on another horizon moves
+    them)."""
+    import torch
+
+    from lightly_train_tpu_torch._checkpoint import checkpoint as CK
     from lightly_train_tpu_torch._commands import train_task as TT
 
     class StopAfterTwo(TT.PretrainLoader):
@@ -5042,6 +5091,22 @@ def stop_and_resume(lt, A, F, where: str, entry: str, out: Path,
                 if i == 2:
                     raise KeyboardInterrupt
                 yield batch
+
+    def cloned(x):
+        if isinstance(x, dict):
+            return {k: cloned(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cloned(v) for v in x)
+        return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        return a == b
 
     counters = reset_counters(A, F)
     loader = TT.PretrainLoader
@@ -5053,27 +5118,48 @@ def stop_and_resume(lt, A, F, where: str, entry: str, out: Path,
         pass
     finally:
         TT.PretrainLoader = loader
-    state, _ = getattr(lt, entry)(out=str(out), resume_interrupted=True,
-                                  **kwargs)
+    saved = torch.load(out / "checkpoints" / "step_2.pt", map_location="cpu",
+                       weights_only=True)
+    restored, restore = {}, CK.CheckpointManager.restore
+
+    def spy(self, state, step=None):
+        state = restore(self, state, step)
+        restored.update(step=state.step,
+                        params=cloned(state.params.state_dict()),
+                        method_state=cloned(state.method_state),
+                        optimizer=cloned(state.updater.state_dict()))
+        return state
+
+    CK.CheckpointManager.restore = spy
+    try:
+        state, _ = getattr(lt, entry)(out=str(out), resume_interrupted=True,
+                                      **kwargs)
+    finally:
+        CK.CheckpointManager.restore = restore
     launches = [fn.launches for fn in counters]
     by_shape = launches_by_shape(A)
+    bitwise = {key: key in restored and same(restored[key], saved[key])
+               for key in ("step", "params", "method_state", "optimizer")}
     resumed = [x for x in logged_steps(out) if "train_loss" in x]
     gap = max(abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
               for a, b in zip(resumed[2:], straight[2:]))
-    print(f"  {where}: stopped after step 2's checkpoint and resumed: steps "
+    print(f"  {where}: stopped after step 2's checkpoint and resumed: the "
+          f"restored state bitwise the checkpoint's {bitwise}; steps "
           f"{[x['step'] for x in resumed]}, state step {state.step}, losses "
           f"{[x['train_loss'] for x in resumed]} against the uninterrupted "
           f"run's {[x['train_loss'] for x in straight]} (steps 3 on "
-          f"{gap:.2e} apart, bitwise equal required); launches of both "
-          f"runs {launches}, by shape {by_shape} [{card}]", flush=True)
-    if state.step != last_step or [x["step"] for x in resumed] != list(
-            range(1, last_step + 1)) or [
-                x["train_loss"] for x in resumed[2:]] != [
-                x["train_loss"] for x in straight[2:]]:
-        fail(f"{where}: the resumed run {resumed}, step {state.step}, "
+          f"{gap:.2e} apart, every step bitwise equal required); launches "
+          f"of both runs {launches}, by shape {by_shape} [{card}]",
+          flush=True)
+    if not all(bitwise.values()) or state.step != last_step or [
+            x["step"] for x in resumed] != list(range(1, last_step + 1)) or [
+                x["train_loss"] for x in resumed] != [
+                x["train_loss"] for x in straight]:
+        fail(f"{where}: the resume {bitwise}, {resumed}, step {state.step}, "
              f"against {straight}")
     shutil.rmtree(out)
-    return {"gap": gap, "launches": launches, "by_shape": by_shape}
+    return {"gap": gap, "launches": launches, "by_shape": by_shape,
+            "bitwise": bitwise}
 
 
 def run_finetune_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
@@ -5379,8 +5465,9 @@ def run_eomt_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
     (K1/K2 by shape, K3 0, no SDPA or unmasked plain attention, EOMT_JOINT
     masked plain attentions a step and none in validation) and checked by
     ``check_finetune``; then a panoptic run at vittest14, and the same run
-    stopped after its step-2 checkpoint and resumed (bitwise the
-    uninterrupted run's losses, and its launches); (d) one fp32 semantic
+    stopped after its step-2 checkpoint and resumed (the restored state
+    bitwise the checkpoint's, the losses the uninterrupted run's, and its
+    launches); (d) one fp32 semantic
     step on the card against the port's CPU path."""
     import torch
 
@@ -5517,6 +5604,237 @@ def run_eomt_path(lt, A, F, card: str, work: Path, export: Path) -> dict:
     return results
 
 
+def write_det_data(work: Path) -> dict:
+    """Phase 3t's data for phase 3's 2 BATCH images (train) and DET_VAL
+    more (val, ``work / "det_val"``), 256^2: YOLO labels and a COCO JSON
+    (with one crowd box an image) of DET_BOXES_MIN to DET_BOXES_MAX boxes
+    in DET_CLASSES classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 60)
+    write_images(work / "det_val", DET_VAL, 256, seed=SEED + 61)
+    data = {"yolo": {"format": "yolo", "num_classes": DET_CLASSES},
+            "coco": {"format": "coco"}}
+    for split, folder in (("train", work / "images"),
+                          ("val", work / "det_val")):
+        labels = work / f"det_labels_{split}"
+        labels.mkdir()
+        images, anns = [], []
+        for i, path in enumerate(sorted(folder.glob("*.ppm"))):
+            n = int(rng.integers(DET_BOXES_MIN, DET_BOXES_MAX + 1))
+            wh = rng.uniform(0.03, 0.4, (n, 2))
+            c = rng.uniform(wh / 2, 1 - wh / 2)
+            cls = rng.integers(0, DET_CLASSES, n)
+            (labels / f"{path.stem}.txt").write_text("".join(
+                f"{k} {x:.6f} {y:.6f} {w:.6f} {h:.6f}\n"
+                for k, (x, y), (w, h) in zip(cls, c, wh)))
+            images.append({"id": i + 1, "file_name": path.name,
+                           "width": 256, "height": 256})
+            for k, (x, y), (w, h) in zip(cls, c, wh):
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": int(k) + 1, "iscrowd": 0,
+                             "bbox": [(x - w / 2) * 256, (y - h / 2) * 256,
+                                      w * 256, h * 256]})
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 1, "iscrowd": 1,
+                         "bbox": [0.0, 0.0, 16.0, 16.0]})
+        ann = work / f"det_{split}.json"
+        ann.write_text(json.dumps({
+            "images": images, "annotations": anns,
+            "categories": [{"id": k + 1, "name": f"class{k}"}
+                           for k in range(DET_CLASSES)]}))
+        data["yolo"][split] = {"images": str(folder), "labels": str(labels)}
+        data["coco"][split] = {"images": str(folder), "annotations": str(ann)}
+    return data
+
+
+def det_fp32_step(lt, device: str, data: dict, out: Path) -> dict:
+    """One fp32 LT-DETR step at vittest14 (batch 8, flip off, SGD) on
+    ``device``, its denoising draws from one CPU generator seeded SEED
+    (the same on the card and the CPU), the Hungarian matcher:
+    ``fp32_step``'s loss, parameters and gradients. The learning rate is 1,
+    so the first step is the gradient clipped to norm 0.1: at 0.01 the
+    change sits near the fp32 spacing of the parameters it is added to,
+    and rounding the sum moves it by 2.4e-4 relative between two CPU runs
+    whose gradients are 1.1e-5 apart (2.5e-5 at 1)."""
+    import torch
+
+    from lightly_train_tpu_torch.tasks.detection import ltdetr as L
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def dn_draws(self, generator, shape, device_):
+        u = lambda s: torch.rand(s, generator=gen).to(device_)  # noqa: E731
+        return (u(shape + (2,)), u(shape + (2,)), torch.randint(
+            0, self.args.num_classes, shape, generator=gen).to(device_),
+            u(shape))
+
+    return fp32_step(
+        lt, "train_object_detection", out,
+        ((L.ObjectDetectionTrainModel, "dn_draws", dn_draws),),
+        data={k: v for k, v in data.items() if k != "val"},
+        model="dinov2/vittest14-ltdetr", batch_size=8, precision="fp32",
+        optim="sgd", learning_rate=1.0, hflip_prob=0.0, log_every=1,
+        seed=SEED, accelerator=device)
+
+
+def run_detection_path(lt, A, F, card: str, work: Path,
+                       export: Path) -> dict:
+    """Phase 3t: (a) train_object_detection dinov2/vitb14-ltdetr from
+    ``export`` at the JAX defaults on YOLO and COCO data, (b) ltdetrv2-s,
+    (c) vittest14 with the RT-DETRv2 decoder and every window on, stopped
+    and resumed, each run's launches counted from 0 and checked by
+    ``check_finetune`` (K1/K2 by shape, K3 0, no SDPA or plain attention);
+    the host's matcher and GO-union syncs a step; (d) one fp32 step on the
+    card against the port's CPU path."""
+    import torch
+
+    from lightly_train_tpu_torch.tasks.detection import criterion as CR
+
+    data = write_det_data(work)
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    results = {}
+
+    def run(tag, key, data_, steps, shape, blocks, batch, **kwargs):
+        out = work / f"det_{key}"
+        syncs = dict(CR.HOST_SYNCS)
+        r = finetune_run(lt, A, F, "train_object_detection", out,
+                         data=data_, steps=steps, val_every=steps,
+                         batch_size=batch, precision="bf16", log_every=1,
+                         seed=SEED, **kwargs)
+        n_val = len(r["val_ms"])
+        lib_f = A.fwd_library(torch.bfloat16, shape[3])
+        lib_b = A.bwd_library(torch.bfloat16, shape[3])
+        results[key] = check_finetune(
+            tag, r, out, steps, batch,
+            [blocks * (steps + n_val), blocks * steps, 0, 0, 0],
+            {(lib_f, shape): blocks * (steps + n_val),
+             (lib_b, shape): blocks * steps},
+            {"val_map", "val_map50"}, card,
+            per_step={(lib_f, shape): blocks, (lib_b, shape): blocks},
+            per_val_batch={(lib_f, shape): blocks}, phase_id="3t")
+        syncs = {k: (CR.HOST_SYNCS[k] - syncs[k]) / steps for k in syncs}
+        meta = json.loads((out / "exported_models" / "exported_last" /
+                           "metadata.json").read_text())
+        print(f"  {tag}: host syncs a step {syncs}; step ms from step 2 on "
+              f"{[round(ms, 1) for ms in results[key]['step_ms'][1:]]}",
+              flush=True)
+        if meta.get("architecture") != "ltdetr":
+            fail(f"phase 3t {tag}: exported metadata {meta}")
+        results[key]["host_syncs_per_step"] = syncs
+        shutil.rmtree(out)
+
+    for fmt in ("yolo", "coco"):
+        run(f"(a) train_object_detection {DET_MODEL} bf16 on {fmt}, batch "
+            f"16, D-FINE, 300 queries, dn_groups 2, EMA", f"a_{fmt}",
+            data[fmt], DET_STEPS, FT_SEG, DEPTH, 16, model=DET_MODEL,
+            checkpoint=str(export))
+    run("(b) train_object_detection ltdetrv2-s (ECViT-T, random init) bf16 "
+        "on yolo, batch 16", "b", data["yolo"], 3, DET_ECVIT, 12, 16,
+        model="ltdetrv2-s")
+
+    # (c) vittest14 with every window on and rotate-90, no validation;
+    # then stopped after its step-2 checkpoint and resumed.
+    train_only = {k: v for k, v in data["yolo"].items() if k != "val"}
+    small = dict(model="dinov2/vittest14-ltdetr", batch_size=8,
+                 data=train_only, steps=DET_STEPS, save_every=2,
+                 precision="bf16", log_every=1, seed=SEED,
+                 task_args=DET_WINDOWS)
+    counters = reset_counters(A, F)
+    lt.train_object_detection(out=str(work / "det_straight"), **small)
+    fwd16 = A.fwd_library(torch.bfloat16, 16)
+    bwd16 = A.bwd_library(torch.bfloat16, 16)
+    want = {(fwd16, HD16_SMALL): 2 * DET_STEPS,
+            (bwd16, HD16_SMALL): 2 * DET_STEPS}
+    if [fn.launches for fn in counters] != [2 * DET_STEPS] * 2 + [0] * 3 \
+            or launches_by_shape(A) != want:
+        fail(f"phase 3t (c) vittest14: launches "
+             f"{[fn.launches for fn in counters]}, by shape "
+             f"{launches_by_shape(A)}")
+    results["c"] = {"by_shape": launches_by_shape(A)}
+    straight = [x for x in logged_steps(work / "det_straight")
+                if "train_loss" in x]
+    print(f"  (c) vittest14-ltdetr bf16, RT-DETRv2, every window on, "
+          f"rotate90_prob 0.5, batch 8: losses "
+          f"{[round(x['train_loss'], 4) for x in straight]} [{card}]",
+          flush=True)
+    shutil.rmtree(work / "det_straight")
+    # The step repeats bitwise on the card: the adapter resizes by products
+    # and its stem convolves by unfold and product, whose backwards add in
+    # a fixed order.
+    resume = stop_and_resume(
+        lt, A, F, "phase 3t (c)", "train_object_detection",
+        work / "det_resumed", straight, DET_STEPS, card, **small)
+    if resume["by_shape"] != want or resume["launches"] != [
+            2 * DET_STEPS] * 2 + [0] * 3:
+        fail(f"phase 3t (c): the stopped and resumed runs launched "
+             f"{resume['launches']}, by shape {resume['by_shape']}, the "
+             f"uninterrupted one {want}")
+    results["c_resume"] = resume
+
+    # (d) one fp32 step on the card against the CPU, IEEE fp32 GEMMs.
+    d = card_against_cpu(A, F, "phase 3t (d)", lambda device: (
+        det_fp32_step(lt, device, data["yolo"], work / f"det_d_{device}")))
+    errors = d["errors"]
+    fwd32 = A.fwd_library(torch.float32, 16)
+    bwd32 = A.bwd_library(torch.float32, 16)
+    want = {(fwd32, HD16_SMALL): 2, (bwd32, HD16_SMALL): 2}
+    # The parameters' change is held where the CPU's gradient is not 0 to
+    # rounding (below 1e-7 of its largest element, the rule of the CPU
+    # tests): a bias right before a train-mode BatchNorm or an attention
+    # key bias has an exact gradient of 0, and each device's value there is
+    # its own rounding.
+    grads = d["cpu"]["grads"]
+    top = max(float(g.abs().max()) for g in grads.values())
+    names = sorted(grads)
+    kept = {n: grads[n].abs() >= 1e-7 * top for n in names}
+
+    def change(run, n):
+        return (run["after"][n] - run["before"][n])[kept[n]]
+
+    ref = torch.cat([change(d["cpu"], n) for n in names])
+    held = ((torch.cat([change(d["card"], n) for n in names]) - ref).norm()
+            / ref.norm()).item()
+    dropped = sum(int((~k).sum()) for k in kept.values())
+    leaf_errors = {n: ((change(d["card"], n) - change(d["cpu"], n)).norm()
+                       / change(d["cpu"], n).norm()).item()
+                   for n in names if change(d["cpu"], n).norm()}
+    worst = sorted(leaf_errors.items(), key=lambda kv: -kv[1])[:4]
+    g_ref = torch.cat([grads[n][kept[n]] for n in names])
+    g_err = ((torch.cat([d["card"]["grads"][n][kept[n]] for n in names])
+              - g_ref).norm() / g_ref.norm()).item()
+    print(f"  (d) one fp32 LT-DETR step at vittest14 (SGD at lr 1, highest, "
+          f"the same denoising draws, Hungarian), card against CPU: loss "
+          f"{errors['loss']:.3e} (tol 1e-5), parameters "
+          f"{errors['parameters']:.3e}, their change {held:.3e} (tol 1e-3; "
+          f"{dropped} of {ref.numel() + dropped} elements left out, whose "
+          f"CPU gradient is 0 to rounding; the gradient there {g_err:.3e}; "
+          f"every element "
+          f"{errors['parameter_change']:.3e}; the leaves furthest off "
+          f"{[(n, f'{e:.2e}') for n, e in worst]}); losses card "
+          f"{d['card']['loss']:.6f}, CPU {d['cpu']['loss']:.6f}; the CPU's "
+          f"step {d['cpu_s']:.1f} s; launches {d['launches']}, by shape "
+          f"{d['by_shape']} [{card}]", flush=True)
+    if not (errors["loss"] <= 1e-5 and held <= 1e-3):
+        fail(f"phase 3t (d): card against CPU {errors}, the change where the "
+             f"gradient is not 0 to rounding {held:.3e}, tolerance 1e-3")
+    if d["launches"] != [2, 2, 0, 0, 0] or d["by_shape"] != want:
+        fail(f"phase 3t (d): launches {d['launches']}, by shape "
+             f"{d['by_shape']}")
+    results["d"] = {**errors, "held_change": held, "gradient": g_err,
+                    "left_out": dropped,
+                    "by_shape": d["by_shape"]}
+    for name in ("det_val", "det_labels_train", "det_labels_val"):
+        shutil.rmtree(work / name)
+    results["by_shape"] = {}
+    for key in ("a_yolo", "a_coco", "b", "c", "c_resume", "d"):
+        for shape_key, c in results[key]["by_shape"].items():
+            results["by_shape"][shape_key] = results["by_shape"].get(
+                shape_key, 0) + c
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -5586,6 +5904,23 @@ def main() -> int:
             write_images(Path(tmp) / "images", 2 * BATCH, 256)
             phase("the 7B/16 student with LARS at momentum 0.9", flush=True)
             run_7b_lars(lt, A, F, card, Path(tmp))
+            end_phase()
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--only-3t" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_images(Path(tmp) / "images", 2 * BATCH, 256)
+            phase("phase 3: main path (pretrain DINOv2 ViT-B/14, bf16)",
+                  flush=True)
+            main_run = run_main_path(lt, A, F, card, "bf16", Path(tmp))
+            pin_ieee()
+            phase("phase 3t: LT-DETR detection", flush=True)
+            run_detection_path(lt, A, F, card, Path(tmp), main_run["out"]
+                               / "exported_models" / "exported_last")
             end_phase()
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5724,14 +6059,23 @@ def main() -> int:
     eomt = run_eomt_path(
         lt, A, F, card, work,
         paths["bf16"]["out"] / "exported_models" / "exported_last")
-    # Each (library, shape) that phases 3o, 3p, 3q, 3r and 3s launched K1
-    # or K2 at was held against the plain version in phase 2.
+    pin_ieee()
+    phase(f"phase 3t: LT-DETR detection from phase 3's export "
+          f"(train_object_detection {DET_MODEL} on YOLO and COCO, "
+          f"{DET_STEPS} steps; ltdetrv2-s; bf16, batch 16), vittest14 with "
+          f"every window on and a resume, one fp32 step against the CPU",
+          flush=True)
+    detection = run_detection_path(
+        lt, A, F, card, work,
+        paths["bf16"]["out"] / "exported_models" / "exported_last")
+    # Each (library, shape) that phases 3o, 3p, 3q, 3r, 3s and 3t launched
+    # K1 or K2 at was held against the plain version in phase 2.
     covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
                for kernels, dtype, shape, _ in ATTENTION_CASES
                if kernels == "flat"
                for route in (A.fwd_library, A.bwd_library)}
     for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface),
-                       ("3r", finetune), ("3s", eomt)):
+                       ("3r", finetune), ("3s", eomt), ("3t", detection)):
         if set(ran["by_shape"]) - covered:
             fail(f"phase {label} launched at shapes phase 2 does not hold: "
                  f"{sorted(set(ran['by_shape']) - covered)}")
@@ -5821,9 +6165,9 @@ def main() -> int:
                 # bf16, and at HD16_SMALL (vittest14, bf16 and fp32).
                 **{shape: sum(r["by_shape"].get(
                     (route(torch_dtype(dtype), shape[3]), shape), 0)
-                    for r in (finetune, eomt))
+                    for r in (finetune, eomt, detection))
                    for shape in (FT_CLS, FT_SEG, FT_FP32, HD16_SMALL,
-                                 EOMT_QUERIES_SHAPE)},
+                                 EOMT_QUERIES_SHAPE, DET_ECVIT)},
             })
         # Phase 3f's launches of this kernel's library at each shape, per
         # run: the teacher's K1 at TEACHER (fp32 in both runs), the
@@ -5901,6 +6245,13 @@ def main() -> int:
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),
             **eomt_per_step(kernel, dtype, tuple(row["shape"])),
+            # Phase 3t's at the row's shape: (a)'s ViT-B/14 at FT_SEG
+            # (DEPTH a train step and a val batch), (b)'s ECViT-T at
+            # DET_ECVIT, (c)'s and (d)'s vittest14 at HD16_SMALL.
+            **({"launches_3t": detection["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
             # Each evaluate_knn run's K1 a batch in the row's dtype.
             **({"launches_per_batch": {
                 tag: r["k1_per_batch"] for tag, r in surface["c"].items()

@@ -121,6 +121,9 @@ class CheckpointManager:
                 value.load_state_dict(saved)
             elif isinstance(value, torch.Tensor):
                 value.copy_(saved)
+            elif isinstance(value, dict):  # named tensors (a task's EMA)
+                for name, t in value.items():
+                    t.copy_(saved[name])
             else:  # a host number
                 state.method_state[key] = saved
         state.updater.load_state_dict(ckpt["optimizer"])

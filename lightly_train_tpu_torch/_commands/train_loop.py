@@ -50,11 +50,13 @@ from lightly_train_tpu_torch.ops.augment import (
 logger = get_logger("train_loop")
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, stream: int = 0) -> int:
     """The seed of step ``step``'s generator: (seed, step) mixed by numpy's
     SeedSequence, so that every 32-bit part differs between steps (the CPU
-    generator keeps the low 32 bits only)."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+    generator keeps the low 32 bits only); ``stream`` > 0 names another
+    stream of the same step."""
+    entropy = [seed, step] + ([stream] if stream else [])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
 

@@ -14,11 +14,16 @@ Ported entry points: ``train_image_classification``,
 ``train_image_classification_multihead``, ``train_semantic_segmentation``
 (the linear probe, and EoMT with a ``-eomt`` model),
 ``train_semantic_segmentation_multihead``, ``train_instance_segmentation``
-and ``train_panoptic_segmentation`` (EoMT). They run on the card unless the
-caller passes ``accelerator="cpu"`` (``_commands/train.py::resolve_device``,
-which never falls back). Not ported yet, each refused before anything is
-built: ``train_object_detection`` and a ``-ltdetr`` model for
-``train_instance_segmentation`` (ROADMAP item 14).
+and ``train_panoptic_segmentation`` (EoMT), and ``train_object_detection``
+(LT-DETR). They run on the card unless the caller passes
+``accelerator="cpu"`` (``_commands/train.py::resolve_device``, which never
+falls back). Not ported yet, each refused before anything is built:
+PicoDet (ROADMAP item 14.4) and a ``-ltdetr`` model for
+``train_instance_segmentation`` (item 14.3).
+
+A task may augment the transformed batch (``augment_batch``, detection's
+Mosaic and the rest) on a generator stream of its own, and keep an EMA of
+its parameters (``use_ema``) that validation and the exports use.
 
 The update is ``_optim/update.py``'s unfused chain (AdamW by default, with
 the task's per-parameter lr scales, and EoMT's two schedules by parameter
@@ -29,6 +34,7 @@ zero gradient there, so AdamW's decoupled weight decay still shrinks them by
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from pathlib import Path
@@ -79,6 +85,7 @@ from lightly_train_tpu_torch.models.package_registry import (
     resolve_model_name,
 )
 from lightly_train_tpu_torch.ops.augment import IMAGENET_MEAN, IMAGENET_STD
+from lightly_train_tpu_torch.ops.ema import ema_update, ema_warmup_momentum
 from lightly_train_tpu_torch.tasks.base import TaskTrainModel, TaskTrainState
 
 logger = get_logger("train_task")
@@ -156,6 +163,27 @@ def _normalized(out: Dict[str, torch.Tensor], images: torch.Tensor,
     return out
 
 
+@contextlib.contextmanager
+def _ema_weights(state: TaskTrainState):
+    """Within the block the model holds the EMA of its parameters, where
+    the state keeps one; its own parameters come back after."""
+    ema = state.method_state.get("ema")
+    if ema is None:
+        yield
+        return
+    named = dict(state.params.named_parameters())
+    live = {name: p.detach().clone() for name, p in named.items()}
+    with torch.no_grad():
+        for name, p in named.items():
+            p.copy_(ema[name])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for name, p in named.items():
+                p.copy_(live[name])
+
+
 def _resolve_optim_args(config: TrainTaskConfig, train_model: TaskTrainModel):
     """The task's optimizer defaults unless ``optim`` or ``optim_args`` is
     given; then the named optimizer's arguments from ``optim_args`` alone
@@ -229,7 +257,9 @@ def make_task_step(train_model: TaskTrainModel, grad_accum_steps: int = 1):
     """``step(state, batch, generator) -> metrics`` on a transformed batch,
     updating ``state`` in place: the loss of each of ``grad_accum_steps``
     microbatches (BatchNorm statistics carried from one to the next), the
-    gradients averaged over them, the update. The metrics are the mean
+    gradients averaged over them, the update, and where the state holds an
+    EMA of the parameters (``method_state["ema"]``), its update at
+    ``ema_warmup_momentum(step, 0.9998)``. The metrics are the mean
     loss (``train_loss``), the gradients' global norm before clipping and
     the task's metrics averaged over the microbatches."""
 
@@ -252,6 +282,9 @@ def make_task_step(train_model: TaskTrainModel, grad_accum_steps: int = 1):
         for p in named.values():
             p.grad = None
         grad_norm = state.updater.update_and_apply(grads, named)
+        ema = state.method_state.get("ema")
+        if ema is not None:
+            ema_update(ema, named, ema_warmup_momentum(state.step, 0.9998))
         state.step += 1
         n = len(micro)
         return {"train_loss": loss_sum / n, "grad_norm": grad_norm,
@@ -323,7 +356,8 @@ def run_task_training(
                              device)
     if pretrained is not None:
         model.backbone.load_state_dict(merge_pretrained(
-            model.backbone.state_dict(), pretrained, require_overlap=True))
+            model.backbone.state_dict(),
+            train_model.wrap_pretrained(pretrained), require_overlap=True))
         logger.info("Initialized backbone from pretrained checkpoint")
     named = dict(model.named_parameters())
     updater = UnfusedUpdate(
@@ -333,6 +367,12 @@ def run_task_training(
         schedule_groups=train_model.lr_schedule_groups(base_lr, total_steps,
                                                        named))
     state = TaskTrainState(step=0, params=model, updater=updater)
+    if train_model.use_ema():
+        # The EMA covers the parameters only: BatchNorm statistics stay the
+        # live model's, in validation and in the exports too, as in the JAX
+        # runtime (its ema_params beside one model_state).
+        state.method_state["ema"] = {
+            name: p.detach().clone() for name, p in named.items()}
     train_tf = _build_transform(config, train_model, dtype)
     ckpt_mgr = CheckpointManager(out_dir / "checkpoints")
     if config.resume_interrupted and ckpt_mgr.latest_step() is not None:
@@ -360,7 +400,7 @@ def run_task_training(
             return {}
         total: Optional[Dict[str, torch.Tensor]] = None
         collected = []
-        with torch.no_grad():
+        with torch.no_grad(), _ema_weights(state):
             for batch in val_loader:
                 stats = train_model.val_step(
                     state.params, _device_val_transform(batch, dtype))
@@ -375,9 +415,11 @@ def run_task_training(
         return train_model.val_finalize(total) if total is not None else {}
 
     def export_artifact(name: str) -> None:
+        with _ema_weights(state):
+            weights = {k: v.clone() for k, v in
+                       state.params.state_dict().items()}
         export_model(
-            out_dir / "exported_models" / name, model_name,
-            state.params.state_dict(),
+            out_dir / "exported_models" / name, model_name, weights,
             extra_meta={
                 **{k: v for k, v in model_meta.items() if k != "model_name"},
                 "task": train_model.task,
@@ -387,6 +429,8 @@ def run_task_training(
 
     step_fn = make_task_step(train_model, accum)
     generator = torch.Generator(device=device)
+    # The task's batch augmentations draw from a stream of their own.
+    aug_generator = torch.Generator(device=device)
     burn_in = {1, 2, 5, 10, 50, 100}
     best_value: Optional[float] = None
     last_val: Dict[str, float] = {}
@@ -404,6 +448,8 @@ def run_task_training(
             data_wait += time.perf_counter() - t_data
             generator.manual_seed(step_seed(config.seed, current))
             batch = train_tf(batch, generator)
+            aug_generator.manual_seed(step_seed(config.seed, current, 1))
+            batch = train_model.augment_batch(batch, aug_generator, current)
             if current == start_step:
                 _save_label_grid(out_dir, batch)
             pending = step_fn(state, batch, generator)
@@ -620,7 +666,7 @@ def _refuse_ltdetr(model: Any) -> None:
     if isinstance(model, str) and model.endswith("-ltdetr"):
         raise NotImplementedError(
             f"train_instance_segmentation with an LT-DETR model ('{model}') "
-            "is not ported to PyTorch yet (ROADMAP item 14); a model name "
+            "is not ported to PyTorch yet (ROADMAP item 14.3); a model name "
             "ending in '-eomt', or without a suffix, trains EoMT.")
 
 
@@ -646,7 +692,7 @@ def train_instance_segmentation(out: str, data: Dict[str, Any], model: Any,
     "annotations": json}, "val": {...}}; data (YOLO-seg): {"format":
     "yolo", "num_classes": int, "train": {"images": dir, "labels": dir},
     "val": {...}}. A model name ending in ``-eomt`` or without a suffix
-    trains EoMT; ``-ltdetr`` waits for ROADMAP item 14."""
+    trains EoMT; ``-ltdetr`` waits for ROADMAP item 14.3."""
     from lightly_train_tpu_torch.tasks.eomt_instance_panoptic import (
         COCOInstanceSegmentationDataset,
         EoMTInstanceSegmentationArgs,
@@ -704,9 +750,71 @@ def train_panoptic_segmentation(out: str, data: Dict[str, Any], model: Any,
                  data.get("num_classes"))
 
 
+# ltdetrv2-{s,m,l,x} resolve to the EdgeCrafter ECViT backbones; the
+# hidden _ltdetrv2-test to the test size.
+_LTDETRV2_ZOO = {
+    "ltdetrv2-s": "ecvit/ecvitt",
+    "ltdetrv2-m": "ecvit/ecvittplus",
+    "ltdetrv2-l": "ecvit/ecvits",
+    "ltdetrv2-x": "ecvit/ecvitsplus",
+    "_ltdetrv2-test": "ecvit/ecvittest",
+}
+
+
 def train_object_detection(out: str, data: Dict[str, Any], model: Any,
                            **kwargs: Any):
-    """LT-DETR and PicoDet detection: not ported yet (ROADMAP item 14)."""
-    raise NotImplementedError(
-        "train_object_detection (LT-DETR and PicoDet detection) is not "
-        "ported to PyTorch yet (ROADMAP item 14).")
+    """LT-DETR object detection. data (YOLO): {"format": "yolo", "train":
+    {"images": dir, "labels": dir}, "val": {...}, "num_classes": int (or
+    "classes": {id: name})}; data (COCO): {"format": "coco", "train":
+    {"images": dir, "annotations": json}, "val": {...}}. ``model``: a
+    backbone name with or without ``-ltdetr``, or ``ltdetrv2-{s,m,l,x}``
+    (``-coco`` allowed; ECViT backbones). PicoDet (``picodet-s``,
+    ``picodet-l``) waits for ROADMAP item 14.4."""
+    from lightly_train_tpu_torch.tasks.detection.data import (
+        COCOObjectDetectionDataset,
+        YOLOObjectDetectionDataset,
+    )
+    from lightly_train_tpu_torch.tasks.detection.ltdetr import (
+        ObjectDetectionArgs,
+        ObjectDetectionTrainModel,
+    )
+
+    if isinstance(model, str) and model.startswith("picodet"):
+        raise NotImplementedError(
+            f"train_object_detection with PicoDet ('{model}') is not ported "
+            "to PyTorch yet (ROADMAP item 14.4); LT-DETR models "
+            "('<backbone>-ltdetr', 'ltdetrv2-{s,m,l,x}') train.")
+    if isinstance(model, str):
+        zoo = model.removesuffix("-coco")
+        model = _LTDETRV2_ZOO.get(zoo, model.removesuffix("-ltdetr"))
+    config = _config(out, model, kwargs)
+    hw = (config.image_size, config.image_size)
+    fmt = data.get("format", "yolo")
+
+    def build(split: Dict[str, str]):
+        if fmt == "coco":
+            return COCOObjectDetectionDataset(
+                Path(split["images"]), Path(split["annotations"]), hw,
+                skip_if_annotations_missing=bool(
+                    data.get("skip_if_annotations_missing", True)))
+        return YOLOObjectDetectionDataset(Path(split["images"]),
+                                          Path(split["labels"]), hw)
+
+    train_ds = build(data["train"])
+    val_ds = build(data["val"]) if "val" in data else None
+    num_classes = int(data.get("num_classes")
+                      or len(data.get("classes") or ())
+                      or len(getattr(train_ds, "class_names", []) or [])
+                      or 0)
+    if num_classes <= 0:
+        raise ConfigError(
+            "num_classes could not be determined: pass data={'classes':"
+            " {id: name, ...}, ...} or data={'num_classes': N, ...} (YOLO"
+            " datasets carry no category list).")
+    task_args = config_validate(ObjectDetectionArgs, {
+        "num_classes": num_classes, **config.task_args})
+    wrapped, pretrained, meta = _load_backbone(config)
+    meta["architecture"] = "ltdetr"
+    return run_task_training(config,
+                             ObjectDetectionTrainModel(wrapped, task_args),
+                             train_ds, val_ds, meta, pretrained)

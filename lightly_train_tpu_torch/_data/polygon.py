@@ -11,18 +11,21 @@ the card's machine has no PIL, so the port repeats what that call draws
 - the edges are built from consecutive vertices, a horizontal edge that
   continues a horizontal edge in the same direction merged into it, and a
   closing edge unless the last vertex is the first;
-- a horizontal edge is drawn as its whole span; every other edge gives a
-  float32 crossing ``(y - y0) * dx + x0`` on each row it covers (twice on
-  its last row, unless that is the polygon's last row), and a crossing at a
-  corner where two steep edges of one slope direction end is moved to
-  touch the adjacent row's span (:func:`_connect_corner`);
+- a horizontal edge is drawn as its whole span; every other edge, from
+  ``(x0, y0)`` to ``(x1, y1)``, gives a float32 crossing ``(y - y0) * dx +
+  x0`` on each row it covers but its end row ``y1``, where the crossing is
+  ``x1`` itself (twice on its last row, unless that is the polygon's last
+  row), and a crossing at a corner where two steep edges of one slope
+  direction end is moved to touch the adjacent row's span
+  (:func:`_connect_corner`);
 - on each row the sorted crossings pair up, and each pair fills the pixels
   from the first rounded half away from zero to the second rounded half
   toward zero, clipped to the image.
 
 Where a polygon passes through one vertex several times (a repeated point
-with other edges ending there), PIL's corner rule can differ from this one
-(ROADMAP §3).
+with other edges ending there), PIL's corner rule can differ from this one,
+by a few pixels, all in that vertex's row. The tests pin this divergence
+(``test_rasterizer_differs_only_in_a_repeated_vertex_row``).
 """
 
 from __future__ import annotations
@@ -48,17 +51,21 @@ def _round_half_down(v: float) -> int:
 
 
 class _Edge:
-    __slots__ = ("xmin", "xmax", "ymin", "ymax", "dx", "x0", "y0")
+    __slots__ = ("xmin", "xmax", "ymin", "ymax", "dx", "x0", "y0", "x1",
+                 "y1")
 
     def __init__(self, x0: int, y0: int, x1: int, y1: int):
         self.xmin, self.xmax = min(x0, x1), max(x0, x1)
         self.ymin, self.ymax = min(y0, y1), max(y0, y1)
         self.dx = (_F32(0.0) if y0 == y1
                    else _F32(x1 - x0) / _F32(y1 - y0))
-        self.x0, self.y0 = x0, y0
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
 
     def at(self, y: int) -> np.float32:
-        """The float32 crossing of row ``y``."""
+        """The float32 crossing of row ``y``: exact on the end row, so that
+        the corner rule sees both edges of a corner meet there."""
+        if y == self.y1:
+            return _F32(self.x1)
         return _F32(y - self.y0) * self.dx + _F32(self.x0)
 
 

@@ -1,7 +1,8 @@
 """Learning-rate schedules.
 
 Port of ``lightly_train_tpu/_optim/schedules.py``'s ``cosine_warmup``,
-``two_stage_warmup_poly`` (EoMT) and ``scale_lr_for_batch_size``. The step
+``two_stage_warmup_poly`` (EoMT), ``flat_cosine`` (detection) and
+``scale_lr_for_batch_size``. The step
 count lives on the host in the port, so a schedule is a plain
 ``step -> float`` function evaluated in Python (EoMT's in float32, in the
 JAX schedule's order of operations).
@@ -40,6 +41,35 @@ def cosine_warmup(
             end_lr_factor
             + (1.0 - end_lr_factor) * 0.5 * (1.0 + math.cos(math.pi * progress))
         )
+
+    return schedule
+
+
+def flat_cosine(
+    base_lr: float,
+    total_steps: int,
+    warmup_steps: int = 0,
+    flat_fraction: float = 0.5,
+    end_lr_factor: float = 0.0,
+) -> Schedule:
+    """Detection's schedule, in float32 as the JAX one: a linear warmup,
+    flat at ``base_lr`` to ``flat_fraction`` of the steps after it, then a
+    cosine decay to ``base_lr * end_lr_factor``."""
+    f32 = np.float32
+    flat_end = warmup_steps + int(flat_fraction
+                                  * max(total_steps - warmup_steps, 0))
+    lr, end = f32(base_lr), f32(end_lr_factor)
+
+    def schedule(step: int) -> float:
+        t = f32(step)
+        if t < warmup_steps:
+            return float(lr * t / f32(max(warmup_steps, 1)))
+        if t < flat_end:
+            return float(lr)
+        progress = min(max((t - f32(flat_end)) / f32(
+            max(total_steps - flat_end, 1)), f32(0.0)), f32(1.0))
+        return float(lr * (end + (f32(1.0) - end) * f32(0.5) * (
+            f32(1.0) + np.cos(f32(np.pi) * progress))))
 
     return schedule
 

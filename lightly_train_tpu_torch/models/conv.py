@@ -104,7 +104,11 @@ class BatchNorm(nn.Module):
     ``var`` its ``batch_stats``. In train mode the batch's statistics
     normalize (gradients flow through them) and the running ones move by
     ``ra <- m ra + (1 - m) stat``; in eval mode the running ones normalize.
+    ``use_fast_variance = False`` takes the batch variance in two passes,
+    ``E[(x - E[x])^2]``, as Flax's field of that name does.
     """
+
+    use_fast_variance = True
 
     def __init__(self, ch: int, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.99, eps: float = 1e-5):
@@ -126,7 +130,10 @@ class BatchNorm(nn.Module):
         if train:
             dims = (0, 2, 3)
             mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if self.use_fast_variance:
+                var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            else:
+                var = ((x - mean[:, None, None]) ** 2).mean(dims)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -28,7 +28,7 @@ JAX tree over as it is.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,6 +107,11 @@ class ECViT(nn.Module):
         for i in range(n_proj):
             setattr(self, f"projector{i}",
                     ConvNormLayer(D, width, 1, 1, False, dtype))
+
+    def stage_channels(self) -> List[int]:
+        """The channels of the three ``stage_features`` levels."""
+        cfg = self.cfg
+        return [cfg.embed_dim if cfg.proj_dim is None else cfg.proj_dim] * 3
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """Flax's initializers (``conv.reset_cnn_parameters``); the register

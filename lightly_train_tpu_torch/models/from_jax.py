@@ -34,7 +34,11 @@ numpy arrays, into a PyTorch state dict for the port's modules:
 
 A fine-tuning task's tree (``backbone`` and ``head``, or ``heads/<name>``)
 carries the same way into the port's task model
-(:func:`task_state_from_jax`).
+(:func:`task_state_from_jax`). LT-DETR's tree keeps its Flax names: the
+trunk under ``backbone/trunk``, ``backbone_sta``, ``encoder`` and
+``decoder`` with their ``batch_stats``; ``TorchMHA``'s fused
+``in_proj_kernel`` (D, 3D) becomes ``in_proj_weight`` (3D, D), and the
+decoder's ``denoising_class_embed`` carries over as it is.
 
 It takes numpy only and imports nothing of JAX.
 """
@@ -80,6 +84,9 @@ def _convert_leaf(name: str, value: np.ndarray):
             value = value.T
         else:
             raise ValueError(f"unexpected kernel rank at {name}: {value.shape}")
+    elif leaf == "in_proj_kernel":  # TorchMHA's fused (D, 3D) kernel
+        parts[-1] = "in_proj_weight"
+        value = value.T
     elif leaf == "scale":
         parts[-1] = "weight"
     elif leaf == "v":

@@ -492,28 +492,40 @@ class VisionTransformer(nn.Module):
         mask: Optional[torch.Tensor] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        tap_indices: Optional[Tuple[int, ...]] = None,
     ) -> Dict[str, torch.Tensor]:
+        """``tap_indices`` adds ``taps``: the final norm of the named blocks'
+        outputs, as (B, gh, gw, D) patch maps."""
         cfg = self.cfg
         B = images.shape[0]
         x, rope, (gh, gw) = self.embed(images, mask)
         saved_ops = REMAT_POLICIES[cfg.remat_policy]
         remat = (cfg.remat_every > 0 and saved_ops is not None
                  and torch.is_grad_enabled())
+        depth = len(self.blocks)
+        wanted = {i % depth for i in tap_indices or ()}
+        taps = {}
         for i, block in enumerate(self.blocks):
             if remat and i % cfg.remat_every == 0:
                 x = checkpointed_block(block, x, train, generator, rope,
                                        saved_ops)
             else:
                 x = block(x, train, generator, rope=rope)
+            if i in wanted:
+                taps[i] = x
         x = self.norm(x)
         p = self.num_prefix_tokens
         patch_tokens = x[:, p:]
-        return {
+        out = {
             "cls_token": x[:, 0],
             "patch_tokens": patch_tokens,
             "features": patch_tokens.reshape(B, gh, gw, cfg.embed_dim),
             "register_tokens": x[:, 1:p],
         }
+        if tap_indices is not None:
+            out["taps"] = [self.norm(taps[i % depth])[:, p:].reshape(
+                B, gh, gw, cfg.embed_dim) for i in tap_indices]
+        return out
 
 
 # name: (embed_dim, depth, num_heads) -- DINOv2 family

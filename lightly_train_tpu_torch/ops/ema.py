@@ -1,6 +1,7 @@
 """EMA update and schedules.
 
-Port of ``lightly_train_tpu/ops/ema.py``: ``cosine_schedule`` (teacher
+Port of ``lightly_train_tpu/ops/ema.py``: ``ema_warmup_momentum``
+(the fine-tuning EMA of detection), ``cosine_schedule`` (teacher
 momentum 0.992 -> 1.0 and weight decay 0.04 -> 0.4 for DINOv2) and
 ``ema_update``. The step lives on the host, so the schedule returns a Python
 float. With AdamW the EMA runs in the fused AdamW+EMA kernel
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Mapping
 
+import numpy as np
 import torch
 
 
@@ -42,3 +44,12 @@ def cosine_schedule(
     return end_value + (start_value - end_value) * 0.5 * (
         1.0 + math.cos(math.pi * progress)
     )
+
+
+def ema_warmup_momentum(step: int, decay: float,
+                        warmup_steps: int = 2000) -> float:
+    """Detection's EMA decay warmup ``decay * (1 - exp(-step / tau))``, in
+    float32 as the JAX one."""
+    f32 = np.float32
+    return float(f32(decay) * (f32(1.0) - np.exp(
+        -f32(step) / f32(max(warmup_steps, 1)))))

@@ -109,6 +109,24 @@ class TaskTrainModel(abc.ABC):
     def predict(self, model: TaskModule, images: torch.Tensor) -> torch.Tensor:
         """Inference on preprocessed (B, H, W, 3) images."""
 
+    def wrap_pretrained(self, state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """A pretrained backbone's state dict under the names it has in
+        ``TaskModule.backbone``; as it is by default."""
+        return state
+
+    def augment_batch(self, batch: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator],
+                      step: int) -> Dict[str, torch.Tensor]:
+        """The task's own batch augmentations, after the shared transform,
+        on a generator stream of their own; the identity by default."""
+        return batch
+
+    def use_ema(self) -> bool:
+        """Whether the runtime keeps an EMA of the parameters, which
+        validation and the exports use."""
+        return False
+
     def _frozen(self, module: TaskModule) -> TaskModule:
         if self.freeze_backbone:
             module.backbone.requires_grad_(False)

@@ -147,3 +147,50 @@ def test_matmul_precision_variable_warns_once(tmp_path, monkeypatch, caplog,
     tf32 = value != "highest"
     assert torch.backends.cuda.matmul.allow_tf32 is tf32
     assert torch.backends.cudnn.allow_tf32 is tf32
+
+
+# ---------------------------------------------------------------------------
+# train_object_detection
+# ---------------------------------------------------------------------------
+
+
+def _detect(tmp_path, **kwargs):
+    from torch_fixtures.detection_data import write_detection
+
+    data = write_detection(tmp_path / "data", n=4, size=28, num_classes=2)
+    args = dict(out=str(tmp_path / "out"), data=data,
+                model="dinov2/vittest14-ltdetr", steps=1, batch_size=2,
+                image_size=28, precision="fp32", num_workers=0,
+                accelerator="cpu", task_args={
+                    "num_queries": 4, "d_model": 16, "num_heads": 2,
+                    "dim_feedforward": 16, "num_decoder_layers": 1,
+                    "csp_blocks": 1, "dn_groups": 0})
+    return lt.train_object_detection(**{**args, **kwargs})
+
+
+def test_detection_refuses_transform_args(tmp_path):
+    """Detection has no transform schema: ``transform_args`` is a config
+    error, as in the JAX runtime (its windows are ``task_args``)."""
+    with pytest.raises(ConfigError, match="transform_args is not supported "
+                       "for task 'object_detection'"):
+        _detect(tmp_path, transform_args={"random_flip": None})
+
+
+@pytest.mark.parametrize("model", ["picodet-s", "picodet-l"])
+def test_picodet_names_its_item_before_anything_is_built(tmp_path, model):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 14\.4"):
+        _detect(tmp_path, model=model)
+    assert not (tmp_path / "out").exists()
+
+
+def test_detection_without_a_class_count_is_a_config_error(tmp_path):
+    """YOLO data carries no category list: without ``num_classes`` or
+    ``classes`` the JAX error."""
+    from torch_fixtures.detection_data import write_detection
+
+    data = write_detection(tmp_path / "data", n=2, size=28)
+    del data["num_classes"]
+    with pytest.raises(ConfigError, match="num_classes could not be "
+                       "determined"):
+        lt.train_object_detection(out=str(tmp_path / "out"), data=data,
+                                  model="dinov2/vittest14", accelerator="cpu")
