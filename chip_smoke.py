@@ -256,8 +256,20 @@ Phases (any failure exits non-zero):
    one fp32 step at
    vittest14 on the card against the CPU (the same denoising draws, the
    Hungarian matcher: the loss within 1e-5, the parameters' change within
-   1e-3 where the CPU's gradient is not 0 to rounding). 3j, 3k, 3m, 3r, 3s
-   and 3t
+   1e-3 where the CPU's gradient is not 0 to rounding). (3u, after 3t)
+   LT-DETR instance segmentation and PicoDet: ``train_instance_segmentation``
+   of ``dinov2/vitb14-ltdetr`` from phase 3's export at the JAX defaults
+   (D-FINE, 300 queries, the EdgeCrafter mask head, 50 slots), bf16, batch
+   16, on 3s's COCO instance JSON (K1 and K2 12 a step at (16, 257, 12,
+   64), K1 12 a val batch), ``ecvit/ecvitt-ltdetr`` (K1 and K2 12 a step at
+   (16, 197, 3, 64)), ``picodet-s`` at 416^2 and ``picodet-l`` at 640^2 on
+   3t's YOLO boxes (no K1, K2 or K3), each with its step ms, val batch ms,
+   peak GiB and host syncs a step, PicoDet's stem cost by unfold and by
+   cuDNN; ``vittest14-ltdetr`` segmentation with the linear head and
+   PicoDet at its test preset, each stopped after its step-2 checkpoint and
+   resumed (bitwise); one fp32 step of each new model on the card against
+   the CPU (held as 3t's; PicoDet with its BatchNorms on their running
+   statistics, and in train mode printed). 3j, 3k, 3m, 3r, 3s, 3t and 3u
    delete what they wrote.
    Each phase's wall time is printed. ``pretrain`` applies
    ``LIGHTLY_TRAIN_MATMUL_PRECISION`` (TF32 in the fp32 GEMMs and
@@ -273,8 +285,9 @@ training steps in each precision (fp32 under the variable, as ``pretrain``
 runs it), printing the device's busy share and the kernels that take the
 most device time.
 
-``--only-3t`` runs phase 1, phase 3's bf16 run (for its export) and phase
-3t, and prints the contract's last two lines but no kernels line.
+``--only-3t`` (``--only-3u``) runs phase 1, phase 3's bf16 run (for its
+export) and phase 3t (3u), and prints the contract's last two lines but no
+kernels line.
 
 ``--7b-lars`` runs phase 1 and then only the DINOv3 7B/16 distillation
 student with LARS at momentum 0.9 (``run_7b_lars``): its peak memory, or
@@ -623,6 +636,27 @@ DET_ECVIT = (16, 197, 3, HEAD_DIM)
 DET_WINDOWS = {"decoder": "rtdetrv2", "mosaic_window": [0, 1000],
                "mixup_window": [0, 1000], "zoom_out_window": [0, 1000],
                "rotate90_prob": 0.5}
+
+# Phase 3u: LT-DETR instance segmentation and PicoDet (ROADMAP items 14.3,
+# 14.4), batch 16, on the COCO instance JSON of phase 3s's writer (phase
+# 3's images, EOMT_SHAPES shapes an image in EOMT_CLASSES classes, its
+# EOMT_VAL validation images) and the YOLO boxes of phase 3t's writer.
+# (a) train_instance_segmentation dinov2/vitb14-ltdetr from phase 3's
+# export at the JAX defaults (D-FINE, 300 queries, 3 decoder layers, the
+# EdgeCrafter mask head, EOMT_SLOTS slots), bf16, SEG_STEPS steps and one
+# validation: K1 and K2 DEPTH times a step at FT_SEG, K1 DEPTH times a val
+# batch. (b) the same with ecvit/ecvitt-ltdetr (random init): K1 and K2
+# 12 times a step at DET_ECVIT. (c) picodet-s at 416^2 and picodet-l at
+# 640^2 (fp32 in every precision, as in the JAX package), PICO_STEPS
+# steps and one validation each: no K1, K2 or K3; each stem's cost, by
+# unfold (the path's) and by cuDNN. (d) vittest14-ltdetr segmentation with
+# the linear head and PicoDet at its test preset, each stopped after its
+# step-2 checkpoint and resumed, bitwise. (e) one fp32 step of each new
+# model on the card against the CPU.
+SEG_MODEL, SEG_ECVIT, SEG_STEPS = ("dinov2/vitb14-ltdetr",
+                                   "ecvit/ecvitt-ltdetr", 3)
+PICO_RUNS = {"picodet-s": 416, "picodet-l": 640}
+PICO_STEPS, PICO_TEST_SIZE = 3, 160
 
 # The phase running now and when it started (``phase``).
 _CLOCK = {"name": None, "t0": 0.0}
@@ -5678,6 +5712,38 @@ def det_fp32_step(lt, device: str, data: dict, out: Path) -> dict:
         seed=SEED, accelerator=device)
 
 
+def held_change(d: dict) -> tuple:
+    """``card_against_cpu``'s parameters' change held where the CPU's
+    gradient is not 0 to rounding (below 1e-7 of its largest element, the
+    rule of the CPU tests): a bias right before a train-mode BatchNorm or
+    an attention key bias has an exact gradient of 0, and each device's
+    value there is its own rounding. Returns (the change's relative error
+    there, the elements left out, the four leaves furthest off, the
+    gradient's relative error there, the CPU's change there)."""
+    import torch
+
+    grads = d["cpu"]["grads"]
+    top = max(float(g.abs().max()) for g in grads.values())
+    names = sorted(grads)
+    kept = {n: grads[n].abs() >= 1e-7 * top for n in names}
+
+    def change(run, n):
+        return (run["after"][n] - run["before"][n])[kept[n]]
+
+    ref = torch.cat([change(d["cpu"], n) for n in names])
+    held = ((torch.cat([change(d["card"], n) for n in names]) - ref).norm()
+            / ref.norm()).item()
+    dropped = sum(int((~k).sum()) for k in kept.values())
+    leaf_errors = {n: ((change(d["card"], n) - change(d["cpu"], n)).norm()
+                       / change(d["cpu"], n).norm()).item()
+                   for n in names if change(d["cpu"], n).norm()}
+    worst = sorted(leaf_errors.items(), key=lambda kv: -kv[1])[:4]
+    g_ref = torch.cat([grads[n][kept[n]] for n in names])
+    g_err = ((torch.cat([d["card"]["grads"][n][kept[n]] for n in names])
+              - g_ref).norm() / g_ref.norm()).item()
+    return held, dropped, worst, g_err, ref
+
+
 def run_detection_path(lt, A, F, card: str, work: Path,
                        export: Path) -> dict:
     """Phase 3t: (a) train_object_detection dinov2/vitb14-ltdetr from
@@ -5780,30 +5846,7 @@ def run_detection_path(lt, A, F, card: str, work: Path,
     fwd32 = A.fwd_library(torch.float32, 16)
     bwd32 = A.bwd_library(torch.float32, 16)
     want = {(fwd32, HD16_SMALL): 2, (bwd32, HD16_SMALL): 2}
-    # The parameters' change is held where the CPU's gradient is not 0 to
-    # rounding (below 1e-7 of its largest element, the rule of the CPU
-    # tests): a bias right before a train-mode BatchNorm or an attention
-    # key bias has an exact gradient of 0, and each device's value there is
-    # its own rounding.
-    grads = d["cpu"]["grads"]
-    top = max(float(g.abs().max()) for g in grads.values())
-    names = sorted(grads)
-    kept = {n: grads[n].abs() >= 1e-7 * top for n in names}
-
-    def change(run, n):
-        return (run["after"][n] - run["before"][n])[kept[n]]
-
-    ref = torch.cat([change(d["cpu"], n) for n in names])
-    held = ((torch.cat([change(d["card"], n) for n in names]) - ref).norm()
-            / ref.norm()).item()
-    dropped = sum(int((~k).sum()) for k in kept.values())
-    leaf_errors = {n: ((change(d["card"], n) - change(d["cpu"], n)).norm()
-                       / change(d["cpu"], n).norm()).item()
-                   for n in names if change(d["cpu"], n).norm()}
-    worst = sorted(leaf_errors.items(), key=lambda kv: -kv[1])[:4]
-    g_ref = torch.cat([grads[n][kept[n]] for n in names])
-    g_err = ((torch.cat([d["card"]["grads"][n][kept[n]] for n in names])
-              - g_ref).norm() / g_ref.norm()).item()
+    held, dropped, worst, g_err, ref = held_change(d)
     print(f"  (d) one fp32 LT-DETR step at vittest14 (SGD at lr 1, highest, "
           f"the same denoising draws, Hungarian), card against CPU: loss "
           f"{errors['loss']:.3e} (tol 1e-5), parameters "
@@ -5830,6 +5873,319 @@ def run_detection_path(lt, A, F, card: str, work: Path,
     results["by_shape"] = {}
     for key in ("a_yolo", "a_coco", "b", "c", "c_resume", "d"):
         for shape_key, c in results[key]["by_shape"].items():
+            results["by_shape"][shape_key] = results["by_shape"].get(
+                shape_key, 0) + c
+    return results
+
+
+def seg_fp32_step(lt, device: str, data: dict, out: Path) -> dict:
+    """One fp32 LT-DETR segmentation step at vittest14 (the EdgeCrafter
+    head, batch 8, flip off, SGD at lr 1, as 3t (d)) on ``device``, every
+    point draw from one CPU generator seeded SEED (the same on the card
+    and the CPU), the Hungarian matcher: ``fp32_step``'s loss, parameters
+    and gradients."""
+    import torch
+
+    from lightly_train_tpu_torch.ops import point_sampling as PS
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def cpu_uniform(generator, shape, device_):
+        return torch.rand(tuple(shape), generator=gen).to(device_)
+
+    return fp32_step(
+        lt, "train_instance_segmentation", out,
+        ((PS, "uniform", cpu_uniform),), data={"train": data["train"]},
+        model="dinov2/vittest14-ltdetr", batch_size=8, precision="fp32",
+        optim="sgd", learning_rate=1.0, hflip_prob=0.0, log_every=1,
+        seed=SEED, accelerator=device)
+
+
+def pico_fp32_step(lt, device: str, data: dict, out: Path,
+                   running_stats: bool) -> dict:
+    """One fp32 ``picodet-s`` step at PICO_TEST_SIZE^2 (batch 8, flip off,
+    SGD at lr 1) on ``device``: ``fp32_step``'s loss, parameters and
+    gradients; with ``running_stats`` its BatchNorms normalize by their
+    running statistics (the train-mode forward is ill-conditioned: the JAX
+    package's own moves by up to 1.4e-3 when only the batch order
+    changes, ``tests/test_torch_picodet.py``)."""
+    from lightly_train_tpu_torch.tasks.detection import picodet as P
+
+    forward = P.PicoDetTrainModel._forward
+    patches = ((P.PicoDetTrainModel, "_forward",
+                lambda self, model, images, train: forward(
+                    self, model, images, False)),) if running_stats else ()
+    return fp32_step(
+        lt, "train_object_detection", out, patches,
+        data={k: v for k, v in data.items() if k != "val"},
+        model="picodet-s", image_size=PICO_TEST_SIZE, batch_size=8,
+        precision="fp32", learning_rate=1.0, hflip_prob=0.0, log_every=1,
+        seed=SEED, accelerator=device)
+
+
+def pico_stem_cost(model_size: str, hw: int) -> dict:
+    """ms of one PicoDet loss and backward (batch 16, ``hw``^2, train
+    mode, 40 boxes an image) with the stem by unfold (the path's, which
+    repeats bitwise) and by cuDNN (whose weight gradient of this strided
+    convolution does not), alternated twice; and whether the unfold
+    stem's gradients repeat bitwise."""
+    import torch
+
+    from lightly_train_tpu_torch.models.conv import Conv
+    from lightly_train_tpu_torch.tasks.detection import picodet as P
+
+    device = torch.device("cuda")
+    m = P.PicoDetTrainModel(None, P.PicoDetArgs(model_size=model_size))
+    module = m.init(torch.Generator().manual_seed(SEED), device)
+    g = torch.Generator().manual_seed(SEED)
+    wh = torch.rand(16, 40, 2, generator=g) * 0.3 + 0.03
+    c = torch.rand(16, 40, 2, generator=g) * (1 - wh) + wh / 2
+    batch = {"images": torch.randn(16, hw, hw, 3, generator=g).to(device),
+             "boxes": torch.cat([c, wh], -1).to(device),
+             "labels": torch.randint(0, 80, (16, 40), generator=g).to(device),
+             "box_valid": torch.ones(16, 40, dtype=torch.bool).to(device)}
+    state = {k: v.clone() for k, v in module.state_dict().items()}
+
+    def step():
+        for p in module.parameters():
+            p.grad = None
+        m.loss_fn(module, batch, None, 0)[0].backward()
+
+    def grads():
+        module.load_state_dict(state)
+        step()
+        return [p.grad.clone() for p in module.parameters()]
+
+    repeat = all(torch.equal(a, b) for a, b in zip(grads(), grads()))
+    stem = module.backbone.backbone.conv1
+    unfold = stem.conv
+    cudnn = Conv(3, unfold.weight.shape[0], 3, 2, ((1, 1), (1, 1)),
+                 bias=False).to(device)
+    cudnn.weight = unfold.weight
+    out = {"unfold_ms": [], "cudnn_ms": [], "bitwise": repeat}
+    for _ in range(2):
+        for key, conv in (("unfold_ms", unfold), ("cudnn_ms", cudnn)):
+            stem.conv = conv
+            out[key].append(time_ms(step, iters=10))
+    stem.conv = unfold
+    return out
+
+
+def ec_head_repeats() -> bool:
+    """Whether the EdgeCrafter head's gradients at ViT-B/14's shapes (P3
+    (16, 28, 28, 256) to 56^2, 300 queries, 3 layers, seeded weights)
+    repeat bitwise on the card."""
+    import torch
+
+    from lightly_train_tpu_torch.tasks.detection import ltdetr_seg as S
+    from lightly_train_tpu_torch.tasks.detection.components import (
+        reset_detr_parameters,
+    )
+
+    device = torch.device("cuda")
+    head = S.ECSegMaskHead(256, 3)
+    reset_detr_parameters(head, torch.Generator().manual_seed(SEED))
+    head = head.to(device)
+    g = torch.Generator().manual_seed(SEED)
+    spatial = torch.randn(16, 28, 28, 256, generator=g).to(device)
+    queries = [torch.randn(16, 300, 256, generator=g).to(device)
+               for _ in range(3)]
+
+    def grads():
+        for p in head.parameters():
+            p.grad = None
+        head(spatial, queries, (224, 224), all_levels=False)[-1].square(
+            ).mean().backward()
+        return [p.grad.clone() for p in head.parameters()]
+
+    return all(torch.equal(a, b) for a, b in zip(grads(), grads()))
+
+
+def run_seg_picodet_path(lt, A, F, card: str, work: Path,
+                         export: Path) -> dict:
+    """Phase 3u: (a) train_instance_segmentation dinov2/vitb14-ltdetr from
+    ``export`` at the JAX defaults on phase 3s's COCO instance JSON, (b)
+    ecvit/ecvitt-ltdetr, (c) picodet-s and picodet-l on phase 3t's YOLO
+    boxes, each run's launches counted from 0 and checked by
+    ``check_finetune`` (K1/K2 by shape, none for PicoDet, K3 0, no SDPA
+    or plain attention), the host's matcher syncs a step; (d) a
+    vittest14-ltdetr segmentation run with the linear head and a PicoDet
+    run at its test preset, each stopped and resumed, bitwise; (e) one
+    fp32 step of each new model on the card against the port's CPU
+    path."""
+    import torch
+
+    from lightly_train_tpu_torch.tasks.detection import criterion as CR
+
+    seg = write_eomt_data(work)["coco"]
+    det = write_det_data(work)["yolo"]
+    fwd = A.fwd_library(torch.bfloat16, HEAD_DIM)
+    bwd = A.bwd_library(torch.bfloat16, HEAD_DIM)
+    results = {}
+
+    def run(tag, key, entry, data_, steps, shape, blocks, val_keys,
+            architecture, **kwargs):
+        out = work / f"u_{key}"
+        syncs = dict(CR.HOST_SYNCS)
+        r = finetune_run(lt, A, F, entry, out, data=data_, steps=steps,
+                         val_every=steps, batch_size=16, log_every=1,
+                         seed=SEED, **kwargs)
+        n_val = len(r["val_ms"])
+        if shape is None:
+            launches, by_shape, per_step, per_val = [0] * 5, {}, {}, {}
+        else:
+            lib_f = A.fwd_library(torch.bfloat16, shape[3])
+            lib_b = A.bwd_library(torch.bfloat16, shape[3])
+            launches = [blocks * (steps + n_val), blocks * steps, 0, 0, 0]
+            by_shape = {(lib_f, shape): blocks * (steps + n_val),
+                        (lib_b, shape): blocks * steps}
+            per_step = {(lib_f, shape): blocks, (lib_b, shape): blocks}
+            per_val = {(lib_f, shape): blocks}
+        results[key] = check_finetune(
+            tag, r, out, steps, 16, launches, by_shape, val_keys, card,
+            per_step=per_step, per_val_batch=per_val, phase_id="3u")
+        syncs = {k: (CR.HOST_SYNCS[k] - syncs[k]) / steps for k in syncs}
+        meta = json.loads((out / "exported_models" / "exported_last" /
+                           "metadata.json").read_text())
+        print(f"  {tag}: host syncs a step {syncs}; step ms from step 2 on "
+              f"{[round(ms, 1) for ms in results[key]['step_ms'][1:]]}",
+              flush=True)
+        if meta.get("architecture") != architecture:
+            fail(f"phase 3u {tag}: exported metadata {meta}")
+        results[key]["host_syncs_per_step"] = syncs
+        shutil.rmtree(out)
+
+    mask_keys = {"val_mask_map", "val_mask_map50"}
+    run(f"(a) train_instance_segmentation {SEG_MODEL} bf16 on COCO, batch "
+        f"16, D-FINE, 300 queries, the EdgeCrafter head, {EOMT_SLOTS} slots,"
+        f" EMA", "a", "train_instance_segmentation", seg, SEG_STEPS, FT_SEG,
+        DEPTH, mask_keys, "ltdetr", model=SEG_MODEL, checkpoint=str(export),
+        precision="bf16")
+    repeats = ec_head_repeats()
+    print(f"  (a) the EdgeCrafter head's gradients at ViT-B/14's shapes "
+          f"repeat bitwise on the card: {repeats} [{card}]", flush=True)
+    results["a"]["ec_head_bitwise"] = repeats
+    run(f"(b) train_instance_segmentation {SEG_ECVIT} (ECViT-T, random "
+        f"init) bf16 on COCO, batch 16", "b", "train_instance_segmentation",
+        seg, SEG_STEPS, DET_ECVIT, 12, mask_keys, "ltdetr", model=SEG_ECVIT,
+        precision="bf16")
+    for model, hw in PICO_RUNS.items():
+        key = f"c_{model}"
+        run(f"(c) train_object_detection {model} at {hw}^2 (fp32 in every "
+            f"precision), batch 16, SGD, EMA", key, "train_object_detection",
+            det, PICO_STEPS, None, 0, {"val_map", "val_map50"}, "picodet",
+            model=model, image_size=hw, precision="bf16")
+        cost = pico_stem_cost(model[-1], hw)
+        print(f"  (c) {model} at {hw}^2, batch 16: a loss and backward with "
+              f"the stem by unfold {[round(ms, 2) for ms in cost['unfold_ms']]}"
+              f" ms, by cuDNN {[round(ms, 2) for ms in cost['cudnn_ms']]} "
+              f"ms; the unfold stem's gradients repeat bitwise: "
+              f"{cost['bitwise']} [{card}]", flush=True)
+        if not cost["bitwise"]:
+            fail(f"phase 3u (c) {model}: the gradients do not repeat")
+        results[key]["stem"] = cost
+
+    # (d) stopped after the step-2 checkpoint and resumed, bitwise.
+    fwd16 = A.fwd_library(torch.bfloat16, 16)
+    bwd16 = A.bwd_library(torch.bfloat16, 16)
+    small_runs = {
+        "d_seg": ("train_instance_segmentation", dict(
+            model="dinov2/vittest14-ltdetr", data={"train": seg["train"]},
+            task_args={"mask_head_arch": "linear"}),
+            {(fwd16, HD16_SMALL): 2 * DET_STEPS,
+             (bwd16, HD16_SMALL): 2 * DET_STEPS}),
+        "d_picodet": ("train_object_detection", dict(
+            model="picodet-s",
+            data={k: v for k, v in det.items() if k != "val"},
+            task_args={"model_size": "test"}, image_size=PICO_TEST_SIZE),
+            {}),
+    }
+    for key, (entry, args, want) in small_runs.items():
+        small = dict(args, batch_size=8, steps=DET_STEPS, save_every=2,
+                     precision="bf16", log_every=1, seed=SEED)
+        counters = reset_counters(A, F)
+        getattr(lt, entry)(out=str(work / "u_straight"), **small)
+        n = sum(want.values()) // 2
+        if [fn.launches for fn in counters] != [n, n, 0, 0, 0] or \
+                launches_by_shape(A) != want:
+            fail(f"phase 3u {key}: launches "
+                 f"{[fn.launches for fn in counters]}, by shape "
+                 f"{launches_by_shape(A)}")
+        straight = [x for x in logged_steps(work / "u_straight")
+                    if "train_loss" in x]
+        print(f"  {key} {args['model']} {args['task_args']} bf16, batch 8: "
+              f"losses {[round(x['train_loss'], 4) for x in straight]} "
+              f"[{card}]", flush=True)
+        shutil.rmtree(work / "u_straight")
+        resume = stop_and_resume(lt, A, F, f"phase 3u {key}", entry,
+                                 work / "u_resumed", straight, DET_STEPS,
+                                 card, **small)
+        if resume["by_shape"] != want or resume["launches"] != [
+                n, n, 0, 0, 0]:
+            fail(f"phase 3u {key}: the stopped and resumed runs launched "
+                 f"{resume['launches']}, by shape {resume['by_shape']}, the "
+                 f"uninterrupted one {want}")
+        results[key] = {**resume, "by_shape": want}
+
+    # (e) one fp32 step of each new model on the card against the CPU,
+    # IEEE fp32 GEMMs, held as 3t (d).
+    fwd32 = A.fwd_library(torch.float32, 16)
+    bwd32 = A.bwd_library(torch.float32, 16)
+    # The segmentation loss is held to 1e-4, as 3s (d) holds EoMT's: the
+    # uncertainty top-k of the point sampling ranks candidates whose
+    # logits the two devices round apart (1.19e-5 in a trial run). None:
+    # printed, not held.
+    steps_e = {
+        "e_seg": ("vittest14-ltdetr segmentation, the EdgeCrafter head, the "
+                  "same point draws, Hungarian", lambda device: seg_fp32_step(
+                      lt, device, seg, work / f"u_e_{device}"),
+                  {(fwd32, HD16_SMALL): 2, (bwd32, HD16_SMALL): 2}, 1e-4),
+        "e_picodet": (f"picodet-s at {PICO_TEST_SIZE}^2, the BatchNorms on "
+                      "their running statistics",
+                      lambda device: pico_fp32_step(
+                          lt, device, det, work / f"u_e_{device}", True),
+                      {}, 1e-5),
+        "e_picodet_train": (f"picodet-s at {PICO_TEST_SIZE}^2, train-mode "
+                            "BatchNorms (printed, not held)",
+                            lambda device: pico_fp32_step(
+                                lt, device, det, work / f"u_e_{device}",
+                                False), {}, None),
+    }
+    for key, (what, step, want, loss_tol) in steps_e.items():
+        d = card_against_cpu(A, F, f"phase 3u {key}", step)
+        errors = d["errors"]
+        held, dropped, worst, g_err, ref = held_change(d)
+        n = sum(want.values()) // 2
+        print(f"  ({key}) one fp32 step of {what} (SGD at lr 1, highest), "
+              f"card against CPU: loss {errors['loss']:.3e} (tol "
+              f"{loss_tol}), parameters {errors['parameters']:.3e}, their "
+              f"change {held:.3e} (tol {loss_tol and 1e-3}; {dropped} of "
+              f"{ref.numel() + dropped} "
+              f"elements left out, whose CPU gradient is 0 to rounding; the "
+              f"gradient there {g_err:.3e}; every element "
+              f"{errors['parameter_change']:.3e}; the leaves furthest off "
+              f"{[(n_, f'{e:.2e}') for n_, e in worst]}); losses card "
+              f"{d['card']['loss']:.6f}, CPU {d['cpu']['loss']:.6f}; the "
+              f"CPU's step {d['cpu_s']:.1f} s; launches {d['launches']}, by "
+              f"shape {d['by_shape']} [{card}]", flush=True)
+        if loss_tol is not None and not (errors["loss"] <= loss_tol
+                                         and held <= 1e-3):
+            fail(f"phase 3u ({key}): card against CPU {errors}, the change "
+                 f"where the gradient is not 0 to rounding {held:.3e}, "
+                 f"tolerance 1e-3")
+        if d["launches"] != [n, n, 0, 0, 0] or d["by_shape"] != want:
+            fail(f"phase 3u ({key}): launches {d['launches']}, by shape "
+                 f"{d['by_shape']}")
+        results[key] = {**errors, "held_change": held, "gradient": g_err,
+                        "left_out": dropped, "by_shape": d["by_shape"]}
+    for name in ("eomt_val", "eomt_yolo", "eomt_panoptic", "det_val",
+                 "det_labels_train", "det_labels_val"):
+        shutil.rmtree(work / name)
+    results["by_shape"] = {}
+    for key, r in results.items():
+        if key == "by_shape":
+            continue
+        for shape_key, c in r["by_shape"].items():
             results["by_shape"][shape_key] = results["by_shape"].get(
                 shape_key, 0) + c
     return results
@@ -5911,17 +6267,29 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    if "--only-3t" in sys.argv[1:]:
+    only = {"--only-3t": ("phase 3t: LT-DETR detection", run_detection_path),
+            "--only-3u": ("phase 3u: LT-DETR instance segmentation and "
+                          "PicoDet", run_seg_picodet_path)}
+    for flag, (title, path) in only.items():
+        if flag not in sys.argv[1:]:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             write_images(Path(tmp) / "images", 2 * BATCH, 256)
             phase("phase 3: main path (pretrain DINOv2 ViT-B/14, bf16)",
                   flush=True)
             main_run = run_main_path(lt, A, F, card, "bf16", Path(tmp))
             pin_ieee()
-            phase("phase 3t: LT-DETR detection", flush=True)
-            run_detection_path(lt, A, F, card, Path(tmp), main_run["out"]
-                               / "exported_models" / "exported_last")
+            phase(title, flush=True)
+            ran = path(lt, A, F, card, Path(tmp), main_run["out"]
+                       / "exported_models" / "exported_last")
             end_phase()
+        covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
+                   for kernels, dtype, shape, _ in ATTENTION_CASES
+                   if kernels == "flat"
+                   for route in (A.fwd_library, A.bwd_library)}
+        if set(ran["by_shape"]) - covered:
+            fail(f"{title} launched at shapes phase 2 does not hold: "
+                 f"{sorted(set(ran['by_shape']) - covered)}")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6068,14 +6436,25 @@ def main() -> int:
     detection = run_detection_path(
         lt, A, F, card, work,
         paths["bf16"]["out"] / "exported_models" / "exported_last")
-    # Each (library, shape) that phases 3o, 3p, 3q, 3r, 3s and 3t launched
-    # K1 or K2 at was held against the plain version in phase 2.
+    pin_ieee()
+    phase(f"phase 3u: LT-DETR instance segmentation from phase 3's export "
+          f"(train_instance_segmentation {SEG_MODEL} on COCO, {SEG_STEPS} "
+          f"steps; {SEG_ECVIT}; bf16, batch 16), PicoDet ("
+          f"{', '.join(f'{m} at {hw}^2' for m, hw in PICO_RUNS.items())}, "
+          f"batch 16), two resumes, one fp32 step of each against the CPU",
+          flush=True)
+    seg_pico = run_seg_picodet_path(
+        lt, A, F, card, work,
+        paths["bf16"]["out"] / "exported_models" / "exported_last")
+    # Each (library, shape) that phases 3o, 3p, 3q, 3r, 3s, 3t and 3u
+    # launched K1 or K2 at was held against the plain version in phase 2.
     covered = {(route(torch_dtype(dtype), shape[3]), tuple(shape))
                for kernels, dtype, shape, _ in ATTENTION_CASES
                if kernels == "flat"
                for route in (A.fwd_library, A.bwd_library)}
     for label, ran in (("3o", cnn), ("3p", item10), ("3q", surface),
-                       ("3r", finetune), ("3s", eomt), ("3t", detection)):
+                       ("3r", finetune), ("3s", eomt), ("3t", detection),
+                       ("3u", seg_pico)):
         if set(ran["by_shape"]) - covered:
             fail(f"phase {label} launched at shapes phase 2 does not hold: "
                  f"{sorted(set(ran['by_shape']) - covered)}")
@@ -6165,7 +6544,7 @@ def main() -> int:
                 # bf16, and at HD16_SMALL (vittest14, bf16 and fp32).
                 **{shape: sum(r["by_shape"].get(
                     (route(torch_dtype(dtype), shape[3]), shape), 0)
-                    for r in (finetune, eomt, detection))
+                    for r in (finetune, eomt, detection, seg_pico))
                    for shape in (FT_CLS, FT_SEG, FT_FP32, HD16_SMALL,
                                  EOMT_QUERIES_SHAPE, DET_ECVIT)},
             })
@@ -6249,6 +6628,13 @@ def main() -> int:
             # (DEPTH a train step and a val batch), (b)'s ECViT-T at
             # DET_ECVIT, (c)'s and (d)'s vittest14 at HD16_SMALL.
             **({"launches_3t": detection["by_shape"].get(
+                (route(torch_dtype(dtype), row["shape"][3]),
+                 tuple(row["shape"])), 0)}
+               if kernel in ("K1", "K2") else {}),
+            # Phase 3u's: (a)'s ViT-B/14 at FT_SEG (DEPTH a train step and
+            # a val batch), (b)'s ECViT-T at DET_ECVIT, (d)'s and (e)'s
+            # vittest14 at HD16_SMALL; PicoDet none.
+            **({"launches_3u": seg_pico["by_shape"].get(
                 (route(torch_dtype(dtype), row["shape"][3]),
                  tuple(row["shape"])), 0)}
                if kernel in ("K1", "K2") else {}),

@@ -14,12 +14,11 @@ Ported entry points: ``train_image_classification``,
 ``train_image_classification_multihead``, ``train_semantic_segmentation``
 (the linear probe, and EoMT with a ``-eomt`` model),
 ``train_semantic_segmentation_multihead``, ``train_instance_segmentation``
-and ``train_panoptic_segmentation`` (EoMT), and ``train_object_detection``
-(LT-DETR). They run on the card unless the caller passes
-``accelerator="cpu"`` (``_commands/train.py::resolve_device``, which never
-falls back). Not ported yet, each refused before anything is built:
-PicoDet (ROADMAP item 14.4) and a ``-ltdetr`` model for
-``train_instance_segmentation`` (item 14.3).
+(EoMT, or LT-DETR with a mask head for a ``-ltdetr`` model),
+``train_panoptic_segmentation`` (EoMT), and ``train_object_detection``
+(LT-DETR, or PicoDet for ``picodet-s`` / ``picodet-l``). They run on the
+card unless the caller passes ``accelerator="cpu"``
+(``_commands/train.py::resolve_device``, which never falls back).
 
 A task may augment the transformed batch (``augment_batch``, detection's
 Mosaic and the rest) on a generator stream of its own, and keep an EMA of
@@ -662,17 +661,10 @@ def train_semantic_segmentation_multihead(out: str, data: Dict[str, Any],
                          SemanticSegmentationMultiheadTrainModel)
 
 
-def _refuse_ltdetr(model: Any) -> None:
-    if isinstance(model, str) and model.endswith("-ltdetr"):
-        raise NotImplementedError(
-            f"train_instance_segmentation with an LT-DETR model ('{model}') "
-            "is not ported to PyTorch yet (ROADMAP item 14.3); a model name "
-            "ending in '-eomt', or without a suffix, trains EoMT.")
-
-
-def _eomt(config: TrainTaskConfig, build, args_cls, model_cls,
-          num_classes: Optional[int]):
-    """EoMT on the datasets ``build(split)`` makes of ``data``'s splits."""
+def _slot_task(config: TrainTaskConfig, build, args_cls, model_cls,
+               num_classes: Optional[int], architecture: str):
+    """A slot-map task (EoMT, or LT-DETR instance segmentation) on the
+    datasets ``build(split)`` makes of ``data``'s splits."""
     hw = (config.image_size, config.image_size)
     max_instances = int(config.task_args.get("max_instances", 50))
     train_ds = build("train", hw, max_instances)
@@ -681,18 +673,23 @@ def _eomt(config: TrainTaskConfig, build, args_cls, model_cls,
         "num_classes": (train_ds.num_classes if num_classes is None
                         else num_classes), **config.task_args})
     wrapped, pretrained, meta = _load_backbone(config)
-    meta["architecture"] = "eomt"
+    meta["architecture"] = architecture
     return run_task_training(config, model_cls(wrapped, task_args), train_ds,
                              val_ds, meta, pretrained)
 
 
 def train_instance_segmentation(out: str, data: Dict[str, Any], model: Any,
                                 **kwargs: Any):
-    """EoMT instance segmentation. data (COCO): {"train": {"images": dir,
+    """Instance segmentation. data (COCO): {"train": {"images": dir,
     "annotations": json}, "val": {...}}; data (YOLO-seg): {"format":
     "yolo", "num_classes": int, "train": {"images": dir, "labels": dir},
-    "val": {...}}. A model name ending in ``-eomt`` or without a suffix
-    trains EoMT; ``-ltdetr`` waits for ROADMAP item 14.3."""
+    "val": {...}}. A model name ending in ``-ltdetr`` trains the LT-DETR
+    detector with a mask head (``ltdetrv2-*`` names are not resolved here,
+    as in the JAX package); with ``-eomt`` or without a suffix, EoMT."""
+    from lightly_train_tpu_torch.tasks.detection.ltdetr_seg import (
+        InstanceSegmentationLTDETRArgs,
+        LTDETRInstanceSegmentationTrainModel,
+    )
     from lightly_train_tpu_torch.tasks.eomt_instance_panoptic import (
         COCOInstanceSegmentationDataset,
         EoMTInstanceSegmentationArgs,
@@ -700,10 +697,10 @@ def train_instance_segmentation(out: str, data: Dict[str, Any], model: Any,
         YOLOInstanceSegmentationDataset,
     )
 
-    _refuse_ltdetr(model)
     config = _config(out, model, kwargs)
-    config = dataclasses.replace(config,
-                                 model=config.model.removesuffix("-eomt"))
+    use_ltdetr = config.model.endswith("-ltdetr")
+    config = dataclasses.replace(config, model=config.model.removesuffix(
+        "-eomt").removesuffix("-ltdetr"))
     yolo = data.get("format") == "yolo"
 
     def build(split, hw, max_instances):
@@ -717,9 +714,13 @@ def train_instance_segmentation(out: str, data: Dict[str, Any], model: Any,
         return COCOInstanceSegmentationDataset(
             Path(s["images"]), Path(s["annotations"]), hw, max_instances)
 
-    return _eomt(config, build, EoMTInstanceSegmentationArgs,
-                 EoMTInstanceSegmentationTrainModel,
-                 data.get("num_classes"))
+    if use_ltdetr:
+        return _slot_task(config, build, InstanceSegmentationLTDETRArgs,
+                          LTDETRInstanceSegmentationTrainModel,
+                          data.get("num_classes"), "ltdetr")
+    return _slot_task(config, build, EoMTInstanceSegmentationArgs,
+                      EoMTInstanceSegmentationTrainModel,
+                      data.get("num_classes"), "eomt")
 
 
 def train_panoptic_segmentation(out: str, data: Dict[str, Any], model: Any,
@@ -745,9 +746,9 @@ def train_panoptic_segmentation(out: str, data: Dict[str, Any], model: Any,
             Path(s["images"]), Path(s["panoptic"]), Path(s["annotations"]),
             hw, max_instances)
 
-    return _eomt(config, build, EoMTPanopticSegmentationArgs,
-                 EoMTPanopticSegmentationTrainModel,
-                 data.get("num_classes"))
+    return _slot_task(config, build, EoMTPanopticSegmentationArgs,
+                      EoMTPanopticSegmentationTrainModel,
+                      data.get("num_classes"), "eomt")
 
 
 # ltdetrv2-{s,m,l,x} resolve to the EdgeCrafter ECViT backbones; the
@@ -768,8 +769,10 @@ def train_object_detection(out: str, data: Dict[str, Any], model: Any,
     "classes": {id: name})}; data (COCO): {"format": "coco", "train":
     {"images": dir, "annotations": json}, "val": {...}}. ``model``: a
     backbone name with or without ``-ltdetr``, or ``ltdetrv2-{s,m,l,x}``
-    (``-coco`` allowed; ECViT backbones). PicoDet (``picodet-s``,
-    ``picodet-l``) waits for ROADMAP item 14.4."""
+    (``-coco`` allowed; ECViT backbones); or PicoDet: a name starting
+    with ``picodet`` (``picodet-l``: the large preset, any other the
+    small one, unless ``task_args`` sets ``model_size``), its ESNet
+    trained from scratch (``checkpoint=`` is refused)."""
     from lightly_train_tpu_torch.tasks.detection.data import (
         COCOObjectDetectionDataset,
         YOLOObjectDetectionDataset,
@@ -779,12 +782,8 @@ def train_object_detection(out: str, data: Dict[str, Any], model: Any,
         ObjectDetectionTrainModel,
     )
 
-    if isinstance(model, str) and model.startswith("picodet"):
-        raise NotImplementedError(
-            f"train_object_detection with PicoDet ('{model}') is not ported "
-            "to PyTorch yet (ROADMAP item 14.4); LT-DETR models "
-            "('<backbone>-ltdetr', 'ltdetrv2-{s,m,l,x}') train.")
-    if isinstance(model, str):
+    use_picodet = isinstance(model, str) and model.startswith("picodet")
+    if isinstance(model, str) and not use_picodet:
         zoo = model.removesuffix("-coco")
         model = _LTDETRV2_ZOO.get(zoo, model.removesuffix("-ltdetr"))
     config = _config(out, model, kwargs)
@@ -811,6 +810,26 @@ def train_object_detection(out: str, data: Dict[str, Any], model: Any,
             "num_classes could not be determined: pass data={'classes':"
             " {id: name, ...}, ...} or data={'num_classes': N, ...} (YOLO"
             " datasets carry no category list).")
+    if use_picodet:
+        from lightly_train_tpu_torch.tasks.detection.picodet import (
+            PicoDetArgs,
+            PicoDetTrainModel,
+        )
+
+        model_size = "l" if config.model.endswith("-l") else "s"
+        task_args = config_validate(PicoDetArgs, {
+            "num_classes": num_classes, "model_size": model_size,
+            **config.task_args})
+        train_model = PicoDetTrainModel(None, task_args)
+        if config.checkpoint is not None:
+            raise ConfigError(
+                "checkpoint= is not supported for picodet models (the "
+                "ESNet backbone trains from scratch like the reference "
+                "PicoDet recipe); remove checkpoint= or pick a "
+                "'<backbone>-ltdetr' model.")
+        return run_task_training(
+            config, train_model, train_ds, val_ds,
+            {"model_name": config.model, "architecture": "picodet"}, None)
     task_args = config_validate(ObjectDetectionArgs, {
         "num_classes": num_classes, **config.task_args})
     wrapped, pretrained, meta = _load_backbone(config)

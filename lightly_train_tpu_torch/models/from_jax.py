@@ -38,7 +38,15 @@ carries the same way into the port's task model
 trunk under ``backbone/trunk``, ``backbone_sta``, ``encoder`` and
 ``decoder`` with their ``batch_stats``; ``TorchMHA``'s fused
 ``in_proj_kernel`` (D, 3D) becomes ``in_proj_weight`` (3D, D), and the
-decoder's ``denoising_class_embed`` carries over as it is.
+decoder's ``denoising_class_embed`` carries over as it is. LT-DETR
+instance segmentation's ``mask_head`` keeps its Flax names too: the
+EdgeCrafter head's ``block{i}`` (``dwconv``, a depthwise kernel, ``norm``,
+``pwconv1``) become ``blocks.{i}``, beside ``spatial_proj``,
+``query_norm``, ``query_fc1``, ``query_fc2``, ``query_proj`` and the
+scalar ``bias`` (shape (1,)); the linear head's ``query_proj`` and
+``pixel_proj`` are dense layers. PicoDet's tree (``backbone``, ``neck``, ``head``) maps
+the same way, ESNet's ``block{i}`` to ``blocks.{i}`` and every
+``batch_stats`` to its BatchNorm's buffers.
 
 It takes numpy only and imports nothing of JAX.
 """

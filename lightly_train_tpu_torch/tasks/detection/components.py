@@ -22,8 +22,8 @@ carries a JAX parameter tree over by name:
   and ``"rtdetrv2"`` with the denoising groups' self-attention mask.
 
 Feature maps cross module boundaries as (B, H, W, C), as in the JAX
-package. The decoder returns D-FINE's per-layer corner distributions as
-values (the JAX module sows them).
+package. The decoder returns D-FINE's per-layer corner distributions and
+each layer's query states as values (the JAX module sows them).
 """
 
 from __future__ import annotations
@@ -680,11 +680,13 @@ class DETRDecoder(nn.Module):
                 dn_labels: Optional[torch.Tensor] = None,
                 dn_boxes: Optional[torch.Tensor] = None,
                 dn_group_size: int = 0):
-        """(outputs, dists): ``outputs`` the [(class logits (B, Q, C) fp32,
-        cxcywh boxes (B, Q, 4) fp32)] of the encoder's top-k, the pre level
-        (D-FINE only) and each decoder layer; ``dists`` D-FINE's [(corner
-        logits (B, Q, 4, nb), anchor (B, Q, 4))] per decoder layer (empty
-        for RT-DETRv2)."""
+        """(outputs, dists, query_states): ``outputs`` the [(class logits
+        (B, Q, C) fp32, cxcywh boxes (B, Q, 4) fp32)] of the encoder's
+        top-k, the pre level (D-FINE only) and each decoder layer; ``dists``
+        D-FINE's [(corner logits (B, Q, 4, nb), anchor (B, Q, 4))] per
+        decoder layer (empty for RT-DETRv2); ``query_states`` each decoder
+        layer's output queries (B, Q, D), the last of them the final
+        queries (the JAX module sows both)."""
         cfg = self.cfg
         D, dt = cfg.d_model, cfg.dtype
         B = levels[0].shape[0]
@@ -725,7 +727,7 @@ class DETRDecoder(nn.Module):
             mask_keep = dn_mask_keep(n_dn, k, dn_group_size, memory.device)
 
         outputs = [(topk_logits.float(), enc_boxes)]
-        dists = []
+        dists, query_states = [], []
         ref_detach = torch.sigmoid(ref_unact)
         output = content
         output_detach = corners_undetach = ref_initial = None
@@ -735,6 +737,7 @@ class DETRDecoder(nn.Module):
                 qpe = clip(qpe, -10.0, 10.0)
             output = getattr(self, f"layer{i}")(output, ref_detach.to(dt),
                                                 proj, qpe, mask_keep)
+            query_states.append(output)
             out32 = output.float()
             score_head = getattr(self, f"dec_score_head{i}")
             if cfg.use_dfine:
@@ -770,7 +773,7 @@ class DETRDecoder(nn.Module):
                 new_boxes = torch.sigmoid(delta + inverse_sigmoid(ref_detach))
                 outputs.append((logits, new_boxes))
                 ref_detach = new_boxes.detach()
-        return outputs, dists
+        return outputs, dists, query_states
 
 
 def dn_mask_keep(n_dn: int, k: int, group_size: int,

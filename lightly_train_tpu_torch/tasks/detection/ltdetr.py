@@ -148,6 +148,12 @@ class LTDETRModule(nn.Module):
                 dn_labels: Optional[torch.Tensor] = None,
                 dn_boxes: Optional[torch.Tensor] = None,
                 dn_group_size: int = 0):
+        """(outputs, dists, taps): the decoder's levels and D-FINE's corner
+        distributions (``DETRDecoder.forward``), and what the JAX module
+        sows for the instance-segmentation head: ``query_states`` (each
+        decoder layer's queries), ``trunk_features`` (the trunk's final
+        feature map, (B, h, w, C)) and ``enc_p3`` (the encoder's finest
+        level, (B, H/8, W/8, enc_dim))."""
         out = _trunk_forward(self.trunk, images, self.tap_indices)
         if self.pyramid:
             feats = out["stage_features"][-3:]
@@ -158,8 +164,12 @@ class LTDETRModule(nn.Module):
                 taps = [f, f, f]
             feats = self.backbone_sta(images, taps, train)
         levels = self.encoder(feats, train)
-        return self.decoder(levels, train, dn_labels=dn_labels,
-                            dn_boxes=dn_boxes, dn_group_size=dn_group_size)
+        outputs, dists, query_states = self.decoder(
+            levels, train, dn_labels=dn_labels, dn_boxes=dn_boxes,
+            dn_group_size=dn_group_size)
+        return outputs, dists, {"query_states": query_states,
+                                "trunk_features": out["features"],
+                                "enc_p3": levels[0]}
 
 
 def _pad_logits(outputs):
@@ -311,8 +321,8 @@ class ObjectDetectionTrainModel(TaskTrainModel):
              dn_tgt_valid) = self.make_dn_queries(labels, boxes, valid, draws)
             dn_kwargs = dict(dn_labels=dn_labels, dn_boxes=dn_boxes,
                              dn_group_size=K)
-        outputs, raw = model.backbone(batch["images"], train=True,
-                                      **dn_kwargs)
+        outputs, raw, _ = model.backbone(batch["images"], train=True,
+                                         **dn_kwargs)
         outputs = _pad_logits(outputs)
         dfine_dists = [None, None] + list(raw) if raw else None
         if dn_kwargs:
@@ -364,9 +374,10 @@ class ObjectDetectionTrainModel(TaskTrainModel):
         return total
 
     # -- inference ------------------------------------------------------------
-    def _decode(self, outputs):
+    def _decode(self, outputs, return_q: bool = False):
         """The last level's top ``max_detections`` (query, class) pairs:
-        (xyxy boxes, scores, labels)."""
+        (xyxy boxes, scores, labels), and with ``return_q`` their query
+        indices."""
         logits, boxes = outputs[-1]
         C = self.args.num_classes
         scores = torch.sigmoid(logits[..., :C])
@@ -377,10 +388,12 @@ class ObjectDetectionTrainModel(TaskTrainModel):
         top_scores = flat.gather(1, top_idx)
         q_idx, cls_idx = top_idx // C, top_idx % C
         sel = boxes.gather(1, q_idx[..., None].expand(-1, -1, 4))
+        if return_q:
+            return cxcywh_to_xyxy(sel), top_scores, cls_idx, q_idx
         return cxcywh_to_xyxy(sel), top_scores, cls_idx
 
     def _outputs(self, model, images):
-        outputs, _ = model.backbone(images, train=False)
+        outputs, _, _ = model.backbone(images, train=False)
         return _pad_logits(outputs)
 
     def val_step(self, model, batch) -> Dict[str, torch.Tensor]:

@@ -177,10 +177,28 @@ def test_detection_refuses_transform_args(tmp_path):
 
 
 @pytest.mark.parametrize("model", ["picodet-s", "picodet-l"])
-def test_picodet_names_its_item_before_anything_is_built(tmp_path, model):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 14\.4"):
-        _detect(tmp_path, model=model)
+def test_picodet_refuses_a_checkpoint_before_anything_is_built(tmp_path,
+                                                                model):
+    """PicoDet's ESNet trains from scratch: ``checkpoint=`` is a config
+    error with the JAX package's message, before the output folder is
+    made."""
+    import lightly_train_tpu as jlt
+    from lightly_train_tpu.errors import ConfigError as JConfigError
+    from torch_fixtures.detection_data import write_detection
+
+    data = write_detection(tmp_path / "data", n=2, size=28, num_classes=2)
+    args = dict(data=data, model=model, checkpoint=str(tmp_path / "x"),
+                steps=1, batch_size=2, image_size=28, precision="fp32",
+                num_workers=0, task_args={"model_size": "test"})
+    with pytest.raises(ConfigError, match="checkpoint= is not supported "
+                       "for picodet models") as got:
+        lt.train_object_detection(out=str(tmp_path / "out"),
+                                  accelerator="cpu", **args)
+    with pytest.raises(JConfigError) as want:
+        jlt.train_object_detection(out=str(tmp_path / "jax"), **args)
+    assert str(got.value) == str(want.value)
     assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "jax").exists()
 
 
 def test_detection_without_a_class_count_is_a_config_error(tmp_path):
